@@ -1,0 +1,54 @@
+// Irregular solid harmonics S_n^m as (re, im) pairs, one coefficient at a
+// time, shared by the M2P (K3) and P2L (K4) kernels.
+//
+// The recurrences of boxtree_tpu/ops/solid_harmonics.py:161-192
+// (_harmonics_pairs, kind="irregular"), in the same operation order:
+//   S_0^0 = 1/r,  S_m^m = (2m-1) (x + iy) S_{m-1}^{m-1} / r^2,
+//   S_{m+1}^m = (2m+1) z S_m^m / r^2,
+//   S_n^m = ((2n-1) z S_{n-1}^m - ((n-1)^2 - m^2) S_{n-2}^m) / r^2.
+// Only the current column's last two values live in registers; each value
+// goes straight to the caller's functor f(n, m, re, im) for 0 <= m <= n,
+// and the caller folds in S_n^{-m} = (-1)^m conj(S_n^m) itself.  No
+// (particles x coefficients) array is ever stored.
+#pragma once
+
+#include "common.cuh"
+
+namespace boxtree_torch {
+
+template <typename T, typename F>
+__device__ __forceinline__ void irregular_pairs_foreach(T x, T y, T z, int p,
+                                                        F&& f) {
+  const T r2 = x * x + y * y + z * z;
+  const T rinv2 = T(1) / r2;
+  T mr = sqrt(rinv2);
+  T mi = T(0);
+  for (int m = 0; m <= p; ++m) {
+    if (m > 0) {
+      const T ur = mr * x - mi * y;
+      const T ui = mr * y + mi * x;
+      mr = T(2 * m - 1) * ur * rinv2;
+      mi = T(2 * m - 1) * ui * rinv2;
+    }
+    f(m, m, mr, mi);
+    T p2r = T(0), p2i = T(0), p1r = mr, p1i = mi;
+    for (int n = m + 1; n <= p; ++n) {
+      T cr, ci;
+      if (n == m + 1) {
+        cr = T(2 * n - 1) * z * p1r * rinv2;
+        ci = T(2 * n - 1) * z * p1i * rinv2;
+      } else {
+        const T c2 = T((n - 1) * (n - 1) - m * m);
+        cr = (T(2 * n - 1) * z * p1r - c2 * p2r) * rinv2;
+        ci = (T(2 * n - 1) * z * p1i - c2 * p2i) * rinv2;
+      }
+      f(n, m, cr, ci);
+      p2r = p1r;
+      p2i = p1i;
+      p1r = cr;
+      p1i = ci;
+    }
+  }
+}
+
+}  // namespace boxtree_torch

@@ -1,0 +1,183 @@
+"""Build, bind and count the hand-written CUDA kernels of ``csrc/``.
+
+The kernels are compiled with ``nvcc`` into one shared library with a plain
+C interface the first time a CUDA tensor needs one, and loaded with
+:mod:`ctypes`.  The library goes to ``build/boxtree_torch/<hash>/`` under the
+checkout, keyed by a hash of the sources and flags, so a fresh checkout
+builds everything itself and an edited source rebuilds.  A failed build
+raises with the compiler's output; nothing falls back to the plain PyTorch
+versions.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*`` and
+its sizes as ``long long``, launches on PyTorch's current stream, and
+returns ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and
+otherwise adds one to the kernel's launch count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boxtree_torch"
+LIBRARY_NAME = "libboxtree_torch_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel name -> C argument kinds ('p' pointer, 'i' long long); every
+#: entry point exists once per float type (``<name>_f32``, ``<name>_f64``)
+#: and takes the CUDA stream as a trailing pointer
+SIGNATURES = {
+    "morton_encode": "pippiiipp",
+    "p2p_laplace3d": "pipippppppipppp",
+    "m2p_laplace3d": "pipppippppipipp",
+    "p2l_laplace3d": "pippppipppipipp",
+}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _find_nvcc():
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(p for p in CSRC_DIR.iterdir()
+                  if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+class KernelLibrary:
+    """The compiled kernel library and the launch count of each kernel."""
+
+    def __init__(self):
+        self._lib = None
+        self._lock = threading.Lock()
+        self.launches = dict.fromkeys(SIGNATURES, 0)
+        self.build_seconds = None
+        self.build_log = ""
+        self.path = None
+
+    def _build(self):
+        out_dir = BUILD_DIR / source_hash()
+        so_path = out_dir / LIBRARY_NAME
+        if not so_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *(str(p) for p in _sources() if p.suffix == ".cu")]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  check=False)
+            self.build_seconds = time.perf_counter() - t0
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{self.build_log}")
+            os.replace(tmp, so_path)
+        elif self.build_seconds is None:
+            self.build_seconds = 0.0
+        return so_path
+
+    def load(self):
+        """Build (if needed) and load the library; returns the handle."""
+        with self._lock:
+            if self._lib is None:
+                self.path = self._build()
+                lib = ctypes.CDLL(str(self.path))
+                kinds = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
+                for name, sig in SIGNATURES.items():
+                    for suffix in _SUFFIX.values():
+                        fn = getattr(lib, f"{name}_{suffix}")
+                        fn.argtypes = [kinds[k] for k in sig]
+                        fn.restype = ctypes.c_int
+                lib.boxtree_torch_error_string.argtypes = [ctypes.c_int]
+                lib.boxtree_torch_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def launch(self, name, dtype, *args):
+        """Launch kernel *name* for float *dtype*: tensors pass as device
+        pointers, ints as ``long long``, PyTorch's current stream last."""
+        sig = SIGNATURES[name]
+        if dtype not in _SUFFIX:
+            raise TypeError(f"{name}: unsupported dtype {dtype}")
+        if len(args) != len(sig) - 1:
+            raise TypeError(f"{name}: expected {len(sig) - 1} arguments, "
+                            f"got {len(args)}")
+        lib = self.load()
+        cargs = []
+        device = None
+        for kind, arg in zip(sig, args):
+            if kind == "p":
+                if not isinstance(arg, torch.Tensor):
+                    raise TypeError(f"{name}: expected a tensor argument")
+                device = arg.device
+                cargs.append(arg.data_ptr())
+            else:
+                cargs.append(int(arg))
+        cargs.append(torch.cuda.current_stream(device).cuda_stream)
+        err = getattr(lib, f"{name}_{_SUFFIX[dtype]}")(*cargs)
+        if err != 0:
+            msg = lib.boxtree_torch_error_string(err).decode()
+            raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+        self.launches[name] += 1
+
+
+_LIBRARY = KernelLibrary()
+
+
+def build():
+    """Build and load the kernel library now; returns it."""
+    _LIBRARY.load()
+    return _LIBRARY
+
+
+def launch(name, dtype, *args):
+    _LIBRARY.launch(name, dtype, *args)
+
+
+def launch_counts():
+    return dict(_LIBRARY.launches)
+
+
+def reset_launch_counts():
+    for name in _LIBRARY.launches:
+        _LIBRARY.launches[name] = 0
+
+
+def check_tensors(*tensors, dtype):
+    """The kernels take contiguous CUDA tensors of *dtype* on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError("kernel arguments must be CUDA tensors on one "
+                             "device")
+        if t.dtype != dtype:
+            raise TypeError(f"kernel argument of dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")

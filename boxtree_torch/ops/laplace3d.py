@@ -1,0 +1,223 @@
+"""The particle-pair stages of the 3D Laplace FMM: P2P (List 1), M2P
+(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin.
+
+Each wrapper takes the tree's particle arrays in tree order, the per-box
+particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and a CSR list
+whose rows name boxes.  On CPU tensors it runs the plain PyTorch twin; on
+CUDA tensors it launches the hand-written kernel (``csrc/p2p.cu``,
+``csrc/m2p.cu``, ``csrc/p2l.cu``) or raises.  The twins gather padded
+(edges, particles) blocks chunk by chunk, so their memory stays bounded;
+the kernels read the particle ranges directly.
+
+- P2P: ``phi(t) = sum q_s / |t - s|``, ``r = 0`` skipped
+  (``boxtree_tpu/models/laplace.py:492-497``).
+- M2P: ``phi(t) += Re sum S((t - c_s) / r_s) M(s) / r_s``
+  (``laplace.py:595-602``).
+- P2L: ``L(b) += sum q_s S((x_s - c_b) / r_b) / r_b`` (``laplace.py:
+  604-608``, ``expansion_base.py:1680-1684``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from boxtree_torch.ops import kernels
+from boxtree_torch.ops.solid_harmonics import irregular_pairs, ncoeffs
+from boxtree_torch.traversal.containers import csr_rows
+
+#: element budget of one chunk's largest temporary in the plain twins
+_PLAIN_CHUNK_ELEMS = 1 << 24
+
+
+def _edges(starts, lists, rows):
+    """(row box, listed box) int64 pairs of a CSR list whose rows name
+    the boxes *rows*."""
+    row_box = rows.to(torch.int64)[csr_rows(starts, lists.shape[0])]
+    return row_box, lists.to(torch.int64)
+
+
+def _blocks(box_starts, box_counts, boxes, width):
+    """(E, width) particle indices of *boxes* and their validity mask."""
+    lane = torch.arange(width, device=boxes.device)
+    idx = box_starts[boxes].to(torch.int64)[:, None] + lane
+    mask = lane < box_counts[boxes].to(torch.int64)[:, None]
+    return torch.where(mask, idx, torch.zeros_like(idx)), mask
+
+
+def _max_count(box_counts, boxes):
+    return max(1, int(box_counts[boxes].max())) if boxes.numel() else 1
+
+
+def _check_order(order, dtype):
+    smem = (2 * ncoeffs(order) + 4) * torch.finfo(dtype).bits // 8
+    if smem > 48 * 1024:
+        raise ValueError(f"order {order} needs {smem} bytes of shared "
+                         f"memory per CTA; the kernels take up to 48 KiB")
+
+
+# {{{ P2P
+
+def p2p_laplace3d_plain(targets, sources, charges, box_target_starts,
+                        box_target_counts_nonchild, box_source_starts,
+                        box_source_counts_nonchild, target_boxes, starts,
+                        lists):
+    """Plain twin of :func:`p2p_laplace3d`."""
+    out = targets.new_zeros(targets.shape[1])
+    tbox, sbox = _edges(starts, lists, target_boxes)
+    if tbox.numel() == 0:
+        return out
+    pt = _max_count(box_target_counts_nonchild, tbox)
+    ps = _max_count(box_source_counts_nonchild, sbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * ps))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
+                              tb, pt)
+        sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
+                              sb, ps)
+        q = torch.where(smask, charges[sidx], 0)
+        diff = targets[:, tidx][..., :, None] - sources[:, sidx][..., None, :]
+        r2 = (diff * diff).sum(0)                       # (E, pt, ps)
+        g = torch.where(r2 > 0, 1 / torch.sqrt(torch.where(r2 > 0, r2, 1)),
+                        0)
+        vals = (g * q[:, None, :]).sum(-1)               # (E, pt)
+        out.index_add_(0, tidx[tmask], vals[tmask])
+    return out
+
+
+def p2p_laplace3d(targets, sources, charges, box_target_starts,
+                  box_target_counts_nonchild, box_source_starts,
+                  box_source_counts_nonchild, target_boxes, starts, lists):
+    """List-1 potentials (tree-order targets) of the Laplace kernel
+    ``1/|t - s|``; the K2 kernel on CUDA tensors."""
+    args = (targets, sources, charges, box_target_starts,
+            box_target_counts_nonchild, box_source_starts,
+            box_source_counts_nonchild, target_boxes, starts, lists)
+    if targets.device.type == "cpu":
+        return p2p_laplace3d_plain(*args)
+    kernels.check_tensors(targets, sources, charges, dtype=targets.dtype)
+    kernels.check_tensors(*args[3:], dtype=torch.int32)
+    out = torch.zeros(targets.shape[1], dtype=targets.dtype,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_laplace3d", targets.dtype, targets, targets.shape[1], sources,
+        sources.shape[1], charges, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, out)
+    return out
+
+# }}}
+
+
+# {{{ M2P
+
+def m2p_laplace3d_plain(targets, box_target_starts,
+                        box_target_counts_nonchild, rows, starts, lists,
+                        mpoles, centers, box_scale, order):
+    """Plain twin of :func:`m2p_laplace3d`."""
+    out = targets.new_zeros(targets.shape[1])
+    tbox, sbox = _edges(starts, lists, rows)
+    if tbox.numel() == 0:
+        return out
+    k = ncoeffs(order)
+    pt = _max_count(box_target_counts_nonchild, tbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * 2 * k))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
+                              tb, pt)
+        s = box_scale[sb]
+        rel = (targets[:, tidx] - centers[:, sb][..., None]) / s[:, None]
+        ok = (rel * rel).sum(0) > 0
+        sp = irregular_pairs(torch.where(ok, rel, 1), order)  # (E, pt, 2k)
+        mp = mpoles[sb][:, None, :]
+        val = (sp[..., :k] * mp[..., :k] - sp[..., k:] * mp[..., k:]).sum(-1)
+        val = torch.where(ok, val, 0) / s[:, None]
+        out.index_add_(0, tidx[tmask], val[tmask])
+    return out
+
+
+def m2p_laplace3d(targets, box_target_starts, box_target_counts_nonchild,
+                  rows, starts, lists, mpoles, centers, box_scale, order):
+    """List-3 potentials (tree-order targets) from the multipoles of the
+    listed source boxes; rows name target boxes.  The K3 kernel on CUDA
+    tensors."""
+    args = (targets, box_target_starts, box_target_counts_nonchild, rows,
+            starts, lists, mpoles, centers, box_scale)
+    if targets.device.type == "cpu":
+        return m2p_laplace3d_plain(*args, order)
+    kernels.check_tensors(targets, mpoles, centers, box_scale,
+                          dtype=targets.dtype)
+    kernels.check_tensors(*args[1:6], dtype=torch.int32)
+    _check_order(order, targets.dtype)
+    out = torch.zeros(targets.shape[1], dtype=targets.dtype,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "m2p_laplace3d", targets.dtype, targets, targets.shape[1],
+        box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
+        starts, lists, mpoles, centers, centers.shape[1], box_scale, order,
+        out)
+    return out
+
+# }}}
+
+
+# {{{ P2L
+
+def p2l_laplace3d_plain(sources, charges, box_source_starts,
+                        box_source_counts_nonchild, rows, starts, lists,
+                        centers, box_scale, order, out):
+    """Plain twin of :func:`p2l_laplace3d`."""
+    tbox, sbox = _edges(starts, lists, rows)
+    if tbox.numel() == 0:
+        return out
+    k = ncoeffs(order)
+    ps = _max_count(box_source_counts_nonchild, sbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (ps * 2 * k))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
+                              sb, ps)
+        s = box_scale[tb]
+        rel = (sources[:, sidx] - centers[:, tb][..., None]) / s[:, None]
+        ok = (rel * rel).sum(0) > 0
+        sp = irregular_pairs(torch.where(ok, rel, 1), order)  # (E, ps, 2k)
+        q = torch.where(smask, charges[sidx], 0)
+        terms = torch.where(ok[..., None], sp * q[..., None], 0) \
+            / s[:, None, None]
+        out.index_add_(0, tb, terms.sum(1))
+    return out
+
+
+def p2l_laplace3d(sources, charges, box_source_starts,
+                  box_source_counts_nonchild, rows, starts, lists, centers,
+                  box_scale, order, out):
+    """Add the List-4 local-expansion contributions of the listed source
+    boxes into ``out[rows]`` (``out`` is ``(nboxes, 2 (order+1)^2)``);
+    rows name target-or-target-parent boxes, each at most once.  The K4
+    kernel on CUDA tensors.  Returns *out*."""
+    args = (sources, charges, box_source_starts,
+            box_source_counts_nonchild, rows, starts, lists, centers,
+            box_scale)
+    if sources.device.type == "cpu":
+        return p2l_laplace3d_plain(*args, order, out)
+    kernels.check_tensors(sources, charges, centers, box_scale, out,
+                          dtype=sources.dtype)
+    kernels.check_tensors(*args[2:7], dtype=torch.int32)
+    _check_order(order, sources.dtype)
+    if out.shape != (centers.shape[1], 2 * ncoeffs(order)):
+        raise ValueError("out must be (nboxes, 2 * (order + 1)**2)")
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2l_laplace3d", sources.dtype, sources, sources.shape[1], charges,
+        box_source_starts, box_source_counts_nonchild, rows, rows.shape[0],
+        starts, lists, centers, centers.shape[1], box_scale, order, out)
+    return out
+
+# }}}

@@ -1,0 +1,446 @@
+"""Sort-based adaptive tree build in PyTorch.
+
+Port of :mod:`boxtree_tpu.tree.build` (``boxtree_tpu/tree/build.py:45-335,
+583-816``) for the adaptive kind without extents:
+
+1. Every particle's full-depth Morton key, packed with its index, comes
+   from the K1 kernel (:func:`boxtree_torch.ops.morton.encode_points`) and
+   is sorted once with ``torch.sort``.
+2. :func:`_phase_a` assigns every particle its *leaf level* (the first
+   level at which its box's refine weight is at most the maximum) and
+   counts the boxes of every level.
+3. :func:`_phase_b` materializes the per-box arrays level by level.
+
+A shallow first attempt (the Morton depth that leaves room for the packed
+index) is retried at the full depth when particles stay in overfull boxes;
+at the full depth that raises :class:`MaxLevelsExceeded`.  Boxes are
+numbered level-major and Morton-ordered within each level, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from boxtree_torch import config
+from boxtree_torch.ops import morton
+from boxtree_torch.tree.containers import Tree, box_flags_enum
+
+logger = logging.getLogger(__name__)
+
+
+class MaxLevelsExceeded(RuntimeError):
+    """Raised when the tree would need more levels than Morton keys can
+    represent (mirrors ``boxtree_tpu.tree.build.MaxLevelsExceeded``)."""
+
+
+_TREE_KINDS = ("adaptive", "adaptive-level-restricted", "non-adaptive")
+
+
+def _segment_totals(vals, is_start):
+    """Per-element total of *vals* over its run of equal prefixes."""
+    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    nseg = int(seg[-1]) + 1
+    totals = vals.new_zeros(nseg).index_add_(0, seg, vals)
+    return totals[seg]
+
+
+def _bit_length(x):
+    """``64 - clz(x)`` of an int64 tensor (64 for negative entries)."""
+    neg = x < 0
+    x = torch.where(neg, torch.zeros_like(x), x)
+    bl = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        m = (x >> s) != 0
+        bl = bl + m.to(torch.int64) * s
+        x = torch.where(m, x >> s, x)
+    bl = bl + (x != 0).to(torch.int64)
+    return torch.where(neg, torch.full_like(bl, 64), bl)
+
+
+# {{{ phase A: sort + leaf-level assignment
+
+def _phase_a(coords, max_weight, *, dimensions, depth):
+    """Morton sort + leaf-level assignment + per-level box counts
+    (``boxtree_tpu/tree/build.py:113-247``, adaptive, no extents, unit
+    refine weights).
+
+    :returns: ``(codes_s, order, leaf_level, counts, n_unfit, bbox_min,
+        root_extent)``; ``counts[l]`` is the number of boxes at level
+        ``l``, ``n_unfit`` the number of particles still in overfull boxes
+        at depth ``depth``.
+    """
+    n = coords.shape[1]
+    dev = coords.device
+    bbox_min = torch.amin(coords, dim=1)
+    hi = torch.amax(coords, dim=1)
+    root_extent = (torch.max(hi - bbox_min)
+                   * (1 + config.ROOT_EXTENT_STRETCH_FACTOR))
+
+    iota_bits = max(1, int(n - 1).bit_length())
+    if dimensions * depth + iota_bits <= 63:
+        # the tie-break index packed into the low bits: one key-only sort
+        packed = torch.sort(morton.encode_points(
+            coords, bbox_min, root_extent, depth, iota_bits)).values
+        codes_s = packed >> iota_bits
+        order = (packed & ((1 << iota_bits) - 1)).to(torch.int32)
+    else:
+        codes = morton.encode_points(coords, bbox_min, root_extent, depth)
+        codes_s, order = torch.sort(codes, stable=True)
+        order = order.to(torch.int32)
+
+    w_s = torch.ones(n, dtype=torch.int64, device=dev)
+    counts = torch.zeros(depth + 2, dtype=torch.int64, device=dev)
+    assigned = torch.zeros(n, dtype=torch.bool, device=dev)
+    leaf_level = torch.full((n,), depth, dtype=torch.int32, device=dev)
+    level = 0
+    while level <= depth and not bool(assigned.all()):
+        active = ~assigned
+        pfx = codes_s >> (dimensions * (depth - level))
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                              pfx[1:] != pfx[:-1]])
+        w = _segment_totals(w_s, is_start)
+        counts[level] = (is_start & active).sum()
+        done = active & (w <= max_weight)
+        leaf_level = torch.where(done, torch.full_like(leaf_level, level),
+                                 leaf_level)
+        assigned = assigned | done
+        level += 1
+    n_unfit = int((~assigned).sum())
+    return (codes_s, order, leaf_level, counts, n_unfit, bbox_min,
+            root_extent)
+
+# }}}
+
+
+# {{{ phase B: materialize box arrays
+
+def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
+             root_extent, *, dimensions, depth, level_starts, nsources,
+             ntargets, sources_are_targets):
+    """Per-box arrays from the sorted keys and leaf levels
+    (``boxtree_tpu/tree/build.py:262-530``, no extents).
+
+    Particle i starts a level-L box exactly for the levels in
+    ``(thr[i], leaf_level[i]]`` with ``thr[i] = min(lcp_level[i],
+    leaf_level[i-1])``, where ``lcp_level`` is the deepest level at which
+    i shares its Morton prefix with i-1; a box's subtree ends at the next
+    position whose prefix changes at or above its level.
+    """
+    nlevels = len(level_starts) - 1
+    d = dimensions
+    n = codes_s.shape[0]
+    nchild = 2 ** d
+    dev = codes_s.device
+    cdt = merged_coords.dtype
+    cap = level_starts[-1]
+
+    def zeros(*shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    box_morton = zeros(cap, dtype=torch.int64)
+    box_level = zeros(cap, dtype=torch.int32)
+    box_start = zeros(cap, dtype=torch.int64)
+    box_count_cumul = zeros(cap, dtype=torch.int64)
+    box_count_nonchild = zeros(cap, dtype=torch.int64)
+    box_has_children = zeros(cap, dtype=torch.bool)
+    box_parent = zeros(cap, dtype=torch.int32)
+    box_child = zeros(nchild, cap, dtype=torch.int32)
+    box_centers = zeros(d, cap, dtype=cdt)
+
+    prev_box = zeros(n, dtype=torch.int32)
+    leaf_box = zeros(n, dtype=torch.int32)
+
+    iota64 = torch.arange(n, dtype=torch.int64, device=dev)
+    xor = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
+                     codes_s[1:] ^ codes_s[:-1]])
+    lcp_level = depth - (_bit_length(xor) + d - 1) // d
+    prev_leaf = torch.cat([
+        torch.full((1,), -1, dtype=torch.int64, device=dev),
+        leaf_level[:-1].to(torch.int64)])
+    thr = torch.minimum(lcp_level, prev_leaf)
+    leaf64 = leaf_level.to(torch.int64)
+
+    for level in range(nlevels):
+        b0, b1 = level_starts[level], level_starts[level + 1]
+        nl = b1 - b0
+        if nl == 0:
+            continue
+        shift = d * (depth - level)
+        active = leaf_level >= level
+        is_start = (leaf64 >= level) & (thr < level)
+        seg_id = torch.cumsum(is_start.to(torch.int32), 0,
+                              dtype=torch.int32) - 1
+        reps_l = torch.nonzero(is_start)[:, 0]
+        if reps_l.shape[0] != nl:
+            raise RuntimeError(f"level {level}: {reps_l.shape[0]} box "
+                               f"starts, expected {nl}")
+
+        # subtree end: next position whose prefix changes at or above
+        # this level (reverse cummin)
+        bnd = torch.where(lcp_level < level, iota64,
+                          torch.full_like(iota64, n))
+        suffmin = torch.flip(torch.cummin(torch.flip(bnd, [0]), 0).values,
+                             [0])
+        suffmin = torch.cat([suffmin[1:], suffmin.new_full((1,), n)])
+        cumul_l = suffmin[reps_l] - reps_l
+        deeper_l = torch.where(leaf_level[reps_l] > level, cumul_l,
+                               torch.zeros_like(cumul_l))
+
+        pfx_l = codes_s[reps_l] >> shift
+        box_morton[b0:b1] = pfx_l
+        box_level[b0:b1] = level
+        box_start[b0:b1] = reps_l
+        box_count_cumul[b0:b1] = cumul_l
+        box_count_nonchild[b0:b1] = cumul_l - deeper_l
+        box_has_children[b0:b1] = deeper_l > 0
+
+        cells = morton.deinterleave(pfx_l, d)
+        size = root_extent.to(cdt) / (1 << level)
+        box_centers[:, b0:b1] = (bbox_min[:, None].to(cdt)
+                                 + (cells.to(cdt) + 0.5) * size)
+
+        if level > 0:
+            parent_l = prev_box[reps_l]
+            box_parent[b0:b1] = parent_l
+            digit_l = pfx_l & (nchild - 1)
+            box_child[digit_l, parent_l.to(torch.int64)] = torch.arange(
+                b0, b1, dtype=torch.int32, device=dev)
+
+        box_of_cur = torch.where(active, b0 + seg_id, prev_box)
+        leaf_box = torch.where(leaf_level == level, box_of_cur, leaf_box)
+        prev_box = box_of_cur
+
+    # {{{ source/target split
+
+    pid = config.particle_id_dtype
+    if sources_are_targets:
+        is_source_s = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        is_source_s = order < nsources
+
+    def box_ranges(member):
+        cum = torch.cat([box_start.new_zeros(1),
+                         torch.cumsum(member.to(torch.int64), 0)])
+        starts = cum[box_start]
+        return (starts,
+                cum[box_start + box_count_cumul] - starts,
+                cum[box_start + box_count_nonchild] - starts)
+
+    (box_source_starts, box_source_counts_cumul,
+     box_source_counts_nonchild) = box_ranges(is_source_s)
+
+    order64 = order.to(torch.int64)
+    if sources_are_targets:
+        user_source_ids = order.to(pid)
+        box_id_of_source = leaf_box
+        sources = merged_coords[:, order64]
+        box_target_starts = box_source_starts
+        box_target_counts_cumul = box_source_counts_cumul
+        box_target_counts_nonchild = box_source_counts_nonchild
+        targets = sources
+        box_id_of_target = box_id_of_source
+        user_target_ids = order64
+    else:
+        user_source_ids = order[is_source_s].to(pid)
+        box_id_of_source = leaf_box[is_source_s]
+        sources = merged_coords[:, user_source_ids.to(torch.int64)]
+        is_target_s = ~is_source_s
+        (box_target_starts, box_target_counts_cumul,
+         box_target_counts_nonchild) = box_ranges(is_target_s)
+        user_target_ids = order64[is_target_s] - nsources
+        box_id_of_target = leaf_box[is_target_s]
+        targets = merged_coords[:, nsources + user_target_ids]
+    # user target id -> tree-order position (inverse permutation)
+    sorted_target_ids = torch.empty(ntargets, dtype=pid, device=dev)
+    sorted_target_ids[user_target_ids] = torch.arange(
+        ntargets, dtype=pid, device=dev)
+
+    # }}}
+
+    # {{{ box flags (boxtree_tpu/tree/build.py:488-506)
+
+    F = box_flags_enum
+
+    def flag(cond, bit):
+        return torch.where(cond, bit, 0).to(torch.int32)
+
+    flags = (flag(box_has_children
+                  & (box_source_counts_cumul > box_source_counts_nonchild),
+                  F.HAS_SOURCE_CHILD_BOXES)
+             | flag(box_has_children
+                    & (box_target_counts_cumul
+                       > box_target_counts_nonchild),
+                    F.HAS_TARGET_CHILD_BOXES)
+             | flag(box_source_counts_nonchild > 0, F.IS_SOURCE_BOX)
+             | flag(box_target_counts_nonchild > 0, F.IS_TARGET_BOX)
+             | flag(~box_has_children, F.IS_LEAF_BOX))
+
+    # }}}
+
+    return dict(
+        box_morton=box_morton,
+        box_level=box_level,
+        box_parent=box_parent,
+        box_child=box_child,
+        box_centers=box_centers,
+        box_flags=flags,
+        box_source_starts=box_source_starts.to(pid),
+        box_source_counts_cumul=box_source_counts_cumul.to(pid),
+        box_source_counts_nonchild=box_source_counts_nonchild.to(pid),
+        box_target_starts=box_target_starts.to(pid),
+        box_target_counts_cumul=box_target_counts_cumul.to(pid),
+        box_target_counts_nonchild=box_target_counts_nonchild.to(pid),
+        user_source_ids=user_source_ids,
+        sorted_target_ids=sorted_target_ids,
+        sources=sources,
+        targets=targets,
+        box_id_of_source=box_id_of_source,
+        box_id_of_target=box_id_of_target,
+    )
+
+# }}}
+
+
+# {{{ host driver
+
+def _as_coord_tensor(particles, device):
+    if isinstance(particles, (list, tuple)):
+        particles = torch.stack([torch.as_tensor(p) for p in particles])
+    if isinstance(particles, torch.Tensor):
+        arr = particles
+    else:
+        arr = torch.as_tensor(np.asarray(particles))
+    if device is not None:
+        arr = arr.to(device)
+    if arr.ndim != 2:
+        raise ValueError("particles must be (dimensions, nparticles)")
+    if arr.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported coordinate dtype {arr.dtype}")
+    return arr.contiguous()
+
+
+def build_tree(particles, kind="adaptive", max_particles_in_box=None,
+               targets=None, source_radii=None, target_radii=None,
+               stick_out_factor=None, refine_weights=None,
+               max_leaf_refine_weight=None, extent_norm=None, bbox=None,
+               debug=False, *, device=None):
+    """Build a :class:`Tree` of *particles* (``(dimensions, n)``).
+
+    The arguments are those of ``boxtree_tpu.build_tree``; the tree lives
+    on *device*, or on the device of *particles* when *device* is None.
+    This port covers the adaptive kind without extents, refined by
+    ``max_particles_in_box``, in the bounding box of the particles; other
+    kinds, extents, ``refine_weights`` and a given ``bbox`` raise
+    :class:`NotImplementedError`.
+    """
+    if kind not in _TREE_KINDS:
+        raise ValueError(f"unknown tree kind: '{kind}'")
+    if kind != "adaptive":
+        raise NotImplementedError(f"tree kind '{kind}' is not ported yet")
+    if (source_radii is not None or target_radii is not None
+            or extent_norm is not None or stick_out_factor):
+        raise NotImplementedError("trees with extents are not ported yet")
+    if refine_weights is not None or max_leaf_refine_weight is not None:
+        raise NotImplementedError("refine_weights is not ported yet")
+    if bbox is not None:
+        raise NotImplementedError("a given bbox is not ported yet")
+    if max_particles_in_box is None:
+        raise ValueError("must specify max_particles_in_box")
+
+    coords = _as_coord_tensor(particles, device)
+    dev = coords.device
+    dimensions, nsources = coords.shape
+    coord_dtype = coords.dtype
+    sources_are_targets = targets is None
+    if targets is not None:
+        tgt_coords = _as_coord_tensor(targets, dev)
+        if tgt_coords.dtype != coord_dtype:
+            raise TypeError("sources and targets must have the same dtype")
+        ntargets = tgt_coords.shape[1]
+        merged = torch.cat([coords, tgt_coords], dim=1)
+    else:
+        ntargets = nsources
+        merged = coords
+    n = merged.shape[1]
+    if n == 0:
+        raise ValueError("cannot build a tree from zero particles")
+
+    max_weight = int(max_particles_in_box)
+
+    depth_full = config.max_morton_depth(dimensions)
+    # shallow first try so the sort's tie-break index packs into the key;
+    # a distribution needing more levels retries at the full depth
+    # (boxtree_tpu/tree/build.py:680-728)
+    iota_bits = max(1, int(n - 1).bit_length())
+    depth = max(min(depth_full, (63 - iota_bits) // dimensions), 1)
+    while True:
+        (codes_s, order, leaf_level, counts, n_unfit, bbox_min,
+         root_extent) = _phase_a(merged, max_weight, dimensions=dimensions,
+                                 depth=depth)
+        if not n_unfit:
+            break
+        if depth < depth_full:
+            depth = depth_full
+            continue
+        raise MaxLevelsExceeded(
+            f"{n_unfit} particles remain in overfull boxes at the deepest "
+            f"representable level ({depth})")
+
+    counts = counts.cpu().numpy()
+    nlevels = int(np.max(np.nonzero(counts)[0])) + 1
+    level_starts = tuple(int(x) for x in np.concatenate(
+        [[0], np.cumsum(counts[:nlevels])]))
+    logger.info("build_tree: %d particles -> %d boxes, %d levels (%s)",
+                n, level_starts[-1], nlevels, kind)
+
+    out = _phase_b(
+        codes_s, order, leaf_level, merged, bbox_min, root_extent,
+        dimensions=dimensions, depth=depth, level_starts=level_starts,
+        nsources=nsources, ntargets=ntargets,
+        sources_are_targets=sources_are_targets)
+
+    return Tree(
+        root_extent=root_extent.to(coord_dtype),
+        box_centers=out["box_centers"],
+        box_parent_ids=out["box_parent"],
+        box_child_ids=out["box_child"],
+        box_levels=out["box_level"],
+        box_flags=out["box_flags"],
+        box_morton_prefixes=out["box_morton"],
+        level_start_box_nrs=level_starts,
+        box_id_dtype=config.box_id_dtype,
+        box_level_dtype=config.box_level_dtype,
+        coord_dtype=coord_dtype,
+        sources_have_extent=False,
+        targets_have_extent=False,
+        extent_norm=None,
+        stick_out_factor=0.0,
+        _is_pruned=True,
+        max_depth=depth,
+        sources_are_targets=sources_are_targets,
+        particle_id_dtype=config.particle_id_dtype,
+        sources=out["sources"],
+        source_radii=None,
+        targets=out["targets"],
+        target_radii=None,
+        user_source_ids=out["user_source_ids"],
+        sorted_target_ids=out["sorted_target_ids"],
+        box_source_starts=out["box_source_starts"],
+        box_source_counts_nonchild=out["box_source_counts_nonchild"],
+        box_source_counts_cumul=out["box_source_counts_cumul"],
+        box_target_starts=out["box_target_starts"],
+        box_target_counts_nonchild=out["box_target_counts_nonchild"],
+        box_target_counts_cumul=out["box_target_counts_cumul"],
+        box_source_bounding_box_min=None,
+        box_source_bounding_box_max=None,
+        box_target_bounding_box_min=None,
+        box_target_bounding_box_max=None,
+        box_id_of_source=out["box_id_of_source"],
+        box_id_of_target=out["box_id_of_target"],
+    )
+
+# }}}

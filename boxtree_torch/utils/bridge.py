@@ -1,0 +1,88 @@
+"""Carry trees and traversals between numpy and the port's containers.
+
+:func:`tree_from_numpy` and :func:`traversal_from_numpy` take any object
+with the field names of a ``Tree`` / ``FMMTraversalInfo`` (the JAX
+package's containers included: every field goes through ``np.asarray``) and
+return the port's containers on a given device, so a test can feed the
+reference's tree and traversal to the port's wrangler.  :func:`to_numpy`
+goes the other way.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from boxtree_torch.config import as_torch_dtype
+from boxtree_torch.traversal.containers import BuiltList, FMMTraversalInfo
+from boxtree_torch.tree.containers import Tree
+
+
+def _tensor(x, device):
+    if x is None:
+        return None
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def tree_from_numpy(tree, device="cpu"):
+    """A :class:`~boxtree_torch.tree.containers.Tree` on *device* with the
+    fields of *tree*."""
+    values = {}
+    for f in dataclasses.fields(Tree):
+        v = getattr(tree, f.name)
+        if f.name.endswith("_dtype"):
+            values[f.name] = as_torch_dtype(v)
+        elif f.name == "level_start_box_nrs":
+            values[f.name] = tuple(int(x) for x in v)
+        elif isinstance(v, (bool, int, float, str)) or v is None:
+            values[f.name] = v
+        else:
+            values[f.name] = _tensor(v, device)
+    return Tree(**values)
+
+
+def _built_list(bl, device):
+    return BuiltList(
+        count=int(bl.count),
+        starts=_tensor(bl.starts, device),
+        lists=_tensor(bl.lists, device),
+        num_nonempty_lists=int(bl.num_nonempty_lists),
+        nonempty_indices=_tensor(bl.nonempty_indices, device))
+
+
+def traversal_from_numpy(trav, device="cpu", tree=None):
+    """An :class:`~boxtree_torch.traversal.containers.FMMTraversalInfo`
+    on *device* with the fields of *trav* (and its tree, unless a port
+    *tree* is given)."""
+    values = {}
+    for f in dataclasses.fields(FMMTraversalInfo):
+        v = getattr(trav, f.name)
+        if f.name == "tree":
+            values[f.name] = (tree if tree is not None
+                              else tree_from_numpy(v, device))
+        elif f.name == "well_sep_is_n_away":
+            values[f.name] = int(v)
+        elif f.name == "from_sep_smaller_by_level":
+            values[f.name] = tuple(_built_list(bl, device) for bl in v)
+        elif f.name == "target_boxes_sep_smaller_by_source_level":
+            values[f.name] = tuple(_tensor(x, device) for x in v)
+        else:
+            values[f.name] = _tensor(v, device)
+    return FMMTraversalInfo(**values)
+
+
+def to_numpy(obj):
+    """Tensors become numpy arrays, the port's containers dicts of their
+    converted fields, tuples/lists tuples, dtypes numpy dtypes."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, torch.dtype):
+        return torch.empty(0, dtype=obj).numpy().dtype
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: to_numpy(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return tuple(to_numpy(x) for x in obj)
+    return obj
