@@ -16,29 +16,10 @@
 // IEEE divide, multiply by the power of two 2^depth (exact), floor.  Nothing
 // here can be contracted into an FMA, and the build uses no fast-math flag.
 #include "common.cuh"
+#include "morton.cuh"
 
 namespace boxtree_torch {
 namespace {
-
-__device__ __forceinline__ uint64_t spread_bits(uint64_t x, int d) {
-  // the _SPREAD2_MASKS / _SPREAD3_MASKS of boxtree_tpu/ops/morton.py:20-34
-  if (d == 2) {
-    x &= 0xFFFFFFFFull;
-    x = (x | (x << 16)) & 0x0000FFFF0000FFFFull;
-    x = (x | (x << 8)) & 0x00FF00FF00FF00FFull;
-    x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0Full;
-    x = (x | (x << 2)) & 0x3333333333333333ull;
-    x = (x | (x << 1)) & 0x5555555555555555ull;
-  } else if (d == 3) {
-    x &= 0x1FFFFFull;
-    x = (x | (x << 32)) & 0x001F00000000FFFFull;
-    x = (x | (x << 16)) & 0x001F0000FF0000FFull;
-    x = (x | (x << 8)) & 0x100F00F00F00F00Full;
-    x = (x | (x << 4)) & 0x10C30C30C30C30C3ull;
-    x = (x | (x << 2)) & 0x1249249249249249ull;
-  }
-  return x;
-}
 
 template <typename T>
 __global__ void morton_encode_kernel(const T* __restrict__ coords,

@@ -1,7 +1,8 @@
 """Build, bind and count the hand-written CUDA kernels of ``csrc/``.
 
 The kernels are compiled with ``nvcc`` into one shared library with a plain
-C interface the first time a CUDA tensor needs one, and loaded with
+C interface the first time a CUDA tensor needs one (one ``nvcc`` per
+source, all started together, then one link), and loaded with
 :mod:`ctypes`.  The library goes to ``build/boxtree_torch/<hash>/`` under the
 checkout, keyed by a hash of the sources and flags, so a fresh checkout
 builds everything itself and an edited source rebuilds.  A failed build
@@ -32,19 +33,34 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boxtree_torch"
 LIBRARY_NAME = "libboxtree_torch_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> C argument kinds ('p' pointer, 'i' long long); every
-#: entry point exists once per float type (``<name>_f32``, ``<name>_f64``)
-#: and takes the CUDA stream as a trailing pointer
+#: entry point takes the CUDA stream as a trailing pointer, and exists once
+#: per float type (``<name>_f32``, ``<name>_f64``) unless it is in
+#: :data:`INTEGER_KERNELS`
 SIGNATURES = {
     "morton_encode": "pippiiipp",
     "p2p_laplace3d": "pipippppppipppp",
     "m2p_laplace3d": "pipppippppipipp",
     "p2l_laplace3d": "pippppipppipipp",
+    "restrict_demand": "pipipiiipppppp",
+    "area_query_sweep": "ppipippippppippppp",
+    "space_invader_sweep": "ppipippippppippppp",
+    "peer_lists": "pppiiipppip",
 }
 
+#: kernels on integer data only: one entry point ``<name>``, launched with
+#: ``dtype=None``
+INTEGER_KERNELS = frozenset({"restrict_demand", "peer_lists"})
+
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _entry_names(name):
+    if name in INTEGER_KERNELS:
+        return [name]
+    return [f"{name}_{suffix}" for suffix in _SUFFIX.values()]
 
 
 def _find_nvcc():
@@ -85,19 +101,38 @@ class KernelLibrary:
         so_path = out_dir / LIBRARY_NAME
         if not so_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(p) for p in _sources() if p.suffix == ".cu")]
+            tag = os.getpid()
+            nvcc = _find_nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
+            objs, procs = [], []
+            for src in (p for p in _sources() if p.suffix == ".cu"):
+                obj = out_dir / f"{src.stem}.{tag}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs = []
+            for cmd, proc in procs:
+                out, _ = proc.communicate()
+                logs.append(out)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n"
+                        f"{' '.join(cmd)}\n{out}")
+            tmp = out_dir / f"{LIBRARY_NAME}.{tag}.tmp"
+            cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+            link = subprocess.run(cmd, capture_output=True, text=True,
                                   check=False)
             self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            self.build_log = "".join(logs) + link.stdout + link.stderr
+            if link.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{self.build_log}")
+                    f"nvcc link failed ({link.returncode}):\n"
+                    f"{' '.join(cmd)}\n{self.build_log}")
             os.replace(tmp, so_path)
+            for obj in objs:
+                obj.unlink()
         elif self.build_seconds is None:
             self.build_seconds = 0.0
         return so_path
@@ -110,8 +145,8 @@ class KernelLibrary:
                 lib = ctypes.CDLL(str(self.path))
                 kinds = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
                 for name, sig in SIGNATURES.items():
-                    for suffix in _SUFFIX.values():
-                        fn = getattr(lib, f"{name}_{suffix}")
+                    for entry in _entry_names(name):
+                        fn = getattr(lib, entry)
                         fn.argtypes = [kinds[k] for k in sig]
                         fn.restype = ctypes.c_int
                 lib.boxtree_torch_error_string.argtypes = [ctypes.c_int]
@@ -120,10 +155,17 @@ class KernelLibrary:
             return self._lib
 
     def launch(self, name, dtype, *args):
-        """Launch kernel *name* for float *dtype*: tensors pass as device
-        pointers, ints as ``long long``, PyTorch's current stream last."""
+        """Launch kernel *name* for float *dtype* (None for the integer
+        kernels): tensors pass as device pointers, ints as ``long long``,
+        PyTorch's current stream last."""
         sig = SIGNATURES[name]
-        if dtype not in _SUFFIX:
+        if name in INTEGER_KERNELS:
+            if dtype is not None:
+                raise TypeError(f"{name} takes no float dtype")
+            entry = name
+        elif dtype in _SUFFIX:
+            entry = f"{name}_{_SUFFIX[dtype]}"
+        else:
             raise TypeError(f"{name}: unsupported dtype {dtype}")
         if len(args) != len(sig) - 1:
             raise TypeError(f"{name}: expected {len(sig) - 1} arguments, "
@@ -140,7 +182,7 @@ class KernelLibrary:
             else:
                 cargs.append(int(arg))
         cargs.append(torch.cuda.current_stream(device).cuda_stream)
-        err = getattr(lib, f"{name}_{_SUFFIX[dtype]}")(*cargs)
+        err = getattr(lib, entry)(*cargs)
         if err != 0:
             msg = lib.boxtree_torch_error_string(err).decode()
             raise RuntimeError(f"{name} launch failed: {msg} ({err})")

@@ -1,7 +1,8 @@
 """Sort-based adaptive tree build in PyTorch.
 
 Port of :mod:`boxtree_tpu.tree.build` (``boxtree_tpu/tree/build.py:45-335,
-583-816``) for the adaptive kind without extents:
+583-816``) for the adaptive and the adaptive-level-restricted kinds without
+extents:
 
 1. Every particle's full-depth Morton key, packed with its index, comes
    from the K1 kernel (:func:`boxtree_torch.ops.morton.encode_points`) and
@@ -9,6 +10,8 @@ Port of :mod:`boxtree_tpu.tree.build` (``boxtree_tpu/tree/build.py:45-335,
 2. :func:`_phase_a` assigns every particle its *leaf level* (the first
    level at which its box's refine weight is at most the maximum) and
    counts the boxes of every level.
+   For the level-restricted kind, :mod:`.level_restrict` then raises
+   leaf levels until touching leaves differ by at most one level.
 3. :func:`_phase_b` materializes the per-box arrays level by level.
 
 A shallow first attempt (the Morton depth that leaves room for the packed
@@ -28,6 +31,7 @@ import torch
 from boxtree_torch import config
 from boxtree_torch.ops import morton
 from boxtree_torch.tree.containers import Tree, box_flags_enum
+from boxtree_torch.tree.level_restrict import restrict_leaf_levels
 
 logger = logging.getLogger(__name__)
 
@@ -332,14 +336,15 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
 
     The arguments are those of ``boxtree_tpu.build_tree``; the tree lives
     on *device*, or on the device of *particles* when *device* is None.
-    This port covers the adaptive kind without extents, refined by
-    ``max_particles_in_box``, in the bounding box of the particles; other
-    kinds, extents, ``refine_weights`` and a given ``bbox`` raise
+    This port covers the adaptive and the adaptive-level-restricted kinds
+    without extents, refined by ``max_particles_in_box``, in the bounding
+    box of the particles; the non-adaptive kind, extents,
+    ``refine_weights`` and a given ``bbox`` raise
     :class:`NotImplementedError`.
     """
     if kind not in _TREE_KINDS:
         raise ValueError(f"unknown tree kind: '{kind}'")
-    if kind != "adaptive":
+    if kind == "non-adaptive":
         raise NotImplementedError(f"tree kind '{kind}' is not ported yet")
     if (source_radii is not None or target_radii is not None
             or extent_norm is not None or stick_out_factor):
@@ -391,6 +396,12 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
             f"representable level ({depth})")
 
     counts = counts.cpu().numpy()
+    if kind == "adaptive-level-restricted":
+        leaf_level, counts, rounds = restrict_leaf_levels(
+            codes_s, leaf_level, dimensions=dimensions, depth=depth,
+            max_level=int(np.max(np.nonzero(counts)[0])))
+        counts = counts.cpu().numpy()
+        logger.info("build_tree: level restriction in %d rounds", rounds)
     nlevels = int(np.max(np.nonzero(counts)[0])) + 1
     level_starts = tuple(int(x) for x in np.concatenate(
         [[0], np.cumsum(counts[:nlevels])]))

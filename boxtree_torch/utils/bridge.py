@@ -5,7 +5,9 @@ with the field names of a ``Tree`` / ``FMMTraversalInfo`` (the JAX
 package's containers included: every field goes through ``np.asarray``) and
 return the port's containers on a given device, so a test can feed the
 reference's tree and traversal to the port's wrangler.  :func:`to_numpy`
-goes the other way.  Nothing here imports JAX.
+goes the other way, for every container of the port (trees, traversals,
+and the geometry results ``AreaQueryResult``, ``LeavesToBallsLookup`` and
+``PeerListLookup``).  Nothing here imports JAX.
 """
 
 from __future__ import annotations

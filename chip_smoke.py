@@ -5,15 +5,27 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc``, holds each kernel
-against its plain PyTorch twin on the card, runs the counting FMM and the
-3D Laplace FMM (order 8, real pairs, ``rscale="auto"``, float32) at 1e6
-uniform points -- the main path of ``bench.py`` -- and checks the result
-against an exact count and a float64 direct sum.  Each phase prints one
-JSON line; then come the card's name and power limit as ``nvidia-smi``
-reports them, the per-kernel summary and, last, the ``{"ok": true, ...}``
-line.  Any failed phase raises, and the script exits non-zero.  Without a
-CUDA device it exits with code 2 and prints no result.
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives two paths
+of the port on the card, each with the kernels' launch counts set to 0
+just before it and read just after:
+
+- the main path of ``bench.py``: the counting FMM and the 3D Laplace FMM
+  (order 8, real pairs, ``rscale="auto"``, float32) at 1e6 uniform points,
+  checked against an exact count and a float64 direct sum (K1-K4);
+- Config B: a level-restricted octree of 1e6 points on the unit sphere
+  (float64), its 2:1 property checked by an area query, the traversal and
+  the counting FMM on it, then 1e5 QBX-centre-like balls through the area
+  query, leaves-to-balls, the space invader, and the peer lists, each held
+  to a float64 brute force or an oracle (K1, K5-K8).
+
+Every kernel is also held against its plain PyTorch twin at the shapes of
+its path, and timed beside it (median of 5 synchronised calls) and beside
+its bound, the least time the card could take for the same work.  Each
+phase prints one JSON line; then come the card's name and power limit as
+``nvidia-smi`` reports them, the per-kernel summary and, last, the
+``{"ok": true, ...}`` line.  Any failed phase raises, and the script exits
+non-zero.  Without a CUDA device it exits with code 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -28,19 +40,37 @@ REPLACES = {
     "p2p_laplace3d": "boxtree_tpu/models/expansion_base.py:1258",
     "m2p_laplace3d": "boxtree_tpu/models/expansion_base.py:1440",
     "p2l_laplace3d": "boxtree_tpu/models/expansion_base.py:1629",
+    "restrict_demand": "boxtree_tpu/tree/level_restrict.py:42",
+    "area_query_sweep": "boxtree_tpu/geometry/area_query.py:86",
+    "space_invader_sweep": "boxtree_tpu/geometry/area_query.py:259",
+    "peer_lists": "boxtree_tpu/geometry/area_query.py:341",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
     "p2p_laplace3d": "boxtree_torch/csrc/p2p.cu",
     "m2p_laplace3d": "boxtree_torch/csrc/m2p.cu",
     "p2l_laplace3d": "boxtree_torch/csrc/p2l.cu",
+    "restrict_demand": "boxtree_torch/csrc/restrict.cu",
+    "area_query_sweep": "boxtree_torch/csrc/area_query.cu",
+    "space_invader_sweep": "boxtree_torch/csrc/area_query.cu",
+    "peer_lists": "boxtree_torch/csrc/peers.cu",
 }
+MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
+                     "p2l_laplace3d")
+CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", "area_query_sweep",
+                    "space_invader_sweep", "peer_lists")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
 #: rel l-inf bound of the order-8 float32 FMM against the float64 direct
 #: sum: truncation is 3e-5 to 6e-5, a TF32/bf16 slip shows as ~7e-3
 FMM_RTOL = 1e-3
+
+#: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes
+#: per second, and float32 / float64 operations per second outside the
+#: tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def emit(obj):
@@ -84,7 +114,22 @@ def rel_linf(got, ref):
     return err, err / max(ref.abs().max().item(), 1e-300)
 
 
-# {{{ the kernels against their twins
+def bound(work):
+    """``(bound_ms, bound_by)`` of a kernel's work: the larger of its
+    bytes over the memory rate and its operations over the peak rate of
+    their type."""
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S
+    t_ops = work.get("flops", 0) / PEAK_FLOPS[work.get("type", "float32")]
+    if t_ops > t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# {{{ K1-K4: the kernels against their twins, and their work
 
 def kernel_inputs(tree, trav, wrangler, q_tree):
     """Each kernel's wrapper, plain twin and arguments at the shapes the
@@ -133,6 +178,64 @@ def kernel_inputs(tree, trav, wrangler, q_tree):
     }
 
 
+def kernel_work(inputs):
+    """Bytes each of K1-K4 must move (each input read once, each output
+    written once) and the float operations it must do, at *inputs*.
+
+    - K1: per point, d coordinates read and one int64 key written; 3
+      operations per coordinate (subtract, divide, multiply).
+    - K2: per List-1 particle pair, 10 (difference 3, squared norm 5,
+      multiply-add of the charge 2; the rsqrt is not counted).
+    - K3: per (target particle, List-3 source box) pair, one multiply-add
+      (2) per real coefficient, 2 (order + 1)^2 of them.
+    - K4: per (List-4 source particle, target box) pair, the same.
+    """
+    import torch
+
+    from boxtree_torch.ops.solid_harmonics import ncoeffs
+    from boxtree_torch.traversal.containers import csr_rows
+
+    def row_of(starts, lists):
+        return csr_rows(starts, lists.shape[0])
+
+    out = {}
+    coords, lo, extent, _, _ = inputs["morton_encode"][2]
+    n = coords.shape[1]
+    out["morton_encode"] = dict(
+        points=n, bytes=nbytes(coords, lo, extent) + 8 * n,
+        flops=3 * coords.numel())
+
+    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls) = \
+        inputs["p2p_laplace3d"][2]
+    tcn64, scn64 = tcn.to(torch.int64), scn.to(torch.int64)
+    pairs = int((tcn64[tb.to(torch.int64)[row_of(st, ls)]]
+                 * scn64[ls.to(torch.int64)]).sum())
+    out["p2p_laplace3d"] = dict(
+        particle_pairs=pairs, flops=10 * pairs,
+        bytes=nbytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls)
+        + tgt.shape[1] * tgt.element_size())
+
+    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, order) = \
+        inputs["m2p_laplace3d"][2]
+    k = 2 * ncoeffs(order)
+    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+        row_of(st, ls)]].sum())
+    out["m2p_laplace3d"] = dict(
+        target_box_pairs=pairs, coefficients=k, flops=2 * k * pairs,
+        bytes=nbytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale)
+        + tgt.shape[1] * tgt.element_size())
+
+    (src, q, sst, scn, rows, st, ls, centers, scale, order) = \
+        inputs["p2l_laplace3d"][2]
+    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+    locals_bytes = centers.shape[1] * k * src.element_size()
+    out["p2l_laplace3d"] = dict(
+        source_box_pairs=pairs, coefficients=k, flops=2 * k * pairs,
+        bytes=nbytes(src, q, sst, scn, rows, st, ls, centers, scale)
+        + 2 * locals_bytes)
+    return out
+
+
 def check_kernels(inputs, device):
     """Run every kernel and its twin on the same inputs; raise on a
     mismatch.  Returns ``{name: {max_abs_err, rel_err, ms, plain_ms}}``."""
@@ -177,8 +280,10 @@ def direct_sum_f64(sources, charges, targets, chunk=1 << 16):
     return out
 
 
-def run(device, n_kernels=200_000, n_main=1_000_000, order=8, nsample=2000):
-    """All phases on *device*; returns the final per-kernel summary."""
+def run_main_path(device, card, n_kernels=200_000, n_main=1_000_000,
+                  order=8, nsample=2000):
+    """The counting and the Laplace FMM at 1e6 uniform points (K1-K4);
+    returns the K1-K4 summary entries."""
     import numpy as np
     import torch
 
@@ -190,23 +295,6 @@ def run(device, n_kernels=200_000, n_main=1_000_000, order=8, nsample=2000):
     )
     from boxtree_torch.ops import kernels
     from boxtree_torch.traversal import build_traversal
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line() if device.type == "cuda" else "cpu"
-
-    # {{{ build
-
-    if device.type == "cuda":
-        t0 = time.perf_counter()
-        lib = kernels.build()
-        emit({"phase": "build", "card": card,
-              "seconds": time.perf_counter() - t0,
-              "nvcc_seconds": lib.build_seconds,
-              "library": str(lib.path.relative_to(lib.path.parents[3])),
-              "ptxas": _ptxas_summary(lib.build_log)})
-
-    # }}}
 
     # {{{ kernels vs twins on a surface tree (Lists 3 and 4 populated)
 
@@ -303,8 +391,9 @@ def run(device, n_kernels=200_000, n_main=1_000_000, order=8, nsample=2000):
         raise AssertionError(f"Laplace FMM: rel l-inf {rel:.3e} > "
                              f"{FMM_RTOL}")
 
-    emit({"phase": "launches", "card": card, "launches": launches})
-    missing = [k for k, v in launches.items() if v <= 0]
+    emit({"phase": "launches", "path": "laplace_fmm", "card": card,
+          "launches": launches})
+    missing = [k for k in MAIN_PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -312,17 +401,345 @@ def run(device, n_kernels=200_000, n_main=1_000_000, order=8, nsample=2000):
     # }}}
 
     # the kernels against their twins at the main path's own shapes
-    res = check_kernels(kernel_inputs(tree, trav, wr, wr.reorder_sources(q)),
-                        device)
+    inputs = kernel_inputs(tree, trav, wr, wr.reorder_sources(q))
+    res = check_kernels(inputs, device)
+    work = kernel_work(inputs)
     emit({"phase": "kernels_main_path", "card": card, "points": n_main,
-          "kernels": res})
-    summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
-        for name, r in res.items()]}
-    return card, summary
+          "kernels": res, "work": work})
+    return [summary_entry(name, launches[name], r, work[name])
+            for name, r in res.items()]
+
+
+def summary_entry(name, launches, res, work):
+    bound_ms, bound_by = bound(work)
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+# {{{ Config B
+
+def sphere_points(n, seed):
+    """*n* points on the unit sphere: normalised standard normals
+    (``make_surface_particle_array``'s construction), float64."""
+    import numpy as np
+    x = np.random.default_rng(seed).standard_normal((3, n))
+    norm = np.sqrt((x * x).sum(0))
+    return x / np.where(norm == 0, 1, norm)
+
+
+def _box_radius(tree, levels):
+    return tree.root_extent / (1 << (levels.to(int) + 1))
+
+
+def check_two_to_one(tree):
+    """Every pair of touching leaves differs by at most one level: an
+    area query with each leaf's box, radius times (1 + 1e-9), as the ball
+    (``tests/test_geometry.py:162-178``).  Returns the pair count."""
+    import torch
+
+    from boxtree_torch import box_flags_enum
+    from boxtree_torch.geometry import AreaQueryBuilder
+    from boxtree_torch.traversal.containers import csr_rows
+
+    leaves = torch.nonzero(tree.box_flags & box_flags_enum.IS_LEAF_BOX)[:, 0]
+    lev = tree.box_levels[leaves]
+    aq = AreaQueryBuilder()(tree, tree.box_centers[:, leaves],
+                            _box_radius(tree, lev) * (1 + 1e-9))
+    lists = aq.leaves_near_ball_lists.to(torch.int64)
+    rows = csr_rows(aq.leaves_near_ball_starts, lists.shape[0])
+    worst = int((lev[rows] - tree.box_levels[lists]).abs().max())
+    if worst > 1:
+        raise AssertionError(f"2:1 violated: touching leaves {worst} "
+                             f"levels apart")
+    return int(lists.shape[0]), worst
+
+
+def brute_force_keys(tree, centers, radii, balls, chunk=64):
+    """Sorted ``(ball << 32) | leaf`` keys of the sampled *balls*, from
+    every leaf, in float64."""
+    import torch
+
+    from boxtree_torch import box_flags_enum
+
+    leaves = torch.nonzero(tree.box_flags & box_flags_enum.IS_LEAF_BOX)[:, 0]
+    lc = tree.box_centers[:, leaves]
+    lrad = _box_radius(tree, tree.box_levels[leaves])
+    keys = []
+    for c0 in range(0, balls.shape[0], chunk):
+        b = balls[c0:c0 + chunk]
+        dist = (lc[:, None, :] - centers[:, b][:, :, None]).abs().amax(0)
+        bi, li = torch.nonzero(dist <= lrad[None, :] + radii[b][:, None],
+                               as_tuple=True)
+        keys.append((b[bi] << 32) | leaves[li])
+    return torch.sort(torch.cat(keys)).values
+
+
+def check_peers_oracle(tree, pl, boxes, chunk=64):
+    """Peers are adjacent and at the box's level or coarser, and every
+    adjacent box at the box's level is a peer
+    (``tests/test_geometry.py:142-158``), for the sampled *boxes*."""
+    import torch
+
+    rad = _box_radius(tree, tree.box_levels)
+    starts = pl.peer_list_starts.to(torch.int64)
+    lists = pl.peer_lists.to(torch.int64)
+    levels = tree.box_levels
+    for c0 in range(0, boxes.shape[0], chunk):
+        b = boxes[c0:c0 + chunk]
+        dist = (tree.box_centers[:, None, :]
+                - tree.box_centers[:, b][:, :, None]).abs().amax(0)
+        adjacent = dist <= (rad[None, :] + rad[b][:, None]) * (1 + 1e-9)
+        member = torch.zeros_like(adjacent)
+        for i, box in enumerate(b.tolist()):
+            peers = lists[starts[box]:starts[box + 1]]
+            member[i, peers] = True
+            if not bool((levels[peers] <= levels[box]).all()):
+                raise AssertionError(f"box {box}: a finer peer")
+        if bool((member & ~adjacent).any()):
+            raise AssertionError("a peer that is not adjacent")
+        same = adjacent & (levels[None, :] == levels[b][:, None])
+        if bool((same & ~member).any()):
+            raise AssertionError("an adjacent same-level box is no peer")
+
+
+def run_config_b(device, card, n=1_000_000, nballs=100_000, nsample=1000,
+                 seed=15):
+    """Config B on 1e6 sphere points; returns the K5-K8 summary entries
+    and the K1 launches of this path."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree, config
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.geometry import (
+        AreaQueryBuilder,
+        LeavesToBallsLookupBuilder,
+        PeerListFinder,
+        SpaceInvaderQueryBuilder,
+    )
+    from boxtree_torch.models import ConstantOneExpansionWrangler
+    from boxtree_torch.ops import area_query as aq_ops, kernels, peers, restrict
+    from boxtree_torch.traversal import build_traversal
+    from boxtree_torch.traversal.containers import csr_rows
+    from boxtree_torch.tree.build import _phase_a
+    from boxtree_torch.tree.level_restrict import restrict_leaf_levels
+
+    pts = torch.as_tensor(sphere_points(n, seed), device=device)
+    rng = np.random.default_rng(seed + 1)
+    anchor = torch.as_tensor(rng.choice(n, nballs, replace=False),
+                             device=device)
+    radii = torch.as_tensor(rng.uniform(0.005, 0.02, nballs), device=device)
+    centers = pts[:, anchor] * (1 + radii)   # pushed out along the normal
+    kind = "adaptive-level-restricted"
+
+    # {{{ the path, counted
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_build = timed(lambda: build_tree(
+        pts, kind=kind, max_particles_in_box=30), device)
+    (pairs_2to1, worst), t_2to1 = timed(lambda: check_two_to_one(tree),
+                                        device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    pot, t_fmm = timed(lambda: drive_fmm(
+        ConstantOneExpansionWrangler(None, trav),
+        [torch.ones(n, dtype=torch.float64, device=device)]), device)
+    aq, t_aq = timed(lambda: AreaQueryBuilder()(tree, centers, radii),
+                     device)
+    l2b, t_l2b = timed(lambda: LeavesToBallsLookupBuilder()(
+        tree, centers, radii), device)
+    si, t_si = timed(lambda: SpaceInvaderQueryBuilder()(
+        tree, centers, radii), device)
+    pl, t_pl = timed(lambda: PeerListFinder()(tree), device)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    # }}}
+
+    # {{{ checks
+
+    nbad = int((pot != n).sum())
+    if nbad:
+        raise AssertionError(f"counting FMM: {nbad} potentials != {n}")
+    sample = torch.as_tensor(rng.choice(nballs, nsample, replace=False),
+                             device=device).sort().values
+    lists = aq.leaves_near_ball_lists.to(torch.int64)
+    rows = csr_rows(aq.leaves_near_ball_starts, lists.shape[0])
+    keys = (rows << 32) | lists
+    in_sample = torch.isin(rows, sample)
+    if not torch.equal(keys[in_sample],
+                       brute_force_keys(tree, centers, radii, sample)):
+        raise AssertionError("area query != float64 brute force")
+    inv = torch.sort((lists << 32) | rows).values
+    inv_starts = torch.searchsorted(
+        inv >> 32, torch.arange(tree.nboxes + 1, device=device))
+    if not (torch.equal(l2b.balls_near_box_starts.to(torch.int64),
+                        inv_starts)
+            and torch.equal(l2b.balls_near_box_lists.to(torch.int64),
+                            inv & 0xFFFFFFFF)):
+        raise AssertionError("leaves-to-balls != inverted area query")
+    b_rows = csr_rows(l2b.balls_near_box_starts,
+                      l2b.balls_near_box_lists.shape[0])
+    b_balls = l2b.balls_near_box_lists.to(torch.int64)
+    dist = (centers[:, b_balls] - tree.box_centers[:, b_rows]).abs().amax(0)
+    si_ref = torch.zeros(tree.nboxes, dtype=torch.float32, device=device)
+    si_ref = si_ref.scatter_reduce(0, b_rows, dist.to(torch.float32),
+                                   reduce="amax")
+    if not torch.equal(si.view(torch.int32), si_ref.view(torch.int32)):
+        raise AssertionError("space invader != max over leaves-to-balls")
+    boxes = torch.as_tensor(rng.choice(tree.nboxes, nsample, replace=False),
+                            device=device)
+    check_peers_oracle(tree, pl, boxes)
+
+    emit({"phase": "config_b", "card": card, "points": n,
+          "distribution": "unit sphere", "dtype": "float64",
+          "max_particles_in_box": 30, "seed": seed,
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "build_s": t_build, "two_to_one_s": t_2to1,
+          "two_to_one_pairs": pairs_2to1, "worst_level_gap": worst,
+          "traversal_s": t_trav, "counting_fmm_s": t_fmm,
+          "counting_fmm_exact": True, "nballs": nballs,
+          "ball_leaf_pairs": int(lists.shape[0]), "area_query_s": t_aq,
+          "leaves_to_balls_s": t_l2b, "space_invader_s": t_si,
+          "peer_lists_s": t_pl, "peer_list_entries":
+              int(pl.peer_lists.shape[0]), "total_s": t_total,
+          "sampled_balls": nsample, "sampled_boxes": nsample,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    emit({"phase": "launches", "path": "config_b", "card": card,
+          "launches": launches})
+    missing = [k for k in CONFIG_B_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on Config B's path: "
+                             f"{missing}")
+
+    # }}}
+
+    # {{{ K5-K8 against their twins at these shapes
+
+    iota_bits = max(1, int(n - 1).bit_length())
+    depth = max(min(config.max_morton_depth(3), (63 - iota_bits) // 3), 1)
+    codes_s, _, leaf0, counts0, n_unfit, _, _ = _phase_a(
+        pts, 30, dimensions=3, depth=depth)
+    if n_unfit:
+        raise AssertionError("Config B needs the full Morton depth")
+    max_level = int(torch.nonzero(counts0)[-1, 0])
+    res, work = {}, {}
+
+    lev_k, cnt_k, rounds = restrict_leaf_levels(
+        codes_s, leaf0, dimensions=3, depth=depth, max_level=max_level)
+    lev_p, cnt_p, rounds_p = restrict_leaf_levels(
+        codes_s, leaf0, dimensions=3, depth=depth, max_level=max_level,
+        plain=True)
+    if not (torch.equal(lev_k, lev_p) and torch.equal(cnt_k, cnt_p)
+            and rounds == rounds_p):
+        raise AssertionError("restriction with K5 != plain twin")
+
+    def demand_round(fn):
+        lev = leaf0
+        for m in range(max_level, 1, -1):
+            lev = fn(codes_s, lev, m=m, dimensions=3, depth=depth)
+        return lev
+
+    k_lev = demand_round(restrict.demand_pass)
+    p_lev = demand_round(restrict.demand_pass_plain)
+    res["restrict_demand"] = dict(
+        max_abs_err=float((k_lev != p_lev).sum()),
+        ms=median_ms(lambda: demand_round(restrict.demand_pass), device),
+        plain_ms=median_ms(lambda: demand_round(restrict.demand_pass_plain),
+                           device))
+    if res["restrict_demand"]["max_abs_err"]:
+        raise AssertionError("K5 demand pass != plain twin")
+    nlev_demand = max_level - 1
+    work["restrict_demand"] = dict(
+        levels=nlev_demand, rounds=rounds,
+        bytes=nlev_demand * (nbytes(codes_s, leaf0) + nbytes(leaf0)))
+
+    def compare(name, kernel, plain, equal, work_of):
+        got, ref = kernel(), plain()
+        if not equal(got, ref):
+            raise AssertionError(f"{name} != plain twin")
+        res[name] = dict(max_abs_err=0.0, ms=median_ms(kernel, device),
+                         plain_ms=median_ms(plain, device))
+        work[name] = work_of(got)
+
+    profile = sweep_profile(tree, centers, radii)
+    tree_bytes = nbytes(tree.box_child_ids, tree.box_centers,
+                        tree.box_levels, tree.box_flags)
+    ball_bytes = nbytes(centers, radii)
+    ops_per_pair = (4 * 3 + 2) * (1 << 3)   # per frontier pair, 8 children
+    compare("area_query_sweep",
+            lambda: aq_ops.ball_leaf_keys(tree, centers, radii),
+            lambda: aq_ops.ball_leaf_keys(tree, centers, radii, plain=True),
+            torch.equal,
+            lambda keys: dict(
+                type="float64", frontier_pairs=profile["pairs"],
+                hits=profile["hits"], levels=profile["levels"],
+                flops=ops_per_pair * profile["pairs"],
+                bytes=tree_bytes + ball_bytes + 8 * profile["pairs"]
+                + 8 * profile["hits"] + 8 * profile["next"]))
+    compare("space_invader_sweep",
+            lambda: aq_ops.space_invader(tree, centers, radii),
+            lambda: aq_ops.space_invader_plain(tree, centers, radii),
+            lambda a, b: torch.equal(a.view(torch.int32),
+                                     b.view(torch.int32)),
+            lambda out: dict(
+                type="float64", frontier_pairs=profile["pairs"],
+                flops=ops_per_pair * profile["pairs"],
+                bytes=tree_bytes + ball_bytes + 8 * profile["pairs"]
+                + 8 * profile["next"] + nbytes(out)))
+    lsb = tree.level_start_box_nrs
+    compare("peer_lists",
+            lambda: peers.peer_lists(tree.box_morton_prefixes,
+                                     tree.box_flags, dimensions=3, lsb=lsb),
+            lambda: peers.peer_lists_plain(tree.box_morton_prefixes,
+                                           tree.box_flags, dimensions=3,
+                                           lsb=lsb),
+            lambda a, b: torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+            lambda out: dict(
+                boxes=tree.nboxes, entries=int(out[1].shape[0]),
+                bytes=nbytes(tree.box_morton_prefixes, tree.box_flags,
+                             *out)))
+    emit({"phase": "kernels_config_b", "card": card, "points": n,
+          "restriction_rounds": rounds, "tolerance": "exact",
+          "kernels": res, "work": work})
+
+    # }}}
+
+    return ([summary_entry(name, launches[name], res[name], work[name])
+             for name in ("restrict_demand", "area_query_sweep",
+                          "space_invader_sweep", "peer_lists")],
+            launches)
+
+
+def sweep_profile(tree, centers, radii):
+    """Frontier pairs, hits and next pairs of the area-query sweep over
+    all levels (the data-dependent work of K6 and K7)."""
+    import torch
+
+    from boxtree_torch.ops.area_query import expand_frontier_plain
+
+    dev = centers.device
+    nballs = centers.shape[1]
+    ball_idx = torch.arange(nballs, dtype=torch.int32, device=dev)
+    box_idx = torch.zeros(nballs, dtype=torch.int32, device=dev)
+    out = dict(pairs=0, hits=0, next=0, levels=0)
+    while ball_idx.shape[0]:
+        out["pairs"] += int(ball_idx.shape[0])
+        out["levels"] += 1
+        hits, ball_idx, box_idx = expand_frontier_plain(
+            ball_idx, box_idx, centers, radii, tree)
+        out["hits"] += int(hits.shape[0])
+        out["next"] += int(ball_idx.shape[0])
+    return out
+
+# }}}
 
 
 def _ptxas_summary(log):
@@ -341,14 +758,29 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the package must be there before anything is printed
+    from boxtree_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = card_line()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    card, summary = run(device)
+
+    t0 = time.perf_counter()
+    lib = kernels.build()
+    emit({"phase": "build", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": lib.build_seconds,
+          "library": str(lib.path.relative_to(lib.path.parents[3])),
+          "ptxas": _ptxas_summary(lib.build_log)})
+
+    entries = run_main_path(device, card)
+    b_entries, _ = run_config_b(device, card)
     print(card, flush=True)
-    emit(summary)
+    emit({"kernels": entries + b_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

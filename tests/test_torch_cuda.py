@@ -8,7 +8,11 @@ also runs where only PyTorch is installed::
         tests/test_torch_cuda.py
 
 K1 must be bit-exact; K2-K4 agree with their twins to rel l-inf 1e-5 in
-float32 (rsqrt and another summation order) and 1e-12 in float64.
+float32 (rsqrt and another summation order) and 1e-12 in float64.  K5-K8
+(level restriction, area-query sweep, space invader, peer lists) compute
+integers, or a float maximum that does not depend on order, so they must
+equal their twins exactly, and a level-restricted tree built on the card
+must equal the one built on the CPU.
 """
 
 import numpy as np
@@ -17,12 +21,27 @@ import torch
 
 from boxtree_torch import build_tree
 from boxtree_torch.fmm import drive_fmm
+from boxtree_torch.geometry import (
+    AreaQueryBuilder,
+    LeavesToBallsLookupBuilder,
+    PeerListFinder,
+    SpaceInvaderQueryBuilder,
+)
 from boxtree_torch.models import (
     ConstantOneExpansionWrangler,
     make_laplace_wrangler,
 )
-from boxtree_torch.ops import kernels, laplace3d, morton
+from boxtree_torch.ops import (
+    area_query,
+    kernels,
+    laplace3d,
+    morton,
+    peers,
+    restrict,
+)
 from boxtree_torch.traversal import build_traversal
+from boxtree_torch.tree.build import _phase_a
+from boxtree_torch.tree.level_restrict import restrict_leaf_levels
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +149,110 @@ def test_counting_fmm_on_card(device):
     pot = drive_fmm(ConstantOneExpansionWrangler(None, trav),
                     [torch.ones(100000, dtype=torch.float64, device=device)])
     assert torch.equal(pot, torch.full_like(pot, 100000))
+
+
+# {{{ K5-K8 on a level-restricted tree
+
+def _capped_sphere(n, seed=3):
+    """Points on the unit sphere, a tenth of them in a small cap, so that
+    the restriction has work to do."""
+    ncap = n // 10
+    base = _sphere(n - ncap, seed)
+    cap = (np.full((3, 1), 3 ** -0.5)
+           + 0.01 * np.random.default_rng(seed).standard_normal((3, ncap)))
+    return np.concatenate([base, cap / np.sqrt((cap * cap).sum(0))], axis=1)
+
+
+@pytest.fixture(scope="module", params=[torch.float32, torch.float64],
+                ids=["f32", "f64"])
+def geometry(request, device):
+    dt = request.param
+    n = 20000
+    pts = torch.as_tensor(_capped_sphere(n), dtype=dt, device=device)
+    tree = build_tree(pts, kind="adaptive-level-restricted",
+                      max_particles_in_box=30)
+    rng = np.random.default_rng(7)
+    anchor = torch.as_tensor(rng.choice(n, 2000, replace=False),
+                             device=device)
+    radii = torch.as_tensor(rng.uniform(0.005, 0.05, 2000), dtype=dt,
+                            device=device)
+    return dt, pts, tree, pts[:, anchor] * (1 + radii), radii
+
+
+def test_restrict_demand_kernel(geometry):
+    _, pts, *_ = geometry
+    n = pts.shape[1]
+    iota_bits = max(1, int(n - 1).bit_length())
+    depth = (63 - iota_bits) // 3
+    codes_s, _, leaf, counts, n_unfit, _, _ = _phase_a(
+        pts, 30, dimensions=3, depth=depth)
+    assert n_unfit == 0
+    max_level = int(torch.nonzero(counts)[-1, 0])
+    for m in range(max_level, 1, -1):
+        got = restrict.demand_pass(codes_s, leaf, m=m, dimensions=3,
+                                   depth=depth)
+        ref = restrict.demand_pass_plain(codes_s, leaf, m=m, dimensions=3,
+                                         depth=depth)
+        assert torch.equal(got, ref), m
+        leaf = ref
+    got = restrict_leaf_levels(codes_s, leaf, dimensions=3, depth=depth,
+                               max_level=max_level)
+    ref = restrict_leaf_levels(codes_s, leaf, dimensions=3, depth=depth,
+                               max_level=max_level, plain=True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert got[2] == ref[2]
+
+
+def test_restricted_tree_on_card_matches_cpu(geometry):
+    _, pts, tree = geometry[:3]
+    ref = build_tree(pts.cpu(), kind="adaptive-level-restricted",
+                     max_particles_in_box=30)
+    assert tree.level_start_box_nrs == ref.level_start_box_nrs
+    for name in ("box_morton_prefixes", "box_levels", "box_parent_ids",
+                 "box_child_ids", "box_flags", "box_centers",
+                 "user_source_ids", "box_source_starts",
+                 "box_source_counts_cumul", "box_source_counts_nonchild"):
+        assert torch.equal(getattr(tree, name).cpu(), getattr(ref, name)), \
+            name
+
+
+def test_area_query_kernel(geometry):
+    _, _, tree, centers, radii = geometry
+    got = area_query.ball_leaf_keys(tree, centers, radii)
+    ref = area_query.ball_leaf_keys(tree, centers, radii, plain=True)
+    assert ref.shape[0] > centers.shape[1]
+    assert torch.equal(got, ref)
+
+
+def test_space_invader_kernel(geometry):
+    _, _, tree, centers, radii = geometry
+    got = area_query.space_invader(tree, centers, radii)
+    ref = area_query.space_invader_plain(tree, centers, radii)
+    assert float(ref.max()) > 0
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_peer_lists_kernel(geometry):
+    tree = geometry[2]
+    args = (tree.box_morton_prefixes, tree.box_flags)
+    kw = dict(dimensions=3, lsb=tree.level_start_box_nrs)
+    got = peers.peer_lists(*args, **kw)
+    ref = peers.peer_lists_plain(*args, **kw)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_config_b_path_launches_k5_to_k8(geometry):
+    _, pts, _, centers, radii = geometry
+    kernels.reset_launch_counts()
+    tree = build_tree(pts, kind="adaptive-level-restricted",
+                      max_particles_in_box=30)
+    AreaQueryBuilder()(tree, centers, radii)
+    LeavesToBallsLookupBuilder()(tree, centers, radii)
+    SpaceInvaderQueryBuilder()(tree, centers, radii)
+    PeerListFinder()(tree)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in (
+        "morton_encode", "restrict_demand", "area_query_sweep",
+        "space_invader_sweep", "peer_lists")), counts
+
+# }}}
