@@ -2,7 +2,9 @@
 
 The same policy as :mod:`boxtree_tpu.config` (``boxtree_tpu/config.py:45-67``):
 integer box/particle ids and box levels are int32, Morton keys are int64,
-coordinates are float32 or float64 (user choice).
+coordinates are float32 or float64 (user choice).  Expansion coefficients
+and potentials are of the wrangler's dtype: real (Laplace, real pairs) or
+complex128 (Helmholtz), over float64 coordinates.
 
 Float32 matrix products must stay float32: TF32 keeps about three decimal
 digits, which would ruin the M2L/M2M/L2L translations the same way
@@ -26,7 +28,8 @@ morton_dtype = torch.int64
 
 
 def as_torch_dtype(dtype):
-    """A torch dtype from a torch or numpy dtype (or type)."""
+    """A torch dtype from a torch or numpy dtype (or type, or its name),
+    complex ones included."""
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype

@@ -1,5 +1,7 @@
-// Irregular solid harmonics S_n^m as (re, im) pairs, one coefficient at a
-// time, shared by the M2P (K3) and P2L (K4) kernels.
+// Solid harmonics as (re, im) pairs, one coefficient at a time: the
+// irregular S_n^m of the Laplace M2P (K3) and P2L (K4) kernels, and the
+// regular R_n^m, the angular basis of the Helmholtz M2P (K10) and P2L (K11)
+// kernels.
 //
 // The recurrences of boxtree_tpu/ops/solid_harmonics.py:161-192
 // (_harmonics_pairs, kind="irregular"), in the same operation order:
@@ -41,6 +43,48 @@ __device__ __forceinline__ void irregular_pairs_foreach(T x, T y, T z, int p,
         const T c2 = T((n - 1) * (n - 1) - m * m);
         cr = (T(2 * n - 1) * z * p1r - c2 * p2r) * rinv2;
         ci = (T(2 * n - 1) * z * p1i - c2 * p2i) * rinv2;
+      }
+      f(n, m, cr, ci);
+      p2r = p1r;
+      p2i = p1i;
+      p1r = cr;
+      p1i = ci;
+    }
+  }
+}
+
+// The regular harmonics, by the recurrences of
+// boxtree_tpu/ops/solid_harmonics.py:60-75 (_harmonics, kind="regular"), in
+// the same operation order:
+//   R_0^0 = 1,  R_m^m = (x + iy) R_{m-1}^{m-1} / (2m),
+//   R_{m+1}^m = z R_m^m,
+//   R_n^m = ((2n-1) z R_{n-1}^m - r^2 R_{n-2}^m) / ((n+m)(n-m)),
+// handed to f(n, m, re, im) for 0 <= m <= n <= p as they come; the caller
+// folds in R_n^{-m} = (-1)^m conj(R_n^m).
+template <typename T, typename F>
+__device__ __forceinline__ void regular_pairs_foreach(T x, T y, T z, int p,
+                                                      F&& f) {
+  const T r2 = x * x + y * y + z * z;
+  T mr = T(1);
+  T mi = T(0);
+  for (int m = 0; m <= p; ++m) {
+    if (m > 0) {
+      const T ur = mr * x - mi * y;
+      const T ui = mr * y + mi * x;
+      mr = ur / T(2 * m);
+      mi = ui / T(2 * m);
+    }
+    f(m, m, mr, mi);
+    T p2r = T(0), p2i = T(0), p1r = mr, p1i = mi;
+    for (int n = m + 1; n <= p; ++n) {
+      T cr, ci;
+      if (n == m + 1) {
+        cr = z * p1r;
+        ci = z * p1i;
+      } else {
+        const T den = T((n + m) * (n - m));
+        cr = (T(2 * n - 1) * z * p1r - r2 * p2r) / den;
+        ci = (T(2 * n - 1) * z * p1i - r2 * p2i) / den;
       }
       f(n, m, cr, ci);
       p2r = p1r;

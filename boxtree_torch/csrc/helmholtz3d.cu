@@ -1,0 +1,355 @@
+// K9-K11: the particle-pair stages of the 3D Helmholtz FMM, kernel
+// G(t, s) = exp(ik|t - s|) / |t - s| for a real wavenumber k, in double
+// precision with complex128 (interleaved re, im) charges, coefficients and
+// potentials.
+//
+// K9  p2p_helmholtz3d: List-1 potentials, phi(t) = sum q_s exp(ik r) / r,
+//     r = 0 skipped.  Replaces boxtree_tpu/models/expansion_base.py:1258
+//     _eval_direct_rowmajor with boxtree_tpu/models/helmholtz3d.py:362
+//     _p2p.
+// K10 m2p_helmholtz3d: List-3 potentials from the multipoles of the listed
+//     source boxes, phi(t) += sum_nm M_nm h_n(k r) s^n A_n^m(u) with
+//     r u = ((t - c) / s) s, 0 at r = 0.  Replaces expansion_base.py:1440
+//     _eval_multipoles_rowmajor with helmholtz3d.py:341 _m2p_eval (and
+//     ops/spherical_bessel.py:29,60).
+// K11 p2l_helmholtz3d: List-4 local expansions, L_nm(b) += sum q_s w_nm
+//     h_n(k r) s^n conj(A_n^m(u)) with r u = ((x_s - c_b) / s) s, added in
+//     place into the box's coefficients.  Replaces expansion_base.py:1629
+//     _form_locals_rowmajor with helmholtz3d.py:351 _p2l_terms.
+//
+// A_n^m are the regular solid harmonics of the unit direction
+// (harmonics.cuh), h_n = j_n + i y_n the spherical Hankel functions
+// (bessel.cuh), s the box's rscale and w_nm = 4 pi i k D_nm^2 (given by the
+// wrapper).  As in the Laplace kernels (p2p.cu, m2p.cu, p2l.cu), a box's
+// nonchild particles are the contiguous tree-order range
+// [box_*_starts, + box_*_counts_nonchild), rows of the CSR lists name boxes,
+// and one CTA (one warp) serves one row.
+//
+// Bound: float64 arithmetic.  K9 costs ~25 flops and a double sincos, sqrt
+// and divide per pair, against 16 bytes of shared memory.  K10 and K11
+// evaluate, per (particle, box) pair, the Bessel recurrences (p + 25
+// double divides down, p steps up) and the order-p harmonics, and fold
+// them into (p+1)^2 complex coefficients: ~3,000 flops per pair at p = 12,
+// against one read of a 2.7 KB multipole (K10) or one warp's shuffle
+// reductions (K11).  The harmonics never leave registers; each thread's
+// h_n s^n table sits in shared memory (one column per thread), so no
+// (particles x coefficients) array is stored and nothing spills.
+#include "bessel.cuh"
+#include "harmonics.cuh"
+
+namespace boxtree_torch {
+namespace {
+
+constexpr int kHelmThreads = 32;
+
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// {{{ K9
+
+__global__ void __launch_bounds__(kHelmThreads)
+p2p_helmholtz3d_kernel(const double* __restrict__ targets,
+                       long long ntargets, const double* __restrict__ sources,
+                       long long nsources,
+                       const double2* __restrict__ charges,
+                       const int* __restrict__ box_target_starts,
+                       const int* __restrict__ box_target_counts,
+                       const int* __restrict__ box_source_starts,
+                       const int* __restrict__ box_source_counts,
+                       const int* __restrict__ target_boxes,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ lists, double k,
+                       double2* __restrict__ out) {
+  __shared__ double sx[kHelmThreads], sy[kHelmThreads], sz[kHelmThreads];
+  __shared__ double2 sq[kHelmThreads];
+  const int row = blockIdx.x;
+  const int tbox = target_boxes[row];
+  const long long t0 = box_target_starts[tbox];
+  const int nt = box_target_counts[tbox];
+  const int e0 = starts[row], e1 = starts[row + 1];
+
+  for (int tb = 0; tb < nt; tb += kHelmThreads) {
+    const int ti = tb + threadIdx.x;
+    const bool active = ti < nt;
+    double tx = 0.0, ty = 0.0, tz = 0.0;
+    if (active) {
+      tx = targets[t0 + ti];
+      ty = targets[ntargets + t0 + ti];
+      tz = targets[2 * ntargets + t0 + ti];
+    }
+    double ar = 0.0, ai = 0.0;
+    for (int e = e0; e < e1; ++e) {
+      const int sbox = lists[e];
+      const long long s0 = box_source_starts[sbox];
+      const int ns = box_source_counts[sbox];
+      for (int sb = 0; sb < ns; sb += kHelmThreads) {
+        const int cnt = min(kHelmThreads, ns - sb);
+        __syncthreads();
+        if (threadIdx.x < cnt) {
+          const long long s = s0 + sb + threadIdx.x;
+          sx[threadIdx.x] = sources[s];
+          sy[threadIdx.x] = sources[nsources + s];
+          sz[threadIdx.x] = sources[2 * nsources + s];
+          sq[threadIdx.x] = charges[s];
+        }
+        __syncthreads();
+        for (int j = 0; j < cnt; ++j) {
+          const double dx = tx - sx[j], dy = ty - sy[j], dz = tz - sz[j];
+          const double r2 = dx * dx + dy * dy + dz * dz;
+          if (r2 > 0.0) {
+            const double r = sqrt(r2);
+            double sn, cs;
+            sincos(k * r, &sn, &cs);
+            const double2 g = make_double2(cs / r, sn / r);
+            const double2 v = cmul(g, sq[j]);
+            ar += v.x;
+            ai += v.y;
+          }
+        }
+      }
+    }
+    if (active) out[t0 + ti] = make_double2(ar, ai);
+  }
+}
+
+// }}}
+
+// {{{ K10
+
+__global__ void __launch_bounds__(kHelmThreads)
+m2p_helmholtz3d_kernel(const double* __restrict__ targets,
+                       long long ntargets,
+                       const int* __restrict__ box_target_starts,
+                       const int* __restrict__ box_target_counts,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ lists,
+                       const double2* __restrict__ mpoles,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale, double k, int p,
+                       double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (p + 1) * (p + 1);
+  double2* smp = reinterpret_cast<double2*>(smem_raw);       // nc
+  double2* rad = smp + nc;                                    // (p+1) x warp
+  double* geo = reinterpret_cast<double*>(rad + (p + 1) * kHelmThreads);
+  const int lane = threadIdx.x;
+  const int tbox = rows[blockIdx.x];
+  const long long t0 = box_target_starts[tbox];
+  const int nt = box_target_counts[tbox];
+  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
+
+  for (int tb = 0; tb < nt; tb += kHelmThreads) {
+    const int ti = tb + lane;
+    const bool active = ti < nt;
+    double tx = 0.0, ty = 0.0, tz = 0.0;
+    if (active) {
+      tx = targets[t0 + ti];
+      ty = targets[ntargets + t0 + ti];
+      tz = targets[2 * ntargets + t0 + ti];
+    }
+    double ar = 0.0, ai = 0.0;
+    for (int e = e0; e < e1; ++e) {
+      const long long sbox = lists[e];
+      __syncthreads();
+      for (int i = lane; i < nc; i += kHelmThreads)
+        smp[i] = mpoles[sbox * nc + i];
+      if (lane == 0) {
+        geo[0] = centers[sbox];
+        geo[1] = centers[nboxes + sbox];
+        geo[2] = centers[2 * nboxes + sbox];
+        geo[3] = box_scale[sbox];
+      }
+      __syncthreads();
+      if (!active) continue;
+      // the reference's hook receives (t - c) / s and works on that times s
+      const double s = geo[3];
+      const double x = (tx - geo[0]) / s * s;
+      const double y = (ty - geo[1]) / s * s;
+      const double z = (tz - geo[2]) / s * s;
+      const double r2 = x * x + y * y + z * z;
+      if (!(r2 > 0.0)) continue;
+      const double r = sqrt(r2);
+      spherical_hn1_scaled(k * r, s, p, rad + lane, kHelmThreads);
+      double vr = 0.0, vi = 0.0;
+      regular_pairs_foreach(
+          x / r, y / r, z / r, p, [&](int n, int m, double a_r, double a_i) {
+            const double2 h = rad[n * kHelmThreads + lane];
+            // M_{n,m} h A_n^m
+            const double2 b = cmul(h, make_double2(a_r, a_i));
+            const double2 mp = smp[n * n + n + m];
+            vr += mp.x * b.x - mp.y * b.y;
+            vi += mp.x * b.y + mp.y * b.x;
+            if (m > 0) {
+              // A_n^{-m} = (-1)^m conj(A_n^m)
+              const double sg = (m & 1) ? -1.0 : 1.0;
+              const double2 c = cmul(h, make_double2(sg * a_r, -sg * a_i));
+              const double2 mq = smp[n * n + n - m];
+              vr += mq.x * c.x - mq.y * c.y;
+              vi += mq.x * c.y + mq.y * c.x;
+            }
+          });
+      ar += vr;
+      ai += vi;
+    }
+    if (active) out[t0 + ti] = make_double2(ar, ai);
+  }
+}
+
+// }}}
+
+// {{{ K11
+
+__global__ void __launch_bounds__(kHelmThreads)
+p2l_helmholtz3d_kernel(const double* __restrict__ sources,
+                       long long nsources,
+                       const double2* __restrict__ charges,
+                       const int* __restrict__ box_source_starts,
+                       const int* __restrict__ box_source_counts,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ lists,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale,
+                       const double2* __restrict__ w_nm, double k, int p,
+                       double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (p + 1) * (p + 1);
+  double2* acc = reinterpret_cast<double2*>(smem_raw);       // nc
+  double2* rad = acc + nc;                                    // (p+1) x warp
+  const int lane = threadIdx.x;
+  const long long tbox = rows[blockIdx.x];
+  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
+  for (int i = lane; i < nc; i += kHelmThreads) acc[i] = make_double2(0, 0);
+  const double cx = centers[tbox], cy = centers[nboxes + tbox],
+               cz = centers[2 * nboxes + tbox];
+  const double s = box_scale[tbox];
+  __syncwarp();
+
+  for (int e = e0; e < e1; ++e) {
+    const int sbox = lists[e];
+    const long long s0 = box_source_starts[sbox];
+    const int ns = box_source_counts[sbox];
+    for (int sb = 0; sb < ns; sb += kHelmThreads) {
+      const int j = sb + lane;
+      // idle lanes and r = 0 evaluate at direction (0, 0, 1), k r = 1,
+      // with zero weight
+      double ux = 0.0, uy = 0.0, uz = 1.0, kr = 1.0;
+      double2 q = make_double2(0.0, 0.0);
+      if (j < ns) {
+        const double x = (sources[s0 + j] - cx) / s * s;
+        const double y = (sources[nsources + s0 + j] - cy) / s * s;
+        const double z = (sources[2 * nsources + s0 + j] - cz) / s * s;
+        const double r2 = x * x + y * y + z * z;
+        if (r2 > 0.0) {
+          const double r = sqrt(r2);
+          ux = x / r;
+          uy = y / r;
+          uz = z / r;
+          kr = k * r;
+          q = charges[s0 + j];
+        }
+      }
+      spherical_hn1_scaled(kr, s, p, rad + lane, kHelmThreads);
+      regular_pairs_foreach(
+          ux, uy, uz, p, [&](int n, int m, double a_r, double a_i) {
+            const double2 h = rad[n * kHelmThreads + lane];
+            // q h conj(A_n^m), summed over the warp
+            const double2 t = cmul(q, cmul(h, make_double2(a_r, -a_i)));
+            const double2 v = make_double2(warp_sum(t.x), warp_sum(t.y));
+            double2 v2 = make_double2(0.0, 0.0);
+            if (m > 0) {
+              // conj(A_n^{-m}) = (-1)^m A_n^m
+              const double sg = (m & 1) ? -1.0 : 1.0;
+              const double2 t2 =
+                  cmul(q, cmul(h, make_double2(sg * a_r, sg * a_i)));
+              v2 = make_double2(warp_sum(t2.x), warp_sum(t2.y));
+            }
+            if (lane == 0) {
+              const int i = n * n + n + m;
+              const double2 wv = cmul(w_nm[i], v);
+              acc[i].x += wv.x;
+              acc[i].y += wv.y;
+              if (m > 0) {
+                const int i2 = n * n + n - m;
+                const double2 wv2 = cmul(w_nm[i2], v2);
+                acc[i2].x += wv2.x;
+                acc[i2].y += wv2.y;
+              }
+            }
+          });
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < nc; i += kHelmThreads) {
+    out[tbox * nc + i].x += acc[i].x;
+    out[tbox * nc + i].y += acc[i].y;
+  }
+}
+
+// }}}
+
+size_t helmholtz_smem(long long order) {
+  return ((order + 1) * (order + 1) + (order + 1) * kHelmThreads) *
+             sizeof(double2) +
+         4 * sizeof(double);
+}
+
+}  // namespace
+}  // namespace boxtree_torch
+
+extern "C" int p2p_helmholtz3d_c128(
+    const void* targets, long long ntargets, const void* sources,
+    long long nsources, const void* charges, const void* bts, const void* btc,
+    const void* bss, const void* bsc, const void* target_boxes,
+    long long nrows, const void* starts, const void* lists, double k,
+    void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    p2p_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const double*)sources, nsources,
+        (const double2*)charges, (const int*)bts, (const int*)btc,
+        (const int*)bss, (const int*)bsc, (const int*)target_boxes,
+        (const int*)starts, (const int*)lists, k, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int m2p_helmholtz3d_c128(
+    const void* targets, long long ntargets, const void* bts, const void* btc,
+    const void* rows, long long nrows, const void* starts, const void* lists,
+    const void* mpoles, const void* centers, long long nboxes,
+    const void* box_scale, double k, long long order, void* out,
+    void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    m2p_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads,
+                             helmholtz_smem(order), (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
+        (const int*)rows, (const int*)starts, (const int*)lists,
+        (const double2*)mpoles, (const double*)centers, nboxes,
+        (const double*)box_scale, k, (int)order, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int p2l_helmholtz3d_c128(
+    const void* sources, long long nsources, const void* charges,
+    const void* bss, const void* bsc, const void* rows, long long nrows,
+    const void* starts, const void* lists, const void* centers,
+    long long nboxes, const void* box_scale, const void* w_nm, double k,
+    long long order, void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    p2l_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads,
+                             helmholtz_smem(order), (cudaStream_t)stream>>>(
+        (const double*)sources, nsources, (const double2*)charges,
+        (const int*)bss, (const int*)bsc, (const int*)rows,
+        (const int*)starts, (const int*)lists, (const double*)centers, nboxes,
+        (const double*)box_scale, (const double2*)w_nm, k, (int)order,
+        (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}

@@ -2,6 +2,11 @@ from boxtree_torch.models.constant_one import (
     ConstantOneExpansionWrangler,
     ConstantOneTreeIndependentDataForWrangler,
 )
+from boxtree_torch.models.helmholtz3d import (
+    Helmholtz3DExpansionWrangler,
+    Helmholtz3DTreeIndependentDataForWrangler,
+    make_helmholtz_wrangler,
+)
 from boxtree_torch.models.laplace import (
     Laplace3DPairsExpansionWrangler,
     LaplaceTreeIndependentDataForWrangler,
@@ -11,7 +16,10 @@ from boxtree_torch.models.laplace import (
 __all__ = [
     "ConstantOneExpansionWrangler",
     "ConstantOneTreeIndependentDataForWrangler",
+    "Helmholtz3DExpansionWrangler",
+    "Helmholtz3DTreeIndependentDataForWrangler",
     "Laplace3DPairsExpansionWrangler",
     "LaplaceTreeIndependentDataForWrangler",
+    "make_helmholtz_wrangler",
     "make_laplace_wrangler",
 ]

@@ -14,10 +14,12 @@ Port of :class:`boxtree_tpu.models.expansion_base.ExpansionWranglerBase`
 - P2P, M2P, P2L: the kernels of :mod:`boxtree_torch.ops.laplace3d`.
 
 Subclasses provide ``_ncoeff``, the per-particle hooks ``_p2m_terms`` and
-``_l2p_eval``, the host operator builders ``_m2m_matrix``,
-``_l2l_matrix`` and ``_m2l_matrices`` (complex numpy in, real torch
-operators out via :meth:`_real_operator`), and the list-stage hooks
-``_p2p``, ``_m2p`` and ``_p2l``.
+``_l2p_eval``, the batched operator builders ``_m2m_matrices``,
+``_l2l_matrices`` and ``_m2l_matrices`` (numpy or a tensor), which
+:meth:`_operator` turns into tensors of the coefficient dtype, and the
+list-stage hooks ``_p2p``, ``_m2p`` and ``_p2l``.  Coefficients and
+potentials are of the wrangler's ``dtype`` (real, or complex); box
+geometry, particles and rscales of its real counterpart, ``real_dtype``.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         self.dim = tree.dimensions
         self.ncoeff = self._ncoeff()
         dev = self.device = tree.box_levels.device
-        dt = self.dtype
+        dt = self.real_dtype = self.dtype.to_real()
         nlevels = tree.nlevels
         root = float(tree.root_extent)
         self.root_extent = root
@@ -96,7 +98,8 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
             if isinstance(rscale, str):
                 if rscale != "auto":
                     raise ValueError(f"bad rscale: {rscale!r}")
-                rs = np.minimum(root * 2.0 ** -np.arange(nlevels), 1.0)
+                rs = np.minimum(root * 2.0 ** -np.arange(nlevels)
+                                * self._rscale_factor(), 1.0)
             else:
                 rs = np.asarray(rscale, np.float64)
                 if rs.shape != (nlevels,):
@@ -105,7 +108,7 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         scale_of_level = torch.as_tensor(rs, dtype=dt, device=dev)
         self.box_scale = scale_of_level[tree.box_levels.to(torch.int64)]
 
-        # particle and box geometry in the wrangler's dtype
+        # particle and box geometry in the wrangler's real dtype
         self.centers = tree.box_centers.to(dt).contiguous()
         self._sources = tree.sources.to(dt).contiguous()
         self._targets = (self._sources if tree.sources_are_targets
@@ -117,20 +120,19 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
         # {{{ M2M / L2L: per (level, digit) operators and box groups
 
+        # (2^d, d) child cell signs, in digit order
+        signs = np.array([[1.0 if (q >> (self.dim - 1 - ax)) & 1 else -1.0
+                           for ax in range(self.dim)]
+                          for q in range(nchild)])
         self._m2m_opsT, self._l2l_opsT = {}, {}
         for lev in range(1, nlevels):
-            size = root / (1 << lev)
-            m2m, l2l = [], []
-            for q in range(nchild):
-                sign = np.array([1.0 if (q >> (self.dim - 1 - ax)) & 1
-                                 else -1.0 for ax in range(self.dim)])
-                child_off = sign * (size / 2)       # c_child - c_parent
-                m2m.append(self._m2m_matrix(-child_off, rs[lev],
-                                            rs[lev - 1]).T)
-                l2l.append(self._l2l_matrix(child_off, rs[lev - 1],
-                                            rs[lev]).T)
-            self._m2m_opsT[lev] = self._real_operator(np.stack(m2m))
-            self._l2l_opsT[lev] = self._real_operator(np.stack(l2l))
+            child_off = signs * (root / (1 << lev) / 2)  # c_child - c_parent
+            self._m2m_opsT[lev] = self._operator(self._m2m_matrices(
+                -child_off, rs[lev], rs[lev - 1])).transpose(1, 2) \
+                .contiguous()
+            self._l2l_opsT[lev] = self._operator(self._l2l_matrices(
+                child_off, rs[lev - 1], rs[lev])).transpose(1, 2) \
+                .contiguous()
 
         def digit_groups(ids):
             d_ids = digit[ids]
@@ -168,25 +170,42 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
     def _ncoeff(self):
         raise NotImplementedError
 
-    def _p2m_terms(self, rel, q):
+    def _rscale_factor(self):
+        """Factor of the ``"auto"`` rscale (the reference's
+        ``_rscale_factor``, ``expansion_base.py:526-529``): 1, or
+        ``|k|`` for oscillatory kernels."""
+        return 1.0
+
+    def _p2m_terms(self, rel, q, scale):
+        """Multipole terms of charges *q* at offsets *rel* pre-divided by
+        *scale*, the box's rscale (``expansion_base.py:532-538``)."""
         raise NotImplementedError
 
-    def _l2p_eval(self, rel, loc):
+    def _l2p_eval(self, rel, loc, scale):
+        """Potentials of locals *loc* at offsets *rel* pre-divided by
+        *scale*."""
         raise NotImplementedError
 
-    def _m2m_matrix(self, t, r_child=1.0, r_parent=1.0):
+    def _m2m_matrices(self, ts, r_child, r_parent):
+        """(n, K, K) M2M operators of the shifts *ts* ``(n, d)`` (new
+        centre - old)."""
         raise NotImplementedError
 
-    def _l2l_matrix(self, t, r_parent=1.0, r_child=1.0):
+    def _l2l_matrices(self, ts, r_parent, r_child):
+        """(n, K, K) L2L operators of the shifts *ts*."""
         raise NotImplementedError
 
-    def _m2l_matrices(self, ts, rs):
+    def _m2l_matrices(self, classes, size, r):
+        """(C, K, K) M2L operators of the translations ``classes * size``
+        (``c_tgt - c_src``) at rscale *r*."""
         raise NotImplementedError
 
-    def _real_operator(self, mats):
-        """A host operator stack as a tensor of the wrangler's dtype."""
-        return torch.as_tensor(np.ascontiguousarray(mats), dtype=self.dtype,
-                               device=self.device)
+    def _operator(self, mats):
+        """An operator stack (numpy or tensor) as a tensor of the
+        wrangler's dtype on its device."""
+        if not isinstance(mats, torch.Tensor):
+            mats = np.ascontiguousarray(mats)
+        return torch.as_tensor(mats, dtype=self.dtype, device=self.device)
 
     # }}}
 
@@ -243,9 +262,9 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         mp = self.multipole_expansion_zeros()
         for c in self._particle_chunks(box.shape[0]):
             b = box[c]
-            rel = (self._sources[:, c] - self.centers[:, b]) \
-                / self.box_scale[b]
-            mp.index_add_(0, b, self._p2m_terms(rel, src_weights[c]))
+            s = self.box_scale[b]
+            rel = (self._sources[:, c] - self.centers[:, b]) / s
+            mp.index_add_(0, b, self._p2m_terms(rel, src_weights[c], s))
         return mp
 
     def eval_locals(self, level_start_target_box_nrs, target_boxes,
@@ -254,9 +273,9 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         pot = self.output_zeros()
         for c in self._particle_chunks(box.shape[0]):
             b = box[c]
-            rel = (self._targets[:, c] - self.centers[:, b]) \
-                / self.box_scale[b]
-            pot[c] = self._l2p_eval(rel, local_exps[b])
+            s = self.box_scale[b]
+            rel = (self._targets[:, c] - self.centers[:, b]) / s
+            pot[c] = self._l2p_eval(rel, local_exps[b], s)
         return pot
 
     # }}}
@@ -363,10 +382,9 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         self._m2l_opsT = {}
         for lev in range(2, nlevels):
             size = self.root_extent / (1 << lev)
-            r = np.full(len(classes), self._rscale_np[lev])
-            mats = self._m2l_matrices(classes * size, r)
-            self._m2l_opsT[lev] = self._real_operator(
-                np.swapaxes(mats, 1, 2))
+            mats = self._operator(self._m2l_matrices(
+                classes, size, float(self._rscale_np[lev])))
+            self._m2l_opsT[lev] = mats.transpose(1, 2).contiguous()
 
     def _m2l_block(self, lev, j):
         """(2^d K, 2^d K) operator block of colleague slot *j* at child

@@ -1,0 +1,366 @@
+"""3D Helmholtz expansion wrangler on complex128 coefficients.
+
+Port of ``boxtree_tpu/models/helmholtz3d.py:43-370, 526-572`` (the complex
+wrangler; the real-pair one is not ported yet).  Kernel ``G(t, s) =
+exp(ik|t-s|) / |t-s|``, real k.  Basis: spherical wave functions in the
+angular basis ``A_n^m(u) = R_n^m(u)`` (the regular solid harmonics on the
+unit sphere):
+
+- regular:  ``HR_n^m(x) = j_n(k|x|) A_n^m(x/|x|)``
+- outgoing: ``HS_n^m(x) = h^(1)_n(k|x|) A_n^m(x/|x|)``
+
+with ``G = sum_nm w_nm HR_nm(y')* HS_nm(x')``, ``w_nm = 4 pi i k D_nm^2``
+and ``Y_n^m = D_nm A_n^m`` (orthonormal Y).  P2M is ``M_nm += q w_nm
+conj(HR_nm(y - c))``, evaluation ``phi = sum M_nm HS_nm(x - c)``; P2L/L2P
+mirror them with h and j swapped.  Coefficients are rscaled as the
+reference's are (``M~_n = M_n s^-n``, ``L~_n = L_n s^n`` for the level's
+rscale s, ``helmholtz3d.py:188-196``).
+
+Translations use the reference's exact Gaunt-series addition theorem
+(``helmholtz3d.py:23-33``)::
+
+    T_Y[numu, nm](t) = 4 pi sum_q i^(q+nu-n) f_q(k|t|) Y_q^(m-mu)(t^)
+                       Gaunt(n,m | nu,mu | q, m-mu)
+
+with ``f = j`` for M2M/L2L and ``f = h^(1)`` for M2L.  The reference builds
+one operator per call, each with 625 scalar ``sph_harm`` calls and a loop
+over q.  Here :meth:`Helmholtz3DTreeIndependentDataForWrangler.
+translation_operators` builds a batch: the Y table of all directions in one
+vectorised call, and the q-sum as one complex matrix product per ``s = m -
+mu`` (the Gaunt tensor times the per-q power, against the Y table times the
+radial table), on the wrangler's device.  The 316 M2L classes have the
+same directions at every level, so their Y table is built once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from boxtree_torch.config import as_torch_dtype
+from boxtree_torch.fmm.drive import TreeIndependentDataForWrangler
+from boxtree_torch.models.expansion_base import ExpansionWranglerBase
+from boxtree_torch.ops import helmholtz3d as hops
+from boxtree_torch.ops import scaled_bessel_host as sbh
+from boxtree_torch.ops import solid_harmonics as sh
+
+
+def _sph_harm_y(n, m, theta, phi):
+    """Orthonormal Y_n^m (scipy), tolerant of scipy API versions."""
+    from scipy import special as sp
+    if hasattr(sp, "sph_harm_y"):
+        return sp.sph_harm_y(n, m, theta, phi)
+    return sp.sph_harm(m, n, phi, theta)
+
+
+def _y_tables(dirs, lmax):
+    """``Y_l^s`` of the directions of the rows of *dirs* ``(C, 3)`` for
+    ``0 <= l <= lmax``, ``|s| <= l``: complex ``(C, lmax+1, 2 lmax+1)``
+    indexed ``[c, l, s + lmax]`` (``helmholtz3d.py:63-70``, vectorised)."""
+    t = np.asarray(dirs, np.float64)
+    r = np.linalg.norm(t, axis=1)
+    theta = np.arccos(np.clip(t[:, 2] / r, -1, 1))
+    phi = np.arctan2(t[:, 1], t[:, 0])
+    ell = np.concatenate([[lv] * (2 * lv + 1) for lv in range(lmax + 1)])
+    s = np.concatenate([np.arange(-lv, lv + 1) for lv in range(lmax + 1)])
+    out = np.zeros((len(t), lmax + 1, 2 * lmax + 1), np.complex128)
+    out[:, ell, s + lmax] = _sph_harm_y(ell[None, :], s[None, :],
+                                        theta[:, None], phi[:, None])
+    return out
+
+
+class Helmholtz3DTreeIndependentDataForWrangler(
+        TreeIndependentDataForWrangler):
+    """Order, wavenumber, and the Gaunt / normalisation tables shared by
+    every tree (``helmholtz3d.py:73-140``)."""
+
+    def __init__(self, helmholtz_k, order):
+        self.dim = 3
+        self.k = complex(helmholtz_k)
+        if self.k.imag == 0:
+            self.k = float(helmholtz_k)
+        self.order = p = order
+        self.nm_n = np.concatenate(
+            [[n] * (2 * n + 1) for n in range(p + 1)]).astype(np.int64)
+        self.nm_m = np.concatenate(
+            [np.arange(-n, n + 1) for n in range(p + 1)])
+        K = len(self.nm_n)
+
+        # D_nm: Y_n^m = D_nm A_n^m, pinned at one generic direction (both
+        # bases carry e^{im phi}, so the ratio is a real constant)
+        theta0, phi0 = 1.1, 0.7
+        u = np.array([np.sin(theta0) * np.cos(phi0),
+                      np.sin(theta0) * np.sin(phi0),
+                      np.cos(theta0)])
+        a_vals = sh.regular(u[:, None], p)[0]          # (K,)
+        d = np.empty(K)
+        for i in range(K):
+            y = _sph_harm_y(int(self.nm_n[i]), int(self.nm_m[i]),
+                            theta0, phi0)
+            ratio = y / a_vals[i]
+            assert abs(ratio.imag) < 1e-10 * abs(ratio)
+            d[i] = ratio.real
+        self.D = d
+
+        # Gaunt tensor G[(n,m),(nu,mu),q] = int Y_n^m conj(Y_nu^mu)
+        # conj(Y_q^{m-mu}) dOmega by exact Gauss-Legendre quadrature, zero
+        # outside the selection rules (the quadrature's 1e-16 noise there
+        # would be amplified by the D ratios)
+        qmax = 2 * p
+        nodes, weights = np.polynomial.legendre.leggauss(2 * p + 2)
+        theta_i = np.arccos(nodes)
+        yh = np.zeros((qmax + 1, 2 * qmax + 1, len(nodes)))
+        for ell in range(qmax + 1):
+            for s in range(-ell, ell + 1):
+                yh[ell, s + qmax] = _sph_harm_y(ell, s, theta_i, 0.0).real
+        ynm_i = yh[self.nm_n, self.nm_m + qmax]        # (K, i)
+        s_idx = (self.nm_m[:, None] - self.nm_m[None, :]) + qmax  # (K,K)
+        gaunt = np.zeros((K, K, qmax + 1))
+        w = weights * 2 * np.pi
+        n_a = self.nm_n[:, None]
+        n_b = self.nm_n[None, :]
+        s_ab = self.nm_m[:, None] - self.nm_m[None, :]
+        for q in range(qmax + 1):
+            yq = yh[q][s_idx]                          # (K, K, i)
+            g = np.einsum("ai,bi,abi,i->ab", ynm_i, ynm_i, yq, w)
+            keep = ((q >= np.abs(n_a - n_b)) & (q <= n_a + n_b)
+                    & (((n_a + n_b + q) % 2) == 0)
+                    & (np.abs(s_ab) <= q))
+            gaunt[:, :, q] = np.where(keep, g, 0.0)
+        self.gaunt = gaunt
+        self.qmax = qmax
+        # i^{nu - n} (rows = output nu, cols = input n)
+        self.phase_pair = (1j) ** (
+            self.nm_n[:, None] - self.nm_n[None, :])
+        # the (in, out) pairs of each s = m_in - m_out, for the batched
+        # q-sum
+        self._s_groups = [np.nonzero(s_idx.ravel() == s)[0]
+                          for s in range(2 * qmax + 1)]
+        self._y_cache = {}
+
+    # {{{ batched operator builds
+
+    def _y_table(self, dirs):
+        """:func:`_y_tables` of *dirs*, kept for integer *dirs*: the M2L
+        classes name the same directions at every level."""
+        dirs = np.ascontiguousarray(dirs)
+        if dirs.dtype.kind not in "iu":
+            return _y_tables(dirs, self.qmax)
+        key = (dirs.shape, dirs.tobytes())
+        if key not in self._y_cache:
+            self._y_cache[key] = _y_tables(dirs, self.qmax)
+        return self._y_cache[key]
+
+    def translation_operators(self, dirs, fhat, pw=None, device="cpu"):
+        """``(C, K, K)`` [out, in] translation operators in the A basis
+        for translations along the rows of *dirs* ``(C, 3)``, from the
+        radial table *fhat* ``(C, qmax+1)`` and an optional per-q
+        multiplier *pw* ``(K, K, qmax+1)`` in (in, out) orientation
+        (``helmholtz3d.py:142-172`` for a batch): a complex128 tensor on
+        *device*."""
+        K = len(self.nm_n)
+        Q = self.qmax + 1
+        coef = ((1j) ** np.arange(Q))[None, :] * np.asarray(fhat)
+        f = torch.as_tensor(self._y_table(dirs).transpose(0, 2, 1)
+                            * coef[:, None, :], device=device)  # (C, S, Q)
+        g = self.gaunt.reshape(K * K, Q)
+        if pw is not None:
+            g = g * np.asarray(pw).reshape(K * K, Q)
+        g = torch.as_tensor(g, dtype=torch.complex128, device=device)
+        t_in_out = f.new_zeros(f.shape[0], K * K)
+        for s, idx_np in enumerate(self._s_groups):
+            idx = torch.as_tensor(idx_np, device=device)
+            t_in_out[:, idx] = f[:, s] @ g[idx].T
+        t = (4 * np.pi) * t_in_out.reshape(-1, K, K).transpose(1, 2)
+        # [out, in]; Y basis -> A basis: T_A = D_out T_Y D_in^-1
+        d = torch.as_tensor(self.D, device=device)
+        phase = torch.as_tensor(self.phase_pair, device=device)
+        return (d[:, None] * (t * phase)) / d[None, :]
+
+    def _x(self, ts):
+        return self.k * np.linalg.norm(np.asarray(ts, np.float64), axis=1)
+
+    def _check_real_k(self):
+        if not isinstance(self.k, float):
+            raise NotImplementedError("rscale with complex helmholtz_k")
+
+    def _scaled_table(self, xs, fn, s):
+        """``fn(x, qmax, s)`` for every x of *xs*, evaluated once per
+        distinct value."""
+        uniq, inv = np.unique(xs, return_inverse=True)
+        return np.stack([fn(x, self.qmax, s) for x in uniq])[inv]
+
+    def translation_matrices(self, ts, kind, device="cpu", dirs=None):
+        """Unscaled operators for translations *ts* ``(C, 3)``: *kind*
+        ``"J"`` (regular: M2M/L2L) or ``"H"`` (M2L)
+        (``helmholtz3d.py:174-186``).  *dirs* (default *ts*) are vectors
+        along *ts* that name their directions exactly (the integer M2L
+        classes)."""
+        from scipy import special as sp
+        q = np.arange(self.qmax + 1)
+        x = self._x(ts)[:, None]
+        fq = sp.spherical_jn(q, x)
+        if kind == "H":
+            fq = fq + 1j * sp.spherical_yn(q, x)
+        return self.translation_operators(
+            ts if dirs is None else dirs, fq, device=device)
+
+    def m2m_matrices_scaled(self, ts, r_c, r_p, device="cpu"):
+        """``helmholtz3d.py:202-214`` for a batch."""
+        self._check_real_k()
+        fhat = self._scaled_table(self._x(ts), sbh.spherical_jn_scaled, r_c)
+        na = self.nm_n[:, None, None]
+        nb = self.nm_n[None, :, None]
+        q = np.arange(self.qmax + 1)[None, None, :]
+        pw = (r_c ** np.maximum(q + na - nb, 0)
+              * (r_c / r_p) ** nb.astype(np.float64))
+        return self.translation_operators(ts, fhat, pw, device)
+
+    def l2l_matrices_scaled(self, ts, r_p, r_c, device="cpu"):
+        """``helmholtz3d.py:216-227`` for a batch."""
+        self._check_real_k()
+        fhat = self._scaled_table(self._x(ts), sbh.spherical_jn_scaled, r_c)
+        na = self.nm_n[:, None, None]
+        nb = self.nm_n[None, :, None]
+        q = np.arange(self.qmax + 1)[None, None, :]
+        pw = (r_c ** np.maximum(q + nb - na, 0)
+              * (r_c / r_p) ** na.astype(np.float64))
+        return self.translation_operators(ts, fhat, pw, device)
+
+    def m2l_matrices_scaled(self, ts, r, device="cpu", dirs=None):
+        """``helmholtz3d.py:229-239`` for a batch."""
+        self._check_real_k()
+        fhat = self._scaled_table(self._x(ts), sbh.spherical_hn1_scaled, r)
+        na = self.nm_n[:, None, None]
+        nb = self.nm_n[None, :, None]
+        q = np.arange(self.qmax + 1)[None, None, :]
+        pw = r ** np.maximum(na + nb - q, 0)
+        return self.translation_operators(ts if dirs is None else dirs, fhat,
+                                          pw, device)
+
+    # }}}
+
+
+class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
+    """3D Helmholtz FMM wrangler on complex128 coefficients (see module
+    doc); the counterpart of ``boxtree_tpu``'s wrangler of the same
+    name."""
+
+    dtype = torch.complex128
+    _supports_rscale = True
+
+    def __init__(self, tree_indep, traversal, **kwargs):
+        self.order = tree_indep.order
+        self.k = tree_indep.k
+        if kwargs.get("dtype") is not None and \
+                as_torch_dtype(kwargs["dtype"]) != torch.complex128:
+            raise NotImplementedError(
+                "the Helmholtz wrangler is ported in complex128 only")
+        super().__init__(tree_indep, traversal, **kwargs)
+        ti = tree_indep
+        self._w_nm = torch.as_tensor(4 * np.pi * 1j * ti.k * ti.D ** 2,
+                                     device=self.device)
+
+    def _rscale_factor(self):
+        return abs(self.k)
+
+    def _ncoeff(self):
+        return sh.ncoeffs(self.order)
+
+    # {{{ operators (helmholtz3d.py:266-279), batched
+
+    def _m2m_matrices(self, ts, r_child, r_parent):
+        ti = self.tree_indep
+        if r_child == 1.0 and r_parent == 1.0:
+            return ti.translation_matrices(ts, "J", self.device)
+        return ti.m2m_matrices_scaled(ts, r_child, r_parent, self.device)
+
+    def _l2l_matrices(self, ts, r_parent, r_child):
+        ti = self.tree_indep
+        if r_child == 1.0 and r_parent == 1.0:
+            return ti.translation_matrices(ts, "J", self.device)
+        return ti.l2l_matrices_scaled(ts, r_parent, r_child, self.device)
+
+    def _m2l_matrices(self, classes, size, r):
+        ti = self.tree_indep
+        ts = classes * size
+        if r == 1.0:
+            return ti.translation_matrices(ts, "H", self.device, classes)
+        return ti.m2l_matrices_scaled(ts, r, self.device, classes)
+
+    # }}}
+
+    # {{{ particle hooks (helmholtz3d.py:316-339)
+
+    def _p2m_terms(self, rel, q, scale):
+        pw = hops.dpow(scale, -1, self.order)
+        r, ok, a = hops.angular(rel * scale, self.order)
+        basis = hops.radial_j(r, self.k, self.order) * torch.conj(a) * pw
+        qw = q[..., None] * self._w_nm
+        # r = 0 exact limit: j_n(0) = delta_n0, A_0^0 = 1 (scale^0 = 1)
+        zero_lim = torch.zeros_like(qw)
+        zero_lim[..., 0] = qw[..., 0]
+        return torch.where(ok[..., None], qw * basis, zero_lim)
+
+    def _l2p_eval(self, rel, loc, scale):
+        pw = hops.dpow(scale, -1, self.order)
+        r, ok, a = hops.angular(rel * scale, self.order)
+        basis = hops.radial_j(r, self.k, self.order) * a * pw
+        return torch.where(ok, (loc * basis).sum(-1), loc[..., 0])
+
+    # }}}
+
+    # {{{ list-stage hooks: the K9-K11 kernels
+
+    def _p2p(self, target_boxes, starts, lists, q):
+        tree = self.tree
+        return hops.p2p_helmholtz3d(
+            self._targets, self._sources, q.contiguous(),
+            tree.box_target_starts, tree.box_target_counts_nonchild,
+            tree.box_source_starts, tree.box_source_counts_nonchild,
+            target_boxes, starts, lists, self.k)
+
+    def _m2p(self, rows, starts, lists, mpole_exps):
+        tree = self.tree
+        return hops.m2p_helmholtz3d(
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, rows, starts, lists,
+            mpole_exps.contiguous(), self.centers, self.box_scale, self.k,
+            self.order)
+
+    def _p2l(self, rows, starts, lists, q, out):
+        tree = self.tree
+        return hops.p2l_helmholtz3d(
+            self._sources, q.contiguous(), tree.box_source_starts,
+            tree.box_source_counts_nonchild, rows, starts, lists,
+            self.centers, self.box_scale, self._w_nm, self.k, self.order,
+            out)
+
+    # }}}
+
+
+def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
+                            **kwargs):
+    """Helmholtz wrangler for *traversal* (``boxtree_tpu/models/
+    helmholtz3d.py:526-572``).  The port covers the complex 3D wrangler
+    (``pairs=None`` or ``False``) with a real *helmholtz_k*; ``pairs=True``,
+    2D, ``dipole_vec``, ``level_to_order``, a complex *helmholtz_k* and
+    dtypes other than complex128 raise :class:`NotImplementedError`.
+    Other keyword arguments (``rscale``, ``dtype``) go to the wrangler."""
+    dim = traversal.tree.dimensions
+    if dim != 3:
+        raise NotImplementedError(f"no Helmholtz wrangler for dim={dim} yet")
+    if pairs:
+        raise NotImplementedError("the real-pair Helmholtz wrangler is not "
+                                  "ported yet; use pairs=False")
+    if kwargs.pop("dipole_vec", None) is not None:
+        raise NotImplementedError("dipole sources are not ported yet")
+    if kwargs.pop("level_to_order", None) is not None:
+        raise NotImplementedError("level_to_order is not ported yet")
+    ti = Helmholtz3DTreeIndependentDataForWrangler(helmholtz_k, order)
+    if not isinstance(ti.k, float):
+        if kwargs.get("rscale") is not None:
+            # the reference's own limit (helmholtz3d.py:198-200)
+            raise NotImplementedError("rscale with complex helmholtz_k")
+        raise NotImplementedError("complex helmholtz_k is not ported yet")
+    return Helmholtz3DExpansionWrangler(ti, traversal, **kwargs)

@@ -93,11 +93,20 @@ class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
             mat = mat * ((r_child / r_parent) ** ti.nm_n)[:, None]
         return sh.pair_matrix(mat)
 
-    def _m2l_matrices(self, ts, rs):
-        """(nops, K, K) real M2L operators for (nops, 3) translations."""
+    def _m2m_matrices(self, ts, r_child, r_parent):
+        return np.stack([self._m2m_matrix(t, r_child, r_parent)
+                         for t in ts])
+
+    def _l2l_matrices(self, ts, r_parent, r_child):
+        return np.stack([self._l2l_matrix(t, r_parent, r_child)
+                         for t in ts])
+
+    def _m2l_matrices(self, classes, size, r):
+        """(C, K, K) real M2L operators of the translations ``classes *
+        size`` at rscale *r*."""
         ti = self.tree_indep
-        ts = np.asarray(ts, np.float64)
-        rs = np.asarray(rs, np.float64)
+        ts = np.asarray(classes * size, np.float64)
+        rs = np.full(len(ts), r)
         sb = sh.irregular(ts.T / rs[None, :], 2 * self.order)
         n_sum = ti.nm_n[:, None] + ti.nm_n[None, :]
         m_sum = ti.nm_m[:, None] + ti.nm_m[None, :]
@@ -109,13 +118,13 @@ class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
 
     # {{{ particle hooks (laplace.py:581-593)
 
-    def _p2m_terms(self, rel, q):
+    def _p2m_terms(self, rel, q, scale):
         # conj(R) * q  ->  [Rr | -Ri] * q
         rp = sh.regular_pairs(rel, self.order)
         k = sh.ncoeffs(self.order)
         return torch.cat([rp[..., :k], -rp[..., k:]], dim=-1) * q[..., None]
 
-    def _l2p_eval(self, rel, loc):
+    def _l2p_eval(self, rel, loc, scale):
         # Re(sum conj(R) * loc) = Rr.lr + Ri.li
         rp = sh.regular_pairs(rel, self.order)
         k = sh.ncoeffs(self.order)

@@ -1,0 +1,284 @@
+"""The particle-pair stages of the 3D Helmholtz FMM: P2P (List 1), M2P
+(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin, in
+complex128 (coordinates float64).
+
+Kernel ``G(t, s) = exp(ik|t - s|) / |t - s|`` for a real wavenumber k; the
+basis is that of :mod:`boxtree_torch.models.helmholtz3d`: ``h_n(k r)
+A_n^m(u)`` with ``A_n^m`` the regular solid harmonics on the unit sphere.
+Each wrapper takes the tree's particle arrays in tree order, the per-box
+particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and a CSR list
+whose rows name boxes.  On CPU tensors it runs the plain PyTorch twin; on
+CUDA tensors it launches the hand-written kernel of
+``csrc/helmholtz3d.cu`` or raises.
+
+- P2P: ``phi(t) = sum q_s exp(ik r)/r``, ``r = 0`` skipped
+  (``boxtree_tpu/models/helmholtz3d.py:362-368``).
+- M2P: ``phi(t) += sum M_nm(b) h_n(k r) s^n A_n^m(u)`` with ``r u = ((t -
+  c_b) / s) s``, 0 at ``r = 0`` (``helmholtz3d.py:341-349``).
+- P2L: ``L_nm(b) += sum q_s w_nm h_n(k r) s^n conj(A_n^m(u))`` with ``r u
+  = ((x_s - c_b) / s) s`` (``helmholtz3d.py:351-360``).
+
+``s`` is the box's rscale (the source box's for M2P, the target box's for
+P2L); the hooks of the reference receive ``rel`` divided by it and work on
+``rel * s``, which the twins and the kernels repeat.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from boxtree_torch.ops import kernels
+from boxtree_torch.ops import solid_harmonics as sh
+from boxtree_torch.ops import spherical_bessel as sb
+from boxtree_torch.ops.laplace3d import _blocks, _edges, _max_count
+
+#: element budget of one chunk's largest temporary in the plain twins
+_PLAIN_CHUNK_ELEMS = 1 << 23
+#: the kernels' threads per CTA (one warp), as in csrc/helmholtz3d.cu
+_KERNEL_THREADS = 32
+
+
+# {{{ the basis, shared with the wrangler's P2M / L2P hooks
+
+def angular(rel, order):
+    """``(r, ok, A)`` of (3, ...) offsets: the length, ``r > 0``, and the
+    regular harmonics of the unit direction, complex ``(..., (p+1)^2)``;
+    ``r = 0`` takes the direction (0, 0, 1) (``helmholtz3d.py:285-293``)."""
+    r2 = (rel * rel).sum(0)
+    ok = r2 > 0
+    r = torch.sqrt(torch.where(ok, r2, torch.ones_like(r2)))
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=rel.dtype, device=rel.device)
+    u = torch.where(ok, rel, up.reshape((3,) + (1,) * (rel.ndim - 1))) / r
+    a = sh.regular_pairs(u, order)
+    k = sh.ncoeffs(order)
+    return r, ok, torch.complex(a[..., :k], a[..., k:])
+
+
+def nm_orders(order, device):
+    """(n of each coefficient) as an int64 tensor."""
+    n = torch.arange(order + 1, device=device)
+    return torch.repeat_interleave(n, 2 * n + 1)
+
+
+def radial_j(r, k, order):
+    """``j_n(k r)`` over the coefficient axis, ``(..., (p+1)^2)``."""
+    return sb.spherical_jn(k * r, order)[..., nm_orders(order, r.device)]
+
+
+def radial_h(r, k, order):
+    """``h^(1)_n(k r)`` over the coefficient axis (complex)."""
+    return sb.spherical_hn1(k * r, order)[..., nm_orders(order, r.device)]
+
+
+def dpow(scale, sign, order):
+    """``scale^(sign n)`` over the coefficient axis."""
+    n = nm_orders(order, scale.device).to(scale.dtype)
+    return scale[..., None] ** (sign * n)
+
+
+def m2p_eval(rel, mp, scale, k, order):
+    """Potentials of multipoles *mp* at offsets *rel* pre-divided by
+    *scale* (``helmholtz3d.py:341-349``)."""
+    pw = dpow(scale, +1, order)
+    r, ok, a = angular(rel * scale, order)
+    basis = radial_h(r, k, order) * a * pw
+    return torch.where(ok, (mp * basis).sum(-1), 0)
+
+
+def p2l_terms(rel, q, scale, w_nm, k, order):
+    """Local coefficients of charges *q* at offsets *rel* pre-divided by
+    *scale* (``helmholtz3d.py:351-360``)."""
+    pw = dpow(scale, +1, order)
+    r, ok, a = angular(rel * scale, order)
+    basis = radial_h(r, k, order) * torch.conj(a) * pw
+    terms = q[..., None] * w_nm * basis
+    return torch.where(ok[..., None], terms, 0)
+
+# }}}
+
+
+def _check_args(k, order, dtype):
+    if dtype != torch.complex128:
+        raise TypeError(f"the Helmholtz kernels take complex128, not {dtype}")
+    if not isinstance(k, float):
+        raise TypeError("the Helmholtz kernels take a real wavenumber")
+    smem = (sh.ncoeffs(order) + (order + 1) * _KERNEL_THREADS) * 16 + 32
+    if smem > 48 * 1024:
+        raise ValueError(f"order {order} needs {smem} bytes of shared "
+                         f"memory per CTA; the kernels take up to 48 KiB")
+
+
+# {{{ P2P
+
+def p2p_helmholtz3d_plain(targets, sources, charges, box_target_starts,
+                          box_target_counts_nonchild, box_source_starts,
+                          box_source_counts_nonchild, target_boxes, starts,
+                          lists, k):
+    """Plain twin of :func:`p2p_helmholtz3d`."""
+    out = charges.new_zeros(targets.shape[1])
+    tbox, sbox = _edges(starts, lists, target_boxes)
+    if tbox.numel() == 0:
+        return out
+    pt = _max_count(box_target_counts_nonchild, tbox)
+    ps = _max_count(box_source_counts_nonchild, sbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * ps))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
+                              tb, pt)
+        sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
+                              sb_, ps)
+        q = torch.where(smask, charges[sidx], 0)
+        diff = targets[:, tidx][..., :, None] - sources[:, sidx][..., None, :]
+        r2 = (diff * diff).sum(0)                       # (E, pt, ps)
+        ok = r2 > 0
+        r = torch.sqrt(torch.where(ok, r2, torch.ones_like(r2)))
+        kr = k * r
+        g = torch.where(ok, torch.complex(torch.cos(kr), torch.sin(kr)) / r,
+                        0)
+        vals = (g * q[:, None, :]).sum(-1)               # (E, pt)
+        out.index_add_(0, tidx[tmask], vals[tmask])
+    return out
+
+
+def p2p_helmholtz3d(targets, sources, charges, box_target_starts,
+                    box_target_counts_nonchild, box_source_starts,
+                    box_source_counts_nonchild, target_boxes, starts, lists,
+                    k):
+    """List-1 potentials (tree-order targets) of ``exp(ik|t - s|)/|t -
+    s|``; the K9 kernel on CUDA tensors."""
+    args = (targets, sources, charges, box_target_starts,
+            box_target_counts_nonchild, box_source_starts,
+            box_source_counts_nonchild, target_boxes, starts, lists)
+    if targets.device.type == "cpu":
+        return p2p_helmholtz3d_plain(*args, k)
+    _check_args(k, 0, charges.dtype)
+    kernels.check_tensors(targets, sources, dtype=torch.float64)
+    kernels.check_tensors(charges, dtype=torch.complex128)
+    kernels.check_tensors(*args[3:], dtype=torch.int32)
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_helmholtz3d", torch.complex128, targets, targets.shape[1],
+        sources, sources.shape[1], charges, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, k, out)
+    return out
+
+# }}}
+
+
+# {{{ M2P
+
+def m2p_helmholtz3d_plain(targets, box_target_starts,
+                          box_target_counts_nonchild, rows, starts, lists,
+                          mpoles, centers, box_scale, k, order):
+    """Plain twin of :func:`m2p_helmholtz3d`."""
+    out = mpoles.new_zeros(targets.shape[1])
+    tbox, sbox = _edges(starts, lists, rows)
+    if tbox.numel() == 0:
+        return out
+    kc = sh.ncoeffs(order)
+    pt = _max_count(box_target_counts_nonchild, tbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * kc))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
+                              tb, pt)
+        s = box_scale[sb_][:, None]                      # (E, 1)
+        rel = (targets[:, tidx] - centers[:, sb_][..., None]) / s
+        val = m2p_eval(rel, mpoles[sb_][:, None, :], s.expand(rel.shape[1:]),
+                       k, order)
+        out.index_add_(0, tidx[tmask], val[tmask])
+    return out
+
+
+def m2p_helmholtz3d(targets, box_target_starts, box_target_counts_nonchild,
+                    rows, starts, lists, mpoles, centers, box_scale, k,
+                    order):
+    """List-3 potentials (tree-order targets) from the multipoles of the
+    listed source boxes; rows name target boxes.  The K10 kernel on CUDA
+    tensors."""
+    args = (targets, box_target_starts, box_target_counts_nonchild, rows,
+            starts, lists, mpoles, centers, box_scale)
+    if targets.device.type == "cpu":
+        return m2p_helmholtz3d_plain(*args, k, order)
+    _check_args(k, order, mpoles.dtype)
+    kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(mpoles, dtype=torch.complex128)
+    kernels.check_tensors(*args[1:6], dtype=torch.int32)
+    if mpoles.shape != (centers.shape[1], sh.ncoeffs(order)):
+        raise ValueError("mpoles must be (nboxes, (order + 1)**2)")
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "m2p_helmholtz3d", torch.complex128, targets, targets.shape[1],
+        box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
+        starts, lists, mpoles, centers, centers.shape[1], box_scale, k,
+        order, out)
+    return out
+
+# }}}
+
+
+# {{{ P2L
+
+def p2l_helmholtz3d_plain(sources, charges, box_source_starts,
+                          box_source_counts_nonchild, rows, starts, lists,
+                          centers, box_scale, w_nm, k, order, out):
+    """Plain twin of :func:`p2l_helmholtz3d`."""
+    tbox, sbox = _edges(starts, lists, rows)
+    if tbox.numel() == 0:
+        return out
+    kc = sh.ncoeffs(order)
+    ps = _max_count(box_source_counts_nonchild, sbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (ps * kc))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
+                              sb_, ps)
+        s = box_scale[tb][:, None]                       # (E, 1)
+        rel = (sources[:, sidx] - centers[:, tb][..., None]) / s
+        q = torch.where(smask, charges[sidx], 0)
+        terms = p2l_terms(rel, q, s.expand(rel.shape[1:]), w_nm, k, order)
+        terms = torch.where(smask[..., None], terms, 0)
+        out.index_add_(0, tb, terms.sum(1))
+    return out
+
+
+def p2l_helmholtz3d(sources, charges, box_source_starts,
+                    box_source_counts_nonchild, rows, starts, lists, centers,
+                    box_scale, w_nm, k, order, out):
+    """Add the List-4 local-expansion contributions of the listed source
+    boxes into ``out[rows]`` (``out`` is ``(nboxes, (order+1)^2)``
+    complex128); rows name target-or-target-parent boxes, each at most
+    once.  *w_nm* is the ``(order+1)^2`` complex weight ``4 pi i k D^2``.
+    The K11 kernel on CUDA tensors.  Returns *out*."""
+    args = (sources, charges, box_source_starts,
+            box_source_counts_nonchild, rows, starts, lists, centers,
+            box_scale, w_nm)
+    if sources.device.type == "cpu":
+        return p2l_helmholtz3d_plain(*args, k, order, out)
+    _check_args(k, order, out.dtype)
+    kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(charges, w_nm, out, dtype=torch.complex128)
+    kernels.check_tensors(*args[2:7], dtype=torch.int32)
+    if out.shape != (centers.shape[1], sh.ncoeffs(order)) \
+            or w_nm.shape != (sh.ncoeffs(order),):
+        raise ValueError("out must be (nboxes, (order + 1)**2) and w_nm "
+                         "((order + 1)**2,)")
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2l_helmholtz3d", torch.complex128, sources, sources.shape[1],
+        charges, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
+        w_nm, k, order, out)
+    return out
+
+# }}}

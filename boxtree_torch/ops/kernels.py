@@ -9,10 +9,12 @@ builds everything itself and an edited source rebuilds.  A failed build
 raises with the compiler's output; nothing falls back to the plain PyTorch
 versions.
 
-Every C entry point takes its pointers and the CUDA stream as ``void*`` and
-its sizes as ``long long``, launches on PyTorch's current stream, and
-returns ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and
-otherwise adds one to the kernel's launch count.
+Every C entry point takes its pointers and the CUDA stream as ``void*``,
+its sizes as ``long long`` and its real parameters as ``double``, launches
+on PyTorch's current stream, and returns ``cudaGetLastError()``;
+:func:`launch` checks the arguments before it builds anything, raises if
+the entry point returns non-zero, and otherwise adds one to the kernel's
+launch count.
 """
 
 from __future__ import annotations
@@ -35,10 +37,8 @@ LIBRARY_NAME = "libboxtree_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: kernel name -> C argument kinds ('p' pointer, 'i' long long); every
-#: entry point takes the CUDA stream as a trailing pointer, and exists once
-#: per float type (``<name>_f32``, ``<name>_f64``) unless it is in
-#: :data:`INTEGER_KERNELS`
+#: kernel name -> C argument kinds ('p' pointer, 'i' long long, 'd'
+#: double); every entry point takes the CUDA stream as a trailing pointer
 SIGNATURES = {
     "morton_encode": "pippiiipp",
     "p2p_laplace3d": "pipippppppipppp",
@@ -48,19 +48,37 @@ SIGNATURES = {
     "area_query_sweep": "ppipippippppippppp",
     "space_invader_sweep": "ppipippippppippppp",
     "peer_lists": "pppiiipppip",
+    "p2p_helmholtz3d": "pipippppppippdpp",
+    "m2p_helmholtz3d": "pipppippppipdipp",
+    "p2l_helmholtz3d": "pippppipppippdipp",
 }
 
-#: kernels on integer data only: one entry point ``<name>``, launched with
-#: ``dtype=None``
-INTEGER_KERNELS = frozenset({"restrict_demand", "peer_lists"})
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex128: "c128"}
+_FLOATS = (torch.float32, torch.float64)
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: kernel name -> the dtypes it has an entry point ``<name>_<suffix>``
+#: for; an empty tuple marks a kernel on integer data only, with one entry
+#: point ``<name>``, launched with ``dtype=None``
+DTYPES = {
+    "morton_encode": _FLOATS,
+    "p2p_laplace3d": _FLOATS,
+    "m2p_laplace3d": _FLOATS,
+    "p2l_laplace3d": _FLOATS,
+    "restrict_demand": (),
+    "area_query_sweep": _FLOATS,
+    "space_invader_sweep": _FLOATS,
+    "peer_lists": (),
+    "p2p_helmholtz3d": (torch.complex128,),
+    "m2p_helmholtz3d": (torch.complex128,),
+    "p2l_helmholtz3d": (torch.complex128,),
+}
 
 
 def _entry_names(name):
-    if name in INTEGER_KERNELS:
+    if not DTYPES[name]:
         return [name]
-    return [f"{name}_{suffix}" for suffix in _SUFFIX.values()]
+    return [f"{name}_{_SUFFIX[dt]}" for dt in DTYPES[name]]
 
 
 def _find_nvcc():
@@ -143,7 +161,8 @@ class KernelLibrary:
             if self._lib is None:
                 self.path = self._build()
                 lib = ctypes.CDLL(str(self.path))
-                kinds = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
+                kinds = {"p": ctypes.c_void_p, "i": ctypes.c_longlong,
+                         "d": ctypes.c_double}
                 for name, sig in SIGNATURES.items():
                     for entry in _entry_names(name):
                         fn = getattr(lib, entry)
@@ -155,32 +174,40 @@ class KernelLibrary:
             return self._lib
 
     def launch(self, name, dtype, *args):
-        """Launch kernel *name* for float *dtype* (None for the integer
-        kernels): tensors pass as device pointers, ints as ``long long``,
+        """Launch kernel *name* for *dtype* (None for the integer
+        kernels): tensors pass as device pointers (a complex tensor as its
+        interleaved (re, im) values, so it must be contiguous and carry no
+        lazy conjugation), ints as ``long long``, floats as ``double``,
         PyTorch's current stream last."""
         sig = SIGNATURES[name]
-        if name in INTEGER_KERNELS:
+        if not DTYPES[name]:
             if dtype is not None:
                 raise TypeError(f"{name} takes no float dtype")
             entry = name
-        elif dtype in _SUFFIX:
+        elif dtype in DTYPES[name]:
             entry = f"{name}_{_SUFFIX[dtype]}"
         else:
             raise TypeError(f"{name}: unsupported dtype {dtype}")
         if len(args) != len(sig) - 1:
             raise TypeError(f"{name}: expected {len(sig) - 1} arguments, "
                             f"got {len(args)}")
-        lib = self.load()
         cargs = []
         device = None
         for kind, arg in zip(sig, args):
             if kind == "p":
                 if not isinstance(arg, torch.Tensor):
                     raise TypeError(f"{name}: expected a tensor argument")
+                if arg.is_complex() and not (arg.is_contiguous()
+                                             and not arg.is_conj()):
+                    raise ValueError(f"{name}: a complex argument must be "
+                                     "contiguous and not lazily conjugated")
                 device = arg.device
                 cargs.append(arg.data_ptr())
+            elif kind == "d":
+                cargs.append(float(arg))
             else:
                 cargs.append(int(arg))
+        lib = self.load()
         cargs.append(torch.cuda.current_stream(device).cuda_stream)
         err = getattr(lib, entry)(*cargs)
         if err != 0:

@@ -311,15 +311,32 @@ def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
 
 # {{{ host driver
 
+def _default_device(particles):
+    """The device of a tree whose caller names none: a tensor's own (or
+    that of a list of tensors), else the CUDA device.  Without one, a
+    non-tensor input raises rather than landing on the CPU unasked."""
+    if isinstance(particles, torch.Tensor):
+        return particles.device
+    if (isinstance(particles, (list, tuple)) and particles
+            and all(isinstance(p, torch.Tensor) for p in particles)):
+        return particles[0].device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_tree: no CUDA device for these particles; pass "
+            "device='cpu' to build the tree on the CPU")
+    return torch.device("cuda")
+
+
 def _as_coord_tensor(particles, device):
+    if device is None:
+        device = _default_device(particles)
     if isinstance(particles, (list, tuple)):
         particles = torch.stack([torch.as_tensor(p) for p in particles])
     if isinstance(particles, torch.Tensor):
         arr = particles
     else:
         arr = torch.as_tensor(np.asarray(particles))
-    if device is not None:
-        arr = arr.to(device)
+    arr = arr.to(device)
     if arr.ndim != 2:
         raise ValueError("particles must be (dimensions, nparticles)")
     if arr.dtype not in (torch.float32, torch.float64):
@@ -335,7 +352,9 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
     """Build a :class:`Tree` of *particles* (``(dimensions, n)``).
 
     The arguments are those of ``boxtree_tpu.build_tree``; the tree lives
-    on *device*, or on the device of *particles* when *device* is None.
+    on *device*.  When *device* is None, a tensor input keeps its own
+    device and any other input (numpy, lists) goes to the CUDA device;
+    without one that raises, and ``device="cpu"`` builds on the CPU.
     This port covers the adaptive and the adaptive-level-restricted kinds
     without extents, refined by ``max_particles_in_box``, in the bounding
     box of the particles; the non-adaptive kind, extents,

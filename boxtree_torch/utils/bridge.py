@@ -7,7 +7,8 @@ return the port's containers on a given device, so a test can feed the
 reference's tree and traversal to the port's wrangler.  :func:`to_numpy`
 goes the other way, for every container of the port (trees, traversals,
 and the geometry results ``AreaQueryResult``, ``LeavesToBallsLookup`` and
-``PeerListLookup``).  Nothing here imports JAX.
+``PeerListLookup``) and for tensors of any dtype, complex included (a
+lazily conjugated tensor is conjugated first).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def to_numpy(obj):
     """Tensors become numpy arrays, the port's containers dicts of their
     converted fields, tuples/lists tuples, dtypes numpy dtypes."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        return obj.detach().cpu().resolve_conj().numpy()
     if isinstance(obj, torch.dtype):
         return torch.empty(0, dtype=obj).numpy().dtype
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):

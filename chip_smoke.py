@@ -5,9 +5,9 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives two paths
-of the port on the card, each with the kernels' launch counts set to 0
-just before it and read just after:
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives three
+paths of the port on the card, each with the kernels' launch counts set to
+0 just before it and read just after:
 
 - the main path of ``bench.py``: the counting FMM and the 3D Laplace FMM
   (order 8, real pairs, ``rscale="auto"``, float32) at 1e6 uniform points,
@@ -16,11 +16,16 @@ just before it and read just after:
   (float64), its 2:1 property checked by an area query, the traversal and
   the counting FMM on it, then 1e5 QBX-centre-like balls through the area
   query, leaves-to-balls, the space invader, and the peer lists, each held
-  to a float64 brute force or an oracle (K1, K5-K8).
+  to a float64 brute force or an oracle (K1, K5-K8);
+- the 3D Helmholtz FMM (complex128, order 12, k = 2, ``rscale="auto"``) at
+  1e6 uniform points in float64, checked against a complex128 direct sum
+  at 2,000 sampled targets (K1, K9-K11).
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
-its path, and timed beside it (median of 5 synchronised calls) and beside
-its bound, the least time the card could take for the same work.  Each
+its path (K9-K11 at 1e5 points as well, a shallower tree), and timed
+beside it (median of 5 synchronised calls; 3 for the slow Helmholtz twins
+at 1e6) and beside its bound, the least time the card could take for the
+same work.  Each
 phase prints one JSON line; then come the card's name and power limit as
 ``nvidia-smi`` reports them, the per-kernel summary and, last, the
 ``{"ok": true, ...}`` line.  Any failed phase raises, and the script exits
@@ -44,6 +49,9 @@ REPLACES = {
     "area_query_sweep": "boxtree_tpu/geometry/area_query.py:86",
     "space_invader_sweep": "boxtree_tpu/geometry/area_query.py:259",
     "peer_lists": "boxtree_tpu/geometry/area_query.py:341",
+    "p2p_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:362",
+    "m2p_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:341",
+    "p2l_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:351",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -54,17 +62,29 @@ SOURCES = {
     "area_query_sweep": "boxtree_torch/csrc/area_query.cu",
     "space_invader_sweep": "boxtree_torch/csrc/area_query.cu",
     "peer_lists": "boxtree_torch/csrc/peers.cu",
+    "p2p_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
+    "m2p_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
+    "p2l_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
 }
 MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
                      "p2l_laplace3d")
 CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", "area_query_sweep",
                     "space_invader_sweep", "peer_lists")
+HELMHOLTZ_KERNELS = ("morton_encode", "p2p_helmholtz3d", "m2p_helmholtz3d",
+                     "p2l_helmholtz3d")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
 #: rel l-inf bound of the order-8 float32 FMM against the float64 direct
 #: sum: truncation is 3e-5 to 6e-5, a TF32/bf16 slip shows as ~7e-3
 FMM_RTOL = 1e-3
+#: rel l-inf tolerance of K9-K11 against their twins: float64, with the
+#: Bessel and harmonics recurrences rounded in another order (FMA
+#: contraction) and the sums taken in another order
+HELMHOLTZ_KERNEL_RTOL = 1e-10
+#: rel l-inf bound of the order-12 Helmholtz FMM against the complex128
+#: direct sum (``tests/test_helmholtz3d.py:94-112``'s bar)
+HELMHOLTZ_FMM_RTOL = 1e-5
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes
 #: per second, and float32 / float64 operations per second outside the
@@ -109,9 +129,21 @@ def median_ms(fn, device, reps=5):
 
 def rel_linf(got, ref):
     import torch
-    ref = ref.to(torch.float64)
-    err = (got.to(torch.float64) - ref).abs().max().item()
+    if not ref.is_complex():
+        got, ref = got.to(torch.float64), ref.to(torch.float64)
+    err = (got - ref).abs().max().item()
     return err, err / max(ref.abs().max().item(), 1e-300)
+
+
+def rel_linf_per_coefficient(got, ref):
+    """``(max_abs_err, rel)`` of (boxes, coefficients) expansions, each
+    coefficient's column held to its own largest ``|ref|``: the columns
+    span many decades, so one scale for all would hide the small ones."""
+    import torch
+    err = (got - ref).abs()
+    scale = ref.abs().amax(0)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return err.max().item(), (err.amax(0) / scale).max().item()
 
 
 def bound(work):
@@ -742,6 +774,259 @@ def sweep_profile(tree, centers, radii):
 # }}}
 
 
+# {{{ the Helmholtz FMM (K9-K11)
+
+def helmholtz_inputs(trav, wrangler, q_tree):
+    """K9-K11's wrappers, plain twins and arguments at the shapes the
+    Helmholtz FMM gives them."""
+    from boxtree_torch.ops import helmholtz3d
+
+    w = wrangler
+    tree = trav.tree
+    mpoles = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [q_tree]))
+    l3_rows, l3_starts, l3_lists = w._l3_csr
+    l4_rows, l4_starts, l4_lists = w._l4_csr
+    return {
+        "p2p_helmholtz3d": (
+            helmholtz3d.p2p_helmholtz3d, helmholtz3d.p2p_helmholtz3d_plain,
+            (w._targets, w._sources, q_tree, tree.box_target_starts,
+             tree.box_target_counts_nonchild, tree.box_source_starts,
+             tree.box_source_counts_nonchild, trav.target_boxes,
+             trav.neighbor_source_boxes_starts,
+             trav.neighbor_source_boxes_lists, w.k)),
+        "m2p_helmholtz3d": (
+            helmholtz3d.m2p_helmholtz3d, helmholtz3d.m2p_helmholtz3d_plain,
+            (w._targets, tree.box_target_starts,
+             tree.box_target_counts_nonchild, l3_rows, l3_starts, l3_lists,
+             mpoles, w.centers, w.box_scale, w.k, w.order)),
+        "p2l_helmholtz3d": (
+            lambda *a: helmholtz3d.p2l_helmholtz3d(
+                *a, w.local_expansion_zeros()),
+            lambda *a: helmholtz3d.p2l_helmholtz3d_plain(
+                *a, w.local_expansion_zeros()),
+            (w._sources, q_tree, tree.box_source_starts,
+             tree.box_source_counts_nonchild, l4_rows, l4_starts, l4_lists,
+             w.centers, w.box_scale, w._w_nm, w.k, w.order)),
+    }
+
+
+def helmholtz_work(inputs):
+    """Bytes K9-K11 must move (each input read once, each output written
+    once) and the float64 operations they must do, at *inputs*.
+
+    - K9: per List-1 particle pair, 20 (difference 3, squared norm 5,
+      complex kernel times charge and add 12; the square root, divide and
+      sincos are not counted).
+    - K10: per (target particle, List-3 source box) pair, with ``nc = (p +
+      1)^2`` coefficients: 8 per coefficient (the complex multiply-add of
+      multipole and harmonic into the sum over ``m``), 8 per order ``n``
+      (that sum times the radial factor ``h_n s^n``, added to the
+      potential), 10 per harmonic of order ``m >= 0`` (the recurrence), and
+      3 per step of the Bessel recurrences (``p + 25`` down, ``p`` up,
+      ``p`` scalings).
+    - K11: per (List-4 source particle, target box) pair: 8 per
+      coefficient (the complex multiply-add of ``q h_n s^n`` and the
+      conjugate harmonic into the box's sum over sources; ``w_nm`` is
+      applied once per box, after that sum), 6 per order ``n`` (``q`` times
+      the radial factor), and the same recurrences; then 6 per coefficient
+      of each target box (the ``w_nm`` product).
+    """
+    import torch
+
+    from boxtree_torch.ops.solid_harmonics import ncoeffs
+    from boxtree_torch.traversal.containers import csr_rows
+
+    def row_of(starts, lists):
+        return csr_rows(starts, lists.shape[0])
+
+    out = {}
+    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _) = \
+        inputs["p2p_helmholtz3d"][2]
+    tcn64, scn64 = tcn.to(torch.int64), scn.to(torch.int64)
+    pairs = int((tcn64[tb.to(torch.int64)[row_of(st, ls)]]
+                 * scn64[ls.to(torch.int64)]).sum())
+    out["p2p_helmholtz3d"] = dict(
+        type="float64", particle_pairs=pairs, flops=20 * pairs,
+        bytes=nbytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls)
+        + tgt.shape[1] * q.element_size())
+
+    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order) = \
+        inputs["m2p_helmholtz3d"][2]
+    nc = ncoeffs(order)
+    common = 10 * (order + 1) * (order + 2) // 2 + 3 * (3 * order + 25)
+    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+        row_of(st, ls)]].sum())
+    out["m2p_helmholtz3d"] = dict(
+        type="float64", target_box_pairs=pairs, coefficients=nc,
+        flops=(8 * nc + 8 * (order + 1) + common) * pairs,
+        bytes=nbytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale)
+        + tgt.shape[1] * mp.element_size())
+
+    (src, q, sst, scn, rows, st, ls, centers, scale, w_nm, _, order) = \
+        inputs["p2l_helmholtz3d"][2]
+    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+    locals_bytes = centers.shape[1] * nc * q.element_size()
+    out["p2l_helmholtz3d"] = dict(
+        type="float64", source_box_pairs=pairs, coefficients=nc,
+        flops=((8 * nc + 6 * (order + 1) + common) * pairs
+               + 6 * nc * rows.shape[0]),
+        bytes=nbytes(src, q, sst, scn, rows, st, ls, centers, scale, w_nm)
+        + 2 * locals_bytes)
+    return out
+
+
+def check_helmholtz(inputs, device, plain_reps):
+    """Run K9-K11 and their twins on the same inputs; raise on a mismatch
+    (K11's local coefficients each held to their own column's scale).
+    Returns ``{name: {max_abs_err, rel_err, ms, plain_ms}}``: the kernel's
+    median of 5, the twin's median of *plain_reps*."""
+    results = {}
+    for name, (kernel, plain, args) in inputs.items():
+        got, ref = kernel(*args), plain(*args)
+        err, rel = (rel_linf_per_coefficient if name == "p2l_helmholtz3d"
+                    else rel_linf)(got, ref)
+        if not rel <= HELMHOLTZ_KERNEL_RTOL:
+            raise AssertionError(f"{name}: rel l-inf {rel:.3e} > "
+                                 f"{HELMHOLTZ_KERNEL_RTOL}")
+        del got, ref
+        results[name] = dict(
+            max_abs_err=err, rel_err=rel,
+            ms=median_ms(lambda: kernel(*args), device),
+            plain_ms=median_ms(lambda: plain(*args), device,
+                               reps=plain_reps))
+    return results
+
+
+def direct_sum_helmholtz(sources, charges, targets, k, chunk=1 << 15):
+    """sum_s q_s exp(ik|t - s|) / |t - s| over all sources, r = 0 skipped,
+    in complex128."""
+    import torch
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = targets[:, :, None] - sources[:, None, c0:c0 + chunk]
+        r2 = (d * d).sum(0)
+        ok = r2 > 0
+        r = torch.sqrt(torch.where(ok, r2, 1.0))
+        g = torch.where(ok, torch.polar(1.0 / r, k * r), 0)
+        out += g @ charges[c0:c0 + chunk]
+    return out
+
+
+def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
+                  order=12, nsample=2000):
+    """K9-K11 against their twins at 1e5 points, then the Helmholtz FMM at
+    1e6 uniform points (K1, K9-K11) and K9-K11 against their twins at its
+    shapes; returns the K9-K11 summary entries."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    def complex_charges(rng, n):
+        return torch.as_tensor(rng.standard_normal(n)
+                               + 1j * rng.standard_normal(n), device=device)
+
+    # {{{ kernels vs twins at 1e5 uniform points
+
+    rng = np.random.default_rng(21)
+    pts = torch.as_tensor(rng.random((3, n_kernels)), device=device)
+    q = complex_charges(rng, n_kernels)
+    tree = build_tree(pts, max_particles_in_box=30)
+    trav = build_traversal(tree)
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    if wr._l3_csr is None or not wr._l4_csr[2].numel():
+        raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} points")
+    small = check_helmholtz(helmholtz_inputs(trav, wr, wr.reorder_sources(q)),
+                            device, plain_reps=5)
+    emit({"phase": "kernels_helmholtz_small", "card": card,
+          "points": n_kernels, "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels, "order": order, "k": k,
+          "tolerance_rel_linf": HELMHOLTZ_KERNEL_RTOL,
+          "p2l_helmholtz3d_rel": "per coefficient", "kernels": small})
+    del tree, trav, wr
+
+    # }}}
+
+    # {{{ the path: Helmholtz FMM at 1e6, every kernel counted
+
+    rng = np.random.default_rng(17)
+    pts = torch.as_tensor(rng.random((3, n_main)), device=device)
+    q = complex_charges(rng, n_main)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(pts, max_particles_in_box=30),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    wr, t_setup = timed(lambda: make_helmholtz_wrangler(
+        trav, k, order, pairs=False, rscale="auto"), device)
+    pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    stages = {}
+    _, t_fmm_warm = timed(lambda: drive_fmm(wr, [q], timing_data=stages),
+                          device)
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n_main, nsample, replace=False), device=device)
+    ref = direct_sum_helmholtz(pts, q, pts[:, sample], k)
+    abs_err, rel = rel_linf(pot[sample], ref)
+    finite = bool(torch.isfinite(pot).all())
+    emit({"phase": "helmholtz_fmm", "card": card, "points": n_main,
+          "distribution": "uniform unit cube", "k": k, "order": order,
+          "rscale": "auto", "dtype": "complex128", "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels, "build_s": t_tree,
+          "traversal_s": t_trav, "wrangler_setup_s": t_setup,
+          "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
+          "stage_s": stages,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "sampled_targets": nsample, "rel_linf_vs_c128_direct": rel,
+          "abs_linf": abs_err, "finite": finite,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    if not finite or tuple(pot.shape) != (n_main,) \
+            or pot.dtype != torch.complex128:
+        raise AssertionError("Helmholtz FMM: non-finite or misshapen output")
+    if not rel < HELMHOLTZ_FMM_RTOL:
+        raise AssertionError(f"Helmholtz FMM: rel l-inf {rel:.3e} >= "
+                             f"{HELMHOLTZ_FMM_RTOL}")
+    emit({"phase": "launches", "path": "helmholtz_fmm", "card": card,
+          "launches": launches})
+    missing = [name for name in HELMHOLTZ_KERNELS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the Helmholtz path: "
+                             f"{missing}")
+
+    # }}}
+
+    # the kernels against their twins at the path's own shapes (the twins
+    # of K10 and K11 take seconds a call here: their times are medians of 3)
+    inputs = helmholtz_inputs(trav, wr, wr.reorder_sources(q))
+    work = helmholtz_work(inputs)
+    res = check_helmholtz(inputs, device, plain_reps=3)
+    emit({"phase": "kernels_helmholtz", "card": card, "points": n_main,
+          "order": order, "k": k,
+          "tolerance_rel_linf": HELMHOLTZ_KERNEL_RTOL,
+          "p2l_helmholtz3d_rel": "per coefficient", "kernels": res,
+          "work": work})
+    return [summary_entry(name, launches[name], res[name], work[name])
+            for name in res]
+
+# }}}
+
+
 def _ptxas_summary(log):
     """Registers / spills per kernel from ``nvcc -Xptxas -v``."""
     out, entry = {}, None
@@ -779,8 +1064,9 @@ def main():
 
     entries = run_main_path(device, card)
     b_entries, _ = run_config_b(device, card)
+    h_entries = run_helmholtz(device, card)
     print(card, flush=True)
-    emit({"kernels": entries + b_entries})
+    emit({"kernels": entries + b_entries + h_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,7 +8,10 @@ also runs where only PyTorch is installed::
         tests/test_torch_cuda.py
 
 K1 must be bit-exact; K2-K4 agree with their twins to rel l-inf 1e-5 in
-float32 (rsqrt and another summation order) and 1e-12 in float64.  K5-K8
+float32 (rsqrt and another summation order) and 1e-12 in float64; K9-K11
+(Helmholtz, complex128) to 1e-10, the bar of ``chip_smoke.py`` (Bessel
+recurrences in another rounding, FMA contraction, another summation
+order), and the Helmholtz FMM on the card matches the CPU port to 1e-10.  K5-K8
 (level restriction, area-query sweep, space invader, peer lists) compute
 integers, or a float maximum that does not depend on order, so they must
 equal their twins exactly, and a level-restricted tree built on the card
@@ -29,10 +32,12 @@ from boxtree_torch.geometry import (
 )
 from boxtree_torch.models import (
     ConstantOneExpansionWrangler,
+    make_helmholtz_wrangler,
     make_laplace_wrangler,
 )
 from boxtree_torch.ops import (
     area_query,
+    helmholtz3d,
     kernels,
     laplace3d,
     morton,
@@ -61,8 +66,17 @@ def _sphere(n, seed=11):
 
 
 def _rel(got, ref):
-    ref = ref.double()
-    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    if not ref.is_complex():
+        got, ref = got.double(), ref.double()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _cols_rel(got, ref):
+    """Worst column of (boxes, coefficients) expansions, each held to its
+    own largest ``|ref|``: the columns span many decades."""
+    scale = ref.abs().amax(0)
+    assert (scale > 0).all()
+    return ((got - ref).abs().amax(0) / scale).max().item()
 
 
 @pytest.fixture(scope="module", params=[torch.float32, torch.float64],
@@ -254,5 +268,82 @@ def test_config_b_path_launches_k5_to_k8(geometry):
     assert all(counts[k] > 0 for k in (
         "morton_encode", "restrict_demand", "area_query_sweep",
         "space_invader_sweep", "peer_lists")), counts
+
+# }}}
+
+
+# {{{ K9-K11: the Helmholtz FMM
+
+HELM_RTOL = 1e-10
+
+
+@pytest.fixture(scope="module")
+def helmholtz(device):
+    n = 20000
+    pts = torch.as_tensor(_sphere(n), device=device)
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                        device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto")
+    return trav, w, w.reorder_sources(q), pts, q
+
+
+def test_build_tree_numpy_lands_on_card(device):
+    tree = build_tree(_sphere(1000), max_particles_in_box=30)
+    assert tree.sources.device.type == "cuda"
+
+
+def test_p2p_helmholtz_kernel(helmholtz):
+    trav, w, q = helmholtz[:3]
+    tree = trav.tree
+    args = (w._targets, w._sources, q, tree.box_target_starts,
+            tree.box_target_counts_nonchild, tree.box_source_starts,
+            tree.box_source_counts_nonchild, trav.target_boxes,
+            trav.neighbor_source_boxes_starts,
+            trav.neighbor_source_boxes_lists, w.k)
+    assert _rel(helmholtz3d.p2p_helmholtz3d(*args),
+                helmholtz3d.p2p_helmholtz3d_plain(*args)) <= HELM_RTOL
+
+
+def test_m2p_helmholtz_kernel(helmholtz):
+    trav, w, q = helmholtz[:3]
+    tree = trav.tree
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                            [q]))
+    args = (w._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, *w._l3_csr, mp, w.centers,
+            w.box_scale, w.k, w.order)
+    assert w._l3_csr[0].numel() > 0
+    assert _rel(helmholtz3d.m2p_helmholtz3d(*args),
+                helmholtz3d.m2p_helmholtz3d_plain(*args)) <= HELM_RTOL
+
+
+def test_p2l_helmholtz_kernel(helmholtz):
+    trav, w, q = helmholtz[:3]
+    tree = trav.tree
+    args = (w._sources, q, tree.box_source_starts,
+            tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
+            w.box_scale, w._w_nm, w.k, w.order)
+    assert w._l4_csr[0].numel() > 0
+    got = helmholtz3d.p2l_helmholtz3d(*args, w.local_expansion_zeros())
+    ref = helmholtz3d.p2l_helmholtz3d_plain(*args,
+                                            w.local_expansion_zeros())
+    assert _cols_rel(got, ref) <= HELM_RTOL
+
+
+def test_helmholtz_fmm_on_card_matches_cpu(helmholtz):
+    trav, w, _, pts, q = helmholtz
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [q])
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("p2p_helmholtz3d", "m2p_helmholtz3d",
+                                       "p2l_helmholtz3d")), counts
+    trav_cpu = build_traversal(build_tree(pts.cpu(),
+                                          max_particles_in_box=30))
+    w_cpu = make_helmholtz_wrangler(trav_cpu, 2.0, 12, rscale="auto")
+    ref = drive_fmm(w_cpu, [q.cpu()])
+    assert got.dtype == torch.complex128
+    assert _rel(got.cpu(), ref) <= HELM_RTOL
 
 # }}}

@@ -54,7 +54,8 @@ def _points(kind, dims=3, n=N):
     ("uniform", 3), ("surface", 3), ("clustered", 3), ("surface", 2)])
 def test_counting_fmm_exact(kind, dims):
     pts = _points(kind, dims)
-    trav = build_traversal(build_tree(pts, max_particles_in_box=20))
+    trav = build_traversal(build_tree(pts, max_particles_in_box=20,
+                                         device="cpu"))
     w = ConstantOneExpansionWrangler(None, trav)
     pot = drive_fmm(w, [torch.ones(pts.shape[1], dtype=torch.float64)])
     assert torch.equal(pot, torch.full_like(pot, pts.shape[1]))
@@ -65,7 +66,7 @@ def test_counting_fmm_separate_targets():
     sources = _points("surface")
     targets = rng.random((3, 1000))
     trav = build_traversal(build_tree(sources, targets=targets,
-                                      max_particles_in_box=20))
+                                      max_particles_in_box=20, device="cpu"))
     w = ConstantOneExpansionWrangler(None, trav)
     pot = drive_fmm(w, [torch.ones(N, dtype=torch.float64)])
     assert pot.shape == (1000,)
@@ -82,7 +83,8 @@ def f64_slice():
     pts = _points("surface")
     jtrav = jax_build_traversal(
         boxtree_tpu.build_tree(pts, max_particles_in_box=30))
-    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30,
+                                      device="cpu"))
     return pts, jtrav, trav
 
 
@@ -107,7 +109,8 @@ def test_laplace_slice_f32_matches_reference(charges):
     jw = jax_make_laplace_wrangler(jtrav, order=6, pairs=True,
                                    rscale="auto", dtype=np.float32)
     ref = jax_drive_fmm(jw, [jnp.asarray(q)])
-    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30,
+                                      device="cpu"))
     w = make_laplace_wrangler(trav, order=6, pairs=True, rscale="auto",
                               dtype=torch.float32)
     got = drive_fmm(w, [torch.from_numpy(q)])

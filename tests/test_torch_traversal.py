@@ -92,6 +92,6 @@ def test_lists_3_and_4_populated(traversals):
 ])
 def test_unported_options_raise(kwargs):
     tree = build_tree(np.random.default_rng(0).random((3, 200)),
-                      max_particles_in_box=10)
+                      max_particles_in_box=10, device="cpu")
     with pytest.raises(NotImplementedError):
         build_traversal(tree, **kwargs)

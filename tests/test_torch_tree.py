@@ -116,4 +116,38 @@ def test_coincident_points_raise():
 def test_unported_options_raise(kwargs):
     pts = np.random.default_rng(0).random((3, 100))
     with pytest.raises(NotImplementedError):
-        build_tree(pts, **{"max_particles_in_box": 10, **kwargs})
+        build_tree(pts, **{"max_particles_in_box": 10, "device": "cpu",
+                           **kwargs})
+
+
+# {{{ where the tree lives
+
+def test_numpy_input_without_cuda_raises(monkeypatch):
+    """A numpy input goes to the CUDA device unless the caller names one;
+    without a CUDA device that raises and says how to build on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).random((3, 100))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_tree(pts, max_particles_in_box=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_tree(list(pts), max_particles_in_box=10)
+
+
+@pytest.mark.parametrize("form", ["numpy, device='cpu'", "cpu tensor",
+                                  "list of cpu tensors"])
+def test_cpu_inputs_build_on_cpu(monkeypatch, form):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).random((3, 100))
+    if form == "cpu tensor":
+        tree = build_tree(torch.from_numpy(pts), max_particles_in_box=10)
+    elif form == "list of cpu tensors":
+        tree = build_tree(list(torch.from_numpy(pts)),
+                          max_particles_in_box=10)
+    else:
+        tree = build_tree(pts, max_particles_in_box=10, device="cpu")
+    assert tree.sources.device.type == "cpu"
+    assert tree.box_centers.device.type == "cpu"
+    ref = build_tree(torch.from_numpy(pts), max_particles_in_box=10)
+    assert torch.equal(tree.user_source_ids, ref.user_source_ids)
+
+# }}}
