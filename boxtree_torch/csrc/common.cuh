@@ -17,6 +17,36 @@ __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 __device__ __forceinline__ float floor_t(float x) { return floorf(x); }
 __device__ __forceinline__ double floor_t(double x) { return ::floor(x); }
 
+// IEEE operations rounded to nearest that the compiler never contracts
+// into an FMA: kernels whose results must equal a plain version bit for
+// bit spell their float steps with these
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll

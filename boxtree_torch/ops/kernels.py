@@ -51,6 +51,10 @@ SIGNATURES = {
     "p2p_helmholtz3d": "pipippppppippdpp",
     "m2p_helmholtz3d": "pipppippppipdipp",
     "p2l_helmholtz3d": "pippppipppippdipp",
+    "stick_levels": "ppippiiidpp",
+    "box_extents": "ppiippppiiiippp",
+    "list4_ext": "piippppppipddippppppip",
+    "list3_ext": "iipppppppppddpiiiipppppp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -72,6 +76,10 @@ DTYPES = {
     "p2p_helmholtz3d": (torch.complex128,),
     "m2p_helmholtz3d": (torch.complex128,),
     "p2l_helmholtz3d": (torch.complex128,),
+    "stick_levels": _FLOATS,
+    "box_extents": _FLOATS,
+    "list4_ext": _FLOATS,
+    "list3_ext": _FLOATS,
 }
 
 

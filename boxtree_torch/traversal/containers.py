@@ -3,7 +3,8 @@
 Port of :mod:`boxtree_tpu.traversal.containers`: ``FMMTraversalInfo`` with
 the four basic box lists and their per-level starts, the same-level
 non-well-separated boxes, and Lists 1-4 in CSR form, List 3 stored per
-source level with empty rows compressed.  Field names, dtypes (int32) and
+source level with empty rows compressed, and, for targets with extents,
+the close Lists 3 and 4 over the target rows.  Field names, dtypes (int32) and
 indexing conventions are those of the reference.
 """
 
@@ -106,6 +107,15 @@ class FMMTraversalInfo:
     @property
     def ntarget_or_target_parent_boxes(self):
         return len(self.target_or_target_parent_boxes)
+
+    def merge_close_lists(self, debug=False):
+        """This traversal with the close Lists 3 and 4 merged into List 1
+        (``boxtree_tpu/traversal/containers.py:92-99``); itself when it
+        has no close lists."""
+        if self.from_sep_close_smaller_starts is None:
+            return self
+        from boxtree_torch.traversal.build import merge_close_lists
+        return merge_close_lists(self)
 
     def get_box_list(self, what, index):
         starts = getattr(self, f"{what}_starts")

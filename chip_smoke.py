@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives three
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives four
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -19,7 +19,13 @@ paths of the port on the card, each with the kernels' launch counts set to
   to a float64 brute force or an oracle (K1, K5-K8);
 - the 3D Helmholtz FMM (complex128, order 12, k = 2, ``rscale="auto"``) at
   1e6 uniform points in float64, checked against a complex128 direct sum
-  at 2,000 sampled targets (K1, K9-K11).
+  at 2,000 sampled targets (K1, K9-K11);
+- the QBX extent tree: Config B's 1e6 sphere points as sources and 1e5
+  QBX-like centres with radii as targets (stick-out factor 0.25), the
+  traversal with its close lists, the counting FMM exact with the close
+  lists and after merging them into List 1, and the 3D Laplace FMM (order
+  10, float64) against a float64 direct sum at 2,000 sampled centres (K1-K4,
+  K12-K15).
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11 at 1e5 points as well, a shallower tree), and timed
@@ -52,6 +58,10 @@ REPLACES = {
     "p2p_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:362",
     "m2p_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:341",
     "p2l_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:351",
+    "stick_levels": "boxtree_tpu/tree/build.py:85",
+    "box_extents": "boxtree_tpu/tree/build.py:536",
+    "list4_ext": "boxtree_tpu/traversal/build.py:264",
+    "list3_ext": "boxtree_tpu/traversal/build.py:398",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -65,11 +75,18 @@ SOURCES = {
     "p2p_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
     "m2p_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
     "p2l_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
+    "stick_levels": "boxtree_torch/csrc/extents.cu",
+    "box_extents": "boxtree_torch/csrc/extents.cu",
+    "list4_ext": "boxtree_torch/csrc/close_lists.cu",
+    "list3_ext": "boxtree_torch/csrc/close_lists.cu",
 }
 MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
                      "p2l_laplace3d")
 CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", "area_query_sweep",
                     "space_invader_sweep", "peer_lists")
+EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
+                  "list4_ext", "list3_ext", "p2p_laplace3d", "m2p_laplace3d",
+                  "p2l_laplace3d")
 HELMHOLTZ_KERNELS = ("morton_encode", "p2p_helmholtz3d", "m2p_helmholtz3d",
                      "p2l_helmholtz3d")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
@@ -85,6 +102,10 @@ HELMHOLTZ_KERNEL_RTOL = 1e-10
 #: rel l-inf bound of the order-12 Helmholtz FMM against the complex128
 #: direct sum (``tests/test_helmholtz3d.py:94-112``'s bar)
 HELMHOLTZ_FMM_RTOL = 1e-5
+
+#: rel l-inf bound of the order-10 float64 Laplace FMM on the QBX extent
+#: tree against the float64 direct sum (BASELINE.md's Config D bar)
+EXTENT_FMM_RTOL = 1e-5
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes
 #: per second, and float32 / float64 operations per second outside the
@@ -1027,6 +1048,298 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
 # }}}
 
 
+# {{{ the QBX extent tree (K12-K15)
+
+def extent_inputs(tree, pts, centres, radii):
+    """Each of K12-K15's wrapper, plain twin and arguments as the extent
+    path calls them: K12 on the merged particles of the user's *pts*,
+    *centres* and *radii* in the bounding box ``_phase_a`` takes, K13 on
+    the source side (no radii) and the target side, K14 and K15 on the
+    arguments ``build_traversal`` gives them."""
+    import torch
+
+    from boxtree_torch.ops import close_lists, extents
+    from boxtree_torch.traversal.build import close_list_inputs
+    from boxtree_torch.tree.build import _root_box
+
+    coords = torch.cat([pts, centres], dim=1)
+    rad = torch.cat([torch.zeros_like(pts[0]), radii])
+    lo, root = _root_box(coords, rad)
+    k12_kw = dict(dimensions=tree.dimensions, depth=tree.max_depth,
+                  extent_norm=tree.extent_norm,
+                  stick_out_factor=tree.stick_out_factor)
+    k13 = [(getattr(tree, f"{what}s"), getattr(tree, f"{what}_radii"),
+            getattr(tree, f"box_{what}_starts"),
+            getattr(tree, f"box_{what}_counts_nonchild"), tree.box_centers,
+            tree.box_child_ids) for what in ("source", "target")]
+    (a4, kw4), (a3, kw3) = close_list_inputs(tree)
+    kw3 = dict(kw3, crit="precise_linf", min_nsources=0)
+    lsb = tree.level_start_box_nrs
+    return {
+        "stick_levels": (
+            lambda: extents.stick_levels(coords, rad, lo, root, **k12_kw),
+            lambda: extents.stick_levels_plain(coords, rad, lo, root,
+                                               **k12_kw),
+            (coords, rad)),
+        "box_extents": (
+            lambda: [extents.box_extents(*a, lsb=lsb) for a in k13],
+            lambda: [extents.box_extents_plain(*a, lsb=lsb) for a in k13],
+            k13),
+        "list4_ext": (
+            lambda: close_lists.list4_ext(*a4, **kw4),
+            lambda: close_lists.list4_ext_plain(*a4, **kw4), (a4, kw4)),
+        "list3_ext": (
+            lambda: close_lists.list3_ext(*a3, **kw3),
+            lambda: close_lists.list3_ext_plain(*a3, **kw3), (a3, kw3)),
+    }
+
+
+def _flat(out):
+    """A kernel's output as a flat list of tensors."""
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in _flat(part)]
+
+
+def _distinct(work, key):
+    """The number of distinct ids a twin's *work* gathered under *key*."""
+    return int(work[key].shape[0]) if key in work else 0
+
+
+def extent_work(inputs, outputs, tree):
+    """Bytes each of K12-K15 must move (each input it needs read once,
+    each output written once) and the float64 operations it must do on
+    this run's data, counting add, sub, mul, abs, max and ldexp as one
+    each.
+
+    - K12: per particle 3 operations per coordinate for its cell, then
+      per level it tries (its stick level + 1, at most the depth) 3 for
+      the cell's size, half and stick-out and 9 per coordinate (centre 3,
+      the two l-inf tests 6).
+    - K13, both sides: per particle 2 per coordinate (+- radius, where
+      there are radii) and 2 (min, max), per child link 2 per coordinate;
+      bytes: the particles, their radii, every box's range, centre and
+      bounding boxes, the child ids of the boxes above the finest level.
+    - K14 and K15: what the plain twin counts on the same inputs
+      (``work=``) of the rows, table rows, parents and candidates the
+      kernel reads and of the criteria it evaluates.  K14: a box centre
+      3 per coordinate, a sep-bigger test 3 per coordinate + 6; per row
+      two centres, per probe (a candidate at its level, a source box, not
+      touching) a centre and a test, per parent test one more.  K15
+      (``precise_linf``): the target's centre and bounding-box centre and
+      half extents 7 per coordinate per probe (a target box at its level
+      that does not touch ``w``), a sep-smaller test 5 per coordinate + 2,
+      a chain test a centre and a test more.
+    """
+    import torch
+
+    from boxtree_torch.ops import close_lists
+
+    d = tree.dimensions
+    m = 3 ** d
+    out = {}
+    coords, radii = inputs["stick_levels"][2]
+    stick = outputs["stick_levels"]
+    visited = int(torch.clamp(stick.to(torch.int64) + 1,
+                              max=tree.max_depth).sum())
+    out["stick_levels"] = dict(
+        type="float64", particles=coords.shape[1], levels_tried=visited,
+        flops=3 * coords.numel() + (3 + 9 * d) * visited,
+        bytes=nbytes(coords, radii) + 4 * coords.shape[1])
+
+    lsb = tree.level_start_box_nrs
+    nchild_links = int((tree.box_child_ids > 0).sum())
+    k13_flops = k13_bytes = 0
+    for x, r, starts, counts, centers, _ in inputs["box_extents"][2]:
+        k13_flops += ((2 * (r is not None) + 2) * x.numel()
+                      + 2 * d * nchild_links)
+        k13_bytes += (nbytes(x, starts, counts, centers)
+                      + (nbytes(r) if r is not None else 0)
+                      + 4 * tree.box_child_ids.shape[0] * lsb[-2])
+    out["box_extents"] = dict(
+        type="float64", particles=sum(
+            a[0].shape[1] for a in inputs["box_extents"][2]),
+        boxes=tree.nboxes, flops=k13_flops,
+        bytes=k13_bytes + nbytes(*_flat(outputs["box_extents"])))
+
+    (a4, kw4), (a3, kw3) = inputs["list4_ext"][2], inputs["list3_ext"][2]
+    w4, w3 = {}, {}
+    close_lists.list4_ext_plain(*a4, **kw4, work=w4)
+    close_lists.list3_ext_plain(*a3, **kw3, work=w3)
+    geo = a4[-1]
+    out["list4_ext"] = dict(
+        type="float64", rows=w4["rows"], probes=w4["probes"],
+        parent_tests=w4["parent_tests"],
+        table_rows=_distinct(w4, "table_rows"),
+        entries=int(outputs["list4_ext"][1].shape[0]
+                    + outputs["list4_ext"][3].shape[0]),
+        flops=(6 * d * w4["rows"] + (6 * d + 6) * w4["probes"]
+               + (3 * d + 6) * w4["parent_tests"]),
+        bytes=(20 * w4["rows"] + 4 * _distinct(w4, "parent_reads")
+               + 4 * (m - 1) * _distinct(w4, "table_rows")
+               + 4 * _distinct(w4, "flag_reads")
+               + nbytes(geo.bbox_min) + nbytes(*outputs["list4_ext"])))
+    itemsize = geo.bbox_min.element_size()
+    out["list3_ext"] = dict(
+        type="float64", boxes=w3["boxes"], rows=w3["rows"],
+        probes=w3["probes"], chain_tests=w3["chain_tests"],
+        w_tests=w3["w_tests"], table_rows=_distinct(w3, "table_rows"),
+        entries=sum(int(t.shape[0]) for t in _flat(outputs["list3_ext"])),
+        flops=(3 * d * w3["rows"] + 7 * d * w3["probes"]
+               + (8 * d + 2) * w3["chain_tests"]
+               + (5 * d + 2) * w3["w_tests"]),
+        bytes=(4 * w3["boxes"] + 8 * w3["rows"]
+               + 4 * _distinct(w3, "parent_reads")
+               + 4 * m * _distinct(w3, "table_rows")
+               + 8 * _distinct(w3, "tgt_reads")
+               + 2 * d * itemsize * _distinct(w3, "bbox_reads")
+               + 4 * _distinct(w3, "src_cumul_reads")
+               + nbytes(geo.bbox_min)
+               + nbytes(*_flat(outputs["list3_ext"]))))
+    return out
+
+
+def run_extents(device, card, n=1_000_000, ncenters=100_000, order=10,
+                nsample=2000, seed=15):
+    """The QBX extent tree: Config B's sphere points and balls as sources
+    and targets with radii, the traversal with its close lists, the
+    counting FMM and the order-10 float64 Laplace FMM (K1-K4, K12-K15),
+    then K12-K15 against their twins at the path's own inputs; returns the
+    K12-K15 summary entries."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import (
+        ConstantOneExpansionWrangler,
+        make_laplace_wrangler,
+    )
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    pts = torch.as_tensor(sphere_points(n, seed), device=device)
+    rng = np.random.default_rng(seed + 1)
+    anchor = torch.as_tensor(rng.choice(n, ncenters, replace=False),
+                             device=device)
+    radii = torch.as_tensor(rng.uniform(0.005, 0.02, ncenters),
+                            device=device)
+    centres = pts[:, anchor] * (1 + radii)   # pushed out along the normal
+    q = torch.as_tensor(np.random.default_rng(seed + 2).standard_normal(n),
+                        device=device)
+    ones = [torch.ones(n, dtype=torch.float64, device=device)]
+
+    # {{{ the path, counted
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(
+        pts, targets=centres, target_radii=radii, stick_out_factor=0.25,
+        max_particles_in_box=30), device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    pot1, t_count = timed(lambda: drive_fmm(
+        ConstantOneExpansionWrangler(None, trav), ones), device)
+    merged, t_merge = timed(trav.merge_close_lists, device)
+    pot2, t_count2 = timed(lambda: drive_fmm(
+        ConstantOneExpansionWrangler(None, merged), ones), device)
+    wr, t_setup = timed(lambda: make_laplace_wrangler(
+        trav, order=order, pairs=True, rscale="auto", dtype=torch.float64),
+        device)
+    pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    # }}}
+
+    # {{{ checks
+
+    nbad = [int((p != n).sum()) for p in (pot1, pot2)]
+    stages = {}
+    _, t_fmm_warm = timed(lambda: drive_fmm(wr, [q], timing_data=stages),
+                          device)
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        ncenters, nsample, replace=False), device=device)
+    ref = direct_sum_f64(pts, q, centres[:, sample])
+    abs_err, rel = rel_linf(pot[sample], ref)
+    finite = bool(torch.isfinite(pot).all())
+    internal = (tree.box_flags & 16) == 0
+    emit({"phase": "extent_fmm", "card": card, "points": n,
+          "distribution": "unit sphere", "centres": ncenters,
+          "radii": [0.005, 0.02], "stick_out_factor": 0.25,
+          "extent_norm": tree.extent_norm, "from_sep_smaller_crit":
+              "precise_linf", "dtype": "float64", "order": order,
+          "rscale": "auto", "seed": seed, "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels,
+          "internal_boxes_with_targets": int(
+              (tree.box_target_counts_nonchild[internal] > 0).sum()),
+          "targets_in_internal_boxes": int(
+              tree.box_target_counts_nonchild[internal].sum()),
+          "build_s": t_tree, "traversal_s": t_trav,
+          "counting_fmm_s": t_count, "merge_close_lists_s": t_merge,
+          "counting_fmm_merged_s": t_count2,
+          "counting_exact": nbad == [0, 0],
+          "wrangler_setup_s": t_setup, "fmm_s": t_fmm,
+          "fmm_warm_s": t_fmm_warm, "total_s": t_total, "stage_s": stages,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0]),
+              "l3_close": int(trav.from_sep_close_smaller_lists.shape[0]),
+              "l4_close": int(trav.from_sep_close_bigger_lists.shape[0]),
+              "l1_merged": int(
+                  merged.neighbor_source_boxes_lists.shape[0])},
+          "sampled_targets": nsample, "rel_linf_vs_f64_direct": rel,
+          "abs_linf": abs_err, "finite": finite,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    if nbad != [0, 0]:
+        raise AssertionError(f"counting FMM on the extent tree: {nbad} "
+                             f"potentials != {n} (close lists, merged)")
+    if not finite or tuple(pot.shape) != (ncenters,):
+        raise AssertionError("extent Laplace FMM: non-finite or misshapen "
+                             "output")
+    if not rel < EXTENT_FMM_RTOL:
+        raise AssertionError(f"extent Laplace FMM: rel l-inf {rel:.3e} >= "
+                             f"{EXTENT_FMM_RTOL}")
+    emit({"phase": "launches", "path": "extent_fmm", "card": card,
+          "launches": launches})
+    missing = [name for name in EXTENT_KERNELS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the extent path: "
+                             f"{missing}")
+
+    # }}}
+
+    # {{{ K12-K15 against their twins at these inputs, exactly
+
+    inputs = extent_inputs(tree, pts, centres, radii)
+    res, outputs = {}, {}
+    for name, (kernel, plain, _) in inputs.items():
+        got, ref = _flat(kernel()), _flat(plain())
+        if len(got) != len(ref) or not all(
+                torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{name} != plain twin")
+        outputs[name] = kernel()
+        res[name] = dict(max_abs_err=0.0, ms=median_ms(kernel, device),
+                         plain_ms=median_ms(plain, device))
+    work = extent_work(inputs, outputs, tree)
+    emit({"phase": "kernels_extents", "card": card, "points": n,
+          "centres": ncenters, "tolerance": "exact", "kernels": res,
+          "work": work})
+
+    # }}}
+
+    return [summary_entry(name, launches[name], res[name], work[name])
+            for name in res]
+
+# }}}
+
+
 def _ptxas_summary(log):
     """Registers / spills per kernel from ``nvcc -Xptxas -v``."""
     out, entry = {}, None
@@ -1065,8 +1378,9 @@ def main():
     entries = run_main_path(device, card)
     b_entries, _ = run_config_b(device, card)
     h_entries = run_helmholtz(device, card)
+    e_entries = run_extents(device, card)
     print(card, flush=True)
-    emit({"kernels": entries + b_entries + h_entries})
+    emit({"kernels": entries + b_entries + h_entries + e_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,8 +15,13 @@ order), and the Helmholtz FMM on the card matches the CPU port to 1e-10.  K5-K8
 (level restriction, area-query sweep, space invader, peer lists) compute
 integers, or a float maximum that does not depend on order, so they must
 equal their twins exactly, and a level-restricted tree built on the card
-must equal the one built on the CPU.
+must equal the one built on the CPU.  K12-K15 (stick levels, box
+bounding boxes, Lists 4 and 3 with target extents) must equal their twins
+exactly, and a tree with extents and its traversal built on the card must
+equal the ones built on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -37,6 +42,8 @@ from boxtree_torch.models import (
 )
 from boxtree_torch.ops import (
     area_query,
+    close_lists,
+    extents,
     helmholtz3d,
     kernels,
     laplace3d,
@@ -45,7 +52,8 @@ from boxtree_torch.ops import (
     restrict,
 )
 from boxtree_torch.traversal import build_traversal
-from boxtree_torch.tree.build import _phase_a
+from boxtree_torch.traversal.build import close_list_inputs
+from boxtree_torch.tree.build import _phase_a, _root_box
 from boxtree_torch.tree.level_restrict import restrict_leaf_levels
 
 pytestmark = pytest.mark.cuda
@@ -345,5 +353,138 @@ def test_helmholtz_fmm_on_card_matches_cpu(helmholtz):
     ref = drive_fmm(w_cpu, [q.cpu()])
     assert got.dtype == torch.complex128
     assert _rel(got.cpu(), ref) <= HELM_RTOL
+
+# }}}
+
+
+# {{{ K12-K15: trees with extents and the close lists
+
+def _qbx_inputs(n, ncenters, dims, seed=5):
+    """Points on the unit sphere (circle) and QBX-like centres: sampled
+    points pushed out along the normal by their radius, radii uniform in
+    [0.005, 0.02]."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((dims, n))
+    x /= np.sqrt((x * x).sum(0))
+    radii = rng.uniform(0.005, 0.02, ncenters)
+    anchor = rng.choice(n, ncenters, replace=False)
+    return x, x[:, anchor] * (1 + radii), radii
+
+
+@pytest.fixture(scope="module", params=[(3, "linf", torch.float64),
+                                        (3, "linf", torch.float32),
+                                        (2, "l2", torch.float64)],
+                ids=["3d_linf_f64", "3d_linf_f32", "2d_l2_f64"])
+def extent(request, device):
+    dims, norm, dt = request.param
+    src, centres, radii = _qbx_inputs(20000, 2000, dims)
+    kw = dict(target_radii=torch.as_tensor(radii, dtype=dt),
+              stick_out_factor=0.25, extent_norm=norm,
+              max_particles_in_box=30)
+    src, centres = (torch.as_tensor(a, dtype=dt) for a in (src, centres))
+    kernels.reset_launch_counts()
+    tree = build_tree(src.to(device), targets=centres.to(device), **kw)
+    trav = build_traversal(tree)
+    launches = kernels.launch_counts()
+    ref_tree = build_tree(src, targets=centres, **kw)
+    return tree, trav, ref_tree, launches
+
+
+def test_extent_tree_on_card_matches_cpu(extent):
+    tree, _, ref, _ = extent
+    assert tree.level_start_box_nrs == ref.level_start_box_nrs
+    assert ((ref.box_flags & 16) == 0).logical_and(
+        ref.box_target_counts_nonchild > 0).any()
+    for f in dataclasses.fields(ref):
+        val, want = getattr(tree, f.name), getattr(ref, f.name)
+        if isinstance(want, torch.Tensor):
+            assert torch.equal(val.cpu(), want), f.name
+        else:
+            assert val == want, f.name
+
+
+def test_stick_levels_kernel(extent):
+    tree = extent[0]
+    coords = torch.cat([tree.sources, tree.targets], dim=1)
+    radii = torch.cat([torch.zeros_like(tree.sources[0]), tree.target_radii])
+    lo, extent_ = _root_box(coords, radii)
+    kw = dict(dimensions=tree.dimensions, depth=tree.max_depth,
+              extent_norm=tree.extent_norm, stick_out_factor=0.25)
+    got = extents.stick_levels(coords, radii, lo, extent_, **kw)
+    ref = extents.stick_levels_plain(coords, radii, lo, extent_, **kw)
+    assert torch.equal(got, ref)
+    assert len(torch.unique(ref)) > 2
+
+
+@pytest.mark.parametrize("what", ["source", "target"])
+def test_box_extents_kernel(extent, what):
+    tree = extent[0]
+    args = (getattr(tree, f"{what}s"), getattr(tree, f"{what}_radii"),
+            getattr(tree, f"box_{what}_starts"),
+            getattr(tree, f"box_{what}_counts_nonchild"), tree.box_centers,
+            tree.box_child_ids)
+    lsb = tree.level_start_box_nrs
+    got = extents.box_extents(*args, lsb=lsb)
+    ref = extents.box_extents_plain(*args, lsb=lsb)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_list4_ext_kernel(extent):
+    (args, kw), _ = close_list_inputs(extent[0])
+    got = close_lists.list4_ext(*args, **kw)
+    ref = close_lists.list4_ext_plain(*args, **kw)
+    assert ref[1].shape[0] > 0 and ref[3].shape[0] > 0
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("crit,min_nsources", [
+    ("precise_linf", 0), ("static_linf", 0), ("static_l2", 0),
+    ("precise_linf", 30)])
+def test_list3_ext_kernel(extent, crit, min_nsources):
+    _, (args, kw) = close_list_inputs(extent[0])
+    kw = dict(kw, crit=crit, min_nsources=min_nsources)
+    far, close = close_lists.list3_ext(*args, **kw)
+    far_ref, close_ref = close_lists.list3_ext_plain(*args, **kw)
+    assert sum(f.shape[0] for f in far_ref) > 0 and close_ref.shape[0] > 0
+    assert len(far) == len(far_ref)
+    assert all(torch.equal(g, r) for g, r in zip(far, far_ref))
+    assert torch.equal(close, close_ref)
+
+
+def test_extent_traversal_on_card_matches_cpu(extent):
+    _, trav, ref_tree, _ = extent
+    ref = build_traversal(ref_tree)
+    for f in dataclasses.fields(ref):
+        if f.name == "tree":
+            continue
+        val, want = getattr(trav, f.name), getattr(ref, f.name)
+        if f.name == "from_sep_smaller_by_level":
+            for a, b in zip(val, want):
+                assert a.count == b.count
+                for part in ("starts", "lists", "nonempty_indices"):
+                    assert torch.equal(getattr(a, part).cpu(),
+                                       getattr(b, part)), f.name
+        elif f.name == "target_boxes_sep_smaller_by_source_level":
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(val, want))
+        elif isinstance(want, torch.Tensor):
+            assert torch.equal(val.cpu(), want), f.name
+        else:
+            assert val == want, f.name
+
+
+def test_extent_path_launches_k12_to_k15(extent):
+    launches = extent[3]
+    assert all(launches[k] > 0 for k in (
+        "morton_encode", "stick_levels", "box_extents", "list4_ext",
+        "list3_ext")), launches
+
+
+def test_extent_counting_fmm_on_card(extent):
+    trav = extent[1]
+    n = trav.tree.nsources
+    ones = [torch.ones(n, dtype=torch.float64, device=trav.tree.sources.device)]
+    for t in (trav, trav.merge_close_lists()):
+        pot = drive_fmm(ConstantOneExpansionWrangler(None, t), ones)
+        assert torch.equal(pot, torch.full_like(pot, n))
 
 # }}}

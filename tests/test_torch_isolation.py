@@ -32,4 +32,6 @@ def test_no_jax_and_no_boxtree_tpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "boxtree_torch.geometry.area_query" in out["modules"]
     assert "boxtree_torch.tree.level_restrict" in out["modules"]
+    assert "boxtree_torch.ops.extents" in out["modules"]
+    assert "boxtree_torch.ops.close_lists" in out["modules"]
     assert out["loaded"] == []

@@ -108,7 +108,8 @@ def test_coincident_points_raise():
     dict(kind="non-adaptive"),
     dict(kind="adaptive-level-restricted", source_radii=np.full(100, 0.01),
          targets=np.zeros((3, 5))),
-    dict(source_radii=np.full(100, 0.01), targets=np.zeros((3, 5))),
+    dict(kind="non-adaptive", source_radii=np.full(100, 0.01),
+         targets=np.zeros((3, 5))),
     dict(max_particles_in_box=None, refine_weights=np.ones(100, np.int32),
          max_leaf_refine_weight=10),
     dict(bbox=np.array([[0.0, 1.0]] * 3)),
