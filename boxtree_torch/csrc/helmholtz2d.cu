@@ -1,0 +1,375 @@
+// K16-K18: the particle-pair stages of the 2D Helmholtz FMM, kernel
+// G(t, s) = (i/4) H_0(k |t - s|) for a real wavenumber k, in double
+// precision with complex128 (interleaved re, im) charges, coefficients and
+// potentials.  Coefficient index n = -p..p, stored at n + p.
+//
+// K16 p2p_helmholtz2d: List-1 potentials, phi(t) = sum q_s (i/4) H_0(k r),
+//     r = 0 skipped.  Replaces boxtree_tpu/models/expansion_base.py:1258
+//     _eval_direct_rowmajor with boxtree_tpu/models/helmholtz.py:284 _p2p
+//     (and :59 _device_JH, ops/cylinder_bessel.py:46).
+// K17 m2p_helmholtz2d: List-3 potentials from the multipoles of the listed
+//     source boxes, phi(t) += sum_n a_n H_n(k r) e^{i n th} s^|n| with
+//     r e^{i th} = ((t - c) / s) s, 0 at r = 0.  Replaces
+//     expansion_base.py:1440 _eval_multipoles_rowmajor with helmholtz.py:275
+//     _m2p_eval (via :232 _basis).
+// K18 p2l_helmholtz2d: List-4 local expansions, b_n(b) += (i/4) q_s
+//     H_n(k r) e^{-i n th} s^|n| with r e^{i th} = ((x_s - c_b) / s) s,
+//     added in place into the box's coefficients.  Replaces
+//     expansion_base.py:1629 _form_locals_rowmajor with helmholtz.py:279
+//     _p2l_terms.
+//
+// Negative orders come from H_{-n} = (-1)^n H_n; s is the box's rscale.  As
+// in the 3D kernels (helmholtz3d.cu), a box's nonchild particles are the
+// contiguous tree-order range [box_*_starts, + box_*_counts_nonchild), rows
+// of the CSR lists name boxes, and one CTA (one warp) serves one row.
+//
+// Bound: float64 arithmetic.  K16 runs over ~1.2e8 pairs on the path, so it
+// evaluates H_0 with CUDA's double j0() and y0() (a few rational
+// approximations and a log; accurate to a few ulp at the path's k r) rather
+// than the twin's ~56-step recurrence, with its sources staged 32 at a time
+// in shared memory.  K17 and K18 run the recurrence of cyl_bessel.cuh per
+// (particle, box) pair (nstart double divides down, nstart products up) and
+// fold the 2p+1 coefficients: K17 against the box's multipole in shared
+// memory; K18 with each lane writing its source's 2p+1 terms to a column of
+// a shared table, then each lane summing the rows of the coefficients it
+// owns, so no shuffle reductions and no atomics.
+#include "cyl_bessel.cuh"
+
+namespace boxtree_torch {
+namespace {
+
+constexpr int kH2Threads = 32;
+
+__device__ __forceinline__ double2 cmul2(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// {{{ K16
+
+__global__ void __launch_bounds__(kH2Threads)
+p2p_helmholtz2d_kernel(const double* __restrict__ targets,
+                       long long ntargets, const double* __restrict__ sources,
+                       long long nsources,
+                       const double2* __restrict__ charges,
+                       const int* __restrict__ box_target_starts,
+                       const int* __restrict__ box_target_counts,
+                       const int* __restrict__ box_source_starts,
+                       const int* __restrict__ box_source_counts,
+                       const int* __restrict__ target_boxes,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ lists, double k,
+                       double2* __restrict__ out) {
+  __shared__ double sx[kH2Threads], sy[kH2Threads];
+  __shared__ double2 sq[kH2Threads];
+  const int row = blockIdx.x;
+  const int tbox = target_boxes[row];
+  const long long t0 = box_target_starts[tbox];
+  const int nt = box_target_counts[tbox];
+  const int e0 = starts[row], e1 = starts[row + 1];
+
+  for (int tb = 0; tb < nt; tb += kH2Threads) {
+    const int ti = tb + threadIdx.x;
+    const bool active = ti < nt;
+    double tx = 0.0, ty = 0.0;
+    if (active) {
+      tx = targets[t0 + ti];
+      ty = targets[ntargets + t0 + ti];
+    }
+    double ar = 0.0, ai = 0.0;
+    for (int e = e0; e < e1; ++e) {
+      const int sbox = lists[e];
+      const long long s0 = box_source_starts[sbox];
+      const int ns = box_source_counts[sbox];
+      for (int sb = 0; sb < ns; sb += kH2Threads) {
+        const int cnt = min(kH2Threads, ns - sb);
+        __syncthreads();
+        if (threadIdx.x < cnt) {
+          const long long s = s0 + sb + threadIdx.x;
+          sx[threadIdx.x] = sources[s];
+          sy[threadIdx.x] = sources[nsources + s];
+          sq[threadIdx.x] = charges[s];
+        }
+        __syncthreads();
+        if (!active) continue;
+        for (int j = 0; j < cnt; ++j) {
+          const double dx = tx - sx[j], dy = ty - sy[j];
+          const double r = sqrt(dx * dx + dy * dy);
+          if (r > 0.0) {
+            const double kr = k * r;
+            // (i/4) (J_0 + i Y_0) q; below k r < 1e-8 the reference's
+            // recurrence (and the twin) take J_0 = 1 from the series and
+            // evaluate Y_0 at k r = 1 (cyl_bessel.cuh), and so does K16
+            const bool small = kr < kCylSmallX;
+            const double2 g = make_double2(-0.25 * y0(small ? 1.0 : kr),
+                                           small ? 0.25 : 0.25 * j0(kr));
+            const double2 v = cmul2(g, sq[j]);
+            ar += v.x;
+            ai += v.y;
+          }
+        }
+      }
+    }
+    if (active) out[t0 + ti] = make_double2(ar, ai);
+  }
+}
+
+// }}}
+
+// {{{ K17
+
+__global__ void __launch_bounds__(kH2Threads)
+m2p_helmholtz2d_kernel(const double* __restrict__ targets,
+                       long long ntargets,
+                       const int* __restrict__ box_target_starts,
+                       const int* __restrict__ box_target_counts,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ lists,
+                       const double2* __restrict__ mpoles,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale, double k, int p,
+                       int nstart, double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = 2 * p + 1;
+  double2* smp = reinterpret_cast<double2*>(smem_raw);        // nc
+  double2* hb = smp + nc;                                     // (p+1) x warp
+  double* scratch = reinterpret_cast<double*>(hb + (p + 1) * kH2Threads);
+  double* geo = scratch + (nstart + 1) * kH2Threads;          // cx, cy, s
+  const int lane = threadIdx.x;
+  const int tbox = rows[blockIdx.x];
+  const long long t0 = box_target_starts[tbox];
+  const int nt = box_target_counts[tbox];
+  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
+
+  for (int tb = 0; tb < nt; tb += kH2Threads) {
+    const int ti = tb + lane;
+    const bool active = ti < nt;
+    double tx = 0.0, ty = 0.0;
+    if (active) {
+      tx = targets[t0 + ti];
+      ty = targets[ntargets + t0 + ti];
+    }
+    double ar = 0.0, ai = 0.0;
+    for (int e = e0; e < e1; ++e) {
+      const long long sbox = lists[e];
+      __syncthreads();
+      for (int i = lane; i < nc; i += kH2Threads)
+        smp[i] = mpoles[sbox * nc + i];
+      if (lane == 0) {
+        geo[0] = centers[sbox];
+        geo[1] = centers[nboxes + sbox];
+        geo[2] = box_scale[sbox];
+      }
+      __syncthreads();
+      if (!active) continue;
+      // the reference's hook receives (t - c) / s and works on that times s
+      const double s = geo[2];
+      const double x = (tx - geo[0]) / s * s;
+      const double y = (ty - geo[1]) / s * s;
+      const double r = sqrt(x * x + y * y);
+      if (!(r > 0.0)) continue;
+      const double th = atan2(y, x);
+      cylindrical_h(k * r, p, nstart, scratch + lane, hb + lane, kH2Threads);
+      double vr = 0.0, vi = 0.0;
+      for (int m = 0; m <= p; ++m) {
+        double sn, cs;
+        sincos(m * th, &sn, &cs);
+        const double pw = pow(s, double(m));
+        const double2 h = hb[m * kH2Threads + lane];
+        // a_m H_m e^{i m th} s^m
+        double2 b = cmul2(h, make_double2(cs, sn));
+        b = make_double2(b.x * pw, b.y * pw);
+        const double2 a = smp[p + m];
+        vr += a.x * b.x - a.y * b.y;
+        vi += a.x * b.y + a.y * b.x;
+        if (m > 0) {
+          // a_{-m} (-1)^m H_m e^{-i m th} s^m
+          const double sg = (m & 1) ? -1.0 : 1.0;
+          double2 c = cmul2(make_double2(sg * h.x, sg * h.y),
+                            make_double2(cs, -sn));
+          c = make_double2(c.x * pw, c.y * pw);
+          const double2 a2 = smp[p - m];
+          vr += a2.x * c.x - a2.y * c.y;
+          vi += a2.x * c.y + a2.y * c.x;
+        }
+      }
+      ar += vr;
+      ai += vi;
+    }
+    if (active) out[t0 + ti] = make_double2(ar, ai);
+  }
+}
+
+// }}}
+
+// {{{ K18
+
+__global__ void __launch_bounds__(kH2Threads)
+p2l_helmholtz2d_kernel(const double* __restrict__ sources,
+                       long long nsources,
+                       const double2* __restrict__ charges,
+                       const int* __restrict__ box_source_starts,
+                       const int* __restrict__ box_source_counts,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ lists,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale, double k, int p,
+                       int nstart, double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = 2 * p + 1;
+  double2* terms = reinterpret_cast<double2*>(smem_raw);      // nc x warp
+  double2* acc = terms + nc * kH2Threads;                     // nc
+  double2* hb = acc + nc;                                     // (p+1) x warp
+  double* scratch = reinterpret_cast<double*>(hb + (p + 1) * kH2Threads);
+  const int lane = threadIdx.x;
+  const long long tbox = rows[blockIdx.x];
+  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
+  for (int i = lane; i < nc; i += kH2Threads) acc[i] = make_double2(0, 0);
+  const double cx = centers[tbox], cy = centers[nboxes + tbox];
+  const double s = box_scale[tbox];
+
+  for (int e = e0; e < e1; ++e) {
+    const int sbox = lists[e];
+    const long long s0 = box_source_starts[sbox];
+    const int ns = box_source_counts[sbox];
+    for (int sb = 0; sb < ns; sb += kH2Threads) {
+      const int j = sb + lane;
+      double x = 0.0, y = 0.0, r = 0.0;
+      if (j < ns) {
+        x = (sources[s0 + j] - cx) / s * s;
+        y = (sources[nsources + s0 + j] - cy) / s * s;
+        r = sqrt(x * x + y * y);
+      }
+      if (r > 0.0) {
+        // (i/4) q (-1)^{m [n < 0]} H_m e^{-i n th} s^m, m = |n|
+        const double2 q = charges[s0 + j];
+        const double2 qq = make_double2(-0.25 * q.y, 0.25 * q.x);
+        const double th = atan2(y, x);
+        cylindrical_h(k * r, p, nstart, scratch + lane, hb + lane,
+                      kH2Threads);
+        for (int m = 0; m <= p; ++m) {
+          double sn, cs;
+          sincos(m * th, &sn, &cs);
+          const double pw = pow(s, double(m));
+          const double2 h = hb[m * kH2Threads + lane];
+          double2 b = cmul2(h, make_double2(cs, -sn));
+          b = make_double2(b.x * pw, b.y * pw);
+          terms[(p + m) * kH2Threads + lane] = cmul2(qq, b);
+          if (m > 0) {
+            const double sg = (m & 1) ? -1.0 : 1.0;
+            double2 c = cmul2(make_double2(sg * h.x, sg * h.y),
+                              make_double2(cs, sn));
+            c = make_double2(c.x * pw, c.y * pw);
+            terms[(p - m) * kH2Threads + lane] = cmul2(qq, c);
+          }
+        }
+      } else {
+        for (int i = 0; i < nc; ++i)
+          terms[i * kH2Threads + lane] = make_double2(0.0, 0.0);
+      }
+      __syncwarp();
+      // each lane sums the rows of the coefficients it owns
+      for (int i = lane; i < nc; i += kH2Threads) {
+        double tr = 0.0, tim = 0.0;
+        for (int jj = 0; jj < kH2Threads; ++jj) {
+          const double2 t = terms[i * kH2Threads + jj];
+          tr += t.x;
+          tim += t.y;
+        }
+        acc[i].x += tr;
+        acc[i].y += tim;
+      }
+      __syncwarp();
+    }
+  }
+  for (int i = lane; i < nc; i += kH2Threads) {
+    out[tbox * nc + i].x += acc[i].x;
+    out[tbox * nc + i].y += acc[i].y;
+  }
+}
+
+// }}}
+
+size_t m2p_smem(long long p, long long nstart) {
+  return ((2 * p + 1) + (p + 1) * kH2Threads) * sizeof(double2) +
+         ((nstart + 1) * kH2Threads + 3) * sizeof(double);
+}
+
+size_t p2l_smem(long long p, long long nstart) {
+  return ((2 * p + 1) * (kH2Threads + 1) + (p + 1) * kH2Threads) *
+             sizeof(double2) +
+         (nstart + 1) * kH2Threads * sizeof(double);
+}
+
+// Above the default 48 KiB a kernel's dynamic shared memory needs its
+// opt-in (up to 227 KiB a CTA on sm_90).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace
+}  // namespace boxtree_torch
+
+extern "C" int p2p_helmholtz2d_c128(
+    const void* targets, long long ntargets, const void* sources,
+    long long nsources, const void* charges, const void* bts, const void* btc,
+    const void* bss, const void* bsc, const void* target_boxes,
+    long long nrows, const void* starts, const void* lists, double k,
+    void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    p2p_helmholtz2d_kernel<<<(unsigned)nrows, kH2Threads, 0,
+                             (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const double*)sources, nsources,
+        (const double2*)charges, (const int*)bts, (const int*)btc,
+        (const int*)bss, (const int*)bsc, (const int*)target_boxes,
+        (const int*)starts, (const int*)lists, k, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int m2p_helmholtz2d_c128(
+    const void* targets, long long ntargets, const void* bts, const void* btc,
+    const void* rows, long long nrows, const void* starts, const void* lists,
+    const void* mpoles, const void* centers, long long nboxes,
+    const void* box_scale, double k, long long order, long long nstart,
+    void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    const size_t smem = m2p_smem(order, nstart);
+    const cudaError_t err = allow_smem(m2p_helmholtz2d_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    m2p_helmholtz2d_kernel<<<(unsigned)nrows, kH2Threads, smem,
+                             (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
+        (const int*)rows, (const int*)starts, (const int*)lists,
+        (const double2*)mpoles, (const double*)centers, nboxes,
+        (const double*)box_scale, k, (int)order, (int)nstart, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int p2l_helmholtz2d_c128(
+    const void* sources, long long nsources, const void* charges,
+    const void* bss, const void* bsc, const void* rows, long long nrows,
+    const void* starts, const void* lists, const void* centers,
+    long long nboxes, const void* box_scale, double k, long long order,
+    long long nstart, void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    const size_t smem = p2l_smem(order, nstart);
+    const cudaError_t err = allow_smem(p2l_helmholtz2d_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    p2l_helmholtz2d_kernel<<<(unsigned)nrows, kH2Threads, smem,
+                             (cudaStream_t)stream>>>(
+        (const double*)sources, nsources, (const double2*)charges,
+        (const int*)bss, (const int*)bsc, (const int*)rows,
+        (const int*)starts, (const int*)lists, (const double*)centers, nboxes,
+        (const double*)box_scale, k, (int)order, (int)nstart, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}

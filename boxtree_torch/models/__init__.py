@@ -2,6 +2,10 @@ from boxtree_torch.models.constant_one import (
     ConstantOneExpansionWrangler,
     ConstantOneTreeIndependentDataForWrangler,
 )
+from boxtree_torch.models.helmholtz import (
+    Helmholtz2DExpansionWrangler,
+    HelmholtzTreeIndependentDataForWrangler,
+)
 from boxtree_torch.models.helmholtz3d import (
     Helmholtz3DExpansionWrangler,
     Helmholtz3DTreeIndependentDataForWrangler,
@@ -16,8 +20,10 @@ from boxtree_torch.models.laplace import (
 __all__ = [
     "ConstantOneExpansionWrangler",
     "ConstantOneTreeIndependentDataForWrangler",
+    "Helmholtz2DExpansionWrangler",
     "Helmholtz3DExpansionWrangler",
     "Helmholtz3DTreeIndependentDataForWrangler",
+    "HelmholtzTreeIndependentDataForWrangler",
     "Laplace3DPairsExpansionWrangler",
     "LaplaceTreeIndependentDataForWrangler",
     "make_helmholtz_wrangler",

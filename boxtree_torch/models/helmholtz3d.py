@@ -341,15 +341,18 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
 
 def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
                             **kwargs):
-    """Helmholtz wrangler for *traversal* (``boxtree_tpu/models/
-    helmholtz3d.py:526-572``).  The port covers the complex 3D wrangler
-    (``pairs=None`` or ``False``) with a real *helmholtz_k*; ``pairs=True``,
-    2D, ``dipole_vec``, ``level_to_order``, a complex *helmholtz_k* and
-    dtypes other than complex128 raise :class:`NotImplementedError`.
-    Other keyword arguments (``rscale``, ``dtype``) go to the wrangler."""
+    """Helmholtz wrangler for *traversal*, 2D or 3D by its tree
+    (``boxtree_tpu/models/helmholtz3d.py:526-572``).  The port covers the
+    complex wranglers (``pairs=None`` or ``False``) with a real
+    *helmholtz_k*: :class:`~boxtree_torch.models.helmholtz.
+    Helmholtz2DExpansionWrangler` in 2D, :class:`Helmholtz3DExpansionWrangler`
+    in 3D; ``pairs=True``, ``dipole_vec``, ``level_to_order``, a complex
+    *helmholtz_k* and dtypes other than complex128 raise
+    :class:`NotImplementedError`.  Other keyword arguments (``rscale``,
+    ``dtype``) go to the wrangler."""
     dim = traversal.tree.dimensions
-    if dim != 3:
-        raise NotImplementedError(f"no Helmholtz wrangler for dim={dim} yet")
+    if dim not in (2, 3):
+        raise NotImplementedError(f"no Helmholtz wrangler for dim={dim}")
     if pairs:
         raise NotImplementedError("the real-pair Helmholtz wrangler is not "
                                   "ported yet; use pairs=False")
@@ -357,10 +360,18 @@ def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
         raise NotImplementedError("dipole sources are not ported yet")
     if kwargs.pop("level_to_order", None) is not None:
         raise NotImplementedError("level_to_order is not ported yet")
-    ti = Helmholtz3DTreeIndependentDataForWrangler(helmholtz_k, order)
-    if not isinstance(ti.k, float):
+    if complex(helmholtz_k).imag != 0:
         if kwargs.get("rscale") is not None:
             # the reference's own limit (helmholtz3d.py:198-200)
             raise NotImplementedError("rscale with complex helmholtz_k")
         raise NotImplementedError("complex helmholtz_k is not ported yet")
+    if dim == 2:
+        from boxtree_torch.models.helmholtz import (
+            Helmholtz2DExpansionWrangler,
+            HelmholtzTreeIndependentDataForWrangler,
+        )
+        ti = HelmholtzTreeIndependentDataForWrangler(
+            2, complex(helmholtz_k).real, order)
+        return Helmholtz2DExpansionWrangler(ti, traversal, **kwargs)
+    ti = Helmholtz3DTreeIndependentDataForWrangler(helmholtz_k, order)
     return Helmholtz3DExpansionWrangler(ti, traversal, **kwargs)

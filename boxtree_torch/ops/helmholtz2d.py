@@ -1,0 +1,308 @@
+"""The particle-pair stages of the 2D Helmholtz FMM: P2P (List 1), M2P
+(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin, in
+complex128 (coordinates float64), and the expansion basis they share with
+the wrangler's P2M and L2P hooks.
+
+Kernel ``G(t, s) = (i/4) H_0^(1)(k |t - s|)`` for a real wavenumber k.
+Expansions about a box centre ``c``, with ``(r, th)`` the polar form of
+``z - c`` and the coefficient index n running over ``-p..p``
+(``boxtree_tpu/models/helmholtz.py:1-30``):
+
+- multipole: ``phi = sum_n a_n H_n(k r) e^{i n th}``;
+- local: ``phi = sum_n b_n J_n(k r) e^{i n th}``.
+
+Scaled by the box's rscale s, a multipole coefficient is ``a_n s^-|n|``
+and a local one ``b_n s^|n|``, so the bases carry ``s^+|n|`` (H) and
+``s^-|n|`` (J).  Each wrapper takes the tree's particle arrays in tree
+order, the per-box particle ranges ``[box_*_starts, +
+box_*_counts_nonchild)`` and a CSR list whose rows name boxes.  On CPU
+tensors it runs the plain PyTorch twin; on CUDA tensors it launches the
+hand-written kernel of ``csrc/helmholtz2d.cu`` or raises.
+
+- P2P: ``phi(t) = sum q_s (i/4) H_0(k r)``, ``r = 0`` skipped
+  (``helmholtz.py:284-294``).
+- M2P: ``phi(t) += sum_n a_n(b) H_n(k r) e^{i n th} s^|n|`` with ``r e^{i
+  th} = ((t - c_b) / s) s``, 0 at ``r = 0`` (``helmholtz.py:275-277``).
+- P2L: ``b_n(b) += (i/4) q H_n(k r) e^{-i n th} s^|n|`` with ``r e^{i th}
+  = ((x_s - c_b) / s) s`` (``helmholtz.py:279-282``).
+
+``s`` is the box's rscale (the source box's for M2P, the target box's for
+P2L); the hooks of the reference receive ``rel`` divided by it and work on
+``rel * s``, which the twins and the kernels repeat.  *nstart* is the
+start order of the J recurrence (:func:`~boxtree_torch.ops.
+cylinder_bessel.miller_start` of the wrangler's bound on ``k r``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from boxtree_torch.ops import kernels
+from boxtree_torch.ops.cylinder_bessel import cylindrical_jy, even_start
+from boxtree_torch.ops.laplace3d import _blocks, _edges, _max_count
+
+#: element budget of one chunk's largest temporary in the plain twins
+#: (the J recurrence keeps ~nstart temporaries of it alive)
+_PLAIN_CHUNK_ELEMS = 1 << 21
+#: the kernels' threads per CTA (one warp), as in csrc/helmholtz2d.cu
+_KERNEL_THREADS = 32
+#: dynamic shared memory a CTA may opt in to on sm_90 (227 KiB)
+SMEM_MAX = 227 * 1024
+
+
+# {{{ the basis, shared with the wrangler's P2M / L2P hooks
+
+def coeff_orders(order, device):
+    """The coefficient index ``n = -p..p`` as an int64 tensor."""
+    return torch.arange(-order, order + 1, device=device)
+
+
+def dpow(scale, sign, order):
+    """``scale^(sign |n|)`` over the coefficient axis."""
+    d = coeff_orders(order, scale.device).abs().to(scale.dtype)
+    return scale[..., None] ** (sign * d)
+
+
+def basis(rel, kind, conj_phase, scale, k, order, nstart):
+    """``(values, ok)``: the ``(..., 2p+1)`` values of ``J_n(k r) e^{+-i n
+    th} s^-|n|`` (*kind* ``"J"``) or ``H_n(k r) e^{+-i n th} s^+|n|``
+    (``"H"``), n = -p..p, at the (2, ...) offsets *rel* pre-divided by
+    *scale*, and ``r > 0`` (``helmholtz.py:232-265``).  Negative orders
+    come from ``F_{-n} = (-1)^n F_n``; at ``r = 0`` the J kind takes its
+    exact limit ``J_n(0) = [n == 0]`` (the H-kind callers mask by *ok*)."""
+    pw = dpow(scale, -1 if kind == "J" else +1, order)
+    rel = rel * scale
+    r = torch.sqrt(rel[0] ** 2 + rel[1] ** 2)
+    ok = r > 0
+    th = torch.atan2(rel[1], rel[0])
+    j, y = cylindrical_jy(k * torch.where(ok, r, torch.ones_like(r)), order,
+                          nstart=nstart)
+    base = j if kind == "J" else torch.complex(j, y)          # (..., p+1)
+    signs = (-1.0) ** torch.arange(1, order + 1, device=rel.device,
+                                   dtype=rel.dtype)
+    full = torch.cat([(base[..., 1:] * signs).flip(-1), base], dim=-1)
+    ns = coeff_orders(order, rel.device).to(rel.dtype)
+    angle = conj_phase * ns * th[..., None]
+    out = full.to(torch.complex128) * torch.polar(torch.ones_like(angle),
+                                                  angle) * pw
+    if kind == "J":
+        one_hot = torch.zeros(2 * order + 1, dtype=out.dtype,
+                              device=out.device)
+        one_hot[order] = 1.0
+        out = torch.where(ok[..., None], out, one_hot)
+    return out, ok
+
+
+def m2p_eval(rel, mp, scale, k, order, nstart):
+    """Potentials of multipoles *mp* at offsets *rel* pre-divided by
+    *scale* (``helmholtz.py:275-277``)."""
+    vals, ok = basis(rel, "H", +1, scale, k, order, nstart)
+    return torch.where(ok, (mp * vals).sum(-1), 0)
+
+
+def p2l_terms(rel, q, scale, k, order, nstart):
+    """Local coefficients of charges *q* at offsets *rel* pre-divided by
+    *scale* (``helmholtz.py:279-282``)."""
+    vals, ok = basis(rel, "H", -1, scale, k, order, nstart)
+    return torch.where(ok[..., None], 0.25j * q[..., None] * vals, 0)
+
+# }}}
+
+
+def smem_bytes(name, order, nstart):
+    """Shared memory of one CTA of K17 (``"m2p"``) or K18 (``"p2l"``), as
+    ``csrc/helmholtz2d.cu`` sizes it: the ratio scratch of the J recurrence
+    and the H table, one column per thread, and the box's multipole and
+    geometry (K17) or each thread's terms and their sums (K18)."""
+    nc = 2 * order + 1
+    scratch = (even_start(nstart, order) + 1) * _KERNEL_THREADS * 8
+    table = (order + 1) * _KERNEL_THREADS * 16
+    if name == "p2l":
+        return scratch + table + nc * (_KERNEL_THREADS + 1) * 16
+    return scratch + table + nc * 16 + 3 * 8
+
+
+def _check_args(k, dtype, order=None, nstart=None):
+    if dtype != torch.complex128:
+        raise TypeError(f"the Helmholtz kernels take complex128, not {dtype}")
+    if not isinstance(k, float):
+        raise TypeError("the Helmholtz kernels take a real wavenumber")
+    if order is not None:
+        smem = max(smem_bytes(name, order, nstart) for name in ("m2p", "p2l"))
+        if smem > SMEM_MAX:
+            raise ValueError(
+                f"order {order} with a recurrence from {nstart} needs {smem} "
+                "bytes of shared memory per CTA; the kernels take up to "
+                "227 KiB")
+
+
+# {{{ P2P
+
+def p2p_helmholtz2d_plain(targets, sources, charges, box_target_starts,
+                          box_target_counts_nonchild, box_source_starts,
+                          box_source_counts_nonchild, target_boxes, starts,
+                          lists, k, nstart):
+    """Plain twin of :func:`p2p_helmholtz2d`."""
+    out = charges.new_zeros(targets.shape[1])
+    tbox, sbox = _edges(starts, lists, target_boxes)
+    if tbox.numel() == 0:
+        return out
+    pt = _max_count(box_target_counts_nonchild, tbox)
+    ps = _max_count(box_source_counts_nonchild, sbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * ps))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
+                              tb, pt)
+        sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
+                              sb_, ps)
+        q = torch.where(smask, charges[sidx], 0)
+        diff = targets[:, tidx][..., :, None] - sources[:, sidx][..., None, :]
+        r = torch.sqrt((diff * diff).sum(0))             # (E, pt, ps)
+        ok = (r > 0) & smask[:, None, :]
+        j, y = cylindrical_jy(k * torch.where(ok, r, torch.ones_like(r)), 0,
+                              nstart=nstart)
+        g = torch.where(ok, 0.25j * torch.complex(j[..., 0], y[..., 0]), 0)
+        vals = (g * q[:, None, :]).sum(-1)               # (E, pt)
+        out.index_add_(0, tidx[tmask], vals[tmask])
+    return out
+
+
+def p2p_helmholtz2d(targets, sources, charges, box_target_starts,
+                    box_target_counts_nonchild, box_source_starts,
+                    box_source_counts_nonchild, target_boxes, starts, lists,
+                    k, nstart):
+    """List-1 potentials (tree-order targets) of ``(i/4) H_0(k |t - s|)``;
+    the K16 kernel on CUDA tensors.  The kernel evaluates ``H_0`` with
+    CUDA's double ``j0``/``y0``, the twin with the J recurrence from
+    *nstart* (as the reference)."""
+    args = (targets, sources, charges, box_target_starts,
+            box_target_counts_nonchild, box_source_starts,
+            box_source_counts_nonchild, target_boxes, starts, lists)
+    if targets.device.type == "cpu":
+        return p2p_helmholtz2d_plain(*args, k, nstart)
+    _check_args(k, charges.dtype)
+    kernels.check_tensors(targets, sources, dtype=torch.float64)
+    kernels.check_tensors(charges, dtype=torch.complex128)
+    kernels.check_tensors(*args[3:], dtype=torch.int32)
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
+        sources, sources.shape[1], charges, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, k, out)
+    return out
+
+# }}}
+
+
+# {{{ M2P
+
+def m2p_helmholtz2d_plain(targets, box_target_starts,
+                          box_target_counts_nonchild, rows, starts, lists,
+                          mpoles, centers, box_scale, k, order, nstart):
+    """Plain twin of :func:`m2p_helmholtz2d`."""
+    out = mpoles.new_zeros(targets.shape[1])
+    tbox, sbox = _edges(starts, lists, rows)
+    if tbox.numel() == 0:
+        return out
+    pt = _max_count(box_target_counts_nonchild, tbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * (2 * order + 1)))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
+                              tb, pt)
+        s = box_scale[sb_][:, None]                      # (E, 1)
+        rel = (targets[:, tidx] - centers[:, sb_][..., None]) / s
+        val = m2p_eval(rel, mpoles[sb_][:, None, :], s.expand(rel.shape[1:]),
+                       k, order, nstart)
+        out.index_add_(0, tidx[tmask], val[tmask])
+    return out
+
+
+def m2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
+                    rows, starts, lists, mpoles, centers, box_scale, k,
+                    order, nstart):
+    """List-3 potentials (tree-order targets) from the multipoles of the
+    listed source boxes; rows name target boxes.  The K17 kernel on CUDA
+    tensors."""
+    args = (targets, box_target_starts, box_target_counts_nonchild, rows,
+            starts, lists, mpoles, centers, box_scale)
+    if targets.device.type == "cpu":
+        return m2p_helmholtz2d_plain(*args, k, order, nstart)
+    _check_args(k, mpoles.dtype, order, nstart)
+    kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(mpoles, dtype=torch.complex128)
+    kernels.check_tensors(*args[1:6], dtype=torch.int32)
+    if mpoles.shape != (centers.shape[1], 2 * order + 1):
+        raise ValueError("mpoles must be (nboxes, 2 * order + 1)")
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "m2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
+        box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
+        starts, lists, mpoles, centers, centers.shape[1], box_scale, k,
+        order, even_start(nstart, order), out)
+    return out
+
+# }}}
+
+
+# {{{ P2L
+
+def p2l_helmholtz2d_plain(sources, charges, box_source_starts,
+                          box_source_counts_nonchild, rows, starts, lists,
+                          centers, box_scale, k, order, nstart, out):
+    """Plain twin of :func:`p2l_helmholtz2d`."""
+    tbox, sbox = _edges(starts, lists, rows)
+    if tbox.numel() == 0:
+        return out
+    ps = _max_count(box_source_counts_nonchild, sbox)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (ps * (2 * order + 1)))
+    for c0 in range(0, tbox.shape[0], chunk):
+        tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
+        sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
+                              sb_, ps)
+        s = box_scale[tb][:, None]                       # (E, 1)
+        rel = (sources[:, sidx] - centers[:, tb][..., None]) / s
+        q = torch.where(smask, charges[sidx], 0)
+        terms = p2l_terms(rel, q, s.expand(rel.shape[1:]), k, order, nstart)
+        terms = torch.where(smask[..., None], terms, 0)
+        out.index_add_(0, tb, terms.sum(1))
+    return out
+
+
+def p2l_helmholtz2d(sources, charges, box_source_starts,
+                    box_source_counts_nonchild, rows, starts, lists, centers,
+                    box_scale, k, order, nstart, out):
+    """Add the List-4 local-expansion contributions of the listed source
+    boxes into ``out[rows]`` (``out`` is ``(nboxes, 2 order + 1)``
+    complex128); rows name target-or-target-parent boxes, each at most
+    once.  The K18 kernel on CUDA tensors.  Returns *out*."""
+    args = (sources, charges, box_source_starts,
+            box_source_counts_nonchild, rows, starts, lists, centers,
+            box_scale)
+    if sources.device.type == "cpu":
+        return p2l_helmholtz2d_plain(*args, k, order, nstart, out)
+    _check_args(k, out.dtype, order, nstart)
+    kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(charges, out, dtype=torch.complex128)
+    kernels.check_tensors(*args[2:7], dtype=torch.int32)
+    if out.shape != (centers.shape[1], 2 * order + 1):
+        raise ValueError("out must be (nboxes, 2 * order + 1)")
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2l_helmholtz2d", torch.complex128, sources, sources.shape[1],
+        charges, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
+        k, order, even_start(nstart, order), out)
+    return out
+
+# }}}

@@ -55,6 +55,9 @@ SIGNATURES = {
     "box_extents": "ppiippppiiiippp",
     "list4_ext": "piippppppipddippppppip",
     "list3_ext": "iipppppppppddpiiiipppppp",
+    "p2p_helmholtz2d": "pipippppppippdpp",
+    "m2p_helmholtz2d": "pipppippppipdiipp",
+    "p2l_helmholtz2d": "pippppipppipdiipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -80,6 +83,9 @@ DTYPES = {
     "box_extents": _FLOATS,
     "list4_ext": _FLOATS,
     "list3_ext": _FLOATS,
+    "p2p_helmholtz2d": (torch.complex128,),
+    "m2p_helmholtz2d": (torch.complex128,),
+    "p2l_helmholtz2d": (torch.complex128,),
 }
 
 

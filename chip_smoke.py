@@ -25,18 +25,22 @@ paths of the port on the card, each with the kernels' launch counts set to
   traversal with its close lists, the counting FMM exact with the close
   lists and after merging them into List 1, and the 3D Laplace FMM (order
   10, float64) against a float64 direct sum at 2,000 sampled centres (K1-K4,
-  K12-K15).
+  K12-K15);
+- the 2D Helmholtz FMM (complex128, order 16, k = 3, ``rscale="auto"``) at
+  1e6 float64 points in the unit square, 4/15 of them clustered in
+  [0.4, 0.5]^2, checked against a complex128 direct sum of ``(i/4) H_0``
+  at 2,000 sampled targets, taken with ``torch.special``'s ``j0``/``y0``
+  (held to ``scipy.special.hankel1`` first) (K1, K16-K18).
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
-its path (K9-K11 at 1e5 points as well, a shallower tree), and timed
-beside it (median of 5 synchronised calls; 3 for the slow Helmholtz twins
-at 1e6) and beside its bound, the least time the card could take for the
-same work.  Each
-phase prints one JSON line; then come the card's name and power limit as
-``nvidia-smi`` reports them, the per-kernel summary and, last, the
-``{"ok": true, ...}`` line.  Any failed phase raises, and the script exits
-non-zero.  Without a CUDA device it exits with code 2 and prints no
-result.
+its path (K9-K11 and K16-K18 at 1e5 points as well, a shallower tree),
+and timed beside it (median of 5 synchronised calls; 3 for the slow
+Helmholtz twins at 1e6) and beside its bound, the least time the card
+could take for the same work.  Each phase prints one JSON line; then come
+the card's name and power limit as ``nvidia-smi`` reports them, the
+per-kernel summary and, last, the ``{"ok": true, ...}`` line.  Any failed
+phase raises, and the script exits non-zero.  Without a CUDA device it
+exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -62,6 +66,9 @@ REPLACES = {
     "box_extents": "boxtree_tpu/tree/build.py:536",
     "list4_ext": "boxtree_tpu/traversal/build.py:264",
     "list3_ext": "boxtree_tpu/traversal/build.py:398",
+    "p2p_helmholtz2d": "boxtree_tpu/models/helmholtz.py:284",
+    "m2p_helmholtz2d": "boxtree_tpu/models/helmholtz.py:275",
+    "p2l_helmholtz2d": "boxtree_tpu/models/helmholtz.py:279",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -79,6 +86,9 @@ SOURCES = {
     "box_extents": "boxtree_torch/csrc/extents.cu",
     "list4_ext": "boxtree_torch/csrc/close_lists.cu",
     "list3_ext": "boxtree_torch/csrc/close_lists.cu",
+    "p2p_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
+    "m2p_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
+    "p2l_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
 }
 MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
                      "p2l_laplace3d")
@@ -89,6 +99,8 @@ EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
                   "p2l_laplace3d")
 HELMHOLTZ_KERNELS = ("morton_encode", "p2p_helmholtz3d", "m2p_helmholtz3d",
                      "p2l_helmholtz3d")
+HELMHOLTZ2D_KERNELS = ("morton_encode", "p2p_helmholtz2d", "m2p_helmholtz2d",
+                       "p2l_helmholtz2d")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
@@ -102,6 +114,19 @@ HELMHOLTZ_KERNEL_RTOL = 1e-10
 #: rel l-inf bound of the order-12 Helmholtz FMM against the complex128
 #: direct sum (``tests/test_helmholtz3d.py:94-112``'s bar)
 HELMHOLTZ_FMM_RTOL = 1e-5
+
+#: rel l-inf tolerance of K16-K18 against their twins: float64; K16's H_0
+#: comes from CUDA's j0/y0 (a few ulp), K17/K18 repeat the twin's
+#: recurrence with FMA contraction, and the sums run in another order
+HELMHOLTZ2D_KERNEL_RTOL = 1e-12
+#: rel l-inf bound of the order-16 2D Helmholtz FMM against the complex128
+#: direct sum (``tests/test_helmholtz.py:23-46``'s bar)
+HELMHOLTZ2D_FMM_RTOL = 1e-5
+#: largest |torch.special's j0 + i y0 - scipy's hankel1(0)| / |hankel1(0)|
+#: allowed on the direct sum's arguments before it is trusted as reference:
+#: 100 times below the FMM's bar (torch.special's j0/y0 are good to ~1e-8
+#: relative for k r in [1, 5], ~1e-16 below 1)
+BESSEL_CHECK_RTOL = 1e-7
 
 #: rel l-inf bound of the order-10 float64 Laplace FMM on the QBX extent
 #: tree against the float64 direct sum (BASELINE.md's Config D bar)
@@ -182,6 +207,55 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# The bytes a list stage must move on this run's lists: each row's and each
+# listed box's data once, however many rows list the box; the particles
+# and coefficients of boxes no row reaches are not counted.
+
+def _boxes(idx):
+    import torch
+    return torch.unique(idx.to(torch.int64))
+
+
+def p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, out_elem):
+    """P2P: the targets of the target boxes (coordinates read, potential
+    written), the particles and charges of the listed source boxes, both
+    sides' ranges and the CSR."""
+    tboxes, sboxes = _boxes(tb), _boxes(ls)
+    nt, ns = int(tcn[tboxes].sum()), int(scn[sboxes].sum())
+    return (nt * (tgt.shape[0] * tgt.element_size() + out_elem)
+            + ns * (src.shape[0] * src.element_size() + q.element_size())
+            + tboxes.numel() * (tst.element_size() + tcn.element_size())
+            + sboxes.numel() * (sst.element_size() + scn.element_size())
+            + nbytes(tb, st, ls))
+
+
+def m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale, out_elem):
+    """M2P: the targets of the rows' boxes (read, potential written), the
+    multipole, centre and scale of each listed box, the ranges and the
+    CSR."""
+    tboxes, sboxes = _boxes(rows), _boxes(ls)
+    nt = int(tcn[tboxes].sum())
+    return (nt * (tgt.shape[0] * tgt.element_size() + out_elem)
+            + tboxes.numel() * (tst.element_size() + tcn.element_size())
+            + sboxes.numel() * (mp.shape[1] * mp.element_size()
+                                + centers.shape[0] * centers.element_size()
+                                + scale.element_size())
+            + nbytes(rows, st, ls))
+
+
+def p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale, row_bytes):
+    """P2L: the particles and charges of the listed source boxes, the
+    centre and scale of each row's box, its *row_bytes* of coefficients
+    read and written (added in place), the ranges and the CSR."""
+    tboxes, sboxes = _boxes(rows), _boxes(ls)
+    ns = int(scn[sboxes].sum())
+    return (ns * (src.shape[0] * src.element_size() + q.element_size())
+            + sboxes.numel() * (sst.element_size() + scn.element_size())
+            + tboxes.numel() * (centers.shape[0] * centers.element_size()
+                                + scale.element_size() + 2 * row_bytes)
+            + nbytes(rows, st, ls))
+
+
 # {{{ K1-K4: the kernels against their twins, and their work
 
 def kernel_inputs(tree, trav, wrangler, q_tree):
@@ -232,8 +306,10 @@ def kernel_inputs(tree, trav, wrangler, q_tree):
 
 
 def kernel_work(inputs):
-    """Bytes each of K1-K4 must move (each input read once, each output
-    written once) and the float operations it must do, at *inputs*.
+    """Bytes each of K1-K4 must move (each input it needs read once, each
+    output written once; K2-K4 on this run's lists, by :func:`p2p_bytes`,
+    :func:`m2p_bytes` and :func:`p2l_bytes`) and the float operations it
+    must do, at *inputs*.
 
     - K1: per point, d coordinates read and one int64 key written; 3
       operations per coordinate (subtract, divide, multiply).
@@ -265,8 +341,8 @@ def kernel_work(inputs):
                  * scn64[ls.to(torch.int64)]).sum())
     out["p2p_laplace3d"] = dict(
         particle_pairs=pairs, flops=10 * pairs,
-        bytes=nbytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls)
-        + tgt.shape[1] * tgt.element_size())
+        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
+                        tgt.element_size()))
 
     (tgt, tst, tcn, rows, st, ls, mp, centers, scale, order) = \
         inputs["m2p_laplace3d"][2]
@@ -275,17 +351,16 @@ def kernel_work(inputs):
         row_of(st, ls)]].sum())
     out["m2p_laplace3d"] = dict(
         target_box_pairs=pairs, coefficients=k, flops=2 * k * pairs,
-        bytes=nbytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale)
-        + tgt.shape[1] * tgt.element_size())
+        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
+                        tgt.element_size()))
 
     (src, q, sst, scn, rows, st, ls, centers, scale, order) = \
         inputs["p2l_laplace3d"][2]
     pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
-    locals_bytes = centers.shape[1] * k * src.element_size()
     out["p2l_laplace3d"] = dict(
         source_box_pairs=pairs, coefficients=k, flops=2 * k * pairs,
-        bytes=nbytes(src, q, sst, scn, rows, st, ls, centers, scale)
-        + 2 * locals_bytes)
+        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                        k * src.element_size()))
     return out
 
 
@@ -833,8 +908,9 @@ def helmholtz_inputs(trav, wrangler, q_tree):
 
 
 def helmholtz_work(inputs):
-    """Bytes K9-K11 must move (each input read once, each output written
-    once) and the float64 operations they must do, at *inputs*.
+    """Bytes K9-K11 must move (each input they need read once, each output
+    written once, on this run's lists: :func:`p2p_bytes` and its kin) and
+    the float64 operations they must do, at *inputs*.
 
     - K9: per List-1 particle pair, 20 (difference 3, squared norm 5,
       complex kernel times charge and add 12; the square root, divide and
@@ -869,8 +945,8 @@ def helmholtz_work(inputs):
                  * scn64[ls.to(torch.int64)]).sum())
     out["p2p_helmholtz3d"] = dict(
         type="float64", particle_pairs=pairs, flops=20 * pairs,
-        bytes=nbytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls)
-        + tgt.shape[1] * q.element_size())
+        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
+                        q.element_size()))
 
     (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order) = \
         inputs["m2p_helmholtz3d"][2]
@@ -881,35 +957,34 @@ def helmholtz_work(inputs):
     out["m2p_helmholtz3d"] = dict(
         type="float64", target_box_pairs=pairs, coefficients=nc,
         flops=(8 * nc + 8 * (order + 1) + common) * pairs,
-        bytes=nbytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale)
-        + tgt.shape[1] * mp.element_size())
+        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
+                        mp.element_size()))
 
     (src, q, sst, scn, rows, st, ls, centers, scale, w_nm, _, order) = \
         inputs["p2l_helmholtz3d"][2]
     pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
-    locals_bytes = centers.shape[1] * nc * q.element_size()
     out["p2l_helmholtz3d"] = dict(
         type="float64", source_box_pairs=pairs, coefficients=nc,
         flops=((8 * nc + 6 * (order + 1) + common) * pairs
                + 6 * nc * rows.shape[0]),
-        bytes=nbytes(src, q, sst, scn, rows, st, ls, centers, scale, w_nm)
-        + 2 * locals_bytes)
+        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                        nc * q.element_size()) + nbytes(w_nm))
     return out
 
 
-def check_helmholtz(inputs, device, plain_reps):
-    """Run K9-K11 and their twins on the same inputs; raise on a mismatch
-    (K11's local coefficients each held to their own column's scale).
-    Returns ``{name: {max_abs_err, rel_err, ms, plain_ms}}``: the kernel's
-    median of 5, the twin's median of *plain_reps*."""
+def check_helmholtz(inputs, device, plain_reps, rtol=HELMHOLTZ_KERNEL_RTOL):
+    """Run the Helmholtz kernels (K9-K11 or K16-K18) and their twins on the
+    same inputs; raise on a rel l-inf above *rtol* (a P2L's local
+    coefficients each held to their own column's scale).  Returns ``{name:
+    {max_abs_err, rel_err, ms, plain_ms}}``: the kernel's median of 5, the
+    twin's median of *plain_reps*."""
     results = {}
     for name, (kernel, plain, args) in inputs.items():
         got, ref = kernel(*args), plain(*args)
-        err, rel = (rel_linf_per_coefficient if name == "p2l_helmholtz3d"
+        err, rel = (rel_linf_per_coefficient if name.startswith("p2l_")
                     else rel_linf)(got, ref)
-        if not rel <= HELMHOLTZ_KERNEL_RTOL:
-            raise AssertionError(f"{name}: rel l-inf {rel:.3e} > "
-                                 f"{HELMHOLTZ_KERNEL_RTOL}")
+        if not rel <= rtol:
+            raise AssertionError(f"{name}: rel l-inf {rel:.3e} > {rtol}")
         del got, ref
         results[name] = dict(
             max_abs_err=err, rel_err=rel,
@@ -1340,6 +1415,308 @@ def run_extents(device, card, n=1_000_000, ncenters=100_000, order=10,
 # }}}
 
 
+# {{{ the 2D Helmholtz FMM (K16-K18)
+
+def clustered_square_points(n, seed):
+    """``tests/test_helmholtz.py:23-46``'s points at *n*: uniform in the
+    unit square, the first 4/15 (its 400 of 1,500) uniform in [0.4,
+    0.5]^2; then complex standard-normal charges from the same stream."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pts = rng.random((2, n))
+    m = round(n * 400 / 1500)
+    pts[:, :m] = 0.1 * rng.random((2, m)) + 0.4
+    q = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    return pts, q
+
+
+def helmholtz2d_inputs(trav, wrangler, q_tree):
+    """K16-K18's wrappers, plain twins and arguments at the shapes the 2D
+    Helmholtz FMM gives them."""
+    from boxtree_torch.ops import helmholtz2d
+
+    w = wrangler
+    tree = trav.tree
+    mpoles = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [q_tree]))
+    return {
+        "p2p_helmholtz2d": (
+            helmholtz2d.p2p_helmholtz2d, helmholtz2d.p2p_helmholtz2d_plain,
+            (w._targets, w._sources, q_tree, tree.box_target_starts,
+             tree.box_target_counts_nonchild, tree.box_source_starts,
+             tree.box_source_counts_nonchild, trav.target_boxes,
+             trav.neighbor_source_boxes_starts,
+             trav.neighbor_source_boxes_lists, w.k, w._nstart)),
+        "m2p_helmholtz2d": (
+            helmholtz2d.m2p_helmholtz2d, helmholtz2d.m2p_helmholtz2d_plain,
+            (w._targets, tree.box_target_starts,
+             tree.box_target_counts_nonchild, *w._l3_csr, mpoles, w.centers,
+             w.box_scale, w.k, w.order, w._nstart)),
+        "p2l_helmholtz2d": (
+            lambda *a: helmholtz2d.p2l_helmholtz2d(
+                *a, w.local_expansion_zeros()),
+            lambda *a: helmholtz2d.p2l_helmholtz2d_plain(
+                *a, w.local_expansion_zeros()),
+            (w._sources, q_tree, tree.box_source_starts,
+             tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
+             w.box_scale, w.k, w.order, w._nstart)),
+    }
+
+
+def list1_pairs(tcounts, scounts, target_boxes, starts, lists):
+    """Particle pairs of List 1 (sources = targets) less each target with
+    itself: the pairs a P2P evaluates when no two particles coincide."""
+    import torch
+
+    from boxtree_torch.traversal.containers import csr_rows
+
+    tc64, sc64 = tcounts.to(torch.int64), scounts.to(torch.int64)
+    tb64 = target_boxes.to(torch.int64)
+    rows = tb64[csr_rows(starts, lists.shape[0])]
+    return int((tc64[rows] * sc64[lists.to(torch.int64)]).sum()) \
+        - int(tc64[tb64].sum())
+
+
+def helmholtz2d_work(inputs):
+    """Bytes K16-K18 must move (each input they need read once, each output
+    written once, on this run's lists: :func:`p2p_bytes` and its kin) and
+    the float64 operations they must do, at *inputs*.
+
+    - K16: per List-1 particle pair with ``r > 0`` (the pairs of each
+      target with itself are not evaluated), 16: difference 2, squared
+      norm 3, ``k r`` 1, ``(i/4) H_0`` 2, times the charge and added 8.  The
+      square root and CUDA's ``j0``/``y0`` are not counted.
+    - K17, per (target particle, List-3 source box) pair, and K18, per
+      (List-4 source particle, target box) pair: the offset and its norm 9;
+      the J recurrence from ``ns`` (the even start order): 4 per step down
+      (``2n/x - r`` and the reciprocal), 1 per product, 7 per pair of
+      orders for the three sums, then 4 per order for ``J_n``, ``Y_n``, and
+      10 for ``Y_0``, ``Y_1`` (the log, ``atan2``, ``sincos`` and ``pow``
+      are not counted); per order ``m = 0..p``, K17 16 (``H_m`` times the
+      phase 6, times ``s^m`` 2, times the multipole and added 8) and 18 more
+      for ``-m`` (the sign 2); K18 14 (phase 6, ``s^m`` 2, times ``(i/4)
+      q`` 6), 16 more for ``-m`` and 2 per coefficient for the sum over
+      sources, then 2 per coefficient of each target box.
+    """
+    import torch
+
+    from boxtree_torch.ops.cylinder_bessel import even_start
+    from boxtree_torch.traversal.containers import csr_rows
+
+    def row_of(starts, lists):
+        return csr_rows(starts, lists.shape[0])
+
+    out = {}
+    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _, _) = \
+        inputs["p2p_helmholtz2d"][2]
+    pairs = list1_pairs(tcn, scn, tb, st, ls)
+    out["p2p_helmholtz2d"] = dict(
+        type="float64", particle_pairs=pairs, flops=16 * pairs,
+        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
+                        q.element_size()))
+
+    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order, nstart) = \
+        inputs["m2p_helmholtz2d"][2]
+    ns = even_start(nstart, order)
+    nc = 2 * order + 1
+    common = 9 + 5 * ns + 7 * (ns // 2) + 4 * (order + 1) + 10
+    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+        row_of(st, ls)]].sum())
+    out["m2p_helmholtz2d"] = dict(
+        type="float64", target_box_pairs=pairs, recurrence_start=ns,
+        coefficients=nc,
+        flops=(common + 16 * (order + 1) + 18 * order) * pairs,
+        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
+                        mp.element_size()))
+
+    (src, q, sst, scn, rows, st, ls, centers, scale, _, order, nstart) = \
+        inputs["p2l_helmholtz2d"][2]
+    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+    out["p2l_helmholtz2d"] = dict(
+        type="float64", source_box_pairs=pairs, recurrence_start=ns,
+        coefficients=nc,
+        flops=((common + 14 * (order + 1) + 16 * order + 2 * nc) * pairs
+               + 2 * nc * rows.shape[0]),
+        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                        nc * q.element_size()))
+    return out
+
+
+def direct_sum_helmholtz2d(sources, charges, targets, k, chunk=1 << 15):
+    """sum_s q_s (i/4) H_0(k |t - s|) over all sources, r = 0 skipped, in
+    complex128, with ``torch.special``'s ``bessel_j0``/``bessel_y0``
+    (independent of the port's recurrences and of K16's ``j0``/``y0``)."""
+    import torch
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = targets[:, :, None] - sources[:, None, c0:c0 + chunk]
+        r = torch.sqrt((d * d).sum(0))
+        ok = r > 0
+        kr = k * torch.where(ok, r, 1.0)
+        g = torch.complex(-0.25 * torch.special.bessel_y0(kr),
+                          0.25 * torch.special.bessel_j0(kr))
+        out += torch.where(ok, g, 0) @ charges[c0:c0 + chunk]
+    return out
+
+
+def check_h0_against_scipy(pts, k, seed, n=10_000):
+    """``torch.special``'s ``j0 + i y0`` against ``scipy.special.hankel1(0,
+    .)`` at ``k |p_i - p_j|`` for *n* pairs of the points: half random
+    pairs (the direct sum's distances), half neighbours in tree order
+    (short distances).  Returns the worst relative error of the complex
+    value, which never vanishes."""
+    import numpy as np
+    import torch
+    from scipy import special as sp
+
+    npts = pts.shape[1]
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, npts, n)
+    j = np.concatenate([rng.integers(0, npts, n // 2),
+                        np.minimum(i[n // 2:] + 1, npts - 1)])
+    i, j = (torch.as_tensor(v, device=pts.device) for v in (i, j))
+    d = pts[:, i] - pts[:, j]
+    x = k * torch.sqrt((d * d).sum(0))
+    x = x[x > 0]
+    got = torch.complex(torch.special.bessel_j0(x),
+                        torch.special.bessel_y0(x)).cpu().numpy()
+    ref = sp.hankel1(0, x.cpu().numpy())
+    return float((np.abs(got - ref) / np.abs(ref)).max()), int(x.numel())
+
+
+def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
+                    k=3.0, order=16, nsample=2000, seed=23):
+    """K16-K18 against their twins at 1e5 points, then the 2D Helmholtz
+    FMM at 1e6 clustered points (K1, K16-K18) and K16-K18 against their
+    twins at its shapes; returns the K16-K18 summary entries."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+    from boxtree_torch.tree.containers import box_flags_enum
+
+    def on_card(pts, q):
+        return (torch.as_tensor(pts, device=device),
+                torch.as_tensor(q, device=device))
+
+    t_phases = time.perf_counter()
+
+    # {{{ kernels vs twins at 1e5 points of the same distribution
+
+    pts, q = on_card(*clustered_square_points(n_kernels, seed + 1))
+    tree = build_tree(pts, max_particles_in_box=30)
+    trav = build_traversal(tree)
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    if wr._l3_csr is None or not wr._l4_csr[2].numel():
+        raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} points")
+    small = check_helmholtz(
+        helmholtz2d_inputs(trav, wr, wr.reorder_sources(q)), device,
+        plain_reps=5, rtol=HELMHOLTZ2D_KERNEL_RTOL)
+    emit({"phase": "kernels_helmholtz2d_small", "card": card,
+          "points": n_kernels, "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels, "order": order, "k": k,
+          "recurrence_start": wr._nstart,
+          "tolerance_rel_linf": HELMHOLTZ2D_KERNEL_RTOL,
+          "p2l_helmholtz2d_rel": "per coefficient", "kernels": small})
+    del tree, trav, wr
+
+    # }}}
+
+    # {{{ the path: 2D Helmholtz FMM at 1e6, every kernel counted
+
+    pts, q = on_card(*clustered_square_points(n_main, seed))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(pts, max_particles_in_box=30),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    wr, t_setup = timed(lambda: make_helmholtz_wrangler(
+        trav, helmholtz_k=k, order=order, rscale="auto"), device)
+    pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    stages = {}
+    _, t_fmm_warm = timed(lambda: drive_fmm(wr, [q], timing_data=stages),
+                          device)
+    h0_rel, h0_n = check_h0_against_scipy(pts, k, seed + 2)
+    if not h0_rel <= BESSEL_CHECK_RTOL:
+        raise AssertionError(f"torch.special j0/y0 vs scipy hankel1: "
+                             f"{h0_rel:.3e} > {BESSEL_CHECK_RTOL}")
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n_main, nsample, replace=False), device=device)
+    ref = direct_sum_helmholtz2d(pts, q, pts[:, sample], k)
+    abs_err, rel = rel_linf(pot[sample], ref)
+    finite = bool(torch.isfinite(pot).all())
+    l1 = list1_pairs(tree.box_target_counts_nonchild,
+                     tree.box_source_counts_nonchild, trav.target_boxes,
+                     trav.neighbor_source_boxes_starts,
+                     trav.neighbor_source_boxes_lists)
+    emit({"phase": "helmholtz2d_fmm", "card": card, "points": n_main,
+          "distribution": "unit square, 4/15 in [0.4, 0.5]^2", "seed": seed,
+          "k": k, "order": order, "rscale": "auto", "dtype": "complex128",
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "nleaves": int(((tree.box_flags & box_flags_enum.IS_LEAF_BOX)
+                          != 0).sum()),
+          "rscale_min": float(wr._rscale_np.min()),
+          "recurrence_start": wr._nstart,
+          "build_s": t_tree, "traversal_s": t_trav,
+          "wrangler_setup_s": t_setup, "fmm_s": t_fmm,
+          "fmm_warm_s": t_fmm_warm, "total_s": t_total, "stage_s": stages,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l1_particle_pairs": l1,
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "h0_check": {"pairs": h0_n, "rel_vs_scipy": h0_rel},
+          "sampled_targets": nsample, "rel_linf_vs_c128_direct": rel,
+          "abs_linf": abs_err, "finite": finite,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    if not finite or tuple(pot.shape) != (n_main,) \
+            or pot.dtype != torch.complex128:
+        raise AssertionError("2D Helmholtz FMM: non-finite or misshapen "
+                             "output")
+    if not rel < HELMHOLTZ2D_FMM_RTOL:
+        raise AssertionError(f"2D Helmholtz FMM: rel l-inf {rel:.3e} >= "
+                             f"{HELMHOLTZ2D_FMM_RTOL}")
+    emit({"phase": "launches", "path": "helmholtz2d_fmm", "card": card,
+          "launches": launches})
+    missing = [name for name in HELMHOLTZ2D_KERNELS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 2D Helmholtz "
+                             f"path: {missing}")
+
+    # }}}
+
+    # the kernels against their twins at the path's own shapes (the twins
+    # take seconds a call here: their times are medians of 3)
+    inputs = helmholtz2d_inputs(trav, wr, wr.reorder_sources(q))
+    work = helmholtz2d_work(inputs)
+    res = check_helmholtz(inputs, device, plain_reps=3,
+                          rtol=HELMHOLTZ2D_KERNEL_RTOL)
+    emit({"phase": "kernels_helmholtz2d", "card": card, "points": n_main,
+          "order": order, "k": k,
+          "tolerance_rel_linf": HELMHOLTZ2D_KERNEL_RTOL,
+          "p2l_helmholtz2d_rel": "per coefficient", "kernels": res,
+          "launches": {name: launches[name] for name in res},
+          "work": work,
+          "helmholtz2d_phases_s": time.perf_counter() - t_phases})
+    return [summary_entry(name, launches[name], res[name], work[name])
+            for name in res]
+
+# }}}
+
+
 def _ptxas_summary(log):
     """Registers / spills per kernel from ``nvcc -Xptxas -v``."""
     out, entry = {}, None
@@ -1379,8 +1756,10 @@ def main():
     b_entries, _ = run_config_b(device, card)
     h_entries = run_helmholtz(device, card)
     e_entries = run_extents(device, card)
+    h2_entries = run_helmholtz2d(device, card)
     print(card, flush=True)
-    emit({"kernels": entries + b_entries + h_entries + e_entries})
+    emit({"kernels": entries + b_entries + h_entries + e_entries
+          + h2_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

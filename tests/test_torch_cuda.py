@@ -11,7 +11,11 @@ K1 must be bit-exact; K2-K4 agree with their twins to rel l-inf 1e-5 in
 float32 (rsqrt and another summation order) and 1e-12 in float64; K9-K11
 (Helmholtz, complex128) to 1e-10, the bar of ``chip_smoke.py`` (Bessel
 recurrences in another rounding, FMA contraction, another summation
-order), and the Helmholtz FMM on the card matches the CPU port to 1e-10.  K5-K8
+order), and the Helmholtz FMM on the card matches the CPU port to 1e-10.
+K16-K18 (2D Helmholtz, complex128) agree with their twins to 1e-12 (K16's
+H_0 comes from CUDA's j0/y0, K17/K18 repeat the twin's recurrence), also
+where a particle sits on a box centre (r = 0) or within k r < 1e-8 of it,
+and the 2D Helmholtz FMM on the card matches the CPU port to 1e-10.  K5-K8
 (level restriction, area-query sweep, space invader, peer lists) compute
 integers, or a float maximum that does not depend on order, so they must
 equal their twins exactly, and a level-restricted tree built on the card
@@ -44,6 +48,7 @@ from boxtree_torch.ops import (
     area_query,
     close_lists,
     extents,
+    helmholtz2d,
     helmholtz3d,
     kernels,
     laplace3d,
@@ -486,5 +491,156 @@ def test_extent_counting_fmm_on_card(extent):
     for t in (trav, trav.merge_close_lists()):
         pot = drive_fmm(ConstantOneExpansionWrangler(None, t), ones)
         assert torch.equal(pot, torch.full_like(pot, n))
+
+# }}}
+
+
+# {{{ K16-K18: the 2D Helmholtz FMM
+
+H2D_RTOL = 1e-12
+
+
+def _clustered_2d(n, seed=23):
+    rng = np.random.default_rng(seed)
+    pts = rng.random((2, n))
+    m = n * 400 // 1500
+    pts[:, :m] = 0.1 * rng.random((2, m)) + 0.4
+    return pts
+
+
+@pytest.fixture(scope="module")
+def helmholtz2d_setup(device):
+    n = 20000
+    pts = torch.as_tensor(_clustered_2d(n), device=device)
+    rng = np.random.default_rng(2)
+    q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                        device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto")
+    return trav, w, w.reorder_sources(q), pts, q
+
+
+def _h2d_args(trav, w, q, which, targets=None, sources=None):
+    tree = trav.tree
+    tgt = w._targets if targets is None else targets
+    src = w._sources if sources is None else sources
+    if which == "p2p":
+        return (tgt, src, q, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, w.k, w._nstart)
+    if which == "m2p":
+        mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                                [q]))
+        return (tgt, tree.box_target_starts,
+                tree.box_target_counts_nonchild, *w._l3_csr, mp, w.centers,
+                w.box_scale, w.k, w.order, w._nstart)
+    return (src, q, tree.box_source_starts, tree.box_source_counts_nonchild,
+            *w._l4_csr, w.centers, w.box_scale, w.k, w.order, w._nstart)
+
+
+def _h2d_compare(which, args, w):
+    fn = getattr(helmholtz2d, f"{which}_helmholtz2d")
+    plain = getattr(helmholtz2d, f"{which}_helmholtz2d_plain")
+    if which == "p2l":
+        got = fn(*args, w.local_expansion_zeros())
+        ref = plain(*args, w.local_expansion_zeros())
+        return _cols_rel(got, ref)
+    return _rel(fn(*args), plain(*args))
+
+
+@pytest.mark.parametrize("which", ["p2p", "m2p", "p2l"])
+def test_helmholtz2d_kernel(helmholtz2d_setup, which):
+    trav, w, q = helmholtz2d_setup[:3]
+    assert w._l3_csr[0].numel() > 0 and w._l4_csr[0].numel() > 0
+    assert _h2d_compare(which, _h2d_args(trav, w, q, which), w) <= H2D_RTOL
+
+
+@pytest.mark.parametrize("which", ["p2p", "m2p", "p2l"])
+def test_helmholtz2d_kernel_edges(helmholtz2d_setup, which):
+    """Particles moved onto the centre of a box they interact with (r = 0:
+    masked) and to 1e-10 from it (k r below the series switch), and, for
+    P2P, sources moved onto targets."""
+    trav, w, q = helmholtz2d_setup[:3]
+    tree = trav.tree
+    pts = w._sources.clone()
+    centers = w.centers.cpu()
+    if which == "p2p":
+        # the second particle of the first 200 target boxes onto the first
+        tb = trav.target_boxes[:200].to(torch.int64)
+        first = tree.box_target_starts[tb].to(torch.int64)
+        two = tree.box_target_counts_nonchild[tb] >= 2
+        pts[:, first[two] + 1] = pts[:, first[two]]
+        near = pts[:, first[two]].clone()
+        near[0] += 1e-10
+        pts[:, first[two] + 2] = near
+        args = _h2d_args(trav, w, q, which, targets=pts, sources=pts)
+    else:
+        rows, starts, lists = (t.cpu().to(torch.int64) for t in (
+            w._l3_csr if which == "m2p" else w._l4_csr))
+        # M2P: a target of the row's box onto the centre of its first
+        # listed source box; P2L: a source of the first listed box onto
+        # the centre of the row's (target) box
+        n = min(200, rows.shape[0])
+        lst = lists[starts[:n]]
+        if which == "m2p":
+            moved = tree.box_target_starts.cpu()[rows[:n]].to(torch.int64)
+            ctr = centers[:, lst]
+        else:
+            moved = tree.box_source_starts.cpu()[lst].to(torch.int64)
+            ctr = centers[:, rows[:n]]
+        pts[:, moved] = ctr.to(pts.device)
+        near = ctr.clone()
+        near[0] += 1e-10
+        counts = (tree.box_target_counts_nonchild if which == "m2p"
+                  else tree.box_source_counts_nonchild).cpu()
+        box = rows[:n] if which == "m2p" else lst
+        two = counts[box] >= 2
+        pts[:, moved[two] + 1] = near[:, two].to(pts.device)
+        args = _h2d_args(trav, w, q, which, targets=pts, sources=pts)
+    assert _h2d_compare(which, args, w) <= H2D_RTOL
+
+
+@pytest.mark.parametrize("order,k", [(24, 3.0), (16, 20.0)])
+def test_helmholtz2d_kernel_large_smem(device, order, k):
+    """K17/K18 past the default 48 KiB of shared memory a CTA: order 24 at
+    k = 3, and order 16 at k = 20 (a recurrence from 338), on the unit
+    square."""
+    n = 5000
+    pts = torch.as_tensor(_clustered_2d(n, seed=5), device=device)
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                        device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    assert max(helmholtz2d.smem_bytes(name, order, w._nstart)
+               for name in ("m2p", "p2l")) > 48 * 1024
+    tq = w.reorder_sources(q)
+    for which in ("m2p", "p2l"):
+        args = _h2d_args(trav, w, tq, which)
+        assert _h2d_compare(which, args, w) <= H2D_RTOL, which
+
+
+def test_helmholtz2d_wrangler_refuses_past_smem(helmholtz2d_setup):
+    """Past 227 KiB a CTA (order 16 at k = 200 on the unit square) the
+    wrangler refuses at construction, before the FMM."""
+    with pytest.raises(ValueError, match="shared memory"):
+        make_helmholtz_wrangler(helmholtz2d_setup[0], 200.0, 16)
+
+
+def test_helmholtz2d_fmm_on_card_matches_cpu(helmholtz2d_setup):
+    trav, w, _, pts, q = helmholtz2d_setup
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [q])
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("p2p_helmholtz2d", "m2p_helmholtz2d",
+                                       "p2l_helmholtz2d")), counts
+    trav_cpu = build_traversal(build_tree(pts.cpu(),
+                                          max_particles_in_box=30))
+    w_cpu = make_helmholtz_wrangler(trav_cpu, 3.0, 16, rscale="auto")
+    ref = drive_fmm(w_cpu, [q.cpu()])
+    assert got.dtype == torch.complex128
+    assert _rel(got.cpu(), ref) <= HELM_RTOL
 
 # }}}

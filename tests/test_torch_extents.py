@@ -55,6 +55,7 @@ from boxtree_tpu.utils.particles import (
     make_normal_particle_array,
     make_uniform_particle_array,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-11
 #: P2P against the correctly rounded direct sum, in units of

@@ -29,6 +29,7 @@ from boxtree_tpu.models.laplace import (
 )
 from boxtree_tpu.traversal import build_traversal as jax_build_traversal
 from boxtree_tpu.utils.particles import make_surface_particle_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 3000
 

@@ -51,6 +51,7 @@ from boxtree_tpu.geometry import (
 )
 from boxtree_tpu.traversal import build_traversal as jax_build_traversal
 from boxtree_tpu.utils.particles import make_surface_particle_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 KIND = "adaptive-level-restricted"
 #: dimensions, points, seed, points in the cap, cap width

@@ -65,6 +65,7 @@ from boxtree_tpu.traversal.containers import (
     FMMTraversalInfo as JaxTraversal,
 )
 from boxtree_tpu.tree.containers import Tree as JaxTree
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 2.0
 N = 800
@@ -411,11 +412,13 @@ def test_complex128_spellings_accepted(points, dtype):
 
 
 def test_2d_raises():
+    """A 2D traversal gets the 2D wrangler (``test_torch_helmholtz2d.py``);
+    the options the port does not cover raise there too."""
     pts = np.random.default_rng(0).random((2, 200))
     trav = build_traversal(build_tree(pts, max_particles_in_box=20,
                                       device="cpu"))
     with pytest.raises(NotImplementedError):
-        make_helmholtz_wrangler(trav, K, 4)
+        make_helmholtz_wrangler(trav, K, 4, pairs=True)
 
 # }}}
 

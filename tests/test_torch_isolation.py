@@ -34,4 +34,7 @@ def test_no_jax_and_no_boxtree_tpu():
     assert "boxtree_torch.tree.level_restrict" in out["modules"]
     assert "boxtree_torch.ops.extents" in out["modules"]
     assert "boxtree_torch.ops.close_lists" in out["modules"]
+    assert "boxtree_torch.ops.cylinder_bessel" in out["modules"]
+    assert "boxtree_torch.ops.helmholtz2d" in out["modules"]
+    assert "boxtree_torch.models.helmholtz" in out["modules"]
     assert out["loaded"] == []

@@ -32,6 +32,7 @@ from boxtree_tpu.models.laplace import (
 )
 from boxtree_tpu.traversal import build_traversal as jax_build_traversal
 from boxtree_tpu.utils.particles import make_surface_particle_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-11
 #: the P2P tolerance in units of eps * sum_j |q_j| / r_ij per target: the

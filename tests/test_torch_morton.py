@@ -11,6 +11,7 @@ import torch
 
 from boxtree_torch.ops import morton as tmorton
 from boxtree_tpu.ops import morton as jmorton
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _coords(dims, dtype, n=5000, seed=7):

@@ -20,6 +20,7 @@ from boxtree_torch.traversal import FMMTraversalInfo, build_traversal
 from boxtree_torch.utils.bridge import to_numpy
 from boxtree_tpu.traversal import build_traversal as jax_build_traversal
 from boxtree_tpu.utils.particles import make_surface_particle_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = {
     "surface_f64": (make_surface_particle_array(3000, 3, np.float64, 11),

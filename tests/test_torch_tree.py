@@ -18,6 +18,7 @@ import boxtree_tpu
 from boxtree_torch import MaxLevelsExceeded, Tree, build_tree
 from boxtree_torch.utils.bridge import to_numpy
 from boxtree_tpu.utils.particles import make_surface_particle_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _deep_points():
