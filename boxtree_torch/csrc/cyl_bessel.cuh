@@ -15,8 +15,10 @@
 //        series term (x/2)^n / n!.
 //   Y_0, Y_1: the log series in the P_n (Abramowitz & Stegun 9.1.88/89),
 //        then the upward Y_{n+1} = (2n/x) Y_n - Y_{n-1}.  Below |x| < 1e-8
-//        Y is evaluated at x = 1, as in the reference; not valid at x = 0
-//        (callers mask r = 0).
+//        the upward recurrence starts from the leading small-argument terms
+//        Y_0 = (2/pi)(log(x/2) + g) (J_0 = 1) and Y_1 = -2/(pi x), with the
+//        true 1/x (the reference evaluates Y at x = 1 there); not valid at
+//        x = 0 (callers mask r = 0).
 // The recurrence runs in registers; the ratios, and then the products in
 // their place, are parked in scratch[n * stride] (n = 0..nstart), because
 // the products run upward after the downward sweep.  H_n goes to
@@ -69,6 +71,12 @@ __device__ __forceinline__ void cylindrical_h(double x, int p, int nstart,
   const double logterm = log(0.5 * xs) + kEulerGamma;
   double ya = kTwoOverPi * (logterm + 2.0 * s_y0) * j0;            // Y_0
   double yb = kTwoOverPi * (logterm * scratch[stride] - xinv - s_y1) * j0;
+  double yinv = xinv;  // the 1/x of the upward Y recurrence
+  if (small) {
+    ya = kTwoOverPi * (log(0.5 * x) + kEulerGamma);
+    yb = -kTwoOverPi / x;
+    yinv = 1.0 / x;
+  }
 
   double half_pow = 1.0, fact = 1.0;  // (x/2)^n, n!
   for (int n = 0; n <= p; ++n) {
@@ -86,7 +94,7 @@ __device__ __forceinline__ void cylindrical_h(double x, int p, int nstart,
     } else if (n == 1) {
       y = yb;
     } else {
-      y = 2.0 * (n - 1) * xinv * yb - ya;
+      y = 2.0 * (n - 1) * yinv * yb - ya;
       ya = yb;
       yb = y;
     }

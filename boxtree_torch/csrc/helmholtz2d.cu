@@ -96,12 +96,9 @@ p2p_helmholtz2d_kernel(const double* __restrict__ targets,
           const double r = sqrt(dx * dx + dy * dy);
           if (r > 0.0) {
             const double kr = k * r;
-            // (i/4) (J_0 + i Y_0) q; below k r < 1e-8 the reference's
-            // recurrence (and the twin) take J_0 = 1 from the series and
-            // evaluate Y_0 at k r = 1 (cyl_bessel.cuh), and so does K16
-            const bool small = kr < kCylSmallX;
-            const double2 g = make_double2(-0.25 * y0(small ? 1.0 : kr),
-                                           small ? 0.25 : 0.25 * j0(kr));
+            // (i/4) (J_0 + i Y_0) q; CUDA's j0/y0 hold at every k r > 0,
+            // below the twin's series switch too (cyl_bessel.cuh)
+            const double2 g = make_double2(-0.25 * y0(kr), 0.25 * j0(kr));
             const double2 v = cmul2(g, sq[j]);
             ar += v.x;
             ai += v.y;

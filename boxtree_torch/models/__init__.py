@@ -12,6 +12,8 @@ from boxtree_torch.models.helmholtz3d import (
     make_helmholtz_wrangler,
 )
 from boxtree_torch.models.laplace import (
+    Laplace2DExpansionWrangler,
+    Laplace2DPairsExpansionWrangler,
     Laplace3DPairsExpansionWrangler,
     LaplaceTreeIndependentDataForWrangler,
     make_laplace_wrangler,
@@ -24,6 +26,8 @@ __all__ = [
     "Helmholtz3DExpansionWrangler",
     "Helmholtz3DTreeIndependentDataForWrangler",
     "HelmholtzTreeIndependentDataForWrangler",
+    "Laplace2DExpansionWrangler",
+    "Laplace2DPairsExpansionWrangler",
     "Laplace3DPairsExpansionWrangler",
     "LaplaceTreeIndependentDataForWrangler",
     "make_helmholtz_wrangler",

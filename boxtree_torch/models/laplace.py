@@ -1,9 +1,25 @@
-"""3D Laplace expansion wrangler on ``[re | im]`` real-pair coefficients.
+"""Laplace expansion wranglers: 2D on complex power series, 3D on
+``[re | im]`` real-pair solid-harmonic coefficients.
 
-Port of ``boxtree_tpu/models/laplace.py:42-66, 379-657``: kernel
-``G(t, s) = 1/|t - s|`` with scaled solid harmonics
-(:mod:`boxtree_torch.ops.solid_harmonics`), in which every translation is a
-plain spherical convolution:
+Port of ``boxtree_tpu/models/laplace.py:42-366, 379-657``.
+
+**2D** (``laplace.py:68-366``): kernel ``G(t, s) = log(t - s)``
+(complex; the potential is its real part), multipole ``a_0 log w + sum_k
+a_k w^-k``, local ``sum_l b_l w^l`` (:mod:`boxtree_torch.ops.laplace2d`).
+With rscale on, coefficients are stored as ``a~_k = a_k / r^k`` and ``b~_l
+= b_l r^l``: every translation argument is divided by the participating
+rscale, with diagonal ``(r_child / r_parent)^k`` corrections, and the M2L
+table's ``b_0`` entry gains ``+ log(r)`` (``laplace.py:129-158``).  M2M and
+L2L come from the host builders (``:92-127``), batched per level; the M2L
+table is built on the wrangler's device in torch from the translation
+classes (``_m2l_ops_device``, ``:160-189`` and ``:271-316``).  Two
+wranglers: :class:`Laplace2DExpansionWrangler` on complex128 coefficients,
+and :class:`Laplace2DPairsExpansionWrangler` on ``[re | im]`` pair lanes
+of float64 or float32 (real potentials).
+
+**3D** (``laplace.py:379-612``): kernel ``G(t, s) = 1/|t - s|`` with scaled
+solid harmonics (:mod:`boxtree_torch.ops.solid_harmonics`), in which every
+translation is a plain spherical convolution:
 
 - ``M_n^m = sum_j q_j conj(R_n^m(y_j - c))``;
   ``phi(x) = sum M_n^m S_n^m(x - c)``
@@ -16,30 +32,249 @@ plain spherical convolution:
 Coefficients are stored rscaled (``M~_n = M_n / r^n``, ``L~_n = L_n r^n``)
 and as real pairs; the host builds the complex operators in float64 and
 expands them with :func:`~boxtree_torch.ops.solid_harmonics.pair_matrix`.
-Potentials are computed directly as their real part.
+Potentials are computed directly as their real part.  The complex 3D
+wrangler is not ported.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from boxtree_torch.config import as_torch_dtype
 from boxtree_torch.fmm.drive import TreeIndependentDataForWrangler
 from boxtree_torch.models.expansion_base import ExpansionWranglerBase
-from boxtree_torch.ops import laplace3d
+from boxtree_torch.ops import laplace2d, laplace3d
 from boxtree_torch.ops import solid_harmonics as sh
 
 
+def _binom_table(p):
+    """``(2p+2, 2p+2)`` binomial coefficients ``C(i, j)``
+    (``laplace.py:42-48``)."""
+    c = np.zeros((2 * p + 2, 2 * p + 2))
+    c[:, 0] = 1
+    for i in range(1, 2 * p + 2):
+        for j in range(1, i + 1):
+            c[i, j] = c[i - 1, j - 1] + c[i - 1, j]
+    return c
+
+
 class LaplaceTreeIndependentDataForWrangler(TreeIndependentDataForWrangler):
-    """Expansion order + the (n, m) of every coefficient."""
+    """Expansion order, the binomial table and, in 3D, the (n, m) of every
+    coefficient (``laplace.py:51-60``)."""
 
     def __init__(self, dim, order):
         self.dim = dim
         self.order = order
-        self.nm_n = np.concatenate(
-            [[n] * (2 * n + 1) for n in range(order + 1)]).astype(np.int64)
-        self.nm_m = np.concatenate(
-            [np.arange(-n, n + 1) for n in range(order + 1)])
+        self.binom = _binom_table(order)
+        if dim == 3:
+            self.nm_n = np.concatenate(
+                [[n] * (2 * n + 1) for n in range(order + 1)]).astype(
+                    np.int64)
+            self.nm_m = np.concatenate(
+                [np.arange(-n, n + 1) for n in range(order + 1)])
+
+
+# {{{ 2D
+
+class Laplace2DExpansionWrangler(ExpansionWranglerBase):
+    """2D Laplace FMM wrangler on complex128 power-series coefficients
+    (see module doc); the counterpart of ``boxtree_tpu``'s wrangler of the
+    same name."""
+
+    dtype = torch.complex128
+    _supports_rscale = True
+    #: the coefficient dtypes the class computes in
+    _dtypes = (torch.complex128,)
+
+    def __init__(self, tree_indep, traversal, **kwargs):
+        self.order = tree_indep.order
+        dt = kwargs.get("dtype")
+        dt = self.dtype if dt is None else as_torch_dtype(dt)
+        if dt not in self._dtypes:
+            raise NotImplementedError(
+                f"{type(self).__name__} is ported in "
+                f"{', '.join(map(str, self._dtypes))}, not {dt}")
+        if traversal.tree.box_levels.device.type == "cuda":
+            # K20/K21 refuse here what they would refuse mid-FMM
+            laplace2d.check_order(self.order, dt)
+        super().__init__(tree_indep, traversal, **kwargs)
+
+    def _ncoeff(self):
+        return self.order + 1
+
+    # {{{ host operators (laplace.py:92-158), batched over the shifts
+
+    def _m2m_host(self, t):
+        """``(n, p+1, p+1)``: ``a'_l = sum_k A[l, k] a_k`` for the centre
+        shifts ``z_old - z_new = t`` (complex, ``(n,)``)."""
+        p, binom = self.order, self.tree_indep.binom
+        ell = np.arange(p + 1)
+        tp = t[:, None] ** ell                               # (n, p+1)
+        lm, km = np.meshgrid(ell, ell, indexing="ij")
+        tri = (km >= 1) & (km <= lm)
+        a = np.where(tri, binom[np.maximum(lm - 1, 0), np.maximum(km - 1, 0)]
+                     * tp[:, np.where(tri, lm - km, 0)], 0)
+        a[:, 1:, 0] = -tp[:, 1:] / ell[1:]
+        a[:, 0, 0] = 1.0
+        return a
+
+    def _l2l_host(self, t):
+        """``(n, p+1, p+1)``: ``b'_l = sum_k B[l, k] b_k`` for the centre
+        shifts ``z_old - z_new = t``."""
+        p, binom = self.order, self.tree_indep.binom
+        ell = np.arange(p + 1)
+        tp = (-t)[:, None] ** ell
+        lm, km = np.meshgrid(ell, ell, indexing="ij")
+        upper = km >= lm
+        return np.where(upper, binom[km, lm]
+                        * tp[:, np.where(upper, km - lm, 0)], 0)
+
+    @staticmethod
+    def _z(ts):
+        ts = np.asarray(ts, np.float64)
+        return ts[:, 0] + 1j * ts[:, 1]
+
+    def _m2m_complex(self, ts, r_child, r_parent):
+        # ts = new - old
+        a = self._m2m_host(-self._z(ts) / r_parent)
+        if r_child != r_parent:
+            a = a * (r_child / r_parent) ** np.arange(
+                self.order + 1)[None, None, :]
+        return a
+
+    def _l2l_complex(self, ts, r_parent, r_child):
+        b = self._l2l_host(-self._z(ts) / r_parent)
+        if r_child != r_parent:
+            b = b * ((r_child / r_parent) ** np.arange(
+                self.order + 1))[None, :, None]
+        return b
+
+    _m2m_matrices = _m2m_complex
+    _l2l_matrices = _l2l_complex
+
+    def _m2l_lanes(self, classes, size, r):
+        """Real and imaginary parts, ``(C, p+1, p+1)`` float64 on the
+        wrangler's device, of the M2L operators of the translations
+        ``classes * size`` (``c_tgt - c_src``) at rscale *r*: with ``z0 =
+        -t / r``, ``b[l, k] = (-1)^k C(l+k-1, l) z0^-(l+k)`` for ``k >=
+        1``, ``b[l, 0] = -z0^-l / l`` for ``l >= 1``, and ``b[0, 0] =
+        log(-z0) + log(r)`` (``laplace.py:160-189``, ``:271-316``);
+        ``log(-z0)`` takes the argument of ``t`` with its zeros as they
+        are, as both references do."""
+        p, binom = self.order, self.tree_indep.binom
+        ts = torch.as_tensor(np.asarray(classes, np.float64) * size,
+                             device=self.device)
+        tx, ty = ts[:, 0], ts[:, 1]
+        x0, y0 = -tx / r, -ty / r
+        n2 = x0 * x0 + y0 * y0
+        ixr, ixi = x0 / n2, -y0 / n2                         # 1 / z0
+        zpr, zpi = [torch.ones_like(x0)], [torch.zeros_like(x0)]
+        for _ in range(1, 2 * p + 2):
+            pr, pi = zpr[-1], zpi[-1]
+            zpr.append(pr * ixr - pi * ixi)
+            zpi.append(pr * ixi + pi * ixr)
+        zpr, zpi = torch.stack(zpr, dim=1), torch.stack(zpi, dim=1)
+        ell = np.arange(p + 1)
+        coef = np.zeros((p + 1, p + 1))
+        for k in range(1, p + 1):
+            coef[:, k] = ((-1.0) ** k) * binom[ell + k - 1, ell]
+        coef = torch.as_tensor(coef, device=self.device)
+        lk = torch.as_tensor(ell[:, None] + ell[None, :], device=self.device)
+        br, bi = coef * zpr[:, lk], coef * zpi[:, lk]
+        lr = 0.5 * torch.log((tx * tx + ty * ty) / (r * r)) + math.log(r)
+        li = torch.atan2(ty, tx)
+        linv = torch.as_tensor(1.0 / ell[1:], device=self.device)
+        br[:, :, 0] = torch.cat([lr[:, None], -zpr[:, 1:p + 1] * linv], 1)
+        bi[:, :, 0] = torch.cat([li[:, None], -zpi[:, 1:p + 1] * linv], 1)
+        return br, bi
+
+    def _m2l_matrices(self, classes, size, r):
+        return torch.complex(*self._m2l_lanes(classes, size, r))
+
+    # }}}
+
+    # {{{ particle hooks (laplace.py:191-208), plain torch
+
+    def _p2m_terms(self, rel, q, scale):
+        return laplace2d.p2m_terms(rel, q, self.order)
+
+    def _l2p_eval(self, rel, loc, scale):
+        return laplace2d.l2p_eval(rel, loc, self.order)
+
+    # }}}
+
+    # {{{ list-stage hooks: the K19-K21 kernels
+
+    def _p2p(self, target_boxes, starts, lists, q):
+        tree = self.tree
+        return laplace2d.p2p_laplace2d(
+            self._targets, self._sources, q.contiguous(),
+            tree.box_target_starts, tree.box_target_counts_nonchild,
+            tree.box_source_starts, tree.box_source_counts_nonchild,
+            target_boxes, starts, lists)
+
+    def _m2p(self, rows, starts, lists, mpole_exps):
+        tree = self.tree
+        return laplace2d.m2p_laplace2d(
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, rows, starts, lists,
+            mpole_exps.contiguous(), self.centers, self.box_scale,
+            self.order)
+
+    def _p2l(self, rows, starts, lists, q, out):
+        tree = self.tree
+        return laplace2d.p2l_laplace2d(
+            self._sources, q.contiguous(), tree.box_source_starts,
+            tree.box_source_counts_nonchild, rows, starts, lists,
+            self.centers, self.box_scale, self.order, out)
+
+    # }}}
+
+
+class Laplace2DPairsExpansionWrangler(Laplace2DExpansionWrangler):
+    """2D Laplace FMM wrangler on ``[re | im]`` pair-lane coefficients of
+    float64 (the default) or float32, with real potentials; the
+    counterpart of ``boxtree_tpu``'s wrangler of the same name."""
+
+    dtype = torch.float64
+    _dtypes = (torch.float64, torch.float32)
+
+    def _ncoeff(self):
+        return 2 * (self.order + 1)
+
+    def reorder_sources(self, source_array):
+        a = torch.as_tensor(source_array, device=self.device)
+        if a.is_complex():
+            # the reference casts the weights to its real dtype in P2M,
+            # P2P and P2L (laplace.py:320, expansion_base.py:1264, 1643):
+            # their imaginary part is dropped
+            a = a.real
+        return super().reorder_sources(a)
+
+    def _m2m_matrices(self, ts, r_child, r_parent):
+        return sh.pair_matrix(self._m2m_complex(ts, r_child, r_parent))
+
+    def _l2l_matrices(self, ts, r_parent, r_child):
+        return sh.pair_matrix(self._l2l_complex(ts, r_parent, r_child))
+
+    def _m2l_matrices(self, classes, size, r):
+        tr, ti = self._m2l_lanes(classes, size, r)
+        return torch.cat([torch.cat([tr, -ti], dim=-1),
+                          torch.cat([ti, tr], dim=-1)], dim=-2)
+
+    def _p2m_terms(self, rel, q, scale):
+        return laplace2d.p2m_terms_pairs(rel, q, self.order)
+
+    def _l2p_eval(self, rel, loc, scale):
+        return laplace2d.l2p_eval_pairs(rel, loc, self.order)
+
+# }}}
+
+
+# {{{ 3D
 
 
 class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
@@ -159,23 +394,32 @@ class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
+# }}}
+
 
 def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
                           pairs=None, **kwargs):
-    """Laplace wrangler for *traversal* (``boxtree_tpu/models/laplace.py:
-    615-657``).  The port covers the 3D real-pair wrangler; ``pairs=False``,
-    ``level_to_order`` and 2D raise :class:`NotImplementedError`.  Other
-    keyword arguments (``rscale``, ``dtype``) go to the wrangler."""
+    """Laplace wrangler for *traversal*, by dimension (``boxtree_tpu/models/
+    laplace.py:615-657``).
+
+    :arg pairs: the ``[re | im]`` real-pair wrangler.  *None* follows the
+        reference's rule in 2D, keyed on the tree's device: complex on the
+        CPU, pairs on CUDA; a complex ``dtype=`` forces the complex
+        wrangler.  In 3D only the pairs wrangler is ported: *None* gives
+        it, and ``pairs=False`` raises :class:`NotImplementedError`.  The
+        pairs take a complex ``dtype=`` as its real counterpart.
+
+    Other keyword arguments (``rscale``, ``dtype``) go to the wrangler;
+    ``level_to_order``, ``dipole_vec``, ``m2l_mode="rotation"``, complex64
+    and dimensions other than 2 and 3 raise :class:`NotImplementedError`.
+    """
     if level_to_order is not None:
         raise NotImplementedError("level_to_order is not ported yet")
     if order is None:
         raise TypeError("pass order")
     dim = traversal.tree.dimensions
-    if dim != 3:
-        raise NotImplementedError(f"no Laplace wrangler for dim={dim} yet")
-    if pairs is False:
-        raise NotImplementedError("the complex Laplace wrangler is not "
-                                  "ported yet; use pairs=True")
+    if dim not in (2, 3):
+        raise NotImplementedError(f"no Laplace wrangler for dim={dim}")
     if kwargs.pop("dipole_vec", None) is not None:
         raise NotImplementedError("dipole sources are not ported yet")
     if kwargs.pop("m2l_mode", "dense") != "dense":
@@ -183,8 +427,19 @@ def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
     # the port's M2L always runs in full precision
     kwargs.pop("m2l_accurate", None)
     dt = kwargs.get("dtype")
-    if dt is not None and not isinstance(dt, torch.dtype) and \
-            np.issubdtype(np.dtype(dt), np.complexfloating):
-        kwargs["dtype"] = np.zeros(0, dt).real.dtype
+    complex_dt = dt is not None and as_torch_dtype(dt).is_complex
+    if pairs is None:
+        pairs = (dim == 3 or (traversal.tree.box_levels.device.type != "cpu"
+                              and not complex_dt))
+    if pairs:
+        if complex_dt:
+            kwargs["dtype"] = as_torch_dtype(dt).to_real()
+        cls = (Laplace2DPairsExpansionWrangler if dim == 2
+               else Laplace3DPairsExpansionWrangler)
+    elif dim == 3:
+        raise NotImplementedError("the complex 3D Laplace wrangler is not "
+                                  "ported yet; use pairs=True")
+    else:
+        cls = Laplace2DExpansionWrangler
     ti = LaplaceTreeIndependentDataForWrangler(dim, order)
-    return Laplace3DPairsExpansionWrangler(ti, traversal, **kwargs)
+    return cls(ti, traversal, **kwargs)

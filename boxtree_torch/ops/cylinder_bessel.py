@@ -16,8 +16,12 @@ to rounding:
   J_{2k}/k]`` and ``Y_1 = (2/pi)[(ln(x/2) + g) J_1 - J_0/x - sum_k
   (-1)^{k+1} (J_{2k-1} - J_{2k+1})/k]``; then the upward recurrence
   ``Y_{n+1} = (2n/x) Y_n - Y_{n-1}``.  ``Y`` is not valid where ``x <= 0``
-  (callers mask); below ``|x| < 1e-8`` it is evaluated at ``x = 1``, as in
-  the reference.
+  (callers mask).  Below ``|x| < 1e-8`` the recurrence starts from the
+  leading small-argument terms, ``Y_0 = (2/pi)(ln(x/2) + g) J_0`` with
+  ``J_0 = 1`` and ``Y_1 = -2/(pi x)``, exact to double precision there.
+  The reference evaluates ``Y`` at ``x = 1`` below that switch
+  (``boxtree_tpu/ops/cylinder_bessel.py:54-55``), so the two part there;
+  the port's tests against it leave that region out.
 """
 
 from __future__ import annotations
@@ -92,9 +96,13 @@ def cylindrical_jy(x, p, *, nstart):
 
     logterm = torch.log(0.5 * xs) + _EULER_GAMMA
     c = 2.0 / np.pi
-    yvals = [c * (logterm + 2.0 * s_y0) * j0]
+    # below the switch: the leading terms, J_0 = 1, and the true 1/x
+    yvals = [torch.where(small, c * (torch.log(0.5 * x) + _EULER_GAMMA),
+                         c * (logterm + 2.0 * s_y0) * j0)]
     if p >= 1:
-        yvals.append(c * (logterm * prods[1] - xinv - s_y1) * j0)
+        yvals.append(torch.where(small, -c / x,
+                                 c * (logterm * prods[1] - xinv - s_y1) * j0))
+        xinv = torch.where(small, 1.0 / x, xinv)
         for n in range(1, p):
             yvals.append(2.0 * n * xinv * yvals[n] - yvals[n - 1])
     return j, torch.stack(yvals, dim=-1)

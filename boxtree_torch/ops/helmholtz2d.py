@@ -46,8 +46,6 @@ from boxtree_torch.ops.laplace3d import _blocks, _edges, _max_count
 _PLAIN_CHUNK_ELEMS = 1 << 21
 #: the kernels' threads per CTA (one warp), as in csrc/helmholtz2d.cu
 _KERNEL_THREADS = 32
-#: dynamic shared memory a CTA may opt in to on sm_90 (227 KiB)
-SMEM_MAX = 227 * 1024
 
 
 # {{{ the basis, shared with the wrangler's P2M / L2P hooks
@@ -129,7 +127,7 @@ def _check_args(k, dtype, order=None, nstart=None):
         raise TypeError("the Helmholtz kernels take a real wavenumber")
     if order is not None:
         smem = max(smem_bytes(name, order, nstart) for name in ("m2p", "p2l"))
-        if smem > SMEM_MAX:
+        if smem > kernels.SMEM_MAX:
             raise ValueError(
                 f"order {order} with a recurrence from {nstart} needs {smem} "
                 "bytes of shared memory per CTA; the kernels take up to "

@@ -34,6 +34,9 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boxtree_torch"
 LIBRARY_NAME = "libboxtree_torch_kernels.so"
 
+#: dynamic shared memory a CTA may opt in to on sm_90 (227 KiB)
+SMEM_MAX = 227 * 1024
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,6 +61,9 @@ SIGNATURES = {
     "p2p_helmholtz2d": "pipippppppippdpp",
     "m2p_helmholtz2d": "pipppippppipdiipp",
     "p2l_helmholtz2d": "pippppipppipdiipp",
+    "p2p_laplace2d": "pipippppppipppp",
+    "m2p_laplace2d": "pipppippppipipp",
+    "p2l_laplace2d": "pippppipppipipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -86,6 +92,9 @@ DTYPES = {
     "p2p_helmholtz2d": (torch.complex128,),
     "m2p_helmholtz2d": (torch.complex128,),
     "p2l_helmholtz2d": (torch.complex128,),
+    "p2p_laplace2d": (*_FLOATS, torch.complex128),
+    "m2p_laplace2d": (*_FLOATS, torch.complex128),
+    "p2l_laplace2d": (*_FLOATS, torch.complex128),
 }
 
 

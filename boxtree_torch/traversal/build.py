@@ -444,3 +444,38 @@ def merge_close_lists(trav):
         from_sep_close_smaller_lists=None,
         from_sep_close_bigger_starts=None,
         from_sep_close_bigger_lists=None)
+
+
+class FMMTraversalBuilder:
+    """Callable wrapper around :func:`build_traversal`, for the public name
+    of ``boxtree_tpu``'s (``boxtree_tpu/traversal/build.py:1928-1962``),
+    with its argument checks."""
+
+    def __init__(self, actx=None, well_sep_is_n_away=1,
+                 from_sep_smaller_crit=None):
+        if isinstance(actx, int):
+            # no array-context argument: the positional form is
+            # (well_sep_is_n_away[, from_sep_smaller_crit])
+            if from_sep_smaller_crit is not None:
+                raise TypeError(
+                    "FMMTraversalBuilder: pass the array context first "
+                    "or use keyword arguments")
+            actx, well_sep_is_n_away, from_sep_smaller_crit = (
+                None, actx,
+                None if well_sep_is_n_away == 1 else well_sep_is_n_away)
+        if not isinstance(well_sep_is_n_away, int) or well_sep_is_n_away < 1:
+            raise TypeError(
+                f"well_sep_is_n_away must be a positive int, got "
+                f"{well_sep_is_n_away!r}")
+        if from_sep_smaller_crit not in (None, *close_lists.CRITERIA):
+            raise ValueError(
+                f"bad from_sep_smaller_crit: {from_sep_smaller_crit!r}")
+        self.well_sep_is_n_away = well_sep_is_n_away
+        self.from_sep_smaller_crit = from_sep_smaller_crit
+
+    def __call__(self, tree_or_actx, tree=None, **kwargs):
+        if tree is None:
+            tree = tree_or_actx
+        return build_traversal(
+            tree, well_sep_is_n_away=self.well_sep_is_n_away,
+            from_sep_smaller_crit=self.from_sep_smaller_crit, **kwargs)

@@ -597,4 +597,21 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
         box_id_of_target=out["box_id_of_target"],
     )
 
+
+class TreeBuilder:
+    """Callable wrapper around :func:`build_tree`, for the public name of
+    ``boxtree_tpu``'s (``boxtree_tpu/tree/build.py:819-832``): stateless;
+    a leading argument that is no array (an array context) is dropped."""
+
+    ROOT_EXTENT_STRETCH_FACTOR = config.ROOT_EXTENT_STRETCH_FACTOR
+
+    def __init__(self, actx=None):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        if args and not hasattr(args[0], "shape") \
+                and not isinstance(args[0], (list, tuple, np.ndarray)):
+            args = args[1:]
+        return build_tree(*args, **kwargs)
+
 # }}}

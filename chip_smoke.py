@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives four
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives six
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -30,10 +30,17 @@ paths of the port on the card, each with the kernels' launch counts set to
   1e6 float64 points in the unit square, 4/15 of them clustered in
   [0.4, 0.5]^2, checked against a complex128 direct sum of ``(i/4) H_0``
   at 2,000 sampled targets, taken with ``torch.special``'s ``j0``/``y0``
-  (held to ``scipy.special.hankel1`` first) (K1, K16-K18).
+  (held to ``scipy.special.hankel1`` first) (K1, K16-K18);
+- the 2D Laplace FMM (order 20, ``rscale="auto"``), complex128 and float64
+  pairs on one tree, at 1e6 float64 points in the unit square, 24 % of
+  them in [0.45, 0.55]^2, with real charges: the real parts against a
+  float64 direct sum at 2,000 sampled targets, the pairs against the
+  complex real part, the counting FMM on the same traversal; then the
+  order-35 geometric line of ``tests/test_stability.py`` (K1, K19-K21).
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
-its path (K9-K11 and K16-K18 at 1e5 points as well, a shallower tree),
+its path (K9-K11, K16-K18 and K19-K21 at 1e5 points as well, a shallower
+tree; K19-K21 on every entry point there),
 and timed beside it (median of 5 synchronised calls; 3 for the slow
 Helmholtz twins at 1e6) and beside its bound, the least time the card
 could take for the same work.  Each phase prints one JSON line; then come
@@ -69,6 +76,9 @@ REPLACES = {
     "p2p_helmholtz2d": "boxtree_tpu/models/helmholtz.py:284",
     "m2p_helmholtz2d": "boxtree_tpu/models/helmholtz.py:275",
     "p2l_helmholtz2d": "boxtree_tpu/models/helmholtz.py:279",
+    "p2p_laplace2d": "boxtree_tpu/models/laplace.py:232",
+    "m2p_laplace2d": "boxtree_tpu/models/laplace.py:210",
+    "p2l_laplace2d": "boxtree_tpu/models/laplace.py:221",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -89,6 +99,9 @@ SOURCES = {
     "p2p_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
     "m2p_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
     "p2l_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
+    "p2p_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
+    "m2p_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
+    "p2l_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
 }
 MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
                      "p2l_laplace3d")
@@ -101,6 +114,8 @@ HELMHOLTZ_KERNELS = ("morton_encode", "p2p_helmholtz3d", "m2p_helmholtz3d",
                      "p2l_helmholtz3d")
 HELMHOLTZ2D_KERNELS = ("morton_encode", "p2p_helmholtz2d", "m2p_helmholtz2d",
                        "p2l_helmholtz2d")
+LAPLACE2D_KERNELS = ("morton_encode", "p2p_laplace2d", "m2p_laplace2d",
+                     "p2l_laplace2d")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
@@ -127,6 +142,19 @@ HELMHOLTZ2D_FMM_RTOL = 1e-5
 #: 100 times below the FMM's bar (torch.special's j0/y0 are good to ~1e-8
 #: relative for k r in [1, 5], ~1e-16 below 1)
 BESSEL_CHECK_RTOL = 1e-7
+
+#: rel l-inf tolerance of K19-K21 against their twins, by entry point:
+#: complex128 and float64 pairs (logs, atan2 and powers rounded in another
+#: order, FMA contraction, sums in another order), float32 pairs
+LAPLACE2D_KERNEL_RTOL = {"c128": 1e-12, "f64": 1e-12, "f32": 1e-5}
+#: rel l-inf bound of the order-20 2D Laplace FMM's real part against the
+#: float64 direct sum (``tests/test_laplace.py:23-53``'s bar)
+LAPLACE2D_FMM_RTOL = 1e-5
+#: largest rel l-inf of the float64 pairs potentials from the complex
+#: wrangler's real part (the same math in pair lanes)
+LAPLACE2D_PAIRS_RTOL = 1e-10
+#: rel l-inf bound of the order-35 line (``tests/test_stability.py:58``)
+LAPLACE2D_STABILITY_RTOL = 0.5 ** 36
 
 #: rel l-inf bound of the order-10 float64 Laplace FMM on the QBX extent
 #: tree against the float64 direct sum (BASELINE.md's Config D bar)
@@ -972,8 +1000,9 @@ def helmholtz_work(inputs):
     return out
 
 
-def check_helmholtz(inputs, device, plain_reps, rtol=HELMHOLTZ_KERNEL_RTOL):
-    """Run the Helmholtz kernels (K9-K11 or K16-K18) and their twins on the
+def check_list_kernels(inputs, device, plain_reps,
+                       rtol=HELMHOLTZ_KERNEL_RTOL):
+    """Run list kernels (K9-K11, K16-K18 or K19-K21) and their twins on the
     same inputs; raise on a rel l-inf above *rtol* (a P2L's local
     coefficients each held to their own column's scale).  Returns ``{name:
     {max_abs_err, rel_err, ms, plain_ms}}``: the kernel's median of 5, the
@@ -1038,8 +1067,9 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
     wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
     if wr._l3_csr is None or not wr._l4_csr[2].numel():
         raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} points")
-    small = check_helmholtz(helmholtz_inputs(trav, wr, wr.reorder_sources(q)),
-                            device, plain_reps=5)
+    small = check_list_kernels(
+        helmholtz_inputs(trav, wr, wr.reorder_sources(q)), device,
+        plain_reps=5)
     emit({"phase": "kernels_helmholtz_small", "card": card,
           "points": n_kernels, "nboxes": tree.nboxes,
           "nlevels": tree.nlevels, "order": order, "k": k,
@@ -1111,7 +1141,7 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
     # of K10 and K11 take seconds a call here: their times are medians of 3)
     inputs = helmholtz_inputs(trav, wr, wr.reorder_sources(q))
     work = helmholtz_work(inputs)
-    res = check_helmholtz(inputs, device, plain_reps=3)
+    res = check_list_kernels(inputs, device, plain_reps=3)
     emit({"phase": "kernels_helmholtz", "card": card, "points": n_main,
           "order": order, "k": k,
           "tolerance_rel_linf": HELMHOLTZ_KERNEL_RTOL,
@@ -1614,7 +1644,7 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
     wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
     if wr._l3_csr is None or not wr._l4_csr[2].numel():
         raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} points")
-    small = check_helmholtz(
+    small = check_list_kernels(
         helmholtz2d_inputs(trav, wr, wr.reorder_sources(q)), device,
         plain_reps=5, rtol=HELMHOLTZ2D_KERNEL_RTOL)
     emit({"phase": "kernels_helmholtz2d_small", "card": card,
@@ -1702,8 +1732,8 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
     # take seconds a call here: their times are medians of 3)
     inputs = helmholtz2d_inputs(trav, wr, wr.reorder_sources(q))
     work = helmholtz2d_work(inputs)
-    res = check_helmholtz(inputs, device, plain_reps=3,
-                          rtol=HELMHOLTZ2D_KERNEL_RTOL)
+    res = check_list_kernels(inputs, device, plain_reps=3,
+                             rtol=HELMHOLTZ2D_KERNEL_RTOL)
     emit({"phase": "kernels_helmholtz2d", "card": card, "points": n_main,
           "order": order, "k": k,
           "tolerance_rel_linf": HELMHOLTZ2D_KERNEL_RTOL,
@@ -1713,6 +1743,338 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
           "helmholtz2d_phases_s": time.perf_counter() - t_phases})
     return [summary_entry(name, launches[name], res[name], work[name])
             for name in res]
+
+# }}}
+
+
+# {{{ the 2D Laplace FMM (K19-K21)
+
+def laplace2d_points(n, seed):
+    """``tests/test_laplace.py:27-31``'s points at *n*: uniform in the unit
+    square, the first 24 % (its 600 of 2,500) uniform in [0.45, 0.55]^2;
+    then real standard-normal charges from the same stream."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pts = rng.random((2, n))
+    m = round(n * 600 / 2500)
+    pts[:, :m] = 0.1 * rng.random((2, m)) + 0.45
+    return pts, rng.standard_normal(n)
+
+
+def laplace2d_inputs(trav, wrangler, q_tree):
+    """K19-K21's wrappers, plain twins and arguments at the shapes the 2D
+    Laplace FMM of *wrangler* (complex or pairs) gives them."""
+    from boxtree_torch.ops import laplace2d
+
+    w = wrangler
+    tree = trav.tree
+    mpoles = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [q_tree]))
+    return {
+        "p2p_laplace2d": (
+            laplace2d.p2p_laplace2d, laplace2d.p2p_laplace2d_plain,
+            (w._targets, w._sources, q_tree, tree.box_target_starts,
+             tree.box_target_counts_nonchild, tree.box_source_starts,
+             tree.box_source_counts_nonchild, trav.target_boxes,
+             trav.neighbor_source_boxes_starts,
+             trav.neighbor_source_boxes_lists)),
+        "m2p_laplace2d": (
+            laplace2d.m2p_laplace2d, laplace2d.m2p_laplace2d_plain,
+            (w._targets, tree.box_target_starts,
+             tree.box_target_counts_nonchild, *w._l3_csr, mpoles, w.centers,
+             w.box_scale, w.order)),
+        "p2l_laplace2d": (
+            lambda *a: laplace2d.p2l_laplace2d(
+                *a, w.local_expansion_zeros()),
+            lambda *a: laplace2d.p2l_laplace2d_plain(
+                *a, w.local_expansion_zeros()),
+            (w._sources, q_tree, tree.box_source_starts,
+             tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
+             w.box_scale, w.order)),
+    }
+
+
+def laplace2d_work(inputs):
+    """Bytes K19-K21 must move (each input they need read once, each output
+    written once, on this run's lists: :func:`p2p_bytes` and its kin) and
+    the float operations they must do, at *inputs*, for the entry point
+    the inputs take (complex128, or real pairs of the points' type).
+
+    - K19: per List-1 particle pair with ``r > 0`` (not each target with
+      itself), 8: difference 2, ``r^2`` 3, the half 1, times the charge
+      and added 2; 10 with complex charges (two real sums).  The log is
+      not counted.
+    - K20, per (target particle, List-3 source box) pair: the scaled offset
+      4; complex: ``log s`` added 1, times ``a_0`` 6, ``1/w`` 5, then per
+      order ``k >= 1`` 14 (the power 6, times ``a_k`` 6, added 2); pairs:
+      ``r^2`` 3, ``log`` halves and sums 2, the ``a_0`` lanes 3, ``1/w`` 3,
+      then per order 10 (the power 6, the lanes 4).  Logs, ``hypot`` and
+      ``atan2`` are not counted.
+    - K21, per (List-4 source particle, target box) pair: the offset 4;
+      complex: ``log s`` 1, times ``q`` 6, ``1/z0`` 5, per order 14 (power
+      6, times ``-q`` 6, over ``l`` 2), and 2 per coefficient for the sum
+      over sources; pairs: ``r^2`` 3, logs 2, times ``q`` 2, ``1/z0`` 3,
+      per order 12 (power 6, both lanes 6), and 1 per coefficient lane for
+      the sum; then each row's coefficients added into the output.
+    """
+    import torch
+
+    from boxtree_torch.traversal.containers import csr_rows
+
+    out = {}
+    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls) = \
+        inputs["p2p_laplace2d"][2]
+    cplx = q.is_complex()
+    typ = str(tgt.dtype).removeprefix("torch.")
+    pairs = list1_pairs(tcn, scn, tb, st, ls)
+    out["p2p_laplace2d"] = dict(
+        type=typ, particle_pairs=pairs, flops=(10 if cplx else 8) * pairs,
+        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
+                        q.element_size()))
+
+    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, order) = \
+        inputs["m2p_laplace2d"][2]
+    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+        csr_rows(st, ls.shape[0])]].sum())
+    per = (16 + 14 * order) if cplx else (15 + 10 * order)
+    out["m2p_laplace2d"] = dict(
+        type=typ, target_box_pairs=pairs, coefficients=mp.shape[1],
+        flops=per * pairs,
+        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
+                        mp.element_size()))
+
+    (src, q, sst, scn, rows, st, ls, centers, scale, order) = \
+        inputs["p2l_laplace2d"][2]
+    nc = order + 1 if cplx else 2 * (order + 1)
+    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+    per = (16 + 14 * order + 2 * nc) if cplx else (14 + 12 * order + nc)
+    out["p2l_laplace2d"] = dict(
+        type=typ, source_box_pairs=pairs, coefficients=nc,
+        flops=per * pairs + (2 if cplx else 1) * nc * rows.shape[0],
+        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                        nc * q.element_size()))
+    return out
+
+
+def direct_sum_log2d(sources, charges, targets, chunk=1 << 15):
+    """sum_s q_s log |t - s| over all sources, r = 0 skipped, in
+    float64."""
+    import torch
+    out = torch.zeros(targets.shape[1], dtype=torch.float64,
+                      device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = targets[:, :, None] - sources[:, None, c0:c0 + chunk]
+        r2 = (d * d).sum(0)
+        ok = r2 > 0
+        g = torch.where(ok, 0.5 * torch.log(torch.where(ok, r2, 1.0)), 0.0)
+        out += g @ charges[c0:c0 + chunk]
+    return out
+
+
+def run_laplace2d(device, card, n_kernels=100_000, n_main=1_000_000,
+                  order=20, nsample=2000, seed=20, stability_order=35):
+    """K19-K21 against their twins at 1e5 points on every entry point,
+    then the 2D Laplace FMM at 1e6 clustered points, complex128 and
+    float64 pairs on one tree (K1, K19-K21), the order-35 line, and
+    K19-K21 against their twins at the path's shapes; returns the K19-K21
+    summary entries (the complex128 entry points')."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import (
+        ConstantOneExpansionWrangler,
+        make_laplace_wrangler,
+    )
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+    from boxtree_torch.tree.containers import box_flags_enum
+
+    t_phases = time.perf_counter()
+    entries = {"c128": dict(pairs=False),
+               "f64": dict(pairs=True, dtype=torch.float64),
+               "f32": dict(pairs=True, dtype=torch.float32)}
+
+    # {{{ kernels vs twins at 1e5 points, every entry point
+
+    pts_np, q_np = laplace2d_points(n_kernels, seed + 1)
+    pts = torch.as_tensor(pts_np, device=device)
+    # complex charges for the complex128 entry points, their real part for
+    # the pairs
+    qc = torch.as_tensor(q_np + 1j * np.random.default_rng(
+        seed + 3).standard_normal(n_kernels), device=device)
+    tree = build_tree(pts, max_particles_in_box=20)
+    trav = build_traversal(tree)
+    small = {}
+    for name, kw in entries.items():
+        wr = make_laplace_wrangler(trav, order, rscale="auto", **kw)
+        if wr._l3_csr is None or not wr._l4_csr[2].numel():
+            raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} "
+                                 "points")
+        q = wr.reorder_sources(qc if name == "c128" else qc.real)
+        small[name] = check_list_kernels(
+            laplace2d_inputs(trav, wr, q), device, plain_reps=5,
+            rtol=LAPLACE2D_KERNEL_RTOL[name])
+    emit({"phase": "kernels_laplace2d_small", "card": card,
+          "points": n_kernels, "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels, "order": order, "rscale": "auto",
+          "charges": "complex normal (c128), their real part (pairs)",
+          "tolerance_rel_linf": LAPLACE2D_KERNEL_RTOL,
+          "p2l_laplace2d_rel": "per coefficient", "kernels": small})
+    del tree, trav, wr
+
+    # }}}
+
+    # {{{ the path: both 2D Laplace FMMs at 1e6, every kernel counted
+
+    pts_np, q_np = laplace2d_points(n_main, seed)
+    pts = torch.as_tensor(pts_np, device=device)
+    q = torch.as_tensor(q_np, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(pts, max_particles_in_box=20),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    wc, t_setup_c = timed(lambda: make_laplace_wrangler(
+        trav, order, pairs=False, rscale="auto"), device)
+    pot_c, t_fmm_c = timed(lambda: drive_fmm(wc, [q]), device)
+    wp, t_setup_p = timed(lambda: make_laplace_wrangler(
+        trav, order, pairs=True, rscale="auto"), device)
+    pot_p, t_fmm_p = timed(lambda: drive_fmm(wp, [q]), device)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    stages_c, stages_p = {}, {}
+    _, t_warm_c = timed(lambda: drive_fmm(wc, [q], timing_data=stages_c),
+                        device)
+    _, t_warm_p = timed(lambda: drive_fmm(wp, [q], timing_data=stages_p),
+                        device)
+    pot1, t_count = timed(lambda: drive_fmm(
+        ConstantOneExpansionWrangler(None, trav),
+        [torch.ones(n_main, dtype=torch.float64, device=device)]), device)
+    nbad = int((pot1 != n_main).sum())
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n_main, nsample, replace=False), device=device)
+    ref = direct_sum_log2d(pts, q, pts[:, sample])
+    abs_c, rel_c = rel_linf(pot_c.real[sample], ref)
+    abs_p, rel_p = rel_linf(pot_p[sample], ref)
+    _, rel_pc = rel_linf(pot_p, pot_c.real)
+    finite = bool(torch.isfinite(pot_c).all()
+                  and torch.isfinite(pot_p).all())
+    emit({"phase": "laplace2d_fmm", "card": card, "points": n_main,
+          "distribution": "unit square, 24 % in [0.45, 0.55]^2",
+          "seed": seed, "charges": "real normal", "order": order,
+          "rscale": "auto", "max_particles_in_box": 20,
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "nleaves": int(((tree.box_flags & box_flags_enum.IS_LEAF_BOX)
+                          != 0).sum()),
+          "rscale_min": float(wc._rscale_np.min()),
+          "build_s": t_tree, "traversal_s": t_trav,
+          "wrangler_setup_s": {"complex128": t_setup_c,
+                               "float64_pairs": t_setup_p},
+          "fmm_s": {"complex128": t_fmm_c, "float64_pairs": t_fmm_p},
+          "fmm_warm_s": {"complex128": t_warm_c, "float64_pairs": t_warm_p},
+          "total_s": t_total,
+          "stage_s": {"complex128": stages_c, "float64_pairs": stages_p},
+          "counting_fmm_s": t_count, "counting_exact": nbad == 0,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l1_particle_pairs": list1_pairs(
+                  tree.box_target_counts_nonchild,
+                  tree.box_source_counts_nonchild, trav.target_boxes,
+                  trav.neighbor_source_boxes_starts,
+                  trav.neighbor_source_boxes_lists),
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "sampled_targets": nsample,
+          "rel_linf_vs_f64_direct": {"complex128": rel_c,
+                                     "float64_pairs": rel_p},
+          "abs_linf": {"complex128": abs_c, "float64_pairs": abs_p},
+          "pairs_vs_complex_rel_linf": rel_pc, "finite": finite,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    if not finite or tuple(pot_c.shape) != (n_main,) \
+            or pot_c.dtype != torch.complex128 \
+            or tuple(pot_p.shape) != (n_main,) \
+            or pot_p.dtype != torch.float64:
+        raise AssertionError("2D Laplace FMM: non-finite or misshapen "
+                             "output")
+    if nbad:
+        raise AssertionError(f"2D counting FMM: {nbad} potentials != "
+                             f"{n_main}")
+    for name, rel in (("complex128", rel_c), ("float64 pairs", rel_p)):
+        if not rel < LAPLACE2D_FMM_RTOL:
+            raise AssertionError(f"2D Laplace FMM ({name}): rel l-inf "
+                                 f"{rel:.3e} >= {LAPLACE2D_FMM_RTOL}")
+    if not rel_pc <= LAPLACE2D_PAIRS_RTOL:
+        raise AssertionError(f"2D Laplace pairs vs complex: rel l-inf "
+                             f"{rel_pc:.3e} > {LAPLACE2D_PAIRS_RTOL}")
+    emit({"phase": "launches", "path": "laplace2d_fmm", "card": card,
+          "launches": launches})
+    missing = [name for name in LAPLACE2D_KERNELS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 2D Laplace "
+                             f"path: {missing}")
+
+    # }}}
+
+    # {{{ the order-35 line (tests/test_stability.py:28-65)
+
+    line = np.array([2.0 ** -i for i in range(15)])
+    line = np.hstack([line, 3 - line])
+    src_np = np.vstack([line, np.zeros(30)])
+    tgt_np = src_np * (1 + 1e-3)
+    d = src_np[:, None, :] - tgt_np[:, :, None]
+    ref_line = 0.5 * np.log((d * d).sum(0)) @ np.ones(30)
+    tree_l = build_tree(torch.as_tensor(src_np, device=device),
+                        targets=torch.as_tensor(tgt_np, device=device),
+                        max_particles_in_box=2)
+    trav_l = build_traversal(tree_l)
+    stab = {}
+    for name, pairs in (("complex128", False), ("float64_pairs", True)):
+        w = make_laplace_wrangler(trav_l, stability_order, pairs=pairs,
+                                  rscale="auto")
+        pot = drive_fmm(w, [torch.ones(30, dtype=torch.float64,
+                                       device=device)]).real.cpu().numpy()
+        stab[name] = dict(
+            nan=bool(np.isnan(pot).any()),
+            rel_linf_vs_direct=float(np.abs(pot - ref_line).max()
+                                     / np.abs(ref_line).max()))
+    emit({"phase": "laplace2d_stability", "card": card, "points": 30,
+          "order": stability_order, "rscale": "auto",
+          "nlevels": tree_l.nlevels, "bound": LAPLACE2D_STABILITY_RTOL,
+          "results": stab})
+    if tree_l.nlevels < 15:
+        raise AssertionError(f"the line tree has {tree_l.nlevels} levels")
+    for name, r in stab.items():
+        if r["nan"] or not (r["rel_linf_vs_direct"]
+                            < LAPLACE2D_STABILITY_RTOL):
+            raise AssertionError(f"2D Laplace order-35 line ({name}): {r}")
+
+    # }}}
+
+    # the kernels against their twins at the path's own shapes
+    res, work = {}, {}
+    for name, w in (("c128", wc), ("f64", wp)):
+        inputs = laplace2d_inputs(trav, w, w.reorder_sources(q))
+        work[name] = laplace2d_work(inputs)
+        res[name] = check_list_kernels(inputs, device, plain_reps=3,
+                                       rtol=LAPLACE2D_KERNEL_RTOL[name])
+        for kname, r in res[name].items():
+            r["bound_ms"], r["bound_by"] = bound(work[name][kname])
+    emit({"phase": "kernels_laplace2d", "card": card, "points": n_main,
+          "order": order, "tolerance_rel_linf": LAPLACE2D_KERNEL_RTOL,
+          "p2l_laplace2d_rel": "per coefficient", "kernels": res,
+          "launches": {name: launches[name] for name in res["c128"]},
+          "work": work,
+          "laplace2d_phases_s": time.perf_counter() - t_phases})
+    return [summary_entry(name, launches[name], res["c128"][name],
+                          work["c128"][name]) for name in res["c128"]]
 
 # }}}
 
@@ -1757,9 +2119,10 @@ def main():
     h_entries = run_helmholtz(device, card)
     e_entries = run_extents(device, card)
     h2_entries = run_helmholtz2d(device, card)
+    l2_entries = run_laplace2d(device, card)
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
-          + h2_entries})
+          + h2_entries + l2_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

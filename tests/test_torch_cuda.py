@@ -14,8 +14,13 @@ recurrences in another rounding, FMA contraction, another summation
 order), and the Helmholtz FMM on the card matches the CPU port to 1e-10.
 K16-K18 (2D Helmholtz, complex128) agree with their twins to 1e-12 (K16's
 H_0 comes from CUDA's j0/y0, K17/K18 repeat the twin's recurrence), also
-where a particle sits on a box centre (r = 0) or within k r < 1e-8 of it,
-and the 2D Helmholtz FMM on the card matches the CPU port to 1e-10.  K5-K8
+where a particle sits on a box centre (r = 0) or within k r < 1e-8 of it
+(where K16's CUDA y0 and the twin's small-argument Y agree), and the 2D
+Helmholtz FMM on the card matches the CPU port to 1e-10.  K19-K21 (2D
+Laplace) agree with their twins to 1e-12 in complex128 and float64 pairs
+and 1e-5 in float32 pairs, also at r = 0, w = 0, on centre lines with
+either zero sign, on empty rows and at order 35; the 2D Laplace FMM on
+the card matches the CPU port.  K5-K8
 (level restriction, area-query sweep, space invader, peer lists) compute
 integers, or a float maximum that does not depend on order, so they must
 equal their twins exactly, and a level-restricted tree built on the card
@@ -51,6 +56,7 @@ from boxtree_torch.ops import (
     helmholtz2d,
     helmholtz3d,
     kernels,
+    laplace2d,
     laplace3d,
     morton,
     peers,
@@ -642,5 +648,256 @@ def test_helmholtz2d_fmm_on_card_matches_cpu(helmholtz2d_setup):
     ref = drive_fmm(w_cpu, [q.cpu()])
     assert got.dtype == torch.complex128
     assert _rel(got.cpu(), ref) <= HELM_RTOL
+
+# }}}
+
+
+# {{{ K19-K21: the 2D Laplace FMM
+
+#: K19-K21 against their twins: complex128 and float64 pairs (logs and
+#: powers in another rounding, FMA contraction, sums in another order), and
+#: float32 pairs
+L2D_RTOL = {torch.complex128: 1e-12, torch.float64: 1e-12,
+            torch.float32: 1e-5}
+L2D_KINDS = {"c128": (False, torch.complex128),
+             "f64": (True, torch.float64), "f32": (True, torch.float32)}
+
+
+def _clustered_laplace(n, seed=20):
+    """``tests/test_laplace.py:27-31``'s points at *n*."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((2, n))
+    m = n * 600 // 2500
+    pts[:, :m] = 0.1 * rng.random((2, m)) + 0.45
+    return pts
+
+
+def _zero_safe_cols_rel(got, ref):
+    """:func:`_cols_rel`, with a column that is zero in the reference held
+    to zero."""
+    scale = ref.abs().amax(0)
+    err = (got - ref).abs().amax(0)
+    assert (err[scale == 0] == 0).all()
+    return (err[scale > 0] / scale[scale > 0]).max().item()
+
+
+@pytest.fixture(scope="module")
+def laplace2d_setup(device):
+    n = 20000
+    pts = torch.as_tensor(_clustered_laplace(n), device=device)
+    rng = np.random.default_rng(2)
+    qc = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                         device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=20))
+    ws = {kind: make_laplace_wrangler(trav, 20, pairs=pairs, dtype=dt,
+                                      rscale="auto")
+          for kind, (pairs, dt) in L2D_KINDS.items()}
+    return trav, ws, pts, qc
+
+
+def _l2d_args(trav, w, q, which, pts=None, centers=None):
+    """K19-K21's arguments from wrangler *w* (charges *q* in its dtype),
+    with the particles (tree order) and box centres replaced if given."""
+    tree = trav.tree
+    pts = w._sources if pts is None else pts.to(w.real_dtype)
+    centers = w.centers if centers is None else centers.to(w.real_dtype)
+    if which == "p2p":
+        return (pts, pts, q, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists)
+    if which == "m2p":
+        mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                                [q]))
+        return (pts, tree.box_target_starts,
+                tree.box_target_counts_nonchild, *w._l3_csr, mp, centers,
+                w.box_scale, w.order)
+    return (pts, q, tree.box_source_starts, tree.box_source_counts_nonchild,
+            *w._l4_csr, centers, w.box_scale, w.order)
+
+
+def _l2d_compare(which, args, w):
+    fn = getattr(laplace2d, f"{which}_laplace2d")
+    plain = getattr(laplace2d, f"{which}_laplace2d_plain")
+    if which == "p2l":
+        got = fn(*args, w.local_expansion_zeros())
+        ref = plain(*args, w.local_expansion_zeros())
+        return _zero_safe_cols_rel(got, ref)
+    return _rel(fn(*args), plain(*args))
+
+
+def _l2d_charges(w, qc):
+    """Complex charges for the complex wrangler, their real part for the
+    pairs."""
+    return w.reorder_sources(qc if w.dtype.is_complex else qc.real)
+
+
+@pytest.mark.parametrize("which", ["p2p", "m2p", "p2l"])
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+def test_laplace2d_kernel(laplace2d_setup, kind, which):
+    trav, ws, _, qc = laplace2d_setup
+    w = ws[kind]
+    assert w._l3_csr[0].numel() > 0 and w._l4_csr[0].numel() > 0
+    err = _l2d_compare(which, _l2d_args(trav, w, _l2d_charges(w, qc),
+                                        which), w)
+    assert err <= L2D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", ["p2p", "m2p", "p2l"])
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+def test_laplace2d_kernel_edges(laplace2d_setup, kind, which):
+    """Edges, with the twins' reference semantics: P2P with sources moved
+    onto targets (r = 0); M2P with targets moved onto the centre of their
+    row's first listed box (w = 0: the complex form takes w = 1, the pairs
+    1/w = 0) and onto its horizontal centre line on either side (+-pi); P2L
+    the same with sources and the row's box; and on boxes whose centre y is
+    set to +0.0 with particles at y = -0.0 (the complex form holds the
+    offset's -0.0 as +0.0, the pairs keep it)."""
+    trav, ws, pts0, qc = laplace2d_setup
+    w = ws[kind]
+    tree = trav.tree
+    q = _l2d_charges(w, qc)
+    pts = w._sources.to(torch.float64).clone()
+    centers = w.centers.to(torch.float64).clone()
+    if which == "p2p":
+        tb = trav.target_boxes[:200].to(torch.int64)
+        first = tree.box_target_starts[tb].to(torch.int64)
+        two = tree.box_target_counts_nonchild[tb] >= 2
+        pts[:, first[two] + 1] = pts[:, first[two]]
+    else:
+        rows, starts, lists = (t.to(torch.int64) for t in (
+            w._l3_csr if which == "m2p" else w._l4_csr))
+        n = min(300, rows.shape[0])
+        lst = lists[starts[:n]]
+        part = "target" if which == "m2p" else "source"
+        # the particle box and the centre box of each row's first entry
+        pbox, cbox = (rows[:n], lst) if which == "m2p" else (lst, rows[:n])
+        first = getattr(tree, f"box_{part}_starts")[pbox].to(torch.int64)
+        count = getattr(tree, f"box_{part}_counts_nonchild")[pbox]
+        ctr = centers[:, cbox]
+        s = w.box_scale[cbox].to(torch.float64)
+        # a third each: on the centre, left of it, right of it
+        third = torch.arange(n, device=pts.device) % 3
+        dx = torch.where(third == 1, -0.75 * s, 0.75 * s)
+        dx = torch.where(third == 0, torch.zeros_like(dx), dx)
+        pts[0, first] = ctr[0] + dx
+        pts[1, first] = ctr[1]
+        # the second particle of the first 30 rows at y = -0.0, their
+        # centres' y at +0.0
+        sel = (count[:30] >= 2).nonzero()[:, 0]
+        centers[1, cbox[sel]] = 0.0
+        pts[1, first[sel] + 1] = -0.0
+        pts[0, first[sel] + 1] = ctr[0, sel] + torch.where(
+            third[sel] == 1, -0.5, 0.5) * s[sel]
+    args = _l2d_args(trav, w, q, which, pts=pts, centers=centers)
+    assert _l2d_compare(which, args, w) <= L2D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", ["p2p", "m2p", "p2l"])
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+def test_laplace2d_kernel_empty_rows(laplace2d_setup, kind, which):
+    """Rows with no entries (every other row emptied) leave their targets
+    at zero, or their coefficients as they were; no entries at all
+    launch nothing."""
+    trav, ws, _, qc = laplace2d_setup
+    w = ws[kind]
+    q = _l2d_charges(w, qc)
+    args = list(_l2d_args(trav, w, q, which))
+    i = {"p2p": 8, "m2p": 4, "p2l": 5}[which]            # the CSR starts
+    starts, lists = args[i].to(torch.int64), args[i + 1].to(torch.int64)
+    counts = starts[1:] - starts[:-1]
+    keep_row = torch.arange(counts.shape[0], device=counts.device) % 2 == 0
+    keep = torch.repeat_interleave(keep_row, counts)
+    new_starts = torch.zeros_like(starts)
+    new_starts[1:] = torch.cumsum(torch.where(keep_row, counts, 0), 0)
+    args[i], args[i + 1] = (new_starts.to(torch.int32),
+                            lists[keep].to(torch.int32))
+    assert _l2d_compare(which, tuple(args), w) <= L2D_RTOL[w.dtype]
+    args[i] = torch.zeros_like(args[i])
+    args[i + 1] = args[i + 1][:0]
+    kernels.reset_launch_counts()
+    fn = getattr(laplace2d, f"{which}_laplace2d")
+    out = (fn(*args, w.local_expansion_zeros()) if which == "p2l"
+           else fn(*args))
+    assert not out.abs().any()
+    assert kernels.launch_counts()[f"{which}_laplace2d"] == 0
+
+
+def test_laplace2d_order35_on_card(device):
+    """``tests/test_stability.py:28-65``'s line at order 35 on the card:
+    K20/K21 (19,008 B of scratch a CTA) against their twins on it, and
+    both wranglers' FMM against the CPU port and (1/2)^36 of the direct
+    sum."""
+    line = np.array([2.0 ** -i for i in range(15)])
+    line = np.hstack([line, 3 - line])
+    sources = np.vstack([line, np.zeros(30)])
+    targets = sources * (1 + 1e-3)
+    d = sources[:, None, :] - targets[:, :, None]
+    ref = torch.as_tensor(0.5 * np.log((d * d).sum(0)) @ np.ones(30))
+    ones = torch.ones(30, dtype=torch.float64, device=device)
+    for pairs in (False, True):
+        got = {}
+        for dev in (device, torch.device("cpu")):
+            tree = build_tree(sources, targets=targets,
+                              max_particles_in_box=2, device=dev)
+            assert tree.nlevels >= 15
+            trav = build_traversal(tree)
+            w = make_laplace_wrangler(trav, 35, pairs=pairs, rscale="auto")
+            got[dev.type] = drive_fmm(w, [ones.to(dev)]).cpu()
+            if dev.type == "cuda":
+                q = w.reorder_sources(ones)
+                for which in ("m2p", "p2l"):
+                    if (w._l3_csr if which == "m2p" else w._l4_csr) is None:
+                        continue
+                    assert _l2d_compare(which, _l2d_args(trav, w, q, which),
+                                        w) <= 1e-12, (pairs, which)
+        assert _rel(got["cuda"], got["cpu"]) <= 1e-12
+        assert not got["cuda"].real.isnan().any()
+        assert _rel(got["cuda"].real, ref) < 0.5 ** 36
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float16])
+def test_laplace2d_wrappers_refuse_dtypes(laplace2d_setup, dtype):
+    """A CUDA tensor of a dtype the kernels lack raises TypeError, before
+    any launch."""
+    trav, ws, _, qc = laplace2d_setup
+    w = ws["c128" if dtype.is_complex else "f32"]
+    q = _l2d_charges(w, qc)
+    kernels.reset_launch_counts()
+    for which in ("p2p", "m2p", "p2l"):
+        args = list(_l2d_args(trav, w, q, which))
+        if which == "p2p":
+            args[2] = args[2].to(dtype)
+        elif which == "m2p":
+            args[6] = args[6].to(dtype)
+        fn = getattr(laplace2d, f"{which}_laplace2d")
+        with pytest.raises(TypeError):
+            if which == "p2l":
+                fn(*args, w.local_expansion_zeros().to(dtype))
+            else:
+                fn(*args)
+    assert not any(kernels.launch_counts()[f"{x}_laplace2d"]
+                   for x in ("p2p", "m2p", "p2l"))
+
+
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+def test_laplace2d_fmm_on_card_matches_cpu(laplace2d_setup, kind):
+    trav, ws, pts, qc = laplace2d_setup
+    w = ws[kind]
+    q = qc if w.dtype.is_complex else qc.real
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [q])
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("p2p_laplace2d", "m2p_laplace2d",
+                                       "p2l_laplace2d")), counts
+    trav_cpu = build_traversal(build_tree(pts.cpu(),
+                                          max_particles_in_box=20))
+    pairs, dt = L2D_KINDS[kind]
+    w_cpu = make_laplace_wrangler(trav_cpu, 20, pairs=pairs, dtype=dt,
+                                  rscale="auto")
+    ref = drive_fmm(w_cpu, [q.cpu()])
+    assert got.dtype == dt
+    assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
 
 # }}}

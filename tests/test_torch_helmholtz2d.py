@@ -117,8 +117,11 @@ def test_cylindrical_jy_twin():
 
 
 def test_cylindrical_jy_against_jax():
-    """The twin against the JAX function on the same arguments."""
+    """The twin against the JAX function on the same arguments, none below
+    the series switch: there the reference evaluates Y at x = 1 (its
+    fault), the port the true Y (:func:`test_cylindrical_y_small_x`)."""
     x = oracle_args()
+    assert x.min() >= t_cb.JN_SMALL_X
     j_ref, y_ref = (np.asarray(v) for v in j_cb.cylindrical_jy(
         jnp.asarray(x), 24, nstart=j_cb.miller_start(24, 40.0)))
     check_jy(x, 24, j_ref, y_ref)
@@ -133,6 +136,21 @@ def test_cylindrical_j_small_x():
     series = (x[:, None] / 2) ** n / sp.factorial(n)
     np.testing.assert_allclose(j.numpy()[:4], series[:4], rtol=1e-15, atol=0)
     assert np.abs(j.numpy() - sp.jv(n, x[:, None])).max() < 1e-15
+
+
+@pytest.mark.parametrize("x", [1e-12, 3.7e-11, 1e-10, 2.2e-9, 9.9e-9])
+def test_cylindrical_y_small_x(x):
+    """Below |x| < 1e-8 the twin's Y_n, n = 0..16, against scipy's yv
+    (1e-13 relative): the upward recurrence from the leading terms ``Y_0 =
+    (2/pi)(ln(x/2) + g)`` and ``Y_1 = -2/(pi x)``
+    (:func:`test_cylindrical_j_small_x` holds J_n there)."""
+    p = 16
+    _, y = (v.numpy()[0] for v in t_cb.cylindrical_jy(
+        torch.tensor([x], dtype=torch.float64), p, nstart=20))
+    n = np.arange(p + 1)
+    ref = sp.yv(n, x)
+    assert np.isfinite(ref).all()
+    assert (np.abs(y - ref) / np.abs(ref)).max() < 1e-13
 
 
 @pytest.mark.parametrize("fn", ["jv_scaled", "yv_scaled", "hankel1_scaled"])
@@ -159,8 +177,9 @@ def test_miller_start_one_copy():
 def test_basis_against_scipy():
     """The J and H bases against scipy's ``jv``/``hankel1`` at offsets that
     include r = 0 (the J kind's one-hot limit, the H kind's mask) and k r
-    below the series switch (the J kind only: there the reference, and so
-    the port, evaluates Y at k r = 1)."""
+    below the series switch (there the port takes Y's small-argument
+    terms; the reference, which evaluates Y at k r = 1, would fail the H
+    kind)."""
     order, nstart = 8, 46
     rng = np.random.default_rng(4)
     rel = np.concatenate([rng.uniform(-0.5, 0.5, (2, 30)),
@@ -173,7 +192,7 @@ def test_basis_against_scipy():
     ns = np.arange(-order, order + 1)
     m = np.abs(ns)
     sign = np.where(ns < 0, (-1.0) ** m, 1.0)
-    generic = K * r >= t_cb.JN_SMALL_X
+    assert ((K * r > 0) & (K * r < t_cb.JN_SMALL_X)).sum() == 3
     for kind, conj in (("J", -1), ("J", 1), ("H", 1), ("H", -1)):
         got, ok = h2.basis(torch.from_numpy(rel), kind, conj,
                            torch.from_numpy(scale), K, order, nstart)
@@ -187,7 +206,7 @@ def test_basis_against_scipy():
             ref[r == 0] = ns == 0
             assert _rows_rel(got.T, ref.T) <= OP_RTOL
         else:
-            assert _rows_rel(got[generic].T, ref[generic].T) <= OP_RTOL
+            assert _rows_rel(got[ok].T, ref[ok].T) <= OP_RTOL
 
 
 # }}}
@@ -371,6 +390,18 @@ def test_list_stages_exercised(points):
     assert trav.tree.dimensions == 2 and trav.tree.nlevels >= 5
     assert sum(bl.count for bl in trav.from_sep_smaller_by_level) > 0
     assert trav.from_sep_bigger_lists.shape[0] > 0
+
+
+def test_stage_inputs_clear_of_small_argument_region(points):
+    """The stages meet the reference only where k r >= 1e-8 for every
+    particle pair and every particle and box centre: below it the
+    reference evaluates Y at k r = 1, the port the true Y."""
+    pts, _, trav = points
+    centers = trav.tree.box_centers.numpy()
+    for other in (pts, centers):
+        d = pts[:, :, None] - other[:, None, :]
+        r = np.sqrt((d * d).sum(0))
+        assert K * r[r > 0].min() >= t_cb.JN_SMALL_X
 
 
 @pytest.mark.parametrize("stage", STAGES)

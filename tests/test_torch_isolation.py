@@ -37,4 +37,6 @@ def test_no_jax_and_no_boxtree_tpu():
     assert "boxtree_torch.ops.cylinder_bessel" in out["modules"]
     assert "boxtree_torch.ops.helmholtz2d" in out["modules"]
     assert "boxtree_torch.models.helmholtz" in out["modules"]
+    assert "boxtree_torch.ops.laplace2d" in out["modules"]
+    assert "boxtree_torch.models.laplace" in out["modules"]
     assert out["loaded"] == []
