@@ -14,6 +14,9 @@ namespace boxtree_torch {
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return ::sqrt(x); }
+
 __device__ __forceinline__ float floor_t(float x) { return floorf(x); }
 __device__ __forceinline__ double floor_t(double x) { return ::floor(x); }
 

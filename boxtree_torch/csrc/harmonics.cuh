@@ -1,7 +1,9 @@
 // Solid harmonics as (re, im) pairs, one coefficient at a time: the
-// irregular S_n^m of the Laplace M2P (K3) and P2L (K4) kernels, and the
-// regular R_n^m, the angular basis of the Helmholtz M2P (K10) and P2L (K11)
-// kernels.
+// irregular S_n^m of the Laplace M2P (K3), P2L (K4) and dipole P2L (K23)
+// kernels, and the regular R_n^m, the angular basis of the Helmholtz M2P
+// (K10) and P2L (K11) kernels.  T is a float type, or a number type with
+// the same arithmetic and a sqrt_t found by argument-dependent lookup (K23
+// runs the irregular recurrence on dual numbers, laplace3d.cuh).
 //
 // The recurrences of boxtree_tpu/ops/solid_harmonics.py:161-192
 // (_harmonics_pairs, kind="irregular"), in the same operation order:
@@ -23,7 +25,7 @@ __device__ __forceinline__ void irregular_pairs_foreach(T x, T y, T z, int p,
                                                         F&& f) {
   const T r2 = x * x + y * y + z * z;
   const T rinv2 = T(1) / r2;
-  T mr = sqrt(rinv2);
+  T mr = sqrt_t(rinv2);
   T mi = T(0);
   for (int m = 0; m <= p; ++m) {
     if (m > 0) {

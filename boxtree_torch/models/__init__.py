@@ -14,6 +14,7 @@ from boxtree_torch.models.helmholtz3d import (
 from boxtree_torch.models.laplace import (
     Laplace2DExpansionWrangler,
     Laplace2DPairsExpansionWrangler,
+    Laplace3DExpansionWrangler,
     Laplace3DPairsExpansionWrangler,
     LaplaceTreeIndependentDataForWrangler,
     make_laplace_wrangler,
@@ -28,6 +29,7 @@ __all__ = [
     "HelmholtzTreeIndependentDataForWrangler",
     "Laplace2DExpansionWrangler",
     "Laplace2DPairsExpansionWrangler",
+    "Laplace3DExpansionWrangler",
     "Laplace3DPairsExpansionWrangler",
     "LaplaceTreeIndependentDataForWrangler",
     "make_helmholtz_wrangler",

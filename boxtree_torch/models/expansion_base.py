@@ -20,6 +20,18 @@ Subclasses provide ``_ncoeff``, the per-particle hooks ``_p2m_terms`` and
 list-stage hooks ``_p2p``, ``_m2p`` and ``_p2l``.  Coefficients and
 potentials are of the wrangler's ``dtype`` (real, or complex); box
 geometry, particles and rscales of its real counterpart, ``real_dtype``.
+
+Two options follow the reference (``expansion_base.py:227-347``):
+
+- ``dipole_vec``: the sources are dipoles, for the kernels that set
+  ``_supports_dipoles``.  P2M takes the JVP of ``_p2m_terms`` in the
+  source offsets here; the list-stage hooks read :attr:`dipole_vec` and
+  launch their dipole kernels.
+- ``level_to_order``: expansions keep the maximum order with each level's
+  tail masked to zero (after P2M, after P2L and on L2P's input), and the
+  M2M, L2L and M2L operators are truncated to the orders of the levels
+  they join; the subclass gives each coefficient's order
+  (``_coeff_orders``).
 """
 
 from __future__ import annotations
@@ -69,12 +81,23 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
     dtype = torch.float64
     _supports_rscale = False
+    #: whether the list-stage hooks have dipole kernels
+    _supports_dipoles = False
 
-    def __init__(self, tree_indep, traversal, rscale=None, dtype=None):
+    def __init__(self, tree_indep, traversal, rscale=None, dtype=None,
+                 dipole_vec=None, dipoles_already_reordered=False,
+                 level_to_order=None):
         """:arg rscale: per-level expansion scaling: ``None`` (off),
             ``"auto"`` (``min(root_extent * 2^-level, 1)``), or an
             ``(nlevels,)`` array (``expansion_base.py:282-304``).
         :arg dtype: real dtype of coefficients and potentials.
+        :arg dipole_vec: ``(dim, nsources)``, in user order unless
+            *dipoles_already_reordered*: the potential of source ``y`` of
+            weight ``w`` is ``w (dipole_vec . grad_y) G(x, y)``
+            (``expansion_base.py:231-238``).
+        :arg level_to_order: ``level -> order`` (the reference's
+            ``fmm_level_to_order``); the wrangler's order must be the
+            largest of them.
         """
         super().__init__(tree_indep, traversal)
         if dtype is not None:
@@ -88,6 +111,30 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         root = float(tree.root_extent)
         self.root_extent = root
         self._lsb = tree.level_start_box_nrs
+        self._box_levels = tree.box_levels.to(torch.int64)
+
+        if level_to_order is None:
+            self.level_orders = self._level_mask = None
+        else:
+            self.level_orders = np.array(
+                [int(level_to_order(lev)) for lev in range(nlevels)])
+            self._level_mask = torch.as_tensor(
+                np.asarray(self._coeff_orders())[None, :]
+                <= self.level_orders[:, None], device=dev)
+
+        if dipole_vec is not None:
+            if not self._supports_dipoles:
+                raise NotImplementedError(
+                    f"{type(self).__name__} has no dipole kernels yet")
+            dipole_vec = torch.as_tensor(dipole_vec, device=dev)
+            if tuple(dipole_vec.shape) != (self.dim, tree.nsources):
+                raise ValueError("dipole_vec must have shape "
+                                 "(dimensions, nsources)")
+            if not dipoles_already_reordered:
+                dipole_vec = dipole_vec[
+                    :, tree.user_source_ids.to(torch.int64)]
+            dipole_vec = dipole_vec.to(dt).contiguous()
+        self.dipole_vec = dipole_vec
 
         if rscale is None:
             rs = np.ones(nlevels)
@@ -127,12 +174,12 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         self._m2m_opsT, self._l2l_opsT = {}, {}
         for lev in range(1, nlevels):
             child_off = signs * (root / (1 << lev) / 2)  # c_child - c_parent
-            self._m2m_opsT[lev] = self._operator(self._m2m_matrices(
-                -child_off, rs[lev], rs[lev - 1])).transpose(1, 2) \
-                .contiguous()
-            self._l2l_opsT[lev] = self._operator(self._l2l_matrices(
-                child_off, rs[lev - 1], rs[lev])).transpose(1, 2) \
-                .contiguous()
+            self._m2m_opsT[lev] = self._truncate(self._operator(
+                self._m2m_matrices(-child_off, rs[lev], rs[lev - 1])),
+                lev - 1, lev).transpose(1, 2).contiguous()
+            self._l2l_opsT[lev] = self._truncate(self._operator(
+                self._l2l_matrices(child_off, rs[lev - 1], rs[lev])),
+                lev, lev - 1).transpose(1, 2).contiguous()
 
         def digit_groups(ids):
             d_ids = digit[ids]
@@ -170,6 +217,13 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
     def _ncoeff(self):
         raise NotImplementedError
 
+    def _coeff_orders(self):
+        """``(ncoeff,)`` the least order that holds each coefficient
+        (``expansion_base.py:521-524``): what ``level_to_order`` masks
+        by."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement level_to_order yet")
+
     def _rscale_factor(self):
         """Factor of the ``"auto"`` rscale (the reference's
         ``_rscale_factor``, ``expansion_base.py:526-529``): 1, or
@@ -206,6 +260,26 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         if not isinstance(mats, torch.Tensor):
             mats = np.ascontiguousarray(mats)
         return torch.as_tensor(mats, dtype=self.dtype, device=self.device)
+
+    def _truncate(self, mats, lev_rows, lev_cols):
+        """(n, K, K) operators with the rows past level *lev_rows*'s order
+        and the columns past *lev_cols*'s zeroed (``expansion_base.py:
+        342-347``); as they are without ``level_to_order``."""
+        if self._level_mask is None:
+            return mats
+        keep = (self._level_mask[lev_rows][:, None]
+                & self._level_mask[lev_cols][None, :])
+        return torch.where(keep, mats, torch.zeros((), dtype=mats.dtype,
+                                                   device=mats.device))
+
+    def _mask_levels(self, exps):
+        """(nboxes, K) expansions with each box's coefficients past its
+        level's order zeroed; as they are without ``level_to_order``."""
+        if self._level_mask is None:
+            return exps
+        return torch.where(self._level_mask[self._box_levels], exps,
+                           torch.zeros((), dtype=exps.dtype,
+                                       device=exps.device))
 
     # }}}
 
@@ -264,11 +338,21 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
             b = box[c]
             s = self.box_scale[b]
             rel = (self._sources[:, c] - self.centers[:, b]) / s
-            mp.index_add_(0, b, self._p2m_terms(rel, src_weights[c], s))
-        return mp
+            q = src_weights[c]
+            if self.dipole_vec is None:
+                terms = self._p2m_terms(rel, q, s)
+            else:
+                # the dipole is the JVP in the source offset, d(rel) = d/s
+                # (expansion_base.py:664-673)
+                terms = torch.func.jvp(
+                    lambda r, q=q, s=s: self._p2m_terms(r, q, s), (rel,),
+                    (self.dipole_vec[:, c] / s,))[1]
+            mp.index_add_(0, b, terms)
+        return self._mask_levels(mp)
 
     def eval_locals(self, level_start_target_box_nrs, target_boxes,
                     local_exps):
+        local_exps = self._mask_levels(local_exps)
         box = self.tree.box_id_of_target.to(torch.int64)
         pot = self.output_zeros()
         for c in self._particle_chunks(box.shape[0]):
@@ -382,8 +466,8 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         self._m2l_opsT = {}
         for lev in range(2, nlevels):
             size = self.root_extent / (1 << lev)
-            mats = self._operator(self._m2l_matrices(
-                classes, size, float(self._rscale_np[lev])))
+            mats = self._truncate(self._operator(self._m2l_matrices(
+                classes, size, float(self._rscale_np[lev]))), lev, lev)
             self._m2l_opsT[lev] = mats.transpose(1, 2).contiguous()
 
     def _m2l_block(self, lev, j):
@@ -463,6 +547,7 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         src_weights, = src_weight_vecs
         if local_exps is None:
             local_exps = self.local_expansion_zeros()
-        return self._p2l(*self._l4_csr, src_weights, local_exps)
+        return self._mask_levels(
+            self._p2l(*self._l4_csr, src_weights, local_exps))
 
     # }}}

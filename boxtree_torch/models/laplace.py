@@ -1,5 +1,5 @@
-"""Laplace expansion wranglers: 2D on complex power series, 3D on
-``[re | im]`` real-pair solid-harmonic coefficients.
+"""Laplace expansion wranglers: 2D on complex power series, 3D on complex
+solid-harmonic coefficients, each also on ``[re | im]`` real pairs.
 
 Port of ``boxtree_tpu/models/laplace.py:42-366, 379-657``.
 
@@ -29,11 +29,16 @@ translation is a plain spherical convolution:
 - L2L (``t`` = new - old): ``L'_a = sum_b conj(R_{b-a}(t)) L_b``
 - local eval: ``phi(x) = sum L_n^m conj(R_n^m(x - c))``
 
-Coefficients are stored rscaled (``M~_n = M_n / r^n``, ``L~_n = L_n r^n``)
-and as real pairs; the host builds the complex operators in float64 and
-expands them with :func:`~boxtree_torch.ops.solid_harmonics.pair_matrix`.
-Potentials are computed directly as their real part.  The complex 3D
-wrangler is not ported.
+Coefficients are stored rscaled (``M~_n = M_n / r^n``, ``L~_n = L_n r^n``).
+M2M and L2L are built on the host in complex float64, one solid-harmonic
+evaluation per level over its eight shifts; the M2L table in torch on the
+wrangler's device, in float64, cast to the coefficient dtype at the end.
+Two wranglers: :class:`Laplace3DExpansionWrangler` on ``(p+1)^2``
+complex128 coefficients, and :class:`Laplace3DPairsExpansionWrangler` on
+``[re | im]`` pairs of float64 or float32 with real potentials, its
+operators pair-expanded.  Both take dipole sources, and every Laplace
+wrangler takes ``level_to_order`` (:mod:`boxtree_torch.models.
+expansion_base`).
 """
 
 from __future__ import annotations
@@ -104,6 +109,9 @@ class Laplace2DExpansionWrangler(ExpansionWranglerBase):
 
     def _ncoeff(self):
         return self.order + 1
+
+    def _coeff_orders(self):
+        return np.arange(self.order + 1)
 
     # {{{ host operators (laplace.py:92-158), batched over the shifts
 
@@ -245,6 +253,9 @@ class Laplace2DPairsExpansionWrangler(Laplace2DExpansionWrangler):
     def _ncoeff(self):
         return 2 * (self.order + 1)
 
+    def _coeff_orders(self):
+        return np.tile(np.arange(self.order + 1), 2)
+
     def reorder_sources(self, source_array):
         a = torch.as_tensor(source_array, device=self.device)
         if a.is_complex():
@@ -261,9 +272,7 @@ class Laplace2DPairsExpansionWrangler(Laplace2DExpansionWrangler):
         return sh.pair_matrix(self._l2l_complex(ts, r_parent, r_child))
 
     def _m2l_matrices(self, classes, size, r):
-        tr, ti = self._m2l_lanes(classes, size, r)
-        return torch.cat([torch.cat([tr, -ti], dim=-1),
-                          torch.cat([ti, tr], dim=-1)], dim=-2)
+        return sh.pair_blocks(*self._m2l_lanes(classes, size, r))
 
     def _p2m_terms(self, rel, q, scale):
         return laplace2d.p2m_terms_pairs(rel, q, self.order)
@@ -277,19 +286,155 @@ class Laplace2DPairsExpansionWrangler(Laplace2DExpansionWrangler):
 # {{{ 3D
 
 
-class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
-    """3D Laplace FMM wrangler on real-pair coefficients (see module doc);
-    the counterpart of ``boxtree_tpu``'s wrangler of the same name."""
+class Laplace3DExpansionWrangler(ExpansionWranglerBase):
+    """3D Laplace FMM wrangler on complex128 solid-harmonic coefficients
+    (see module doc); the counterpart of ``boxtree_tpu``'s wrangler of the
+    same name.  Takes dipole sources (K22, K23)."""
 
-    dtype = torch.float64
+    dtype = torch.complex128
     _supports_rscale = True
+    _supports_dipoles = True
+    #: the coefficient dtypes the class computes in
+    _dtypes = (torch.complex128,)
 
     def __init__(self, tree_indep, traversal, **kwargs):
         self.order = tree_indep.order
+        dt = kwargs.get("dtype")
+        dt = self.dtype if dt is None else as_torch_dtype(dt)
+        if dt not in self._dtypes:
+            raise NotImplementedError(
+                f"{type(self).__name__} is ported in "
+                f"{', '.join(map(str, self._dtypes))}, not {dt}")
         super().__init__(tree_indep, traversal, **kwargs)
 
     def _ncoeff(self):
+        return sh.ncoeffs(self.order)
+
+    def _coeff_orders(self):
+        return self.tree_indep.nm_n
+
+    # {{{ operators (laplace.py:402-460): M2M / L2L on the host, batched
+    # over a level's shifts; the M2L table in torch on the device
+
+    def _shift_matrices(self, rb, rows_minus_cols):
+        """``(n, K, K)`` operators ``mat[a, b] = rb[:, a - b]`` (M2M) or
+        ``rb[:, b - a]`` (L2L) of the per-shift coefficients *rb* ``(n,
+        K)``, zero where the difference is not an (n, m) pair."""
+        ti = self.tree_indep
+        sign = 1 if rows_minus_cols else -1
+        j = sign * (ti.nm_n[:, None] - ti.nm_n[None, :])
+        k = sign * (ti.nm_m[:, None] - ti.nm_m[None, :])
+        valid = (j >= 0) & (np.abs(k) <= j)
+        idx = np.where(valid, j * j + j + k, 0)
+        return np.where(valid[None], rb[:, idx], 0)
+
+    def _m2m_complex(self, ts, r_child, r_parent):
+        # ts = new - old; M'_a = sum_b conj(R_{a-b}(-t)) M_b
+        rb = np.conj(sh.regular(-np.asarray(ts, np.float64).T / r_parent,
+                                self.order))
+        mat = self._shift_matrices(rb, True)
+        if r_child != r_parent:
+            mat = mat * (r_child / r_parent) ** self.tree_indep.nm_n
+        return mat
+
+    def _l2l_complex(self, ts, r_parent, r_child):
+        # L'_a = sum_b conj(R_{b-a}(t)) L_b
+        rb = np.conj(sh.regular(np.asarray(ts, np.float64).T / r_parent,
+                                self.order))
+        mat = self._shift_matrices(rb, False)
+        if r_child != r_parent:
+            mat = mat * ((r_child / r_parent)
+                         ** self.tree_indep.nm_n)[:, None]
+        return mat
+
+    _m2m_matrices = _m2m_complex
+    _l2l_matrices = _l2l_complex
+
+    def _m2l_lanes(self, classes, size, r):
+        """Real and imaginary parts, ``(C, K, K)`` float64 on the
+        wrangler's device, of the M2L operators ``L_a = (-1)^{n_a} sum_b
+        S_{a+b}(t / r) M_b / r`` of the translations ``t = classes * size``
+        (``c_tgt - c_src``) at rscale *r*: the order-2p irregular basis at
+        the ``C`` translations, spread by the static ``(n_a + n_b, m_a +
+        m_b)`` index map (``_m2l_ops_device``, ``laplace.py:449-460`` and
+        ``:561-575``)."""
+        ti = self.tree_indep
+        dev = self.device
+        ts = torch.as_tensor(np.asarray(classes, np.float64) * size,
+                             device=dev)
+        sb = sh.irregular_pairs(ts.T / r, 2 * self.order)
+        k2 = sh.ncoeffs(2 * self.order)
+        n_sum = ti.nm_n[:, None] + ti.nm_n[None, :]
+        idx = torch.as_tensor(n_sum * n_sum + n_sum + ti.nm_m[:, None]
+                              + ti.nm_m[None, :], device=dev)
+        sign = torch.as_tensor((-1.0) ** ti.nm_n[:, None] / r, device=dev)
+        return sign * sb[:, idx], sign * sb[:, k2 + idx]
+
+    def _m2l_matrices(self, classes, size, r):
+        return torch.complex(*self._m2l_lanes(classes, size, r))
+
+    # }}}
+
+    # {{{ particle hooks (laplace.py:473-480), plain torch
+
+    def _p2m_terms(self, rel, q, scale):
+        return sh.regular(rel, self.order).conj() * q[..., None]
+
+    def _l2p_eval(self, rel, loc, scale):
+        return (sh.regular(rel, self.order).conj() * loc).sum(-1)
+
+    # }}}
+
+    # {{{ list-stage hooks: K2-K4, or K22 and K23 for dipoles
+
+    def _p2p(self, target_boxes, starts, lists, q):
+        tree = self.tree
+        args = (tree.box_target_starts, tree.box_target_counts_nonchild,
+                tree.box_source_starts, tree.box_source_counts_nonchild,
+                target_boxes, starts, lists)
+        if self.dipole_vec is None:
+            return laplace3d.p2p_laplace3d(
+                self._targets, self._sources, q.contiguous(), *args)
+        return laplace3d.p2p_laplace3d_dipole(
+            self._targets, self._sources, q.contiguous(), self.dipole_vec,
+            *args)
+
+    def _m2p(self, rows, starts, lists, mpole_exps):
+        tree = self.tree
+        return laplace3d.m2p_laplace3d(
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, rows, starts, lists,
+            mpole_exps.contiguous(), self.centers, self.box_scale,
+            self.order)
+
+    def _p2l(self, rows, starts, lists, q, out):
+        tree = self.tree
+        args = (tree.box_source_starts, tree.box_source_counts_nonchild,
+                rows, starts, lists, self.centers, self.box_scale,
+                self.order, out)
+        if self.dipole_vec is None:
+            return laplace3d.p2l_laplace3d(self._sources, q.contiguous(),
+                                           *args)
+        return laplace3d.p2l_laplace3d_dipole(
+            self._sources, q.contiguous(), self.dipole_vec, *args)
+
+    # }}}
+
+
+class Laplace3DPairsExpansionWrangler(Laplace3DExpansionWrangler):
+    """3D Laplace FMM wrangler on ``[re | im]`` real-pair coefficients of
+    float64 (the default) or float32, with real potentials (see module
+    doc); the counterpart of ``boxtree_tpu``'s wrangler of the same
+    name."""
+
+    dtype = torch.float64
+    _dtypes = (torch.float64, torch.float32)
+
+    def _ncoeff(self):
         return 2 * sh.ncoeffs(self.order)
+
+    def _coeff_orders(self):
+        return np.tile(self.tree_indep.nm_n, 2)
 
     def reorder_sources(self, a):
         if torch.as_tensor(a).is_complex():
@@ -297,59 +442,14 @@ class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
                             "weights")
         return super().reorder_sources(a)
 
-    # {{{ host operators: complex builders (laplace.py:402-447),
-    # pair-expanded
-
-    def _m2m_matrix(self, t, r_child=1.0, r_parent=1.0):
-        ti = self.tree_indep
-        rb = np.conj(sh.regular(-np.asarray(t)[:, None] / r_parent,
-                                self.order)[0])
-        j = ti.nm_n[:, None] - ti.nm_n[None, :]
-        k = ti.nm_m[:, None] - ti.nm_m[None, :]
-        valid = (j >= 0) & (np.abs(k) <= j)
-        jj = np.where(valid, j, 0)
-        kk = np.where(valid, k, 0)
-        mat = np.where(valid, rb[jj * jj + jj + kk], 0)
-        if r_child != r_parent:
-            mat = mat * (r_child / r_parent) ** ti.nm_n[None, :]
-        return sh.pair_matrix(mat)
-
-    def _l2l_matrix(self, t, r_parent=1.0, r_child=1.0):
-        ti = self.tree_indep
-        rb = np.conj(sh.regular(np.asarray(t)[:, None] / r_parent,
-                                self.order)[0])
-        j = ti.nm_n[None, :] - ti.nm_n[:, None]
-        k = ti.nm_m[None, :] - ti.nm_m[:, None]
-        valid = (j >= 0) & (np.abs(k) <= j)
-        jj = np.where(valid, j, 0)
-        kk = np.where(valid, k, 0)
-        mat = np.where(valid, rb[jj * jj + jj + kk], 0)
-        if r_child != r_parent:
-            mat = mat * ((r_child / r_parent) ** ti.nm_n)[:, None]
-        return sh.pair_matrix(mat)
-
     def _m2m_matrices(self, ts, r_child, r_parent):
-        return np.stack([self._m2m_matrix(t, r_child, r_parent)
-                         for t in ts])
+        return sh.pair_matrix(self._m2m_complex(ts, r_child, r_parent))
 
     def _l2l_matrices(self, ts, r_parent, r_child):
-        return np.stack([self._l2l_matrix(t, r_parent, r_child)
-                         for t in ts])
+        return sh.pair_matrix(self._l2l_complex(ts, r_parent, r_child))
 
     def _m2l_matrices(self, classes, size, r):
-        """(C, K, K) real M2L operators of the translations ``classes *
-        size`` at rscale *r*."""
-        ti = self.tree_indep
-        ts = np.asarray(classes * size, np.float64)
-        rs = np.full(len(ts), r)
-        sb = sh.irregular(ts.T / rs[None, :], 2 * self.order)
-        n_sum = ti.nm_n[:, None] + ti.nm_n[None, :]
-        m_sum = ti.nm_m[:, None] + ti.nm_m[None, :]
-        sign = (-1.0) ** ti.nm_n[:, None]
-        idx = n_sum * n_sum + n_sum + m_sum
-        return sh.pair_matrix(sign[None] * sb[:, idx] / rs[:, None, None])
-
-    # }}}
+        return sh.pair_blocks(*self._m2l_lanes(classes, size, r))
 
     # {{{ particle hooks (laplace.py:581-593)
 
@@ -367,33 +467,6 @@ class Laplace3DPairsExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ list-stage hooks: the K2-K4 kernels
-
-    def _p2p(self, target_boxes, starts, lists, q):
-        tree = self.tree
-        return laplace3d.p2p_laplace3d(
-            self._targets, self._sources, q.contiguous(),
-            tree.box_target_starts, tree.box_target_counts_nonchild,
-            tree.box_source_starts, tree.box_source_counts_nonchild,
-            target_boxes, starts, lists)
-
-    def _m2p(self, rows, starts, lists, mpole_exps):
-        tree = self.tree
-        return laplace3d.m2p_laplace3d(
-            self._targets, tree.box_target_starts,
-            tree.box_target_counts_nonchild, rows, starts, lists,
-            mpole_exps.contiguous(), self.centers, self.box_scale,
-            self.order)
-
-    def _p2l(self, rows, starts, lists, q, out):
-        tree = self.tree
-        return laplace3d.p2l_laplace3d(
-            self._sources, q.contiguous(), tree.box_source_starts,
-            tree.box_source_counts_nonchild, rows, starts, lists,
-            self.centers, self.box_scale, self.order, out)
-
-    # }}}
-
 # }}}
 
 
@@ -402,26 +475,28 @@ def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
     """Laplace wrangler for *traversal*, by dimension (``boxtree_tpu/models/
     laplace.py:615-657``).
 
-    :arg pairs: the ``[re | im]`` real-pair wrangler.  *None* follows the
-        reference's rule in 2D, keyed on the tree's device: complex on the
-        CPU, pairs on CUDA; a complex ``dtype=`` forces the complex
-        wrangler.  In 3D only the pairs wrangler is ported: *None* gives
-        it, and ``pairs=False`` raises :class:`NotImplementedError`.  The
-        pairs take a complex ``dtype=`` as its real counterpart.
+    Pass exactly one of *order* and *level_to_order* (a ``level -> order``
+    callable; the wrangler's order is the largest over the tree's levels).
 
-    Other keyword arguments (``rscale``, ``dtype``) go to the wrangler;
-    ``level_to_order``, ``dipole_vec``, ``m2l_mode="rotation"``, complex64
-    and dimensions other than 2 and 3 raise :class:`NotImplementedError`.
+    :arg pairs: the ``[re | im]`` real-pair wrangler.  *None* follows the
+        reference's rule, keyed on the tree's device: complex on the CPU,
+        pairs on CUDA; a complex ``dtype=`` forces the complex wrangler.
+        The pairs take a complex ``dtype=`` as its real counterpart.
+
+    Other keyword arguments (``rscale``, ``dtype``, ``dipole_vec``,
+    ``dipoles_already_reordered``) go to the wrangler.  Dipoles in 2D,
+    ``m2l_mode="rotation"``, complex64 and dimensions other than 2 and 3
+    raise :class:`NotImplementedError`.
     """
-    if level_to_order is not None:
-        raise NotImplementedError("level_to_order is not ported yet")
-    if order is None:
-        raise TypeError("pass order")
+    if (order is None) == (level_to_order is None):
+        raise TypeError("pass exactly one of order / level_to_order")
     dim = traversal.tree.dimensions
     if dim not in (2, 3):
         raise NotImplementedError(f"no Laplace wrangler for dim={dim}")
-    if kwargs.pop("dipole_vec", None) is not None:
-        raise NotImplementedError("dipole sources are not ported yet")
+    if level_to_order is not None:
+        order = max(int(level_to_order(lev))
+                    for lev in range(traversal.tree.nlevels))
+        kwargs["level_to_order"] = level_to_order
     if kwargs.pop("m2l_mode", "dense") != "dense":
         raise NotImplementedError("rotation M2L is not ported yet")
     # the port's M2L always runs in full precision
@@ -429,17 +504,15 @@ def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
     dt = kwargs.get("dtype")
     complex_dt = dt is not None and as_torch_dtype(dt).is_complex
     if pairs is None:
-        pairs = (dim == 3 or (traversal.tree.box_levels.device.type != "cpu"
-                              and not complex_dt))
+        pairs = (traversal.tree.box_levels.device.type != "cpu"
+                 and not complex_dt)
     if pairs:
         if complex_dt:
             kwargs["dtype"] = as_torch_dtype(dt).to_real()
         cls = (Laplace2DPairsExpansionWrangler if dim == 2
                else Laplace3DPairsExpansionWrangler)
-    elif dim == 3:
-        raise NotImplementedError("the complex 3D Laplace wrangler is not "
-                                  "ported yet; use pairs=True")
     else:
-        cls = Laplace2DExpansionWrangler
+        cls = (Laplace2DExpansionWrangler if dim == 2
+               else Laplace3DExpansionWrangler)
     ti = LaplaceTreeIndependentDataForWrangler(dim, order)
     return cls(ti, traversal, **kwargs)

@@ -64,6 +64,8 @@ SIGNATURES = {
     "p2p_laplace2d": "pipippppppipppp",
     "m2p_laplace2d": "pipppippppipipp",
     "p2l_laplace2d": "pippppipppipipp",
+    "p2p_laplace3d_dipole": "pipipppppppipppp",
+    "p2l_laplace3d_dipole": "pipppppipppipipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -75,9 +77,9 @@ _FLOATS = (torch.float32, torch.float64)
 #: point ``<name>``, launched with ``dtype=None``
 DTYPES = {
     "morton_encode": _FLOATS,
-    "p2p_laplace3d": _FLOATS,
-    "m2p_laplace3d": _FLOATS,
-    "p2l_laplace3d": _FLOATS,
+    "p2p_laplace3d": (*_FLOATS, torch.complex128),
+    "m2p_laplace3d": (*_FLOATS, torch.complex128),
+    "p2l_laplace3d": (*_FLOATS, torch.complex128),
     "restrict_demand": (),
     "area_query_sweep": _FLOATS,
     "space_invader_sweep": _FLOATS,
@@ -95,6 +97,8 @@ DTYPES = {
     "p2p_laplace2d": (*_FLOATS, torch.complex128),
     "m2p_laplace2d": (*_FLOATS, torch.complex128),
     "p2l_laplace2d": (*_FLOATS, torch.complex128),
+    "p2p_laplace3d_dipole": (*_FLOATS, torch.complex128),
+    "p2l_laplace3d_dipole": (*_FLOATS, torch.complex128),
 }
 
 

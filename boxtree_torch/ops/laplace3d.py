@@ -1,5 +1,6 @@
 """The particle-pair stages of the 3D Laplace FMM: P2P (List 1), M2P
-(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin.
+(List 3) and P2L (List 4), and the dipole forms of P2P and P2L, each as a
+kernel wrapper and its plain twin.
 
 Each wrapper takes the tree's particle arrays in tree order, the per-box
 particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and a CSR list
@@ -9,12 +10,29 @@ CUDA tensors it launches the hand-written kernel (``csrc/p2p.cu``,
 (edges, particles) blocks chunk by chunk, so their memory stays bounded;
 the kernels read the particle ranges directly.
 
-- P2P: ``phi(t) = sum q_s / |t - s|``, ``r = 0`` skipped
-  (``boxtree_tpu/models/laplace.py:492-497``).
-- M2P: ``phi(t) += Re sum S((t - c_s) / r_s) M(s) / r_s``
-  (``laplace.py:595-602``).
-- P2L: ``L(b) += sum q_s S((x_s - c_b) / r_b) / r_b`` (``laplace.py:
-  604-608``, ``expansion_base.py:1680-1684``).
+Two coefficient layouts, each with its entry points:
+
+- complex128 (the complex wrangler): ``(p+1)^2`` complex coefficients
+  over float64 geometry, complex charges and potentials;
+- real pairs (the pairs wrangler): ``[re | im]``, ``2 (p+1)^2`` real
+  coefficients of float32 or float64, like the geometry, real charges and
+  potentials ``Re phi``.
+
+The stages (``boxtree_tpu/models/laplace.py:473-500``, pairs ``:581-608``):
+
+- P2P: ``phi(t) = sum q_s / |t - s|``, ``r = 0`` skipped (``:492-497``).
+- M2P: ``phi(t) += sum S((t - c_s) / r_s) M(s) / r_s`` (``:481-484``;
+  the pairs its real part, ``:595-602``).
+- P2L: ``L(b) += sum q_s S((x_s - c_b) / r_b) / r_b`` (``:486-490``,
+  ``:604-608``, ``expansion_base.py:1680-1684``).
+- Dipole P2P (K22): the JVP of P2P in the source positions along the
+  dipoles, ``phi(t) = sum q_s d_s . (t - s) / |t - s|^3``, 0 at ``r = 0``
+  (``expansion_base.py:1314-1324``).
+- Dipole P2L (K23): the JVP of P2L's terms in the source offsets along
+  ``d_s / r_b`` (``expansion_base.py:1688-1694``).
+
+The dipole twins take :func:`torch.func.jvp` of the P2P and P2L twins in
+the source coordinates, the reference's own construction.
 """
 
 from __future__ import annotations
@@ -22,11 +40,18 @@ from __future__ import annotations
 import torch
 
 from boxtree_torch.ops import kernels
-from boxtree_torch.ops.solid_harmonics import irregular_pairs, ncoeffs
+from boxtree_torch.ops.solid_harmonics import (
+    irregular,
+    irregular_pairs,
+    ncoeffs,
+)
 from boxtree_torch.traversal.containers import csr_rows
 
 #: element budget of one chunk's largest temporary in the plain twins
 _PLAIN_CHUNK_ELEMS = 1 << 24
+#: (value dtype, geometry dtype) pairs the kernels have entry points for
+_DTYPES = ((torch.complex128, torch.float64), (torch.float64, torch.float64),
+           (torch.float32, torch.float32))
 
 
 def _edges(starts, lists, rows):
@@ -48,11 +73,32 @@ def _max_count(box_counts, boxes):
     return max(1, int(box_counts[boxes].max())) if boxes.numel() else 1
 
 
+def smem_bytes(order, real_dtype):
+    """Dynamic shared memory a CTA of K3 takes at *order* (K4 and K23 take
+    4 values less): the box's 2 (p+1)^2 coefficient values and its centre
+    and scale."""
+    return (2 * ncoeffs(order) + 4) * torch.finfo(real_dtype).bits // 8
+
+
 def _check_order(order, dtype):
-    smem = (2 * ncoeffs(order) + 4) * torch.finfo(dtype).bits // 8
-    if smem > 48 * 1024:
+    smem = smem_bytes(order, dtype)
+    if smem > kernels.SMEM_MAX:
         raise ValueError(f"order {order} needs {smem} bytes of shared "
-                         f"memory per CTA; the kernels take up to 48 KiB")
+                         f"memory per CTA; the kernels take up to "
+                         f"{kernels.SMEM_MAX}")
+
+
+def _check_dtypes(value_dtype, real_dtype):
+    """The kernels' entry points: complex128 values over float64
+    geometry, or real values of the geometry's type."""
+    if (value_dtype, real_dtype) not in _DTYPES:
+        raise TypeError(f"no 3D Laplace kernel for {value_dtype} values "
+                        f"over {real_dtype} points")
+
+
+def _irregular(rel, order, cplx):
+    """``S(rel)``: complex, or ``[re | im]`` pairs."""
+    return irregular(rel, order) if cplx else irregular_pairs(rel, order)
 
 
 # {{{ P2P
@@ -62,7 +108,7 @@ def p2p_laplace3d_plain(targets, sources, charges, box_target_starts,
                         box_source_counts_nonchild, target_boxes, starts,
                         lists):
     """Plain twin of :func:`p2p_laplace3d`."""
-    out = targets.new_zeros(targets.shape[1])
+    out = charges.new_zeros(targets.shape[1])
     tbox, sbox = _edges(starts, lists, target_boxes)
     if tbox.numel() == 0:
         return out
@@ -89,21 +135,66 @@ def p2p_laplace3d(targets, sources, charges, box_target_starts,
                   box_target_counts_nonchild, box_source_starts,
                   box_source_counts_nonchild, target_boxes, starts, lists):
     """List-1 potentials (tree-order targets) of the Laplace kernel
-    ``1/|t - s|``; the K2 kernel on CUDA tensors."""
+    ``1/|t - s|`` of real or complex charges; the K2 kernel on CUDA
+    tensors."""
     args = (targets, sources, charges, box_target_starts,
             box_target_counts_nonchild, box_source_starts,
             box_source_counts_nonchild, target_boxes, starts, lists)
+    _check_dtypes(charges.dtype, targets.dtype)
     if targets.device.type == "cpu":
         return p2p_laplace3d_plain(*args)
-    kernels.check_tensors(targets, sources, charges, dtype=targets.dtype)
+    kernels.check_tensors(targets, sources, dtype=targets.dtype)
+    kernels.check_tensors(charges, dtype=charges.dtype)
     kernels.check_tensors(*args[3:], dtype=torch.int32)
-    out = torch.zeros(targets.shape[1], dtype=targets.dtype,
+    out = torch.zeros(targets.shape[1], dtype=charges.dtype,
                       device=targets.device)
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "p2p_laplace3d", targets.dtype, targets, targets.shape[1], sources,
+        "p2p_laplace3d", charges.dtype, targets, targets.shape[1], sources,
         sources.shape[1], charges, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, out)
+    return out
+
+
+def p2p_laplace3d_dipole_plain(targets, sources, charges, dipole_vec,
+                               *args):
+    """Plain twin of :func:`p2p_laplace3d_dipole`: the JVP of
+    :func:`p2p_laplace3d_plain` in the source positions along
+    *dipole_vec*."""
+    return torch.func.jvp(
+        lambda s: p2p_laplace3d_plain(targets, s, charges, *args),
+        (sources,), (dipole_vec,))[1]
+
+
+def p2p_laplace3d_dipole(targets, sources, charges, dipole_vec,
+                         box_target_starts, box_target_counts_nonchild,
+                         box_source_starts, box_source_counts_nonchild,
+                         target_boxes, starts, lists):
+    """List-1 potentials of dipole sources, ``sum q_s d_s . (t - s) / |t -
+    s|^3`` (*dipole_vec* ``(3, nsources)`` in tree order); the K22 kernel
+    on CUDA tensors."""
+    args = (box_target_starts, box_target_counts_nonchild,
+            box_source_starts, box_source_counts_nonchild, target_boxes,
+            starts, lists)
+    _check_dtypes(charges.dtype, targets.dtype)
+    if targets.device.type == "cpu":
+        return p2p_laplace3d_dipole_plain(targets, sources, charges,
+                                          dipole_vec, *args)
+    kernels.check_tensors(targets, sources, dipole_vec, dtype=targets.dtype)
+    kernels.check_tensors(charges, dtype=charges.dtype)
+    kernels.check_tensors(*args, dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    out = torch.zeros(targets.shape[1], dtype=charges.dtype,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_laplace3d_dipole", charges.dtype, targets, targets.shape[1],
+        sources, sources.shape[1], charges, dipole_vec, box_target_starts,
         box_target_counts_nonchild, box_source_starts,
         box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
         starts, lists, out)
@@ -118,11 +209,12 @@ def m2p_laplace3d_plain(targets, box_target_starts,
                         box_target_counts_nonchild, rows, starts, lists,
                         mpoles, centers, box_scale, order):
     """Plain twin of :func:`m2p_laplace3d`."""
-    out = targets.new_zeros(targets.shape[1])
+    out = mpoles.new_zeros(targets.shape[1])
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
     k = ncoeffs(order)
+    cplx = mpoles.is_complex()
     pt = _max_count(box_target_counts_nonchild, tbox)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * 2 * k))
     for c0 in range(0, tbox.shape[0], chunk):
@@ -132,9 +224,13 @@ def m2p_laplace3d_plain(targets, box_target_starts,
         s = box_scale[sb]
         rel = (targets[:, tidx] - centers[:, sb][..., None]) / s[:, None]
         ok = (rel * rel).sum(0) > 0
-        sp = irregular_pairs(torch.where(ok, rel, 1), order)  # (E, pt, 2k)
+        sp = _irregular(torch.where(ok, rel, 1), order, cplx)
         mp = mpoles[sb][:, None, :]
-        val = (sp[..., :k] * mp[..., :k] - sp[..., k:] * mp[..., k:]).sum(-1)
+        if cplx:
+            val = (sp * mp).sum(-1)
+        else:
+            val = (sp[..., :k] * mp[..., :k]
+                   - sp[..., k:] * mp[..., k:]).sum(-1)
         val = torch.where(ok, val, 0) / s[:, None]
         out.index_add_(0, tidx[tmask], val[tmask])
     return out
@@ -147,18 +243,19 @@ def m2p_laplace3d(targets, box_target_starts, box_target_counts_nonchild,
     tensors."""
     args = (targets, box_target_starts, box_target_counts_nonchild, rows,
             starts, lists, mpoles, centers, box_scale)
+    _check_dtypes(mpoles.dtype, targets.dtype)
     if targets.device.type == "cpu":
         return m2p_laplace3d_plain(*args, order)
-    kernels.check_tensors(targets, mpoles, centers, box_scale,
-                          dtype=targets.dtype)
+    kernels.check_tensors(targets, centers, box_scale, dtype=targets.dtype)
+    kernels.check_tensors(mpoles, dtype=mpoles.dtype)
     kernels.check_tensors(*args[1:6], dtype=torch.int32)
     _check_order(order, targets.dtype)
-    out = torch.zeros(targets.shape[1], dtype=targets.dtype,
+    out = torch.zeros(targets.shape[1], dtype=mpoles.dtype,
                       device=targets.device)
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "m2p_laplace3d", targets.dtype, targets, targets.shape[1],
+        "m2p_laplace3d", mpoles.dtype, targets, targets.shape[1],
         box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
         starts, lists, mpoles, centers, centers.shape[1], box_scale, order,
         out)
@@ -186,7 +283,7 @@ def p2l_laplace3d_plain(sources, charges, box_source_starts,
         s = box_scale[tb]
         rel = (sources[:, sidx] - centers[:, tb][..., None]) / s[:, None]
         ok = (rel * rel).sum(0) > 0
-        sp = irregular_pairs(torch.where(ok, rel, 1), order)  # (E, ps, 2k)
+        sp = _irregular(torch.where(ok, rel, 1), order, charges.is_complex())
         q = torch.where(smask, charges[sidx], 0)
         terms = torch.where(ok[..., None], sp * q[..., None], 0) \
             / s[:, None, None]
@@ -194,30 +291,75 @@ def p2l_laplace3d_plain(sources, charges, box_source_starts,
     return out
 
 
+def _check_p2l(sources, charges, centers, box_scale, order, out, *ints):
+    _check_dtypes(charges.dtype, sources.dtype)
+    kernels.check_tensors(sources, centers, box_scale, dtype=sources.dtype)
+    kernels.check_tensors(charges, out, dtype=charges.dtype)
+    kernels.check_tensors(*ints, dtype=torch.int32)
+    _check_order(order, sources.dtype)
+    k = ncoeffs(order) * (1 if charges.is_complex() else 2)
+    if out.shape != (centers.shape[1], k):
+        raise ValueError(f"out must be (nboxes, {k})")
+
+
 def p2l_laplace3d(sources, charges, box_source_starts,
                   box_source_counts_nonchild, rows, starts, lists, centers,
                   box_scale, order, out):
     """Add the List-4 local-expansion contributions of the listed source
-    boxes into ``out[rows]`` (``out`` is ``(nboxes, 2 (order+1)^2)``);
-    rows name target-or-target-parent boxes, each at most once.  The K4
-    kernel on CUDA tensors.  Returns *out*."""
+    boxes into ``out[rows]`` (``out`` is ``(nboxes, (order+1)^2)``
+    complex128, or ``(nboxes, 2 (order+1)^2)`` pairs); rows name
+    target-or-target-parent boxes, each at most once.  The K4 kernel on
+    CUDA tensors.  Returns *out*."""
     args = (sources, charges, box_source_starts,
             box_source_counts_nonchild, rows, starts, lists, centers,
             box_scale)
     if sources.device.type == "cpu":
+        _check_dtypes(charges.dtype, sources.dtype)
         return p2l_laplace3d_plain(*args, order, out)
-    kernels.check_tensors(sources, charges, centers, box_scale, out,
-                          dtype=sources.dtype)
-    kernels.check_tensors(*args[2:7], dtype=torch.int32)
-    _check_order(order, sources.dtype)
-    if out.shape != (centers.shape[1], 2 * ncoeffs(order)):
-        raise ValueError("out must be (nboxes, 2 * (order + 1)**2)")
+    _check_p2l(sources, charges, centers, box_scale, order, out, *args[2:7])
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "p2l_laplace3d", sources.dtype, sources, sources.shape[1], charges,
+        "p2l_laplace3d", charges.dtype, sources, sources.shape[1], charges,
         box_source_starts, box_source_counts_nonchild, rows, rows.shape[0],
         starts, lists, centers, centers.shape[1], box_scale, order, out)
+    return out
+
+
+def p2l_laplace3d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2l_laplace3d_dipole`: the JVP of
+    :func:`p2l_laplace3d_plain` in the source positions along
+    *dipole_vec*, added into *out* (the last of *args*)."""
+    *args, out = args
+    terms = torch.func.jvp(
+        lambda s: p2l_laplace3d_plain(s, charges, *args,
+                                      torch.zeros_like(out)),
+        (sources,), (dipole_vec,))[1]
+    return out.add_(terms)
+
+
+def p2l_laplace3d_dipole(sources, charges, dipole_vec, box_source_starts,
+                         box_source_counts_nonchild, rows, starts, lists,
+                         centers, box_scale, order, out):
+    """:func:`p2l_laplace3d` for dipole sources (*dipole_vec* ``(3,
+    nsources)`` in tree order); the K23 kernel on CUDA tensors."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, starts,
+            lists, centers, box_scale)
+    if sources.device.type == "cpu":
+        _check_dtypes(charges.dtype, sources.dtype)
+        return p2l_laplace3d_dipole_plain(sources, charges, dipole_vec,
+                                          *args, order, out)
+    _check_p2l(sources, charges, centers, box_scale, order, out, *args[:5])
+    kernels.check_tensors(sources, dipole_vec, dtype=sources.dtype)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2l_laplace3d_dipole", charges.dtype, sources, sources.shape[1],
+        charges, dipole_vec, box_source_starts, box_source_counts_nonchild,
+        rows, rows.shape[0], starts, lists, centers, centers.shape[1],
+        box_scale, order, out)
     return out
 
 # }}}

@@ -7,9 +7,11 @@ and coefficient layout (``(n, m) -> n*n + n + m``):
 - irregular: ``S_n^m(x) = (n-|m|)! P_n^|m|(cos th) e^{i m phi} / rho^{n+1}``
 
 so that ``1/|x - y| = sum conj(R_n^m(y)) S_n^m(x)`` for ``|y| < |x|``.
-:func:`regular` / :func:`irregular` are complex numpy versions for the host
-operator builders; :func:`regular_pairs` / :func:`irregular_pairs` evaluate
-the same recurrences on torch tensors as ``[re | im]`` real pairs.
+:func:`regular_pairs` / :func:`irregular_pairs` evaluate the recurrences on
+torch tensors as ``[re | im]`` real pairs; :func:`regular` /
+:func:`irregular` return them complex, as numpy arrays for numpy input
+(the host M2M / L2L builders) or as complex tensors, on the input's device,
+for a tensor (the M2L table and the complex hooks).
 """
 
 from __future__ import annotations
@@ -80,12 +82,18 @@ def _harmonics(coords, p, kind):
 
 
 def regular(coords, p):
-    """Regular solid harmonics R_n^m (complex numpy)."""
+    """Regular solid harmonics R_n^m: complex numpy for numpy *coords*, a
+    complex tensor for a tensor."""
+    if isinstance(coords, torch.Tensor):
+        return as_complex(_harmonics_pairs(coords, p, "regular"))
     return _harmonics(coords, p, "regular")
 
 
 def irregular(coords, p):
-    """Irregular solid harmonics S_n^m (complex numpy)."""
+    """Irregular solid harmonics S_n^m: complex numpy for numpy *coords*, a
+    complex tensor for a tensor."""
+    if isinstance(coords, torch.Tensor):
+        return as_complex(_harmonics_pairs(coords, p, "irregular"))
     return _harmonics(coords, p, "irregular")
 
 
@@ -167,11 +175,26 @@ def irregular_pairs(coords, p):
     return _harmonics_pairs(coords, p, "irregular")
 
 
+def as_complex(pairs):
+    """``[re | im]`` pairs along the last axis as a complex tensor."""
+    k = pairs.shape[-1] // 2
+    return torch.complex(pairs[..., :k], pairs[..., k:])
+
+
+def pair_blocks(mr, mi):
+    """``[[mr, -mi], [mi, mr]]``, the real (..., 2K, 2K) operator on ``[re |
+    im]`` vectors of the complex operator ``mr + i mi`` (numpy or
+    tensors)."""
+    if isinstance(mr, torch.Tensor):
+        return torch.cat([torch.cat([mr, -mi], dim=-1),
+                          torch.cat([mi, mr], dim=-1)], dim=-2)
+    top = np.concatenate([mr, -mi], axis=-1)
+    bot = np.concatenate([mi, mr], axis=-1)
+    return np.concatenate([top, bot], axis=-2)
+
+
 def pair_matrix(mat):
     """Expand a complex (..., K, K) operator into the real (..., 2K, 2K)
     operator on ``[re | im]`` vectors: ``[[Re M, -Im M], [Im M, Re M]]``
     (numpy)."""
-    mr, mi = np.real(mat), np.imag(mat)
-    top = np.concatenate([mr, -mi], axis=-1)
-    bot = np.concatenate([mi, mr], axis=-1)
-    return np.concatenate([top, bot], axis=-2)
+    return pair_blocks(np.real(mat), np.imag(mat))

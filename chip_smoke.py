@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives six
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives seven
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -36,11 +36,20 @@ paths of the port on the card, each with the kernels' launch counts set to
   them in [0.45, 0.55]^2, with real charges: the real parts against a
   float64 direct sum at 2,000 sampled targets, the pairs against the
   complex real part, the counting FMM on the same traversal; then the
-  order-35 geometric line of ``tests/test_stability.py`` (K1, K19-K21).
+  order-35 geometric line of ``tests/test_stability.py`` (K1, K19-K21);
+- the 3D Laplace double layer (order 12, ``rscale="auto"``): 1e6 sources
+  on the unit sphere (Config B's generator and seed) with their outward
+  normals as dipoles and real normal weights, 2e5 targets uniform in
+  [-1, 1]^3, the complex128 and the float64 pairs wranglers on one tree,
+  the pairs with ``level_to_order`` and the complex128 single layer: the
+  real parts against float64 direct sums at 2,000 sampled targets, the
+  pairs against the complex real part (K1, K2-K4 complex128, K22 dipole
+  P2P, K23 dipole P2L).
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
-its path (K9-K11, K16-K18 and K19-K21 at 1e5 points as well, a shallower
-tree; K19-K21 on every entry point there),
+its path (K9-K11, K16-K18, K19-K21 and the 3D Laplace kernels at 1e5
+points as well, a shallower tree; K19-K21, K2-K4 and K22-K23 on every
+entry point there),
 and timed beside it (median of 5 synchronised calls; 3 for the slow
 Helmholtz twins at 1e6) and beside its bound, the least time the card
 could take for the same work.  Each phase prints one JSON line; then come
@@ -79,6 +88,8 @@ REPLACES = {
     "p2p_laplace2d": "boxtree_tpu/models/laplace.py:232",
     "m2p_laplace2d": "boxtree_tpu/models/laplace.py:210",
     "p2l_laplace2d": "boxtree_tpu/models/laplace.py:221",
+    "p2p_laplace3d_dipole": "boxtree_tpu/models/expansion_base.py:1314",
+    "p2l_laplace3d_dipole": "boxtree_tpu/models/expansion_base.py:1688",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -102,6 +113,8 @@ SOURCES = {
     "p2p_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
     "m2p_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
     "p2l_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
+    "p2p_laplace3d_dipole": "boxtree_torch/csrc/p2p.cu",
+    "p2l_laplace3d_dipole": "boxtree_torch/csrc/p2l.cu",
 }
 MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
                      "p2l_laplace3d")
@@ -116,6 +129,9 @@ HELMHOLTZ2D_KERNELS = ("morton_encode", "p2p_helmholtz2d", "m2p_helmholtz2d",
                        "p2l_helmholtz2d")
 LAPLACE2D_KERNELS = ("morton_encode", "p2p_laplace2d", "m2p_laplace2d",
                      "p2l_laplace2d")
+LAPLACE3D_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
+                     "p2l_laplace3d", "p2p_laplace3d_dipole",
+                     "p2l_laplace3d_dipole")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
@@ -155,6 +171,25 @@ LAPLACE2D_FMM_RTOL = 1e-5
 LAPLACE2D_PAIRS_RTOL = 1e-10
 #: rel l-inf bound of the order-35 line (``tests/test_stability.py:58``)
 LAPLACE2D_STABILITY_RTOL = 0.5 ** 36
+
+#: rel l-inf tolerance of K2-K4's complex128 entry points, K22 and K23
+#: against their twins, by entry point: complex128 and float64 (the
+#: recurrences rounded in another order, FMA contraction, sums in another
+#: order; K23's tangents per coefficient column), float32
+LAPLACE3D_KERNEL_RTOL = {"c128": 1e-12, "f64": 1e-12, "f32": 1e-5}
+#: rel l-inf bound of the order-12 3D double layer's real part (and of the
+#: single layer) against the float64 direct sum
+#: (``tests/test_laplace.py:113-134``'s bar)
+LAPLACE3D_FMM_RTOL = 1e-5
+#: rel l-inf bound of the float64 pairs with ``level_to_order = 12 -
+#: min(level, 4)`` against the same direct sum: 4.5 times the 4.45e-5 that
+#: ``scripts/torch_laplace3d_accuracy.py`` gives on the CPU at 3e4 sources
+#: and 6e3 targets (6 levels, orders 12 down to 8; the 1e6 tree's deeper
+#: levels all run at order 8 too)
+LAPLACE3D_L2O_RTOL = 2e-4
+#: largest rel l-inf of the float64 pairs potentials from the complex
+#: wrangler's real part (``tests/test_laplace.py:227``)
+LAPLACE3D_PAIRS_RTOL = 1e-12
 
 #: rel l-inf bound of the order-10 float64 Laplace FMM on the QBX extent
 #: tree against the float64 direct sum (BASELINE.md's Config D bar)
@@ -567,12 +602,23 @@ def run_main_path(device, card, n_kernels=200_000, n_main=1_000_000,
 
 
 def summary_entry(name, launches, res, work):
+    from boxtree_torch.ops import kernels
+
     bound_ms, bound_by = bound(work)
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "entry_points": kernels._entry_names(name)}
+
+
+def entry_point_numbers(launches, res, work):
+    """One more entry point's numbers, beside a summary entry's."""
+    bound_ms, bound_by = bound(work)
+    return {"launches": launches, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # {{{ Config B
@@ -1001,25 +1047,29 @@ def helmholtz_work(inputs):
 
 
 def check_list_kernels(inputs, device, plain_reps,
-                       rtol=HELMHOLTZ_KERNEL_RTOL):
-    """Run list kernels (K9-K11, K16-K18 or K19-K21) and their twins on the
-    same inputs; raise on a rel l-inf above *rtol* (a P2L's local
-    coefficients each held to their own column's scale).  Returns ``{name:
-    {max_abs_err, rel_err, ms, plain_ms}}``: the kernel's median of 5, the
-    twin's median of *plain_reps*."""
+                       rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None):
+    """Run list kernels (K2-K4, K9-K11, K16-K23) and their twins on the same
+    inputs; raise on a rel l-inf above *rtol* (a P2L's local coefficients
+    each held to their own column's scale).  Returns ``{name: {max_abs_err,
+    rel_err, ms, plain_ms, plain_reps}}``: the kernel's median of 5, the
+    twin's median of *plain_reps*, or its first call alone when that took
+    more than *slow_s* seconds."""
     results = {}
     for name, (kernel, plain, args) in inputs.items():
-        got, ref = kernel(*args), plain(*args)
+        got = kernel(*args)
+        ref, t_plain = timed(lambda: plain(*args), device)
         err, rel = (rel_linf_per_coefficient if name.startswith("p2l_")
                     else rel_linf)(got, ref)
         if not rel <= rtol:
             raise AssertionError(f"{name}: rel l-inf {rel:.3e} > {rtol}")
         del got, ref
+        reps = 1 if slow_s is not None and t_plain > slow_s else plain_reps
         results[name] = dict(
             max_abs_err=err, rel_err=rel,
             ms=median_ms(lambda: kernel(*args), device),
-            plain_ms=median_ms(lambda: plain(*args), device,
-                               reps=plain_reps))
+            plain_ms=t_plain * 1e3 if reps == 1 else median_ms(
+                lambda: plain(*args), device, reps=reps),
+            plain_reps=reps)
     return results
 
 
@@ -1493,18 +1543,23 @@ def helmholtz2d_inputs(trav, wrangler, q_tree):
     }
 
 
-def list1_pairs(tcounts, scounts, target_boxes, starts, lists):
-    """Particle pairs of List 1 (sources = targets) less each target with
-    itself: the pairs a P2P evaluates when no two particles coincide."""
+def l1_pairs(tcounts, scounts, target_boxes, starts, lists):
+    """Particle pairs of List 1."""
     import torch
 
     from boxtree_torch.traversal.containers import csr_rows
 
-    tc64, sc64 = tcounts.to(torch.int64), scounts.to(torch.int64)
-    tb64 = target_boxes.to(torch.int64)
-    rows = tb64[csr_rows(starts, lists.shape[0])]
-    return int((tc64[rows] * sc64[lists.to(torch.int64)]).sum()) \
-        - int(tc64[tb64].sum())
+    rows = target_boxes.to(torch.int64)[csr_rows(starts, lists.shape[0])]
+    return int((tcounts.to(torch.int64)[rows]
+                * scounts.to(torch.int64)[lists.to(torch.int64)]).sum())
+
+
+def list1_pairs(tcounts, scounts, target_boxes, starts, lists):
+    """Particle pairs of List 1 (sources = targets) less each target with
+    itself: the pairs a P2P evaluates when no two particles coincide."""
+    import torch
+    return l1_pairs(tcounts, scounts, target_boxes, starts, lists) \
+        - int(tcounts.to(torch.int64)[target_boxes.to(torch.int64)].sum())
 
 
 def helmholtz2d_work(inputs):
@@ -2079,6 +2134,338 @@ def run_laplace2d(device, card, n_kernels=100_000, n_main=1_000_000,
 # }}}
 
 
+# {{{ the 3D Laplace double-layer FMM (K2-K4 complex128, K22, K23)
+
+def laplace3d_points(nsources, ntargets, seed):
+    """``tests/test_laplace.py:113-134``'s double layer at *nsources*:
+    sources on the unit sphere from Config B's generator
+    (:func:`sphere_points`) with seed *seed*, their outward unit normals
+    as dipoles; *ntargets* uniform targets in [-1, 1]^3 and standard-normal
+    weights from the next seed's stream."""
+    import numpy as np
+    src = sphere_points(nsources, seed)
+    rng = np.random.default_rng(seed + 1)
+    return src, rng.random((3, ntargets)) * 2 - 1, \
+        rng.standard_normal(nsources)
+
+
+def laplace3d_inputs(trav, wrangler, q_tree, names=None):
+    """K2-K4, K22 and K23's wrappers, plain twins and arguments at the
+    shapes the 3D Laplace FMM of *wrangler* (complex128 or pairs, with
+    dipoles) gives them; *names* picks some."""
+    from boxtree_torch.ops import laplace3d
+
+    w = wrangler
+    tree = trav.tree
+    l1 = (tree.box_target_starts, tree.box_target_counts_nonchild,
+          tree.box_source_starts, tree.box_source_counts_nonchild,
+          trav.target_boxes, trav.neighbor_source_boxes_starts,
+          trav.neighbor_source_boxes_lists)
+    l4 = (tree.box_source_starts, tree.box_source_counts_nonchild,
+          *w._l4_csr, w.centers, w.box_scale, w.order)
+    names = names or ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
+                      "p2p_laplace3d_dipole", "p2l_laplace3d_dipole")
+    out = {}
+    for name in names:
+        if name == "p2p_laplace3d":
+            args = (w._targets, w._sources, q_tree, *l1)
+        elif name == "p2p_laplace3d_dipole":
+            args = (w._targets, w._sources, q_tree, w.dipole_vec, *l1)
+        elif name == "m2p_laplace3d":
+            mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+                None, None, [q_tree]))
+            args = (w._targets, tree.box_target_starts,
+                    tree.box_target_counts_nonchild, *w._l3_csr, mp,
+                    w.centers, w.box_scale, w.order)
+        elif name == "p2l_laplace3d":
+            args = (w._sources, q_tree, *l4)
+        else:
+            args = (w._sources, q_tree, w.dipole_vec, *l4)
+        kernel = getattr(laplace3d, name)
+        plain = getattr(laplace3d, f"{name}_plain")
+        if name.startswith("p2l_"):
+            out[name] = (
+                lambda *a, k=kernel: k(*a, w.local_expansion_zeros()),
+                lambda *a, k=plain: k(*a, w.local_expansion_zeros()), args)
+        else:
+            out[name] = (kernel, plain, args)
+    return out
+
+
+def laplace3d_work(inputs):
+    """Bytes K2-K4, K22 and K23 must move (:func:`p2p_bytes` and its kin,
+    on this run's lists) and the float operations they must do, at
+    *inputs*, for the entry point the inputs take (complex128, or real
+    pairs of the points' type); the counts of :func:`kernel_work` for K2-K4,
+    with complex charges and coefficients:
+
+    - K2, per List-1 particle pair with ``r > 0``: 10, 12 with complex
+      charges (rsqrt not counted); K22 18 (the dot with the dipole 5, the
+      cube of ``1/r`` 2, times it 1), 20 with complex charges.
+    - K3, per (target particle, List-3 source box) pair: a multiply-add per
+      real coefficient of the pairs (2 each), a complex one per complex
+      coefficient (8 each); the recurrence not counted.
+    - K4 and K23, per (List-4 source particle, target box) pair: the same
+      per coefficient (for K23, each coefficient's tangent by the charge);
+      the recurrence and its tangent not counted.
+    """
+    import torch
+
+    from boxtree_torch.ops.solid_harmonics import ncoeffs
+    from boxtree_torch.traversal.containers import csr_rows
+
+    out = {}
+    for name, (_, _, args) in inputs.items():
+        # the charges, or the multipoles
+        cplx = args[{"m2p_laplace3d": 6}.get(
+            name, 2 if name.startswith("p2p_") else 1)].is_complex()
+        typ = str(args[0].dtype).removeprefix("torch.")
+        if name.startswith("p2p_"):
+            tgt, src, q = args[:3]
+            rest = args[-7:]
+            pairs = l1_pairs(rest[1], rest[3], *rest[4:])
+            per = (18 if "dipole" in name else 10) + (2 if cplx else 0)
+            nb = p2p_bytes(tgt, src, q, *rest, q.element_size())
+            if "dipole" in name:
+                sboxes = _boxes(rest[6])
+                nb += int(rest[3][sboxes].sum()) * 3 * src.element_size()
+            out[name] = dict(type=typ, particle_pairs=pairs,
+                             flops=per * pairs, bytes=nb)
+            continue
+        order = args[-1]
+        per = 8 * ncoeffs(order) if cplx else 4 * ncoeffs(order)
+        if name == "m2p_laplace3d":
+            (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _) = args
+            pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+                csr_rows(st, ls.shape[0])]].sum())
+            out[name] = dict(
+                type=typ, target_box_pairs=pairs, flops=per * pairs,
+                bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers,
+                                scale, mp.element_size()))
+            continue
+        src, q = args[:2]
+        sst, scn, rows, st, ls, centers, scale = args[-8:-1]
+        pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+        nb = p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                       2 * ncoeffs(order) * src.element_size())
+        if "dipole" in name:
+            nb += int(scn[_boxes(ls)].sum()) * 3 * src.element_size()
+        out[name] = dict(type=typ, source_box_pairs=pairs,
+                         flops=per * pairs, bytes=nb)
+    return out
+
+
+def direct_sum_dipole_f64(sources, dipoles, charges, targets,
+                          chunk=1 << 14):
+    """sum_s q_s d_s . (t - s) / |t - s|^3 over all sources, r = 0 skipped,
+    in float64."""
+    import torch
+    out = torch.zeros(targets.shape[1], dtype=torch.float64,
+                      device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = targets[:, :, None] - sources[:, None, c0:c0 + chunk]
+        r2 = (d * d).sum(0)
+        ok = r2 > 0
+        g = torch.where(ok, (dipoles[:, None, c0:c0 + chunk] * d).sum(0)
+                        * torch.where(ok, r2, 1.0) ** -1.5, 0.0)
+        out += g @ charges[c0:c0 + chunk]
+    return out
+
+
+def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
+                  n_targets=200_000, order=12, nsample=2000, seed=15):
+    """K2-K4's complex128 entry points, K22 and K23 against their twins at
+    1e5 sphere points on every entry point; then the 3D Laplace double
+    layer at 1e6 sphere points and 2e5 targets (K1, K2-K4 complex128, K22,
+    K23): the complex128 and the float64 pairs wranglers with dipoles and
+    the pairs with ``level_to_order`` on one tree, and the complex128
+    single layer; then the kernels against their twins at the path's
+    shapes.  Returns ``{kernel: (launches, result, work)}`` of the
+    complex128 entry points and the float64 pairs' K22 / K23 results."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_laplace_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    t_phases = time.perf_counter()
+    entries = {"c128": dict(pairs=False),
+               "f64": dict(pairs=True, dtype=torch.float64),
+               "f32": dict(pairs=True, dtype=torch.float32)}
+
+    # {{{ kernels vs twins at 1e5 sources, every entry point
+
+    src_np, tgt_np, w_np = laplace3d_points(n_kernels, n_kernels // 5,
+                                            seed + 10)
+    src = torch.as_tensor(src_np, device=device)
+    tgt = torch.as_tensor(tgt_np, device=device)
+    qc = torch.as_tensor(w_np + 1j * np.random.default_rng(
+        seed + 12).standard_normal(n_kernels), device=device)
+    tree = build_tree(src, targets=tgt, max_particles_in_box=30)
+    trav = build_traversal(tree)
+    small = {}
+    for name, kw in entries.items():
+        wr = make_laplace_wrangler(trav, order, rscale="auto",
+                                   dipole_vec=src, **kw)
+        if wr._l3_csr is None or not wr._l4_csr[2].numel():
+            raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} "
+                                 "sources")
+        q = wr.reorder_sources(qc if name == "c128" else qc.real)
+        small[name] = check_list_kernels(
+            laplace3d_inputs(trav, wr, q), device, plain_reps=3,
+            rtol=LAPLACE3D_KERNEL_RTOL[name], slow_s=3.0)
+    emit({"phase": "kernels_laplace3d_small", "card": card,
+          "sources": n_kernels, "targets": n_kernels // 5,
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels, "order": order,
+          "rscale": "auto",
+          "charges": "complex normal (c128), their real part (pairs)",
+          "dipoles": "outward unit normals",
+          "tolerance_rel_linf": LAPLACE3D_KERNEL_RTOL,
+          "p2l_rel": "per coefficient", "kernels": small})
+    del tree, trav, wr
+
+    # }}}
+
+    # {{{ the path: the double layer at 1e6, every kernel counted
+
+    src_np, tgt_np, w_np = laplace3d_points(n_main, n_targets, seed)
+    src = torch.as_tensor(src_np, device=device)
+    tgt = torch.as_tensor(tgt_np, device=device)
+    q = torch.as_tensor(w_np, device=device)
+    l2o = lambda lev: order - min(lev, 4)  # noqa: E731
+    runs = {"complex128": dict(order=order, pairs=False, dipole_vec=src),
+            "float64_pairs": dict(order=order, pairs=True, dipole_vec=src),
+            "float64_pairs_level_to_order": dict(
+                level_to_order=l2o, pairs=True, dipole_vec=src),
+            "complex128_single_layer": dict(order=order, pairs=False)}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(src, targets=tgt,
+                                            max_particles_in_box=30),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    ws, pots, t_setup, t_fmm = {}, {}, {}, {}
+    for name, kw in runs.items():
+        ws[name], t_setup[name] = timed(lambda: make_laplace_wrangler(
+            trav, rscale="auto", **kw), device)
+        pots[name], t_fmm[name] = timed(lambda: drive_fmm(ws[name], [q]),
+                                        device)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    stages, t_warm = {}, {}
+    for name, w in ws.items():
+        stages[name] = {}
+        _, t_warm[name] = timed(lambda: drive_fmm(
+            w, [q], timing_data=stages[name]), device)
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n_targets, nsample, replace=False), device=device)
+    ref_dl = direct_sum_dipole_f64(src, src, q, tgt[:, sample])
+    ref_sl = direct_sum_f64(src, q, tgt[:, sample])
+    rel, abs_err = {}, {}
+    for name, pot in pots.items():
+        abs_err[name], rel[name] = rel_linf(
+            pot.real[sample], ref_sl if name.endswith("single_layer")
+            else ref_dl)
+    _, rel_pc = rel_linf(pots["float64_pairs"], pots["complex128"].real)
+    finite = all(bool(torch.isfinite(p).all()) for p in pots.values())
+    emit({"phase": "laplace3d_fmm", "card": card, "sources": n_main,
+          "targets": n_targets,
+          "distribution": "sources on the unit sphere, targets uniform in "
+                          "[-1, 1]^3", "seed": seed,
+          "weights": "real normal", "dipoles": "outward unit normals",
+          "order": order, "level_to_order": "order - min(level, 4)",
+          "rscale": "auto", "max_particles_in_box": 30,
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "level_orders": [int(x) for x in
+                           ws["float64_pairs_level_to_order"].level_orders],
+          "build_s": t_tree, "traversal_s": t_trav,
+          "wrangler_setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
+          "total_s": t_total, "stage_s": stages,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l1_particle_pairs": l1_pairs(
+                  tree.box_target_counts_nonchild,
+                  tree.box_source_counts_nonchild, trav.target_boxes,
+                  trav.neighbor_source_boxes_starts,
+                  trav.neighbor_source_boxes_lists),
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "sampled_targets": nsample,
+          "rel_linf_vs_f64_direct": rel, "abs_linf": abs_err,
+          "bounds": {"double_layer": LAPLACE3D_FMM_RTOL,
+                     "level_to_order": LAPLACE3D_L2O_RTOL,
+                     "pairs_vs_complex": LAPLACE3D_PAIRS_RTOL},
+          "pairs_vs_complex_rel_linf": rel_pc, "finite": finite,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    for name, pot in pots.items():
+        dt = torch.complex128 if name.startswith("complex") \
+            else torch.float64
+        if tuple(pot.shape) != (n_targets,) or pot.dtype != dt:
+            raise AssertionError(f"3D Laplace FMM ({name}): misshapen "
+                                 "output")
+    if not finite:
+        raise AssertionError("3D Laplace FMM: non-finite output")
+    for name, r in rel.items():
+        bar = (LAPLACE3D_L2O_RTOL if name.endswith("level_to_order")
+               else LAPLACE3D_FMM_RTOL)
+        if not r < bar:
+            raise AssertionError(f"3D Laplace FMM ({name}): rel l-inf "
+                                 f"{r:.3e} >= {bar}")
+    if not rel_pc <= LAPLACE3D_PAIRS_RTOL:
+        raise AssertionError(f"3D Laplace pairs vs complex: rel l-inf "
+                             f"{rel_pc:.3e} > {LAPLACE3D_PAIRS_RTOL}")
+    emit({"phase": "launches", "path": "laplace3d_fmm", "card": card,
+          "launches": launches})
+    missing = [name for name in LAPLACE3D_KERNELS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 3D Laplace "
+                             f"path: {missing}")
+
+    # }}}
+
+    # the kernels against their twins at the path's own shapes: complex128
+    # (K2-K4 from the single layer, K22 / K23 from the double layer), and
+    # K22 / K23 on the float64 pairs
+    res, work = {}, {}
+    for key, w, names in (
+            ("c128", ws["complex128_single_layer"],
+             ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d")),
+            ("c128_dipole", ws["complex128"],
+             ("p2p_laplace3d_dipole", "p2l_laplace3d_dipole")),
+            ("f64", ws["float64_pairs"],
+             ("p2p_laplace3d_dipole", "p2l_laplace3d_dipole"))):
+        inputs = laplace3d_inputs(trav, w, w.reorder_sources(q), names)
+        work[key] = laplace3d_work(inputs)
+        res[key] = check_list_kernels(
+            inputs, device, plain_reps=3,
+            rtol=LAPLACE3D_KERNEL_RTOL[key.split("_")[0]], slow_s=3.0)
+        for kname, r in res[key].items():
+            r["bound_ms"], r["bound_by"] = bound(work[key][kname])
+    emit({"phase": "kernels_laplace3d", "card": card, "sources": n_main,
+          "targets": n_targets, "order": order,
+          "tolerance_rel_linf": LAPLACE3D_KERNEL_RTOL,
+          "p2l_rel": "per coefficient", "kernels": res,
+          "launches": {name: launches[name] for name in LAPLACE3D_KERNELS},
+          "work": work,
+          "laplace3d_phases_s": time.perf_counter() - t_phases})
+    c128 = {**res["c128"], **res["c128_dipole"]}
+    c128_work = {**work["c128"], **work["c128_dipole"]}
+    return {name: (launches[name], r, c128_work[name],
+                   res["f64"].get(name), work["f64"].get(name))
+            for name, r in c128.items()}
+
+# }}}
+
+
 def _ptxas_summary(log):
     """Registers / spills per kernel from ``nvcc -Xptxas -v``."""
     out, entry = {}, None
@@ -2120,9 +2507,24 @@ def main():
     e_entries = run_extents(device, card)
     h2_entries = run_helmholtz2d(device, card)
     l2_entries = run_laplace2d(device, card)
+    l3 = run_laplace3d(device, card)
+    # K2-K4 keep the main path's float32 numbers, with those of their
+    # complex128 entry points beside them; K22 and K23 stand by their
+    # complex128 entry points, the float64 pairs' beside them
+    for e in entries:
+        if e["name"] in l3:
+            launches, res, work = l3[e["name"]][:3]
+            e["c128"] = entry_point_numbers(launches, res, work)
+    l3_entries = []
+    for name in ("p2p_laplace3d_dipole", "p2l_laplace3d_dipole"):
+        launches, res, work, res64, work64 = l3[name]
+        entry = summary_entry(name, launches, res, work)
+        entry["entry_point"] = "c128"
+        entry["f64"] = entry_point_numbers(launches, res64, work64)
+        l3_entries.append(entry)
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
-          + h2_entries + l2_entries})
+          + h2_entries + l2_entries + l3_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

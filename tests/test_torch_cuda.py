@@ -20,7 +20,11 @@ Helmholtz FMM on the card matches the CPU port to 1e-10.  K19-K21 (2D
 Laplace) agree with their twins to 1e-12 in complex128 and float64 pairs
 and 1e-5 in float32 pairs, also at r = 0, w = 0, on centre lines with
 either zero sign, on empty rows and at order 35; the 2D Laplace FMM on
-the card matches the CPU port.  K5-K8
+the card matches the CPU port.  K2-K4's complex128 entry points and the
+dipole kernels K22 (P2P) and K23 (P2L) agree with their twins to 1e-12 in
+complex128 and float64 and 1e-5 in float32, also at r = 0; both 3D
+layouts build their M2L tables on the card; the 3D FMM on the card, with
+and without dipoles and ``level_to_order``, matches the CPU port.  K5-K8
 (level restriction, area-query sweep, space invader, peer lists) compute
 integers, or a float maximum that does not depend on order, so they must
 equal their twins exactly, and a level-restricted tree built on the card
@@ -64,6 +68,7 @@ from boxtree_torch.ops import (
 )
 from boxtree_torch.traversal import build_traversal
 from boxtree_torch.traversal.build import close_list_inputs
+from boxtree_torch.traversal.neighbors import _offsets
 from boxtree_torch.tree.build import _phase_a, _root_box
 from boxtree_torch.tree.level_restrict import restrict_leaf_levels
 
@@ -897,6 +902,184 @@ def test_laplace2d_fmm_on_card_matches_cpu(laplace2d_setup, kind):
     w_cpu = make_laplace_wrangler(trav_cpu, 20, pairs=pairs, dtype=dt,
                                   rscale="auto")
     ref = drive_fmm(w_cpu, [q.cpu()])
+    assert got.dtype == dt
+    assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
+
+# }}}
+
+
+# {{{ 3D Laplace: the complex128 entry points of K2-K4, dipoles (K22, K23)
+
+L3D_RTOL = L2D_RTOL
+L3D_KINDS = L2D_KINDS
+L3D_KERNELS = {"p2p": "p2p_laplace3d", "p2p_dipole": "p2p_laplace3d_dipole",
+               "m2p": "m2p_laplace3d", "p2l": "p2l_laplace3d",
+               "p2l_dipole": "p2l_laplace3d_dipole"}
+
+
+@pytest.fixture(scope="module")
+def laplace3d_setup(device):
+    """Sources on the unit sphere with their normals as dipoles, targets
+    in [-1, 1]^3 (``tests/test_laplace.py:113-134``'s geometry), complex
+    charges; a wrangler per entry point, order 8, ``rscale="auto"``."""
+    ns, nt = 20000, 5000
+    rng = np.random.default_rng(4)
+    src = torch.as_tensor(_sphere(ns, 15), device=device)
+    tgt = torch.as_tensor(rng.random((3, nt)) * 2 - 1, device=device)
+    qc = torch.as_tensor(rng.standard_normal(ns)
+                         + 1j * rng.standard_normal(ns), device=device)
+    trav = build_traversal(build_tree(src, targets=tgt,
+                                      max_particles_in_box=30))
+    ws = {kind: make_laplace_wrangler(trav, 8, pairs=pairs, dtype=dt,
+                                      rscale="auto", dipole_vec=src)
+          for kind, (pairs, dt) in L3D_KINDS.items()}
+    return trav, ws, src, tgt, qc
+
+
+def _l3d_args(trav, w, q, which, centers=None):
+    """K2-K4, K22 or K23's arguments from wrangler *w* (charges *q* in its
+    dtype), the box centres replaced if given."""
+    tree = trav.tree
+    centers = w.centers if centers is None else centers
+    if which.startswith("p2p"):
+        dip = (w.dipole_vec,) if which == "p2p_dipole" else ()
+        return (w._targets, w._sources, q, *dip, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists)
+    if which == "m2p":
+        mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                                [q]))
+        return (w._targets, tree.box_target_starts,
+                tree.box_target_counts_nonchild, *w._l3_csr, mp, centers,
+                w.box_scale, w.order)
+    dip = (w.dipole_vec,) if which == "p2l_dipole" else ()
+    return (w._sources, q, *dip, tree.box_source_starts,
+            tree.box_source_counts_nonchild, *w._l4_csr, centers,
+            w.box_scale, w.order)
+
+
+def _l3d_compare(which, args, w):
+    fn = getattr(laplace3d, L3D_KERNELS[which])
+    plain = getattr(laplace3d, f"{L3D_KERNELS[which]}_plain")
+    if which.startswith("p2l"):
+        got = fn(*args, w.local_expansion_zeros())
+        ref = plain(*args, w.local_expansion_zeros())
+        return _zero_safe_cols_rel(got, ref)
+    return _rel(fn(*args), plain(*args))
+
+
+@pytest.mark.parametrize("which", sorted(L3D_KERNELS))
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_laplace3d_kernel(laplace3d_setup, kind, which):
+    trav, ws, _, _, qc = laplace3d_setup
+    w = ws[kind]
+    assert w._l3_csr[0].numel() > 0 and w._l4_csr[0].numel() > 0
+    q = w.reorder_sources(qc if w.dtype.is_complex else qc.real)
+    kernels.reset_launch_counts()
+    err = _l3d_compare(which, _l3d_args(trav, w, q, which), w)
+    assert kernels.launch_counts()[L3D_KERNELS[which]] == 1
+    assert err <= L3D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", ["p2p", "p2p_dipole", "p2l",
+                                   "p2l_dipole"])
+@pytest.mark.parametrize("kind", ["c128", "f64"])
+def test_laplace3d_kernel_at_r0(laplace3d_setup, device, kind, which):
+    """r = 0: P2P on a tree whose sources are its targets (each target on
+    its own source), P2L with a List-4 row's centre moved onto a source of
+    its first listed box.  The float32 entry points run the same template
+    code; their sums at these points cancel beyond 1e-5 of the largest
+    value (2.5e-5 on an H100), so they are held at the path's geometry
+    (:func:`test_laplace3d_kernel`) only."""
+    trav, ws, src, _, qc = laplace3d_setup
+    pairs, dt = L3D_KINDS[kind]
+    if which.startswith("p2p"):
+        trav = build_traversal(build_tree(src, max_particles_in_box=30))
+        w = make_laplace_wrangler(trav, 8, pairs=pairs, dtype=dt,
+                                  rscale="auto", dipole_vec=src)
+        centers = None
+    else:
+        w = ws[kind]
+        rows, starts, lists = w._l4_csr
+        tree = trav.tree
+        s0 = int(tree.box_source_starts[int(lists[0])])
+        centers = w.centers.clone()
+        centers[:, int(rows[0])] = w._sources[:, s0]
+    q = w.reorder_sources(qc if w.dtype.is_complex else qc.real)
+    err = _l3d_compare(which, _l3d_args(trav, w, q, which, centers), w)
+    assert err <= L3D_RTOL[w.dtype]
+
+
+def test_laplace3d_m2l_table_on_card(laplace3d_setup):
+    """Both 3D layouts build their M2L tables on the card, as tensors."""
+    trav, ws, *_ = laplace3d_setup
+    classes = _offsets(3, 3, min_inf_norm=1)
+    for w in ws.values():
+        assert w._m2l_opsT and all(
+            isinstance(t, torch.Tensor) and t.device.type == "cuda"
+            and t.dtype == w.dtype for t in w._m2l_opsT.values())
+        table = w._m2l_matrices(classes, 0.25, 0.5)
+        assert table.device.type == "cuda" and table.dtype in (
+            torch.complex128, torch.float64)
+
+
+def test_laplace3d_factory_on_card(laplace3d_setup):
+    trav = laplace3d_setup[0]
+    w = make_laplace_wrangler(trav, 4)
+    assert type(w).__name__ == "Laplace3DPairsExpansionWrangler"
+    w = make_laplace_wrangler(trav, 4, dtype=torch.complex128)
+    assert type(w).__name__ == "Laplace3DExpansionWrangler"
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float16])
+def test_laplace3d_wrappers_refuse_dtypes(laplace3d_setup, dtype):
+    trav, ws, _, _, qc = laplace3d_setup
+    w = ws["c128"]
+    q = w.reorder_sources(qc).to(dtype)
+    kernels.reset_launch_counts()
+    for which in L3D_KERNELS:
+        with pytest.raises(TypeError):
+            args = list(_l3d_args(trav, w, w.reorder_sources(qc), which))
+            # the charges, or the multipoles
+            at = {"m2p": 6, "p2l": 1, "p2l_dipole": 1}.get(which, 2)
+            args[at] = args[at].to(dtype) if which == "m2p" else q
+            fn = getattr(laplace3d, L3D_KERNELS[which])
+            if which.startswith("p2l"):
+                fn(*args, w.local_expansion_zeros().to(dtype))
+            else:
+                fn(*args)
+    assert not any(kernels.launch_counts()[k] for k in L3D_KERNELS.values())
+
+
+@pytest.mark.parametrize("dipoles", [False, True])
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_laplace3d_fmm_on_card_matches_cpu(laplace3d_setup, kind, dipoles):
+    """The 3D FMM on the card (K2-K4, or K22 / K23 with dipoles and
+    ``level_to_order``) against the CPU port on the same points."""
+    trav, _, src, tgt, qc = laplace3d_setup
+    pairs, dt = L3D_KINDS[kind]
+    kw = dict(pairs=pairs, dtype=dt, rscale="auto")
+    if dipoles:
+        kw.update(level_to_order=lambda lev: 8 - min(lev, 3),
+                  dipole_vec=src)
+    else:
+        kw["order"] = 8
+    q = qc if dt.is_complex else qc.real
+    w = make_laplace_wrangler(trav, **kw)
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [q])
+    counts = kernels.launch_counts()
+    names = (("p2p_laplace3d_dipole", "m2p_laplace3d",
+              "p2l_laplace3d_dipole") if dipoles
+             else ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d"))
+    assert all(counts[k] > 0 for k in names), counts
+    trav_cpu = build_traversal(build_tree(src.cpu(), targets=tgt.cpu(),
+                                          max_particles_in_box=30))
+    if dipoles:
+        kw["dipole_vec"] = src.cpu()
+    ref = drive_fmm(make_laplace_wrangler(trav_cpu, **kw), [q.cpu()])
     assert got.dtype == dt
     assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
 

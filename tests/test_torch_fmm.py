@@ -20,6 +20,7 @@ from boxtree_torch import build_tree
 from boxtree_torch.fmm import drive_fmm
 from boxtree_torch.models import (
     ConstantOneExpansionWrangler,
+    Laplace3DExpansionWrangler,
     make_laplace_wrangler,
 )
 from boxtree_torch.traversal import build_traversal
@@ -137,5 +138,16 @@ def test_laplace_order10_against_direct_sum(f64_slice, charges):
     dict(order=4, dipole_vec=np.zeros((3, 10))),
 ])
 def test_unported_wrangler_options_raise(f64_slice, kwargs):
-    with pytest.raises(NotImplementedError):
-        make_laplace_wrangler(f64_slice[2], **kwargs)
+    """Options that raised before the 3D wrangler took them, now as the
+    reference has them: ``pairs=False`` gives the complex wrangler,
+    ``level_to_order`` is accepted, and a ``dipole_vec`` of the wrong
+    shape raises ValueError."""
+    trav = f64_slice[2]
+    if "dipole_vec" in kwargs:
+        with pytest.raises(ValueError, match="dipole_vec"):
+            make_laplace_wrangler(trav, **kwargs)
+        return
+    w = make_laplace_wrangler(trav, **kwargs)
+    assert type(w) is Laplace3DExpansionWrangler
+    assert w.dtype == torch.complex128 and w.order == 4
+    assert (w.level_orders is None) == ("order" in kwargs)

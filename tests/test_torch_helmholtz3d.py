@@ -438,17 +438,20 @@ def test_to_numpy_complex():
 
 
 def test_kernel_entry_points():
-    """K9-K11 exist in complex128 only, the others as before."""
+    """K9-K11 exist in complex128 only; K2-K4 and the dipole kernels K22 and
+    K23 in float32, float64 and complex128."""
     assert set(kernels.DTYPES) == set(kernels.SIGNATURES)
     for name in ("p2p_helmholtz3d", "m2p_helmholtz3d", "p2l_helmholtz3d"):
         assert kernels._entry_names(name) == [f"{name}_c128"]
-    assert kernels._entry_names("p2p_laplace3d") == [
-        "p2p_laplace3d_f32", "p2p_laplace3d_f64"]
+    for name in ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
+                 "p2p_laplace3d_dipole", "p2l_laplace3d_dipole"):
+        assert kernels._entry_names(name) == [
+            f"{name}_f32", f"{name}_f64", f"{name}_c128"]
     assert kernels._entry_names("peer_lists") == ["peer_lists"]
     with pytest.raises(TypeError, match="unsupported dtype"):
         kernels.launch("p2p_helmholtz3d", torch.float64)
     with pytest.raises(TypeError, match="unsupported dtype"):
-        kernels.launch("p2p_laplace3d", torch.complex128)
+        kernels.launch("p2p_laplace3d", torch.complex64)
 
 
 @pytest.mark.parametrize("form", ["conjugated", "strided"])

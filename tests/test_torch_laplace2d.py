@@ -39,7 +39,7 @@ from boxtree_torch.models import (
     ConstantOneExpansionWrangler,
     Laplace2DExpansionWrangler,
     Laplace2DPairsExpansionWrangler,
-    Laplace3DPairsExpansionWrangler,
+    Laplace3DExpansionWrangler,
     LaplaceTreeIndependentDataForWrangler,
     make_laplace_wrangler,
 )
@@ -510,13 +510,14 @@ def test_factory_dispatch(points):
         assert w.real_dtype == dt.to_real()
     tree3 = build_tree(np.random.default_rng(2).random((3, 300)),
                        max_particles_in_box=30, device="cpu")
+    # on a CPU tree, as in the reference: complex in 3D too
     w3 = make_laplace_wrangler(build_traversal(tree3), 3)
-    assert type(w3) is Laplace3DPairsExpansionWrangler
+    assert type(w3) is Laplace3DExpansionWrangler
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(dipole_vec=np.zeros((2, N))),
-    dict(level_to_order=lambda lev: 4),
+    dict(dipole_vec=np.zeros((2, N)), pairs=True),
     dict(m2l_mode="rotation"),
     dict(pairs=False, dtype=np.complex64),
     dict(dtype=np.complex64),
@@ -524,16 +525,42 @@ def test_factory_dispatch(points):
     dict(pairs=True, dtype=np.float16),
 ])
 def test_unported_options_raise(points, kwargs):
-    order = None if "level_to_order" in kwargs else 4
     with pytest.raises(NotImplementedError):
-        make_laplace_wrangler(points[2], order, **kwargs)
+        make_laplace_wrangler(points[2], 4, **kwargs)
 
 
-def test_complex_3d_still_refused():
+@pytest.mark.parametrize("pairs", [False, True])
+def test_level_to_order_2d(points, pairs):
+    """``level_to_order`` in 2D: the order is the largest over the levels,
+    each level's expansions hold no coefficient past its order, and the
+    potentials stay within the order-8 levels' truncation of the fixed
+    order-10 FMM's."""
+    _, q, trav = points
+    w = make_laplace_wrangler(trav, level_to_order=lambda lev: 10 - min(lev,
+                                                                        2),
+                              pairs=pairs, rscale="auto")
+    assert w.order == ORDER and list(w.level_orders[:3]) == [10, 9, 8]
+    pot = drive_fmm(w, [torch.from_numpy(q)]).numpy().real
+    ref = drive_fmm(make_laplace_wrangler(trav, ORDER, pairs=pairs,
+                                          rscale="auto"),
+                    [torch.from_numpy(q)]).numpy().real
+    assert 0 < _rel_linf(pot, ref) < 1e-5
+    mp = w.form_multipoles(None, None, [w.reorder_sources(
+        torch.from_numpy(q))]).numpy()
+    deg = np.arange(ORDER + 1) if not pairs else np.tile(
+        np.arange(ORDER + 1), 2)
+    lev = trav.tree.box_levels.numpy()
+    assert (mp[deg[None, :] > w.level_orders[lev][:, None]] == 0).all()
+
+
+def test_complex_3d_on_cpu():
+    """``pairs=False`` in 3D gives the complex wrangler, as in the
+    reference."""
     tree3 = build_tree(np.random.default_rng(2).random((3, 300)),
                        max_particles_in_box=30, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_laplace_wrangler(build_traversal(tree3), 3, pairs=False)
+    w = make_laplace_wrangler(build_traversal(tree3), 3, pairs=False)
+    assert type(w) is Laplace3DExpansionWrangler
+    assert w.dtype == torch.complex128 and w.ncoeff == 16
 
 
 def test_kernel_entry_points_2d():

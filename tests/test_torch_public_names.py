@@ -33,8 +33,7 @@ NOT_PORTED = {
     ".traversal": set(),
     ".fmm": {"jit_drive_fmm", "staged_drive_fmm"},
     ".models": {"Helmholtz2DPairsExpansionWrangler",
-                "Helmholtz3DPairsExpansionWrangler",
-                "Laplace3DExpansionWrangler"},
+                "Helmholtz3DPairsExpansionWrangler"},
     ".geometry": set(),
 }
 #: per subpackage, names the port exports that the reference's ``__all__``
