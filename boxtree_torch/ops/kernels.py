@@ -66,6 +66,10 @@ SIGNATURES = {
     "p2l_laplace2d": "pippppipppipipp",
     "p2p_laplace3d_dipole": "pipipppppppipppp",
     "p2l_laplace3d_dipole": "pipppppipppipipp",
+    "neighbor_table": "ppppppiiiip",
+    "row_lists_sl_l2": "ppppppiiiippppppip",
+    "lists_43": "ppppppiiiippppppip",
+    "list1": "pppppppiiiiipppip",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -99,6 +103,10 @@ DTYPES = {
     "p2l_laplace2d": (*_FLOATS, torch.complex128),
     "p2p_laplace3d_dipole": (*_FLOATS, torch.complex128),
     "p2l_laplace3d_dipole": (*_FLOATS, torch.complex128),
+    "neighbor_table": (),
+    "row_lists_sl_l2": (),
+    "lists_43": (),
+    "list1": (),
 }
 
 

@@ -24,15 +24,28 @@ def csr_rows(starts, nedges):
         starts[1:] - starts[:-1], output_size=nedges)
 
 
-def compressed_csr(keys):
-    """CSR over the nonempty rows of sorted int64 ``(row << 32) | value``
-    keys: ``(rows, starts, lists)``, all int32, ``rows`` ascending."""
-    row = keys >> 32
-    first = torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
+def first_of_rows(row):
+    """True where a sorted row index differs from the one before it."""
+    first = torch.ones(row.shape[0], dtype=torch.bool, device=row.device)
     first[1:] = row[1:] != row[:-1]
-    pos = torch.nonzero(first)[:, 0]
-    starts = torch.cat([pos, pos.new_full((1,), keys.shape[0])])
-    return (row[pos].to(torch.int32), starts.to(torch.int32),
+    return first
+
+
+def compressed_csr(keys, first=None, nrows=None):
+    """CSR over the nonempty rows of sorted int64 ``(row << 32) | value``
+    keys: ``(rows, starts, lists)``, all int32, ``rows`` ascending.  Given
+    *first* (:func:`first_of_rows` of the keys' rows) and *nrows*, its
+    count of True, it reads nothing back to the host."""
+    row = keys >> 32
+    if first is None:
+        first = first_of_rows(row)
+    if nrows is None:
+        nrows = int(first.sum())
+    pos = torch.empty(nrows + 1, dtype=torch.int64, device=keys.device)
+    pos.scatter_(0, torch.where(first, torch.cumsum(first, 0) - 1, nrows),
+                 torch.arange(keys.shape[0], device=keys.device))
+    pos[nrows] = keys.shape[0]
+    return (row[pos[:-1]].to(torch.int32), pos.to(torch.int32),
             (keys & 0xFFFFFFFF).to(torch.int32))
 
 

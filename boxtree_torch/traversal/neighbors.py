@@ -1,10 +1,12 @@
-"""Clamped per-box neighbor table and the interaction-list generators that
-read it (the ``well_sep_is_n_away == 1`` path).
+"""The interaction-list generators that read the clamped per-box neighbor
+table (the ``well_sep_is_n_away == 1`` path).
 
-Port of :mod:`boxtree_tpu.traversal.neighbors` (``neighbors.py:59-557``).
-``table[b, j]`` is the deepest existing box containing cell ``cell(b) +
-delta_j`` at ``b``'s level: the same-level neighbor where it exists, else
-the finest coarser box covering that cell, ``-1`` outside the domain.
+Port of :mod:`boxtree_tpu.traversal.neighbors` (``neighbors.py:59-557``);
+the table itself is built by :func:`boxtree_torch.ops.traversal.
+neighbor_table` (K24).  ``table[b, j]`` is the deepest existing box
+containing cell ``cell(b) + delta_j`` at ``b``'s level: the same-level
+neighbor where it exists, else the finest coarser box covering that cell,
+``-1`` outside the domain.
 Column ``j`` follows ``_offsets(d, 1)`` (axis 0 slowest); the centre
 column is the box itself.  Entries pack two predicate bits into the spare
 high bits of the int32 id: bit 29 IS_SOURCE_BOX, bit 30 "is a target
@@ -42,70 +44,6 @@ def _offsets(dimensions, radius, *, exclude_zero=False, min_inf_norm=None):
     if min_inf_norm is not None:
         keep &= norm > min_inf_norm
     return offs[keep]
-
-
-def build_neighbor_table(prefixes, parents, child_ids, box_flags,
-                         tgt_box_mask, *, dimensions, lsb):
-    """(nboxes, 3^d) int32 clamped neighbor entries, built level by level
-    from the parent's row (``neighbors.py:65-155``)::
-
-        cell(child q) + delta = 2 * pcell + q + delta
-          -> parent column (q + delta) >> 1, child digit (q + delta) & 1
-
-    Where the parent-level entry is already coarser, or its child at the
-    needed digit is absent, the parent-level entry itself propagates down
-    (the clamp).
-    """
-    d = dimensions
-    dev = prefixes.device
-    offs = _offsets(d, 1)
-    m = offs.shape[0]
-    nchild = 2 ** d
-    nboxes = lsb[-1]
-    col_w = 3 ** (d - 1 - np.arange(d))
-
-    iota = torch.arange(nboxes, dtype=torch.int32, device=dev)
-    ent = (iota
-           | torch.where((box_flags & _F.IS_SOURCE_BOX) != 0, SRC_BIT, 0)
-           | torch.where(tgt_box_mask, TGT_BIT, 0)).to(torch.int32)
-    child_t = child_ids.T.to(torch.int64)                 # (nboxes, 2^d)
-    child_ent = torch.where(child_t > 0, ent[child_t.clamp(min=0)],
-                            torch.full_like(ent[child_t], -1))
-
-    # static maps: child digit q's neighbor at offs[j] is the child with
-    # digit cdig[q, j] of the parent's neighbor in column pcol[q, j]
-    pcol = np.zeros((nchild, m), np.int64)
-    cdig = np.zeros((nchild, m), np.int64)
-    for q in range(nchild):
-        qb = np.array([(q >> (d - 1 - a)) & 1 for a in range(d)])
-        for j in range(m):
-            dp = (qb + offs[j]) >> 1
-            pcol[q, j] = ((dp + 1) * col_w).sum()
-            cdig[q, j] = (((qb + offs[j]) & 1)
-                          << (d - 1 - np.arange(d))).sum()
-    pcol = torch.as_tensor(pcol, device=dev)
-    cdig = torch.as_tensor(cdig, device=dev)
-
-    table = torch.full((nboxes, m), -1, dtype=torch.int32, device=dev)
-    table[0, m // 2] = ent[0]
-    for lev in range(1, len(lsb) - 1):
-        b0, b1 = lsb[lev], lsb[lev + 1]
-        p0 = lsb[lev - 1]
-        par = parents[b0:b1].to(torch.int64)
-        digit = prefixes[b0:b1] & (nchild - 1)
-        pn = table[par]                                   # (B, m)
-        pid = (pn.clamp(min=0) & ID_MASK).to(torch.int64)
-        # child lookups mean something only where the parent-level entry
-        # is AT the parent level
-        at_plev = (pn >= 0) & (pid >= p0)
-        cols = pcol[digit]                                # (B, m)
-        pn_sel = torch.gather(pn, 1, cols)
-        pid_sel = torch.gather(pid, 1, cols)
-        ch = child_ent[pid_sel, cdig[digit]]              # (B, m)
-        ch = torch.where(torch.gather(at_plev, 1, cols), ch,
-                         torch.full_like(ch, -1))
-        table[b0:b1] = torch.where(ch >= 0, ch, pn_sel)
-    return table
 
 
 # {{{ helpers

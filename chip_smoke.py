@@ -46,6 +46,14 @@ paths of the port on the card, each with the kernels' launch counts set to
   pairs against the complex real part (K1, K2-K4 complex128, K22 dipole
   P2P, K23 dipole P2L).
 
+Every path builds its traversal with K24-K27 (the neighbour table, the
+colleagues and List 2, Lists 4 and 3, List 1; the extent tree's Lists 3
+and 4 come from K14/K15), and its line gives ``traversal_s`` beside
+``traversal_plain_s``, the same traversal with the kernels' plain twins
+on the card.  The ``kernels_traversal`` lines hold K24-K27 against their
+twins bit for bit on the main-path, Config B, extent and 2D Laplace
+trees.
+
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21 and the 3D Laplace kernels at 1e5
 points as well, a shallower tree; K19-K21, K2-K4 and K22-K23 on every
@@ -90,6 +98,10 @@ REPLACES = {
     "p2l_laplace2d": "boxtree_tpu/models/laplace.py:221",
     "p2p_laplace3d_dipole": "boxtree_tpu/models/expansion_base.py:1314",
     "p2l_laplace3d_dipole": "boxtree_tpu/models/expansion_base.py:1688",
+    "neighbor_table": "boxtree_tpu/traversal/neighbors.py:65",
+    "row_lists_sl_l2": "boxtree_tpu/traversal/build.py:944",
+    "lists_43": "boxtree_tpu/traversal/build.py:1151",
+    "list1": "boxtree_tpu/traversal/build.py:1334",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -115,23 +127,33 @@ SOURCES = {
     "p2l_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
     "p2p_laplace3d_dipole": "boxtree_torch/csrc/p2p.cu",
     "p2l_laplace3d_dipole": "boxtree_torch/csrc/p2l.cu",
+    "neighbor_table": "boxtree_torch/csrc/traversal.cu",
+    "row_lists_sl_l2": "boxtree_torch/csrc/traversal.cu",
+    "lists_43": "boxtree_torch/csrc/traversal.cu",
+    "list1": "boxtree_torch/csrc/traversal.cu",
 }
-MAIN_PATH_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
-                     "p2l_laplace3d")
-CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", "area_query_sweep",
-                    "space_invader_sweep", "peer_lists")
+#: K24-K27, launched by every traversal; the extent tree's Lists 3 and 4
+#: come from K14/K15 instead of K26
+TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "lists_43",
+                     "list1")
+EXTENT_TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "list1")
+MAIN_PATH_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
+                     "m2p_laplace3d", "p2l_laplace3d")
+CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", *TRAVERSAL_KERNELS,
+                    "area_query_sweep", "space_invader_sweep", "peer_lists")
 EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
-                  "list4_ext", "list3_ext", "p2p_laplace3d", "m2p_laplace3d",
-                  "p2l_laplace3d")
-HELMHOLTZ_KERNELS = ("morton_encode", "p2p_helmholtz3d", "m2p_helmholtz3d",
-                     "p2l_helmholtz3d")
-HELMHOLTZ2D_KERNELS = ("morton_encode", "p2p_helmholtz2d", "m2p_helmholtz2d",
+                  *EXTENT_TRAVERSAL_KERNELS, "list4_ext", "list3_ext",
+                  "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d")
+HELMHOLTZ_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_helmholtz3d",
+                     "m2p_helmholtz3d", "p2l_helmholtz3d")
+HELMHOLTZ2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
+                       "p2p_helmholtz2d", "m2p_helmholtz2d",
                        "p2l_helmholtz2d")
-LAPLACE2D_KERNELS = ("morton_encode", "p2p_laplace2d", "m2p_laplace2d",
-                     "p2l_laplace2d")
-LAPLACE3D_KERNELS = ("morton_encode", "p2p_laplace3d", "m2p_laplace3d",
-                     "p2l_laplace3d", "p2p_laplace3d_dipole",
-                     "p2l_laplace3d_dipole")
+LAPLACE2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace2d",
+                     "m2p_laplace2d", "p2l_laplace2d")
+LAPLACE3D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
+                     "m2p_laplace3d", "p2l_laplace3d",
+                     "p2p_laplace3d_dipole", "p2l_laplace3d_dipole")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
@@ -471,10 +493,11 @@ def direct_sum_f64(sources, charges, targets, chunk=1 << 16):
     return out
 
 
-def run_main_path(device, card, n_kernels=200_000, n_main=1_000_000,
-                  order=8, nsample=2000):
-    """The counting and the Laplace FMM at 1e6 uniform points (K1-K4);
-    returns the K1-K4 summary entries."""
+def run_main_path(device, card, trav_trees, n_kernels=200_000,
+                  n_main=1_000_000, order=8, nsample=2000):
+    """The counting and the Laplace FMM at 1e6 uniform points (K1-K4),
+    then K24-K27 against their twins on its tree; returns the K1-K4 and
+    K24-K27 summary entries."""
     import numpy as np
     import torch
 
@@ -530,6 +553,7 @@ def run_main_path(device, card, n_kernels=200_000, n_main=1_000_000,
     emit({"phase": "counting_fmm", "card": card, "points": n_main,
           "nboxes": tree.nboxes, "nlevels": tree.nlevels,
           "build_s": t_tree, "traversal_s": t_trav, "fmm_s": t_fmm,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "exact": nbad == 0})
     if nbad:
         raise AssertionError(f"counting FMM: {nbad} potentials != {n_main}")
@@ -565,6 +589,7 @@ def run_main_path(device, card, n_kernels=200_000, n_main=1_000_000,
           "order": order, "dtype": "float32", "nboxes": tree.nboxes,
           "nlevels": tree.nlevels, "build_s": t_tree,
           "traversal_s": t_trav, "wrangler_setup_s": t_setup,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
           "stage_s": stages,
           "list_edges": {
@@ -597,8 +622,12 @@ def run_main_path(device, card, n_kernels=200_000, n_main=1_000_000,
     work = kernel_work(inputs)
     emit({"phase": "kernels_main_path", "card": card, "points": n_main,
           "kernels": res, "work": work})
+    tres, twork = check_traversal_kernels(tree, device, card, "main path",
+                                          trav_trees)
     return [summary_entry(name, launches[name], r, work[name])
-            for name, r in res.items()]
+            for name, r in res.items()] + [
+        summary_entry(name, launches[name], tres[name], twork[name])
+        for name in TRAVERSAL_KERNELS]
 
 
 def summary_entry(name, launches, res, work):
@@ -619,6 +648,90 @@ def entry_point_numbers(launches, res, work):
     return {"launches": launches, "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# {{{ the traversal (K24-K27)
+
+def plain_traversal_s(tree, device):
+    """The traversal of *tree* with the plain twins of K24-K27 on the
+    card (the traversal before K24-K27), one synchronised call."""
+    from boxtree_torch.traversal import build_traversal
+    return timed(lambda: build_traversal(tree, _plain=True), device)[1]
+
+
+def traversal_work(inp, outputs):
+    """Each of K24-K27's bytes on this tree: the arrays it reads, once,
+    and its outputs, once (the target mask a byte a box)."""
+    table = nbytes(inp.ntable)
+    work = {
+        "neighbor_table": table + inp.lsb[-1] + nbytes(
+            inp.prefixes, inp.parents, inp.child_rows, inp.flags),
+        "row_lists_sl_l2": table + nbytes(
+            inp.parents, inp.prefixes, inp.child_rows, inp.totp_boxes,
+            *outputs["row_lists_sl_l2"]),
+        "list1": table + nbytes(
+            inp.prefixes, inp.flags, inp.target_boxes, inp.part_boxes,
+            inp.tgt_row_of_box, *outputs["list1"]),
+    }
+    if "lists_43" in outputs:
+        work["lists_43"] = table + nbytes(
+            inp.parents, inp.prefixes, inp.flags, inp.totp_boxes,
+            *outputs["lists_43"])
+    return {name: {"bytes": b} for name, b in work.items()}
+
+
+def check_traversal_kernels(tree, device, card, label, trees):
+    """K24-K27 against their plain twins on *tree*, bit for bit (K26 only
+    where the targets have no extents), each timed beside its twin and
+    its bound, and the whole traversal with the kernels and with the
+    twins; emits a ``kernels_traversal`` line, keeps the results in the
+    dict *trees* under *label* and returns ``(results, work)``."""
+    import torch
+
+    from boxtree_torch.ops import traversal as tops
+    from boxtree_torch.traversal import build_traversal
+    from boxtree_torch.traversal.build import list_inputs
+
+    (targs, tkw), inp = list_inputs(tree)
+    cases = {
+        "neighbor_table": (lambda: tops.neighbor_table(*targs, **tkw),
+                           lambda: tops.neighbor_table_plain(*targs, **tkw)),
+        "row_lists_sl_l2": (lambda: tops.row_lists_sl_l2(inp),
+                            lambda: tops.row_lists_sl_l2_plain(inp)),
+        "lists_43": (lambda: tops.lists_43(inp),
+                     lambda: tops.lists_43_plain(inp)),
+        "list1": (lambda: tops.list1(inp), lambda: tops.list1_plain(inp)),
+    }
+    if inp.ext:
+        del cases["lists_43"]
+    res, outputs = {}, {}
+    for name, (kernel, plain) in cases.items():
+        got, ref = _flat(kernel()), _flat(plain())
+        if len(got) != len(ref) or not all(
+                g.dtype == r.dtype and g.shape == r.shape
+                and torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{name} != plain twin on the {label} "
+                                 "tree")
+        outputs[name] = got
+        res[name] = dict(max_abs_err=0.0, ms=median_ms(kernel, device),
+                         plain_ms=median_ms(plain, device))
+    work = traversal_work(inp, outputs)
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(work[name])
+    emit({"phase": "kernels_traversal", "card": card, "tree": label,
+          "dimensions": tree.dimensions, "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels, "tolerance": "bit-exact",
+          "kernels": res, "work": work,
+          "entries": {name: [int(t.numel()) for t in out]
+                      for name, out in outputs.items()},
+          "traversal_ms": median_ms(lambda: build_traversal(tree), device,
+                                    reps=3),
+          "traversal_plain_ms": median_ms(
+              lambda: build_traversal(tree, _plain=True), device, reps=3)})
+    trees[label] = res
+    return res, work
+
+# }}}
 
 
 # {{{ Config B
@@ -707,8 +820,8 @@ def check_peers_oracle(tree, pl, boxes, chunk=64):
             raise AssertionError("an adjacent same-level box is no peer")
 
 
-def run_config_b(device, card, n=1_000_000, nballs=100_000, nsample=1000,
-                 seed=15):
+def run_config_b(device, card, trav_trees, n=1_000_000, nballs=100_000,
+                 nsample=1000, seed=15):
     """Config B on 1e6 sphere points; returns the K5-K8 summary entries
     and the K1 launches of this path."""
     import numpy as np
@@ -806,6 +919,7 @@ def run_config_b(device, card, n=1_000_000, nballs=100_000, nsample=1000,
           "build_s": t_build, "two_to_one_s": t_2to1,
           "two_to_one_pairs": pairs_2to1, "worst_level_gap": worst,
           "traversal_s": t_trav, "counting_fmm_s": t_fmm,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "counting_fmm_exact": True, "nballs": nballs,
           "ball_leaf_pairs": int(lists.shape[0]), "area_query_s": t_aq,
           "leaves_to_balls_s": t_l2b, "space_invader_s": t_si,
@@ -911,6 +1025,7 @@ def run_config_b(device, card, n=1_000_000, nballs=100_000, nsample=1000,
     emit({"phase": "kernels_config_b", "card": card, "points": n,
           "restriction_rounds": rounds, "tolerance": "exact",
           "kernels": res, "work": work})
+    check_traversal_kernels(tree, device, card, "Config B", trav_trees)
 
     # }}}
 
@@ -1161,6 +1276,7 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
           "rscale": "auto", "dtype": "complex128", "nboxes": tree.nboxes,
           "nlevels": tree.nlevels, "build_s": t_tree,
           "traversal_s": t_trav, "wrangler_setup_s": t_setup,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
           "stage_s": stages,
           "list_edges": {
@@ -1355,8 +1471,8 @@ def extent_work(inputs, outputs, tree):
     return out
 
 
-def run_extents(device, card, n=1_000_000, ncenters=100_000, order=10,
-                nsample=2000, seed=15):
+def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
+                order=10, nsample=2000, seed=15):
     """The QBX extent tree: Config B's sphere points and balls as sources
     and targets with radii, the traversal with its close lists, the
     counting FMM and the order-10 float64 Laplace FMM (K1-K4, K12-K15),
@@ -1434,6 +1550,7 @@ def run_extents(device, card, n=1_000_000, ncenters=100_000, order=10,
           "targets_in_internal_boxes": int(
               tree.box_target_counts_nonchild[internal].sum()),
           "build_s": t_tree, "traversal_s": t_trav,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "counting_fmm_s": t_count, "merge_close_lists_s": t_merge,
           "counting_fmm_merged_s": t_count2,
           "counting_exact": nbad == [0, 0],
@@ -1486,6 +1603,7 @@ def run_extents(device, card, n=1_000_000, ncenters=100_000, order=10,
     emit({"phase": "kernels_extents", "card": card, "points": n,
           "centres": ncenters, "tolerance": "exact", "kernels": res,
           "work": work})
+    check_traversal_kernels(tree, device, card, "extent", trav_trees)
 
     # }}}
 
@@ -1754,6 +1872,7 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
           "rscale_min": float(wr._rscale_np.min()),
           "recurrence_start": wr._nstart,
           "build_s": t_tree, "traversal_s": t_trav,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm,
           "fmm_warm_s": t_fmm_warm, "total_s": t_total, "stage_s": stages,
           "list_edges": {
@@ -1926,8 +2045,9 @@ def direct_sum_log2d(sources, charges, targets, chunk=1 << 15):
     return out
 
 
-def run_laplace2d(device, card, n_kernels=100_000, n_main=1_000_000,
-                  order=20, nsample=2000, seed=20, stability_order=35):
+def run_laplace2d(device, card, trav_trees, n_kernels=100_000,
+                  n_main=1_000_000, order=20, nsample=2000, seed=20,
+                  stability_order=35):
     """K19-K21 against their twins at 1e5 points on every entry point,
     then the 2D Laplace FMM at 1e6 clustered points, complex128 and
     float64 pairs on one tree (K1, K19-K21), the order-35 line, and
@@ -2029,6 +2149,7 @@ def run_laplace2d(device, card, n_kernels=100_000, n_main=1_000_000,
                           != 0).sum()),
           "rscale_min": float(wc._rscale_np.min()),
           "build_s": t_tree, "traversal_s": t_trav,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "wrangler_setup_s": {"complex128": t_setup_c,
                                "float64_pairs": t_setup_p},
           "fmm_s": {"complex128": t_fmm_c, "float64_pairs": t_fmm_p},
@@ -2128,6 +2249,7 @@ def run_laplace2d(device, card, n_kernels=100_000, n_main=1_000_000,
           "launches": {name: launches[name] for name in res["c128"]},
           "work": work,
           "laplace2d_phases_s": time.perf_counter() - t_phases})
+    check_traversal_kernels(tree, device, card, "2D Laplace", trav_trees)
     return [summary_entry(name, launches[name], res["c128"][name],
                           work["c128"][name]) for name in res["c128"]]
 
@@ -2386,6 +2508,7 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
           "level_orders": [int(x) for x in
                            ws["float64_pairs_level_to_order"].level_orders],
           "build_s": t_tree, "traversal_s": t_trav,
+          "traversal_plain_s": plain_traversal_s(tree, device),
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
           "total_s": t_total, "stage_s": stages,
           "list_edges": {
@@ -2501,12 +2624,13 @@ def main():
           "library": str(lib.path.relative_to(lib.path.parents[3])),
           "ptxas": _ptxas_summary(lib.build_log)})
 
-    entries = run_main_path(device, card)
-    b_entries, _ = run_config_b(device, card)
+    trav_trees = {}
+    entries = run_main_path(device, card, trav_trees)
+    b_entries, _ = run_config_b(device, card, trav_trees)
     h_entries = run_helmholtz(device, card)
-    e_entries = run_extents(device, card)
+    e_entries = run_extents(device, card, trav_trees)
     h2_entries = run_helmholtz2d(device, card)
-    l2_entries = run_laplace2d(device, card)
+    l2_entries = run_laplace2d(device, card, trav_trees)
     l3 = run_laplace3d(device, card)
     # K2-K4 keep the main path's float32 numbers, with those of their
     # complex128 entry points beside them; K22 and K23 stand by their
@@ -2522,6 +2646,12 @@ def main():
         entry["entry_point"] = "c128"
         entry["f64"] = entry_point_numbers(launches, res64, work64)
         l3_entries.append(entry)
+    # K24-K27 stand by the main path's numbers, the other trees' beside
+    for e in entries:
+        if e["name"] in TRAVERSAL_KERNELS:
+            e["trees"] = {label: res[e["name"]]
+                          for label, res in trav_trees.items()
+                          if label != "main path" and e["name"] in res}
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
           + h2_entries + l2_entries + l3_entries})

@@ -31,7 +31,11 @@ equal their twins exactly, and a level-restricted tree built on the card
 must equal the one built on the CPU.  K12-K15 (stick levels, box
 bounding boxes, Lists 4 and 3 with target extents) must equal their twins
 exactly, and a tree with extents and its traversal built on the card must
-equal the ones built on the CPU.
+equal the ones built on the CPU.  K24-K27 (the neighbour table, the
+colleagues and List 2, Lists 4 and 3, List 1) compute integers and must
+equal their twins bit for bit, CSR order included, on 3D uniform, 2D
+clustered, level-restricted and extent trees, and the traversal they build
+on the card must equal the CPU port's field by field.
 """
 
 import dataclasses
@@ -66,8 +70,9 @@ from boxtree_torch.ops import (
     peers,
     restrict,
 )
+from boxtree_torch.ops import traversal as tops
 from boxtree_torch.traversal import build_traversal
-from boxtree_torch.traversal.build import close_list_inputs
+from boxtree_torch.traversal.build import close_list_inputs, list_inputs
 from boxtree_torch.traversal.neighbors import _offsets
 from boxtree_torch.tree.build import _phase_a, _root_box
 from boxtree_torch.tree.level_restrict import restrict_leaf_levels
@@ -1082,5 +1087,150 @@ def test_laplace3d_fmm_on_card_matches_cpu(laplace3d_setup, kind, dipoles):
     ref = drive_fmm(make_laplace_wrangler(trav_cpu, **kw), [q.cpu()])
     assert got.dtype == dt
     assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
+
+# }}}
+
+
+# {{{ K24-K27: the traversal
+
+TRAVERSAL_TREES = ["3d_uniform", "2d_clustered", "3d_restricted",
+                   "3d_extent"]
+
+
+def _assert_traversals_equal(got, ref):
+    """Every field of two traversals equal, each list's BuiltList fields
+    too, *got* on any device and *ref* on the CPU."""
+    for f in dataclasses.fields(ref):
+        if f.name == "tree":
+            continue
+        val, want = getattr(got, f.name), getattr(ref, f.name)
+        if f.name == "from_sep_smaller_by_level":
+            assert len(val) == len(want)
+            for a, b in zip(val, want):
+                assert a.count == b.count, f.name
+                assert a.num_nonempty_lists == b.num_nonempty_lists, f.name
+                for part in ("starts", "lists", "nonempty_indices"):
+                    assert torch.equal(getattr(a, part).cpu(),
+                                       getattr(b, part)), f.name
+        elif f.name == "target_boxes_sep_smaller_by_source_level":
+            assert len(val) == len(want)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(val, want))
+        elif isinstance(want, torch.Tensor):
+            assert val.dtype == want.dtype, f.name
+            assert torch.equal(val.cpu(), want), f.name
+        else:
+            assert val == want, f.name
+
+
+def _cpu(trav):
+    """*trav* with every tensor field on the CPU."""
+    out = {}
+    for f in dataclasses.fields(trav):
+        val = getattr(trav, f.name)
+        if f.name == "from_sep_smaller_by_level":
+            val = tuple(dataclasses.replace(
+                bl, starts=bl.starts.cpu(), lists=bl.lists.cpu(),
+                nonempty_indices=bl.nonempty_indices.cpu()) for bl in val)
+        elif f.name == "target_boxes_sep_smaller_by_source_level":
+            val = tuple(v.cpu() for v in val)
+        elif isinstance(val, torch.Tensor):
+            val = val.cpu()
+        out[f.name] = val
+    return dataclasses.replace(trav, **out)
+
+
+@pytest.fixture(scope="module", params=TRAVERSAL_TREES)
+def traversal_tree(request, device):
+    """``(tree, traversal, launches, cpu_tree)``: the tree on the card,
+    the traversal built from it with its launch counts, and the same tree
+    built on the CPU."""
+    n = 20000
+    kw = dict(max_particles_in_box=30)
+    if request.param == "3d_uniform":
+        src = np.random.default_rng(31).random((3, n))
+    elif request.param == "2d_clustered":
+        src = _clustered_2d(n)
+    elif request.param == "3d_restricted":
+        src = _capped_sphere(n)
+        kw["kind"] = "adaptive-level-restricted"
+    else:
+        src, centres, radii = _qbx_inputs(n, 2000, 3)
+        kw.update(targets=centres, target_radii=radii, stick_out_factor=0.25)
+    kernels.reset_launch_counts()
+    tree = build_tree(src, device=device, **kw)
+    trav = build_traversal(tree)
+    launches = kernels.launch_counts()
+    return tree, trav, launches, build_tree(src, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("twin", ["neighbor_table", "row_lists_sl_l2",
+                                  "lists_43", "list1"])
+def test_traversal_kernel(traversal_tree, twin):
+    """Each of K24-K27 equals its plain twin on the card, bit for bit."""
+    (targs, tkw), inp = list_inputs(traversal_tree[0])
+    if twin == "neighbor_table":
+        got = [tops.neighbor_table(*targs, **tkw)]
+        ref = [tops.neighbor_table_plain(*targs, **tkw)]
+    else:
+        got = getattr(tops, twin)(inp)
+        ref = getattr(tops, f"{twin}_plain")(inp)
+    if twin == "lists_43":
+        got, ref = [*got[:2], *got[2]], [*ref[:2], *ref[2]]
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda" and g.dtype == r.dtype
+        assert torch.equal(g, r)
+
+
+def test_traversal_on_card_matches_cpu(traversal_tree):
+    """The traversal built on the card by K24-K27 equals the CPU port's,
+    field by field."""
+    tree, trav, _, cpu_tree = traversal_tree
+    _assert_traversals_equal(trav, build_traversal(cpu_tree))
+
+
+def test_plain_traversal_on_card_matches_kernels(traversal_tree):
+    """The twins run on the card (what ``chip_smoke.py`` times beside the
+    kernels) build the same traversal, and launch none of K24-K27."""
+    tree, trav, _, _ = traversal_tree
+    kernels.reset_launch_counts()
+    plain = build_traversal(tree, _plain=True)
+    counts = kernels.launch_counts()
+    assert not any(counts[k] for k in ("neighbor_table", "row_lists_sl_l2",
+                                       "lists_43", "list1")), counts
+    _assert_traversals_equal(plain, _cpu(trav))
+
+
+@pytest.mark.parametrize("dims,n,targets", [(3, 5, False), (2, 5, True),
+                                             (3, 60, False)],
+                         ids=["one_box_3d", "one_box_2d_targets",
+                              "two_levels_3d"])
+def test_traversal_small_trees_on_card(device, dims, n, targets):
+    """K24-K27 on trees of one box and of two levels (the rows of level
+    0 emit nothing, the root lists itself in List 1) equal the CPU
+    port."""
+    rng = np.random.default_rng(3)
+    kw = dict(max_particles_in_box=30)
+    if targets:
+        kw["targets"] = rng.random((dims, 3))
+    src = rng.random((dims, n))
+    tree = build_tree(src, device=device, **kw)
+    assert tree.nlevels == (1 if n < 30 else 2)
+    _assert_traversals_equal(build_traversal(tree), build_traversal(
+        build_tree(src, device="cpu", **kw)))
+
+
+def test_traversal_launches_k24_to_k27(traversal_tree):
+    """The traversal on the card launches K24 once a level and K25-K27
+    (K26 only without target extents), a count and a fill pass each."""
+    tree, _, launches, _ = traversal_tree
+    assert launches["neighbor_table"] == tree.nlevels
+    assert launches["row_lists_sl_l2"] == 2
+    assert launches["list1"] == 2
+    if tree.targets_have_extent:
+        assert launches["lists_43"] == 0
+    else:
+        # the fill pass only where Lists 3 or 4 have entries
+        assert launches["lists_43"] in (1, 2)
 
 # }}}
