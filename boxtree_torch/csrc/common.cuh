@@ -50,6 +50,15 @@ __device__ __forceinline__ double div_rn(double a, double b) {
 __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 
+// Above the default 48 KiB a kernel's dynamic shared memory needs its
+// opt-in (up to 227 KiB a CTA on sm_90).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll

@@ -299,15 +299,6 @@ size_t p2l_smem(long long p, long long nstart) {
          (nstart + 1) * kH2Threads * sizeof(double);
 }
 
-// Above the default 48 KiB a kernel's dynamic shared memory needs its
-// opt-in (up to 227 KiB a CTA on sm_90).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 }  // namespace
 }  // namespace boxtree_torch
 

@@ -355,15 +355,6 @@ p2l_laplace2d_kernel(const T* __restrict__ sources, long long nsources,
 
 // }}}
 
-// Above the default 48 KiB a kernel's dynamic shared memory needs its
-// opt-in (up to 227 KiB a CTA on sm_90).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // coefficients a box holds: p + 1 complex, or 2 (p + 1) pair lanes
 template <typename V>
 int ncoeffs(long long p) {

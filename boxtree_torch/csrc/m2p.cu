@@ -104,15 +104,6 @@ m2p_kernel(const T* __restrict__ targets, long long ntargets,
   }
 }
 
-// Above the default 48 KiB a kernel's dynamic shared memory needs its
-// opt-in (up to 227 KiB a CTA on sm_90): past order 54 in float64.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, typename V>
 int m2p(const void* targets, long long ntargets, const void* bts,
         const void* btc, const void* rows, long long nrows,

@@ -149,15 +149,6 @@ p2l_kernel(const T* __restrict__ sources, long long nsources,
     out[tbox * ncoeff + k] += acc[k];
 }
 
-// Above the default 48 KiB a kernel's dynamic shared memory needs its
-// opt-in (up to 227 KiB a CTA on sm_90).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, typename V, bool kDipole>
 int p2l(const void* sources, long long nsources, const void* charges,
         const void* dipoles, const void* bss, const void* bsc,

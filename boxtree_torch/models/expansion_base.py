@@ -3,8 +3,12 @@
 Port of :class:`boxtree_tpu.models.expansion_base.ExpansionWranglerBase`
 (``expansion_base.py:212-1803``) with one formulation per stage:
 
-- P2M and L2P: per-particle basis evaluation in chunks, ``index_add_``
-  into the boxes / a gather of the box's local expansion;
+- P2M and L2P: the hooks ``_p2m`` / ``_l2p``; by default per-particle
+  basis evaluation in chunks, ``index_add_`` into the boxes / a gather of
+  the box's local expansion; the 3D Laplace wranglers launch the kernels
+  of :mod:`boxtree_torch.ops.laplace3d` over the rows
+  :attr:`_source_rows` / :attr:`_target_rows` (the boxes that own
+  particles, on every level) instead;
 - M2M and L2L: per (level, child digit), a gather and one ``torch.matmul``
   with the (K, K) shift operator;
 - M2L: the parent-block form (``expansion_base.py:915-1086``): per level,
@@ -24,9 +28,9 @@ geometry, particles and rscales of its real counterpart, ``real_dtype``.
 Two options follow the reference (``expansion_base.py:227-347``):
 
 - ``dipole_vec``: the sources are dipoles, for the kernels that set
-  ``_supports_dipoles``.  P2M takes the JVP of ``_p2m_terms`` in the
-  source offsets here; the list-stage hooks read :attr:`dipole_vec` and
-  launch their dipole kernels.
+  ``_supports_dipoles``.  The default P2M takes the JVP of ``_p2m_terms``
+  in the source offsets; the P2M and list-stage hooks of a class with
+  dipole kernels read :attr:`dipole_vec` and launch them.
 - ``level_to_order``: expansions keep the maximum order with each level's
   tail masked to zero (after P2M, after P2L and on L2P's input), and the
   M2M, L2L and M2L operators are truncated to the orders of the levels
@@ -74,6 +78,23 @@ def nonempty_rows(row_boxes, starts, lists):
     new_starts[1:] = torch.cumsum(counts[keep], 0)
     return (row_boxes[keep].to(torch.int32), new_starts.to(torch.int32),
             lists.to(torch.int32).contiguous())
+
+
+def rows_with_particles(*box_counts):
+    """For each ``(nboxes,)`` count array, the int32 ids (ascending) of the
+    boxes whose count is positive, with one host read for all of them."""
+    masks = [c > 0 for c in box_counts]
+    totals = torch.stack([m.sum() for m in masks]).tolist()
+    out = []
+    for mask, n in zip(masks, totals):
+        # the positive boxes go to their ranks, the others past the end
+        pos = torch.where(mask, torch.cumsum(mask, 0) - 1, n)
+        rows = torch.empty(mask.shape[0] + 1, dtype=torch.int32,
+                           device=mask.device)
+        rows[pos] = torch.arange(mask.shape[0], dtype=torch.int32,
+                                 device=mask.device)
+        out.append(rows[:n])
+    return out
 
 
 class ExpansionWranglerBase(ExpansionWranglerInterface):
@@ -160,6 +181,10 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         self._sources = tree.sources.to(dt).contiguous()
         self._targets = (self._sources if tree.sources_are_targets
                          else tree.targets.to(dt).contiguous())
+        # the boxes that own sources / targets themselves, on every level
+        # (the P2M and L2P kernels' rows)
+        self._source_rows, self._target_rows = rows_with_particles(
+            tree.box_source_counts_nonchild, tree.box_target_counts_nonchild)
 
         nchild = 2 ** self.dim
         parents = tree.box_parent_ids.to(torch.int64)
@@ -327,11 +352,12 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
     # }}}
 
-    # {{{ P2M / L2P
+    # {{{ P2M / L2P (hooks: _p2m, _l2p)
 
-    def form_multipoles(self, level_start_source_box_nrs, source_boxes,
-                        src_weight_vecs):
-        src_weights, = src_weight_vecs
+    def _p2m(self, src_weights):
+        """Multipoles ``(nboxes, K)`` of the tree-order *src_weights*,
+        before the level mask: ``_p2m_terms`` a chunk of particles at a
+        time, summed into each particle's box."""
         box = self.tree.box_id_of_source.to(torch.int64)
         mp = self.multipole_expansion_zeros()
         for c in self._particle_chunks(box.shape[0]):
@@ -348,11 +374,12 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
                     lambda r, q=q, s=s: self._p2m_terms(r, q, s), (rel,),
                     (self.dipole_vec[:, c] / s,))[1]
             mp.index_add_(0, b, terms)
-        return self._mask_levels(mp)
+        return mp
 
-    def eval_locals(self, level_start_target_box_nrs, target_boxes,
-                    local_exps):
-        local_exps = self._mask_levels(local_exps)
+    def _l2p(self, local_exps):
+        """Potentials (tree-order targets) of the masked *local_exps*:
+        ``_l2p_eval`` a chunk of targets at a time against its box's
+        local expansion."""
         box = self.tree.box_id_of_target.to(torch.int64)
         pot = self.output_zeros()
         for c in self._particle_chunks(box.shape[0]):
@@ -361,6 +388,15 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
             rel = (self._targets[:, c] - self.centers[:, b]) / s
             pot[c] = self._l2p_eval(rel, local_exps[b], s)
         return pot
+
+    def form_multipoles(self, level_start_source_box_nrs, source_boxes,
+                        src_weight_vecs):
+        src_weights, = src_weight_vecs
+        return self._mask_levels(self._p2m(src_weights))
+
+    def eval_locals(self, level_start_target_box_nrs, target_boxes,
+                    local_exps):
+        return self._l2p(self._mask_levels(local_exps))
 
     # }}}
 

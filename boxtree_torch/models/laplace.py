@@ -36,7 +36,10 @@ wrangler's device, in float64, cast to the coefficient dtype at the end.
 Two wranglers: :class:`Laplace3DExpansionWrangler` on ``(p+1)^2``
 complex128 coefficients, and :class:`Laplace3DPairsExpansionWrangler` on
 ``[re | im]`` pairs of float64 or float32 with real potentials, its
-operators pair-expanded.  Both take dipole sources, and every Laplace
+operators pair-expanded.  Every particle stage of both runs a kernel of
+:mod:`boxtree_torch.ops.laplace3d` (P2M K28, P2P K2, M2P K3, P2L K4, L2P
+K30), which picks the layout by the charges' or the coefficients' dtype.
+Both take dipole sources (K29, K22, K23), and every Laplace
 wrangler takes ``level_to_order`` (:mod:`boxtree_torch.models.
 expansion_base`).
 """
@@ -375,13 +378,26 @@ class Laplace3DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ particle hooks (laplace.py:473-480), plain torch
+    # {{{ P2M / L2P hooks (laplace.py:473-480, pairs :581-593): K28, or
+    # K29 for dipoles, and K30, over the boxes that own particles
 
-    def _p2m_terms(self, rel, q, scale):
-        return sh.regular(rel, self.order).conj() * q[..., None]
+    def _p2m(self, q):
+        tree = self.tree
+        args = (tree.box_source_starts, tree.box_source_counts_nonchild,
+                self._source_rows, self.centers, self.box_scale, self.order)
+        if self.dipole_vec is None:
+            return laplace3d.p2m_laplace3d(self._sources, q.contiguous(),
+                                           *args)
+        return laplace3d.p2m_laplace3d_dipole(
+            self._sources, q.contiguous(), self.dipole_vec, *args)
 
-    def _l2p_eval(self, rel, loc, scale):
-        return (sh.regular(rel, self.order).conj() * loc).sum(-1)
+    def _l2p(self, local_exps):
+        tree = self.tree
+        return laplace3d.l2p_laplace3d(
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, self._target_rows,
+            local_exps.contiguous(), self.centers, self.box_scale,
+            self.order)
 
     # }}}
 
@@ -450,22 +466,6 @@ class Laplace3DPairsExpansionWrangler(Laplace3DExpansionWrangler):
 
     def _m2l_matrices(self, classes, size, r):
         return sh.pair_blocks(*self._m2l_lanes(classes, size, r))
-
-    # {{{ particle hooks (laplace.py:581-593)
-
-    def _p2m_terms(self, rel, q, scale):
-        # conj(R) * q  ->  [Rr | -Ri] * q
-        rp = sh.regular_pairs(rel, self.order)
-        k = sh.ncoeffs(self.order)
-        return torch.cat([rp[..., :k], -rp[..., k:]], dim=-1) * q[..., None]
-
-    def _l2p_eval(self, rel, loc, scale):
-        # Re(sum conj(R) * loc) = Rr.lr + Ri.li
-        rp = sh.regular_pairs(rel, self.order)
-        k = sh.ncoeffs(self.order)
-        return (rp[..., :k] * loc[..., :k] + rp[..., k:] * loc[..., k:]).sum(-1)
-
-    # }}}
 
 # }}}
 

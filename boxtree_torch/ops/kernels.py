@@ -70,6 +70,9 @@ SIGNATURES = {
     "row_lists_sl_l2": "ppppppiiiippppppip",
     "lists_43": "ppppppiiiippppppip",
     "list1": "pppppppiiiiipppip",
+    "p2m_laplace3d": "pippppipipipp",
+    "p2m_laplace3d_dipole": "pipppppipipipp",
+    "l2p_laplace3d": "pipppippipipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -107,6 +110,9 @@ DTYPES = {
     "row_lists_sl_l2": (),
     "lists_43": (),
     "list1": (),
+    "p2m_laplace3d": (*_FLOATS, torch.complex128),
+    "p2m_laplace3d_dipole": (*_FLOATS, torch.complex128),
+    "l2p_laplace3d": (*_FLOATS, torch.complex128),
 }
 
 

@@ -11,7 +11,8 @@ paths of the port on the card, each with the kernels' launch counts set to
 
 - the main path of ``bench.py``: the counting FMM and the 3D Laplace FMM
   (order 8, real pairs, ``rscale="auto"``, float32) at 1e6 uniform points,
-  checked against an exact count and a float64 direct sum (K1-K4);
+  checked against an exact count and a float64 direct sum (K1-K4, K28 P2M,
+  K30 L2P);
 - Config B: a level-restricted octree of 1e6 points on the unit sphere
   (float64), its 2:1 property checked by an area query, the traversal and
   the counting FMM on it, then 1e5 QBX-centre-like balls through the area
@@ -25,7 +26,7 @@ paths of the port on the card, each with the kernels' launch counts set to
   traversal with its close lists, the counting FMM exact with the close
   lists and after merging them into List 1, and the 3D Laplace FMM (order
   10, float64) against a float64 direct sum at 2,000 sampled centres (K1-K4,
-  K12-K15);
+  K12-K15, K28, K30);
 - the 2D Helmholtz FMM (complex128, order 16, k = 3, ``rscale="auto"``) at
   1e6 float64 points in the unit square, 4/15 of them clustered in
   [0.4, 0.5]^2, checked against a complex128 direct sum of ``(i/4) H_0``
@@ -44,7 +45,8 @@ paths of the port on the card, each with the kernels' launch counts set to
   the pairs with ``level_to_order`` and the complex128 single layer: the
   real parts against float64 direct sums at 2,000 sampled targets, the
   pairs against the complex real part (K1, K2-K4 complex128, K22 dipole
-  P2P, K23 dipole P2L).
+  P2P, K23 dipole P2L, K28 P2M and K30 L2P, K29 dipole P2M); each of its
+  four FMMs must launch K28 (or K29, with dipoles) and K30 once.
 
 Every path builds its traversal with K24-K27 (the neighbour table, the
 colleagues and List 2, Lists 4 and 3, List 1; the extent tree's Lists 3
@@ -52,7 +54,10 @@ and 4 come from K14/K15), and its line gives ``traversal_s`` beside
 ``traversal_plain_s``, the same traversal with the kernels' plain twins
 on the card.  The ``kernels_traversal`` lines hold K24-K27 against their
 twins bit for bit on the main-path, Config B, extent and 2D Laplace
-trees.
+trees.  The ``kernels_p2m_l2p`` lines hold K28-K30 against their twins at
+the main path's, the extent path's and the double layer's inputs (each
+box's multipole row to its own largest value; the twin of K29, a
+``torch.func.jvp``, timed in one call).
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21 and the 3D Laplace kernels at 1e5
@@ -102,6 +107,9 @@ REPLACES = {
     "row_lists_sl_l2": "boxtree_tpu/traversal/build.py:944",
     "lists_43": "boxtree_tpu/traversal/build.py:1151",
     "list1": "boxtree_tpu/traversal/build.py:1334",
+    "p2m_laplace3d": "boxtree_tpu/models/expansion_base.py:652",
+    "p2m_laplace3d_dipole": "boxtree_tpu/models/expansion_base.py:664",
+    "l2p_laplace3d": "boxtree_tpu/models/expansion_base.py:1793",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -131,19 +139,25 @@ SOURCES = {
     "row_lists_sl_l2": "boxtree_torch/csrc/traversal.cu",
     "lists_43": "boxtree_torch/csrc/traversal.cu",
     "list1": "boxtree_torch/csrc/traversal.cu",
+    "p2m_laplace3d": "boxtree_torch/csrc/p2m.cu",
+    "p2m_laplace3d_dipole": "boxtree_torch/csrc/p2m.cu",
+    "l2p_laplace3d": "boxtree_torch/csrc/l2p.cu",
 }
 #: K24-K27, launched by every traversal; the extent tree's Lists 3 and 4
 #: come from K14/K15 instead of K26
 TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "lists_43",
                      "list1")
 EXTENT_TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "list1")
+#: K28 and K30, launched once by each 3D Laplace FMM without dipoles
+P2M_L2P_KERNELS = ("p2m_laplace3d", "l2p_laplace3d")
 MAIN_PATH_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
-                     "m2p_laplace3d", "p2l_laplace3d")
+                     "m2p_laplace3d", "p2l_laplace3d", *P2M_L2P_KERNELS)
 CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", *TRAVERSAL_KERNELS,
                     "area_query_sweep", "space_invader_sweep", "peer_lists")
 EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
                   *EXTENT_TRAVERSAL_KERNELS, "list4_ext", "list3_ext",
-                  "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d")
+                  "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
+                  *P2M_L2P_KERNELS)
 HELMHOLTZ_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_helmholtz3d",
                      "m2p_helmholtz3d", "p2l_helmholtz3d")
 HELMHOLTZ2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
@@ -153,7 +167,8 @@ LAPLACE2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace2d",
                      "m2p_laplace2d", "p2l_laplace2d")
 LAPLACE3D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
                      "m2p_laplace3d", "p2l_laplace3d",
-                     "p2p_laplace3d_dipole", "p2l_laplace3d_dipole")
+                     "p2p_laplace3d_dipole", "p2l_laplace3d_dipole",
+                     *P2M_L2P_KERNELS, "p2m_laplace3d_dipole")
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
@@ -275,6 +290,23 @@ def rel_linf_per_coefficient(got, ref):
     scale = ref.abs().amax(0)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     return err.max().item(), (err.amax(0) / scale).max().item()
+
+
+def rel_linf_per_row(got, ref):
+    """``(max_abs_err, rel)`` of (boxes, coefficients) expansions, each
+    box's row held to its own largest ``|ref|`` (a row that is zero in
+    *ref* must be zero in *got*)."""
+    import torch
+    if not ref.is_complex():
+        got, ref = got.to(torch.float64), ref.to(torch.float64)
+    err = (got - ref).abs().amax(1)
+    scale = ref.abs().amax(1)
+    zero = scale == 0
+    if bool((err[zero] > 0).any()):
+        return err.max().item(), float("inf")
+    rel = (err[~zero] / scale[~zero]).max().item() if bool(
+        (~zero).any()) else 0.0
+    return err.max().item(), rel
 
 
 def bound(work):
@@ -613,6 +645,7 @@ def run_main_path(device, card, trav_trees, n_kernels=200_000,
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    check_p2m_l2p_launches(launches, "main path", 1)
 
     # }}}
 
@@ -622,10 +655,14 @@ def run_main_path(device, card, trav_trees, n_kernels=200_000,
     work = kernel_work(inputs)
     emit({"phase": "kernels_main_path", "card": card, "points": n_main,
           "kernels": res, "work": work})
+    pres, pwork = check_p2m_l2p(card, device, "main path", [
+        ("f32", wr, wr.reorder_sources(q), P2M_L2P_KERNELS)])
     tres, twork = check_traversal_kernels(tree, device, card, "main path",
                                           trav_trees)
     return [summary_entry(name, launches[name], r, work[name])
             for name, r in res.items()] + [
+        summary_entry(name, launches[name], pres["f32"][name],
+                      pwork["f32"][name]) for name in P2M_L2P_KERNELS] + [
         summary_entry(name, launches[name], tres[name], twork[name])
         for name in TRAVERSAL_KERNELS]
 
@@ -1163,9 +1200,10 @@ def helmholtz_work(inputs):
 
 def check_list_kernels(inputs, device, plain_reps,
                        rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None):
-    """Run list kernels (K2-K4, K9-K11, K16-K23) and their twins on the same
-    inputs; raise on a rel l-inf above *rtol* (a P2L's local coefficients
-    each held to their own column's scale).  Returns ``{name: {max_abs_err,
+    """Run list kernels (K2-K4, K9-K11, K16-K23) or K28-K30 and their twins
+    on the same inputs; raise on a rel l-inf above *rtol* (a P2L's local
+    coefficients each held to their own column's scale, a P2M's multipoles
+    box by box to their row's).  Returns ``{name: {max_abs_err,
     rel_err, ms, plain_ms, plain_reps}}``: the kernel's median of 5, the
     twin's median of *plain_reps*, or its first call alone when that took
     more than *slow_s* seconds."""
@@ -1174,6 +1212,7 @@ def check_list_kernels(inputs, device, plain_reps,
         got = kernel(*args)
         ref, t_plain = timed(lambda: plain(*args), device)
         err, rel = (rel_linf_per_coefficient if name.startswith("p2l_")
+                    else rel_linf_per_row if name.startswith("p2m_")
                     else rel_linf)(got, ref)
         if not rel <= rtol:
             raise AssertionError(f"{name}: rel l-inf {rel:.3e} > {rtol}")
@@ -1476,8 +1515,9 @@ def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
     """The QBX extent tree: Config B's sphere points and balls as sources
     and targets with radii, the traversal with its close lists, the
     counting FMM and the order-10 float64 Laplace FMM (K1-K4, K12-K15),
-    then K12-K15 against their twins at the path's own inputs; returns the
-    K12-K15 summary entries."""
+    then K12-K15 against their twins at the path's own inputs, and K28 /
+    K30; returns the K12-K15 summary entries and K28 / K30's numbers
+    here."""
     import numpy as np
     import torch
 
@@ -1584,6 +1624,9 @@ def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
     if missing:
         raise AssertionError(f"kernels not launched on the extent path: "
                              f"{missing}")
+    check_p2m_l2p_launches(launches, "extent path", 1)
+    pres, pwork = check_p2m_l2p(card, device, "extent", [
+        ("f64", wr, wr.reorder_sources(q), P2M_L2P_KERNELS)])
 
     # }}}
 
@@ -1608,7 +1651,10 @@ def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
     # }}}
 
     return [summary_entry(name, launches[name], res[name], work[name])
-            for name in res]
+            for name in res], {
+        name: entry_point_numbers(launches[name], pres["f64"][name],
+                                  pwork["f64"][name])
+        for name in P2M_L2P_KERNELS}
 
 # }}}
 
@@ -2256,6 +2302,130 @@ def run_laplace2d(device, card, trav_trees, n_kernels=100_000,
 # }}}
 
 
+# {{{ K28-K30: P2M and L2P of the 3D Laplace wranglers
+
+def fmm_locals(w, q_tree):
+    """The local expansions that ``drive_fmm`` hands to L2P: the stages
+    up to L2L on the wrangler's traversal, as ``boxtree_torch.fmm.drive``
+    calls them."""
+    trav = w.traversal
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [q_tree]))
+    lsb, totp = (trav.level_start_target_or_target_parent_box_nrs,
+                 trav.target_or_target_parent_boxes)
+    loc = w.multipole_to_local(lsb, totp, trav.from_sep_siblings_starts,
+                               trav.from_sep_siblings_lists, mp)
+    loc = w.form_locals(lsb, totp, trav.from_sep_bigger_starts,
+                        trav.from_sep_bigger_lists, [q_tree], loc)
+    return w.refine_locals(lsb, totp, loc)
+
+
+def p2m_l2p_inputs(w, q_tree, names):
+    """K28, K29 or K30's wrapper, plain twin and arguments at the shapes
+    the 3D Laplace FMM of wrangler *w* gives them (K30 the masked locals
+    of this FMM)."""
+    from boxtree_torch.ops import laplace3d
+
+    tree = w.tree
+    src_rows = (tree.box_source_starts, tree.box_source_counts_nonchild,
+                w._source_rows, w.centers, w.box_scale, w.order)
+    out = {}
+    for name in names:
+        if name == "p2m_laplace3d":
+            args = (w._sources, q_tree, *src_rows)
+        elif name == "p2m_laplace3d_dipole":
+            args = (w._sources, q_tree, w.dipole_vec, *src_rows)
+        else:
+            args = (w._targets, tree.box_target_starts,
+                    tree.box_target_counts_nonchild, w._target_rows,
+                    w._mask_levels(fmm_locals(w, q_tree)).contiguous(),
+                    w.centers, w.box_scale, w.order)
+        out[name] = (getattr(laplace3d, name),
+                     getattr(laplace3d, f"{name}_plain"), args)
+    return out
+
+
+def p2m_l2p_work(inputs):
+    """Bytes K28-K30 must move and the float operations they must do at
+    *inputs*: each particle of the rows once (3 coordinates, its charge
+    and 3 dipole components, or its potential written), each row box's
+    range, centre and scale once, K30's local rows read once, K28 / K29's
+    whole multipole array written once; per particle a multiply-add per
+    real coefficient of the pairs (2 each), a complex one per complex
+    coefficient (8 each), for K29 each coefficient's tangent by the
+    charge; the recurrences and their tangents not counted."""
+    import torch
+
+    from boxtree_torch.ops.solid_harmonics import ncoeffs
+
+    out = {}
+    for name, (_, _, args) in inputs.items():
+        pts, order = args[0], args[-1]
+        centers, scale = args[-3], args[-2]
+        starts, counts, rows = (args[1:4] if name == "l2p_laplace3d"
+                                else args[-6:-3])
+        cplx = (args[4] if name == "l2p_laplace3d" else args[1]).is_complex()
+        npart = int(counts.to(torch.int64)[rows.to(torch.int64)].sum())
+        per_row = (starts.element_size() + counts.element_size()
+                   + centers.shape[0] * centers.element_size()
+                   + scale.element_size())
+        if name == "l2p_laplace3d":
+            loc = args[4]
+            per_part = 3 * pts.element_size() + loc.element_size()
+            per_row += loc.shape[1] * loc.element_size()
+            written = 0
+        else:
+            q = args[1]
+            per_part = 3 * pts.element_size() + q.element_size()
+            if name == "p2m_laplace3d_dipole":
+                per_part += 3 * pts.element_size()
+            written = (centers.shape[1] * ncoeffs(order)
+                       * (1 if cplx else 2) * q.element_size())
+        per = 8 * ncoeffs(order) if cplx else 4 * ncoeffs(order)
+        out[name] = dict(
+            type=str(pts.dtype).removeprefix("torch."), particles=npart,
+            rows=int(rows.numel()), flops=per * npart,
+            bytes=(npart * per_part + int(rows.numel()) * per_row
+                   + nbytes(rows) + written))
+    return out
+
+
+def check_p2m_l2p(card, device, path, cases, slow_s=0.2):
+    """K28-K30 against their twins at a path's inputs: *cases* is
+    ``[(entry point, wrangler, tree-order charges, names)]``; raises on a
+    mismatch, emits a ``kernels_p2m_l2p`` line and returns ``(results,
+    work)`` by entry point, each result with its bound.  A twin whose
+    first call takes more than *slow_s* seconds (K29's, the JVP, at the
+    double layer's 1e6 sources) is timed by that call alone."""
+    res, work = {}, {}
+    for key, w, q_tree, names in cases:
+        inputs = p2m_l2p_inputs(w, q_tree, names)
+        work.setdefault(key, {}).update(p2m_l2p_work(inputs))
+        res.setdefault(key, {}).update(check_list_kernels(
+            inputs, device, plain_reps=3,
+            rtol=LAPLACE3D_KERNEL_RTOL[key], slow_s=slow_s))
+        for name in names:
+            r = res[key][name]
+            r["bound_ms"], r["bound_by"] = bound(work[key][name])
+    emit({"phase": "kernels_p2m_l2p", "card": card, "path": path,
+          "tolerance_rel_linf": {k: LAPLACE3D_KERNEL_RTOL[k] for k in res},
+          "p2m_rel": "per box row", "kernels": res, "work": work})
+    return res, work
+
+
+def check_p2m_l2p_launches(launches, path, fmms, dipole_fmms=0):
+    """Each 3D Laplace FMM of a path launches K28 (K29 with dipoles) and
+    K30 exactly once: the twins and ``torch.func.jvp`` launch nothing."""
+    want = {"p2m_laplace3d": fmms - dipole_fmms,
+            "p2m_laplace3d_dipole": dipole_fmms, "l2p_laplace3d": fmms}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{path}: K28-K30 launches {got}, expected "
+                             f"{want}")
+
+# }}}
+
+
 # {{{ the 3D Laplace double-layer FMM (K2-K4 complex128, K22, K23)
 
 def laplace3d_points(nsources, ntargets, seed):
@@ -2402,8 +2572,9 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
     K23): the complex128 and the float64 pairs wranglers with dipoles and
     the pairs with ``level_to_order`` on one tree, and the complex128
     single layer; then the kernels against their twins at the path's
-    shapes.  Returns ``{kernel: (launches, result, work)}`` of the
-    complex128 entry points and the float64 pairs' K22 / K23 results."""
+    shapes, and K28-K30 likewise.  Returns ``{kernel: (launches, result,
+    work, float64 result, float64 work)}`` of the complex128 entry points,
+    with the float64 pairs' K22, K23, K29 and K30 results (else None)."""
     import numpy as np
     import torch
 
@@ -2472,12 +2643,15 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
                                             max_particles_in_box=30),
                          device)
     trav, t_trav = timed(lambda: build_traversal(tree), device)
-    ws, pots, t_setup, t_fmm = {}, {}, {}, {}
+    ws, pots, t_setup, t_fmm, per_fmm = {}, {}, {}, {}, {}
     for name, kw in runs.items():
         ws[name], t_setup[name] = timed(lambda: make_laplace_wrangler(
             trav, rscale="auto", **kw), device)
+        before = kernels.launch_counts()
         pots[name], t_fmm[name] = timed(lambda: drive_fmm(ws[name], [q]),
                                         device)
+        per_fmm[name] = {k: n - before[k]
+                         for k, n in kernels.launch_counts().items()}
     t_total = time.perf_counter() - t_start
     launches = kernels.launch_counts()
 
@@ -2547,11 +2721,18 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
         raise AssertionError(f"3D Laplace pairs vs complex: rel l-inf "
                              f"{rel_pc:.3e} > {LAPLACE3D_PAIRS_RTOL}")
     emit({"phase": "launches", "path": "laplace3d_fmm", "card": card,
-          "launches": launches})
+          "launches": launches,
+          "p2m_l2p_per_fmm": {
+              name: {k: c[k] for k in (*P2M_L2P_KERNELS,
+                                       "p2m_laplace3d_dipole")}
+              for name, c in per_fmm.items()}})
     missing = [name for name in LAPLACE3D_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the 3D Laplace "
                              f"path: {missing}")
+    for name, counts in per_fmm.items():
+        check_p2m_l2p_launches(counts, f"3D Laplace FMM {name}", 1,
+                               int("dipole_vec" in runs[name]))
 
     # }}}
 
@@ -2580,10 +2761,19 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
           "launches": {name: launches[name] for name in LAPLACE3D_KERNELS},
           "work": work,
           "laplace3d_phases_s": time.perf_counter() - t_phases})
-    c128 = {**res["c128"], **res["c128_dipole"]}
-    c128_work = {**work["c128"], **work["c128_dipole"]}
-    return {name: (launches[name], r, c128_work[name],
-                   res["f64"].get(name), work["f64"].get(name))
+    pres, pwork = check_p2m_l2p(card, device, "double layer", [
+        ("c128", ws["complex128_single_layer"],
+         ws["complex128_single_layer"].reorder_sources(q), P2M_L2P_KERNELS),
+        ("c128", ws["complex128"], ws["complex128"].reorder_sources(q),
+         ("p2m_laplace3d_dipole",)),
+        ("f64", ws["float64_pairs"], ws["float64_pairs"].reorder_sources(q),
+         ("p2m_laplace3d_dipole", "l2p_laplace3d"))])
+    c128 = {**res["c128"], **res["c128_dipole"], **pres["c128"]}
+    c128_work = {**work["c128"], **work["c128_dipole"], **pwork["c128"]}
+    f64, f64_work = {**res["f64"], **pres["f64"]}, {**work["f64"],
+                                                     **pwork["f64"]}
+    return {name: (launches[name], r, c128_work[name], f64.get(name),
+                   f64_work.get(name))
             for name, r in c128.items()}
 
 # }}}
@@ -2628,19 +2818,25 @@ def main():
     entries = run_main_path(device, card, trav_trees)
     b_entries, _ = run_config_b(device, card, trav_trees)
     h_entries = run_helmholtz(device, card)
-    e_entries = run_extents(device, card, trav_trees)
+    e_entries, e_p2m_l2p = run_extents(device, card, trav_trees)
     h2_entries = run_helmholtz2d(device, card)
     l2_entries = run_laplace2d(device, card, trav_trees)
     l3 = run_laplace3d(device, card)
     # K2-K4 keep the main path's float32 numbers, with those of their
     # complex128 entry points beside them; K22 and K23 stand by their
-    # complex128 entry points, the float64 pairs' beside them
+    # complex128 entry points, the float64 pairs' beside them.
+    # K28 and K30 keep the main path's float32 numbers, with those of their
+    # complex128 entry points (the double layer) and of the extent path's
+    # float64 pairs beside them; K29 stands by its complex128 entry point
     for e in entries:
         if e["name"] in l3:
             launches, res, work = l3[e["name"]][:3]
             e["c128"] = entry_point_numbers(launches, res, work)
+        if e["name"] in e_p2m_l2p:
+            e["f64_extent"] = e_p2m_l2p[e["name"]]
     l3_entries = []
-    for name in ("p2p_laplace3d_dipole", "p2l_laplace3d_dipole"):
+    for name in ("p2p_laplace3d_dipole", "p2l_laplace3d_dipole",
+                 "p2m_laplace3d_dipole"):
         launches, res, work, res64, work64 = l3[name]
         entry = summary_entry(name, launches, res, work)
         entry["entry_point"] = "c128"

@@ -24,7 +24,14 @@ the card matches the CPU port.  K2-K4's complex128 entry points and the
 dipole kernels K22 (P2P) and K23 (P2L) agree with their twins to 1e-12 in
 complex128 and float64 and 1e-5 in float32, also at r = 0; both 3D
 layouts build their M2L tables on the card; the 3D FMM on the card, with
-and without dipoles and ``level_to_order``, matches the CPU port.  K5-K8
+and without dipoles and ``level_to_order``, matches the CPU port.
+K28-K30 (3D Laplace P2M, dipole P2M and L2P) agree with their twins to
+1e-12 in complex128 and float64 and 1e-5 in float32, each box's multipole
+row held to its own largest value: at the FMM's shapes with separate
+targets, with ``level_to_order`` masks, at r = 0, on a tree whose sources
+and targets stop in boxes with children (more than 32 a box), at order 0
+and past the 48-KiB shared-memory default, on a one-box tree; each 3D
+Laplace FMM launches K28 (K29 with dipoles) and K30 once.  K5-K8
 (level restriction, area-query sweep, space invader, peer lists) compute
 integers, or a float maximum that does not depend on order, so they must
 equal their twins exactly, and a level-restricted tree built on the card
@@ -177,6 +184,7 @@ def test_fmm_on_card_matches_cpu(setup):
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in ("p2p_laplace3d", "m2p_laplace3d",
                                        "p2l_laplace3d"))
+    assert counts["p2m_laplace3d"] == counts["l2p_laplace3d"] == 1
     trav_cpu = build_traversal(build_tree(pts.cpu(),
                                           max_particles_in_box=30))
     w_cpu = make_laplace_wrangler(trav_cpu, order=6, pairs=True,
@@ -1080,6 +1088,10 @@ def test_laplace3d_fmm_on_card_matches_cpu(laplace3d_setup, kind, dipoles):
               "p2l_laplace3d_dipole") if dipoles
              else ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d"))
     assert all(counts[k] > 0 for k in names), counts
+    # P2M and L2P: one launch each, no twin, no JVP
+    p2m = ("p2m_laplace3d_dipole", "p2m_laplace3d")[::1 if dipoles else -1]
+    assert (counts[p2m[0]], counts[p2m[1]], counts["l2p_laplace3d"]) == (
+        1, 0, 1), counts
     trav_cpu = build_traversal(build_tree(src.cpu(), targets=tgt.cpu(),
                                           max_particles_in_box=30))
     if dipoles:
@@ -1087,6 +1099,264 @@ def test_laplace3d_fmm_on_card_matches_cpu(laplace3d_setup, kind, dipoles):
     ref = drive_fmm(make_laplace_wrangler(trav_cpu, **kw), [q.cpu()])
     assert got.dtype == dt
     assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
+
+# }}}
+
+
+# {{{ K28-K30: P2M, dipole P2M and L2P of the 3D Laplace wranglers
+
+P2M_L2P_KERNELS = {"p2m": "p2m_laplace3d",
+                   "p2m_dipole": "p2m_laplace3d_dipole",
+                   "l2p": "l2p_laplace3d"}
+
+
+def _rows_rel(got, ref):
+    """Worst row of ``max |got - ref| / max |ref|`` (expansions: each box's
+    row to its own largest value, a row that is zero in the twin must be
+    zero, as all are for dipoles at order 0); potentials, one vector, to
+    their largest value."""
+    if not ref.is_complex():
+        got, ref = got.double(), ref.double()
+    if ref.ndim == 1:
+        return _rel(got, ref)
+    scale = (ref.abs().amax(1)).cpu()
+    err = ((got - ref).abs().amax(1)).cpu()
+    assert (err[scale == 0] == 0).all()
+    return max((err[scale > 0] / scale[scale > 0]).tolist(), default=0.0)
+
+
+def _p2m_l2p_args(w, q, which, local_exps=None, centers=None):
+    """K28, K29 or K30's arguments from wrangler *w* (charges *q* in its
+    dtype; K30's locals masked as the wrangler masks them), the box
+    centres replaced if given."""
+    tree = w.tree
+    centers = w.centers if centers is None else centers
+    if which == "l2p":
+        return (w._targets, tree.box_target_starts,
+                tree.box_target_counts_nonchild, w._target_rows,
+                w._mask_levels(local_exps), centers, w.box_scale, w.order)
+    dip = (w.dipole_vec,) if which == "p2m_dipole" else ()
+    return (w._sources, q, *dip, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, centers,
+            w.box_scale, w.order)
+
+
+def _p2m_l2p_compare(which, args):
+    """K28-K30 against their twins on *args*: one launch, and the rel
+    error by :func:`_rows_rel`."""
+    name = P2M_L2P_KERNELS[which]
+    kernels.reset_launch_counts()
+    got = getattr(laplace3d, name)(*args)
+    assert kernels.launch_counts()[name] == 1
+    torch.cuda.synchronize()
+    ref = getattr(laplace3d, f"{name}_plain")(*args)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    return _rows_rel(got, ref)
+
+
+def _random_locals(w, seed=8):
+    """Standard-normal local coefficients of *w*'s shape and dtype, made
+    with numpy."""
+    rng = np.random.default_rng(seed)
+    loc = rng.standard_normal((w.tree.nboxes, w.ncoeff))
+    if w.dtype.is_complex:
+        loc = loc + 1j * rng.standard_normal(loc.shape)
+    return torch.as_tensor(loc, device=w.device).to(w.dtype)
+
+
+def _charges_of(w, qc):
+    return w.reorder_sources(qc if w.dtype.is_complex else qc.real)
+
+
+@pytest.mark.parametrize("which", sorted(P2M_L2P_KERNELS))
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_p2m_l2p_kernel(laplace3d_setup, kind, which):
+    """At order 8 on the sphere sources with separate targets."""
+    trav, ws, _, _, qc = laplace3d_setup
+    w = ws[kind]
+    assert not trav.tree.sources_are_targets
+    args = _p2m_l2p_args(w, _charges_of(w, qc), which, _random_locals(w))
+    assert _p2m_l2p_compare(which, args) <= L3D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", sorted(P2M_L2P_KERNELS))
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_p2m_l2p_kernel_level_to_order(laplace3d_setup, kind, which):
+    """With ``level_to_order``: the wrangler's P2M and L2P stages (kernel,
+    then mask) against the twins with the same masks."""
+    trav, _, src, _, qc = laplace3d_setup
+    pairs, dt = L3D_KINDS[kind]
+    w = make_laplace_wrangler(
+        trav, level_to_order=lambda lev: 8 - min(lev, 4), pairs=pairs,
+        dtype=dt, rscale="auto",
+        dipole_vec=src if which == "p2m_dipole" else None)
+    q = _charges_of(w, qc)
+    loc = _random_locals(w)
+    args = _p2m_l2p_args(w, q, which, loc)
+    plain = getattr(laplace3d, f"{P2M_L2P_KERNELS[which]}_plain")
+    kernels.reset_launch_counts()
+    if which == "l2p":
+        got = w.eval_locals(None, None, loc)
+        ref = plain(*args)
+    else:
+        got = w.form_multipoles(None, None, [q])
+        ref = w._mask_levels(plain(*args))
+        past = ~w._level_mask[w._box_levels]
+        assert past.any() and (got[past] == 0).all()
+    assert kernels.launch_counts()[P2M_L2P_KERNELS[which]] == 1
+    assert _rows_rel(got, ref) <= L3D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", sorted(P2M_L2P_KERNELS))
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_p2m_l2p_kernel_at_r0(laplace3d_setup, kind, which):
+    """r = 0: the first row's box centre moved onto its first particle,
+    which then adds its charge to ``R_0^0`` alone (its dipole to the n = 1
+    terms alone), or reads ``L_0^0``."""
+    trav, ws, _, _, qc = laplace3d_setup
+    w = ws[kind]
+    tree = trav.tree
+    rows = w._target_rows if which == "l2p" else w._source_rows
+    box = int(rows[0])
+    pts = w._targets if which == "l2p" else w._sources
+    first = int((tree.box_target_starts if which == "l2p"
+                 else tree.box_source_starts)[box])
+    centers = w.centers.clone()
+    centers[:, box] = pts[:, first]
+    loc = _random_locals(w)
+    args = _p2m_l2p_args(w, _charges_of(w, qc), which, loc, centers)
+    assert _p2m_l2p_compare(which, args) <= L3D_RTOL[w.dtype]
+    got = getattr(laplace3d, P2M_L2P_KERNELS[which])(*args)
+    if which == "l2p":
+        want = loc[box, 0] if w.dtype.is_complex else loc[box, 0].real
+        assert torch.isfinite(got).all() and got[first] == want
+    else:
+        assert torch.isfinite(got).all()
+
+
+@pytest.fixture(scope="module")
+def sticking_out(device):
+    """3D trees (float64 and float32) whose sources and targets have radii
+    (stick-out 0.25), so that both stop in boxes with children, with up
+    to 64 particles a box: rows longer than a warp.  (The traversal
+    refuses source extents, as the reference's does, so K28-K30 take
+    their arguments from the tree.)"""
+    rng = np.random.default_rng(31)
+    src = _sphere(30000, 32)
+    tgt = rng.random((3, 6000)) * 2 - 1
+    radii = dict(source_radii=2 ** rng.uniform(-6, 0, 30000) * 0.1,
+                 target_radii=2 ** rng.uniform(-6, 0, 6000) * 0.1)
+    trees = {}
+    for dt in (torch.float64, torch.float32):
+        tree = trees[dt] = build_tree(
+            torch.as_tensor(src, dtype=dt, device=device),
+            targets=torch.as_tensor(tgt, dtype=dt, device=device),
+            stick_out_factor=0.25, max_particles_in_box=64,
+            **{k: torch.as_tensor(v, dtype=dt, device=device)
+               for k, v in radii.items()})
+        internal = (tree.box_flags & 16) == 0
+        for what in ("source", "target"):
+            counts = getattr(tree, f"box_{what}_counts_nonchild")
+            assert (counts[internal] > 0).sum() >= 5
+            assert counts.max() > 32
+    return trees
+
+
+@pytest.mark.parametrize("which", sorted(P2M_L2P_KERNELS))
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_p2m_l2p_kernel_extent_tree(sticking_out, kind, which):
+    _, dt = L3D_KINDS[kind]
+    tree = sticking_out[torch.float32 if dt == torch.float32
+                        else torch.float64]
+    args = _direct_args(tree, which, kind == "c128", 6)
+    assert _p2m_l2p_compare(which, args) <= L3D_RTOL[dt]
+
+
+def _direct_args(tree, which, cplx, order, seed=41):
+    """K28-K30's arguments on *tree* without a wrangler (at orders whose
+    M2L table no wrangler could hold): box scale 1 / 2^level, charges,
+    dipoles and locals from numpy."""
+    rng = np.random.default_rng(seed)
+    dt = tree.sources.dtype
+    dev = tree.sources.device
+    vdt = torch.complex128 if cplx else dt
+    rows = [torch.nonzero(c > 0)[:, 0].to(torch.int32)
+            for c in (tree.box_source_counts_nonchild,
+                      tree.box_target_counts_nonchild)]
+    scale = (0.5 ** tree.box_levels.to(torch.float64)).to(dt)
+    centers = tree.box_centers.contiguous()
+    if which == "l2p":
+        k = (order + 1) ** 2 * (1 if cplx else 2)
+        loc = rng.standard_normal((tree.nboxes, k))
+        if cplx:
+            loc = loc + 1j * rng.standard_normal(loc.shape)
+        return (tree.targets.contiguous(), tree.box_target_starts,
+                tree.box_target_counts_nonchild, rows[1],
+                torch.as_tensor(loc, device=dev).to(vdt), centers, scale,
+                order)
+    q = rng.standard_normal(tree.nsources)
+    if cplx:
+        q = q + 1j * rng.standard_normal(tree.nsources)
+    dip = (torch.as_tensor(rng.standard_normal((3, tree.nsources)),
+                           dtype=dt, device=dev),) \
+        if which == "p2m_dipole" else ()
+    return (tree.sources.contiguous(),
+            torch.as_tensor(q, device=dev).to(vdt), *dip,
+            tree.box_source_starts, tree.box_source_counts_nonchild, rows[0],
+            centers, scale, order)
+
+
+#: per entry point, order 0 and the least order past the 48-KiB default
+#: of shared memory a CTA, for K28-K30 alike
+EDGE_ORDERS = {"c128": (0, 55), "f64": (0, 55), "f32": (0, 78)}
+
+
+@pytest.mark.parametrize("which", sorted(P2M_L2P_KERNELS))
+@pytest.mark.parametrize("kind,order", [(k, o) for k, os in
+                                        EDGE_ORDERS.items() for o in os])
+def test_p2m_l2p_kernel_edge_orders(device, kind, order, which):
+    _, dt = L3D_KINDS[kind]
+    rdt = torch.float64 if kind == "c128" else dt
+    # K28 / K29 take 4 values less than smem_bytes
+    smem = laplace3d.smem_bytes(order, rdt) - 4 * rdt.itemsize
+    assert (smem > 48 * 1024) == (order > 0)
+    assert laplace3d.smem_bytes(order - 1, rdt) <= 48 * 1024 or order == 0
+    rng = np.random.default_rng(42)
+    pts = torch.as_tensor(_sphere(3000, 43), dtype=rdt, device=device)
+    tgt = torch.as_tensor(rng.random((3, 500)) * 2 - 1, dtype=rdt,
+                          device=device)
+    tree = build_tree(pts, targets=tgt, max_particles_in_box=30)
+    args = _direct_args(tree, which, kind == "c128", order)
+    assert _p2m_l2p_compare(which, args) <= L3D_RTOL[dt]
+
+
+@pytest.mark.parametrize("which", sorted(P2M_L2P_KERNELS))
+@pytest.mark.parametrize("kind", sorted(L3D_KINDS))
+def test_p2m_l2p_kernel_one_box(device, kind, which):
+    """A tree of one box: one row, five particles."""
+    _, dt = L3D_KINDS[kind]
+    rdt = torch.float64 if kind == "c128" else dt
+    pts = torch.as_tensor(_sphere(5, 44), dtype=rdt, device=device)
+    tree = build_tree(pts, max_particles_in_box=30)
+    assert tree.nboxes == 1
+    args = _direct_args(tree, which, kind == "c128", 8)
+    assert _p2m_l2p_compare(which, args) <= L3D_RTOL[dt]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float16])
+def test_p2m_l2p_wrappers_refuse_dtypes(laplace3d_setup, dtype):
+    trav, ws, _, _, qc = laplace3d_setup
+    w = ws["c128"]
+    kernels.reset_launch_counts()
+    for which, name in P2M_L2P_KERNELS.items():
+        args = list(_p2m_l2p_args(w, _charges_of(w, qc), which,
+                                  _random_locals(w)))
+        args[4 if which == "l2p" else 1] = args[
+            4 if which == "l2p" else 1].to(dtype)
+        with pytest.raises(TypeError):
+            getattr(laplace3d, name)(*args)
+    assert not any(kernels.launch_counts()[k]
+                   for k in P2M_L2P_KERNELS.values())
 
 # }}}
 

@@ -20,8 +20,13 @@ Inputs are made with numpy from fixed seeds and go through both packages.
 - The counting FMM is exact with the close lists and after
   ``merge_close_lists()``; the 3D Laplace FMM at order 6 in float64 matches
   one recorded JAX ``drive_fmm`` (run on the port's traversal, carried
-  across) stage by stage and whole to 1e-11, and at order 10 the float64
+  across) stage by stage and whole to 1e-11, P2M and L2P also through the
+  twins of K28 and K30 called directly, and at order 10 the float64
   direct sum to 1e-5.
+- The rows of K28-K30 (the boxes that own particles, on every level)
+  cover every source and target exactly once, in the box
+  ``box_id_of_*`` names, on both extent trees: targets (3D) and sources
+  and targets (2D) stop in boxes with children.
 """
 
 import dataclasses
@@ -33,6 +38,7 @@ import pytest
 import torch
 from test_close_lists import _csr_pairs, _HostOracle
 from test_torch_helmholtz3d import _jax_traversal
+from test_torch_laplace3d import assert_rows_cover
 
 import boxtree_tpu
 from boxtree_torch import Tree, box_flags_enum, build_tree
@@ -41,7 +47,8 @@ from boxtree_torch.models import (
     ConstantOneExpansionWrangler,
     make_laplace_wrangler,
 )
-from boxtree_torch.ops import close_lists, extents, morton
+from boxtree_torch.models.expansion_base import rows_with_particles
+from boxtree_torch.ops import close_lists, extents, laplace3d, morton
 from boxtree_torch.traversal import FMMTraversalInfo, build_traversal
 from boxtree_torch.traversal.build import close_list_inputs
 from boxtree_torch.utils.bridge import to_numpy, traversal_from_numpy
@@ -628,7 +635,7 @@ def laplace(traversals):
             trav.level_start_target_box_nrs, tb, torch.from_numpy(loc2))),
     }
     assert len(ref["eval_direct"]) == 3
-    return out, q, jpot, ref
+    return out, q, jpot, ref, w, tq
 
 
 @pytest.mark.parametrize("stage", STAGES)
@@ -650,9 +657,56 @@ def test_laplace_stage_matches_reference(laplace, stage):
     assert np.abs(got - ref).max() <= RTOL * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("stage", ["P2M", "L2P"])
+def test_p2m_l2p_twins_match_reference(laplace, stage):
+    """K28 and K30's twins, called directly over the wrangler's rows,
+    against the recorded reference stage: sources and targets in their
+    nonchild ranges on every level, targets in boxes with children."""
+    stages, _, _, ref, w, tq = laplace
+    tree = w.tree
+    if stage == "P2M":
+        got = laplace3d.p2m_laplace3d_plain(
+            w._sources, tq, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, w.centers,
+            w.box_scale, w.order)
+    else:
+        got = laplace3d.l2p_laplace3d_plain(
+            w._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, w._target_rows,
+            torch.from_numpy(ref["refine_locals"][0]), w.centers,
+            w.box_scale, w.order)
+    want = np.asarray(stages[stage][0])
+    got = got.numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.abs(got - want).max() <= RTOL * np.abs(want).max()
+
+
+def _sources_stick_out_tree():
+    """A 3D tree (port only) whose sources have radii up to 0.2, so that
+    sources too stop in boxes with children."""
+    src, kw = _extent_inputs(3, 900, 700, 13, "linf")
+    kw["source_radii"] = 2 ** np.random.default_rng(14).uniform(
+        -4, 0, src.shape[1]) * 0.2
+    return build_tree(src, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("what", ["source", "target"])
+@pytest.mark.parametrize("config", [*CONFIGS, "3d_sources_stick_out"])
+def test_particle_rows_cover_each_particle_once(trees, config, what):
+    tree = (_sources_stick_out_tree() if config == "3d_sources_stick_out"
+            else trees[config][1])
+    internal = (tree.box_flags & box_flags_enum.IS_LEAF_BOX) == 0
+    counts = getattr(tree, f"box_{what}_counts_nonchild")
+    if what == "target" or config == "3d_sources_stick_out":
+        assert (counts[internal] > 0).sum() >= 5
+    rows = rows_with_particles(tree.box_source_counts_nonchild,
+                               tree.box_target_counts_nonchild)
+    assert_rows_cover(tree, what, rows[what == "target"])
+
+
 def test_laplace_slice_matches_reference(traversals, laplace):
     _, trav = traversals
-    _, q, jpot, _ = laplace
+    _, q, jpot, *_ = laplace
     w = make_laplace_wrangler(trav, order=ORDER, pairs=True, rscale="auto",
                               dtype=torch.float64)
     got = drive_fmm(w, [torch.from_numpy(q)]).numpy()

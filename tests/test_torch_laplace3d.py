@@ -8,10 +8,10 @@ against direct sums.
   built it (``level_to_order`` included); the batched M2M / L2L builders
   against the reference's host builders per shift: ``<= 1e-12`` of each
   operator's largest entry (the bar of ``tests/test_laplace.py:137-163``).
-- The hooks of both layouts: P2M and L2P, and the twins of K2-K4 and of
-  the dipole kernels K22 / K23, against the reference's hooks (and their
-  JVPs) under ``jax.jit``, with a particle on the expansion centre or on a
-  source (``r = 0``) among them.
+- The hooks of both layouts: P2M and L2P, and the twins of K2-K4, K28,
+  K30 and of the dipole kernels K22 / K23 / K29, against the reference's
+  hooks (and their JVPs) under ``jax.jit``, with a particle on the
+  expansion centre or on a source (``r = 0``) among them.
 - Every FMM stage and the slice (rel l-inf <= 1e-11, expansions per
   coefficient column) of the complex wrangler with ``rscale="auto"``, and
   of the complex and the float64 pairs wranglers with dipoles,
@@ -19,9 +19,14 @@ against direct sums.
   ``drive_fmm``s of the reference's complex wrangler on the port's
   traversal, one without and one with the options; the pairs are held to
   the second in pair layout (``[Re | Im]`` expansions, real potentials),
-  which shares its compiles with the first.  P2P is held to a correctly
+  which shares its compiles with the first; the float64 pairs without the
+  options are held to the first likewise.  P2P is held to a correctly
   rounded float64 direct sum over the same List-1 pairs instead, as in
-  ``test_torch_laplace_stages.py``.
+  ``test_torch_laplace_stages.py``.  P2M and L2P also through the twins
+  of K28-K30 called directly, and in float32 pairs (1e-5).
+- The rows of K28-K30 (the boxes that own particles) cover every source
+  and every target exactly once, in the box ``box_id_of_*`` names, also
+  with separate targets.
 - The port alone: ``tests/test_laplace.py:200-227``'s four cases in 3D
   (pairs against the complex real part, <= 1e-12); dipoles at order 12
   against a direct sum (< 1e-5, ``tests/test_laplace.py:113-134``); the
@@ -89,7 +94,13 @@ def level_to_order(lev):
 #: level_to_order)
 KINDS = {"complex": (False, torch.complex128, False),
          "complex_dipoles": (False, torch.complex128, True),
+         "pairs": (True, torch.float64, False),
          "pairs_dipoles": (True, torch.float64, True)}
+#: the float32 pairs, held to the recordings in P2M and L2P only
+KINDS32 = {"pairs32": (True, torch.float32, False),
+           "pairs32_dipoles": (True, torch.float32, True)}
+#: P2M and L2P of the float32 pairs against the float64 references
+RTOL32 = 1e-5
 
 
 def _t(x):
@@ -305,19 +316,56 @@ def _hook_compare(got, ref):
 
 @pytest.mark.parametrize("hook", ["p2m", "l2p", "p2m_dipole"])
 @pytest.mark.parametrize("kind", ["complex", "pairs"])
-def test_particle_hooks_match_reference(points, hook_refs, kind, hook):
-    """The wranglers' P2M and L2P hooks (plain torch) and P2M's dipole JVP
-    against the reference's."""
-    w = _port_ops(points, kind, HOOK_ORDER)
+def test_particle_hooks_match_reference(hook_refs, kind, hook):
+    """The P2M and L2P terms of the plain twins of K28-K30 (each layout by
+    its dtype) and P2M's dipole JVP against the reference's hooks."""
     x = {k: _t(v) for k, v in _kind_inputs(kind).items()}
     if hook == "p2m":
-        got = w._p2m_terms(x["rel"], x["q"], x["s"])
+        got = l3.p2m_terms(x["rel"], x["q"], HOOK_ORDER)
     elif hook == "l2p":
-        got = w._l2p_eval(x["rel"], x["coef"], x["s"])
+        got = l3.l2p_eval(x["rel"], x["coef"], HOOK_ORDER)
     else:
-        got = torch.func.jvp(lambda r: w._p2m_terms(r, x["q"], x["s"]),
+        got = torch.func.jvp(lambda r: l3.p2m_terms(r, x["q"], HOOK_ORDER),
                              (x["rel"],), (x["dip"] / x["s"],))[1]
     assert _hook_compare(got, hook_refs[kind][hook]) <= HOOK_RTOL
+
+
+@pytest.mark.parametrize("via", ["wrapper", "twin"])
+@pytest.mark.parametrize("kind", ["complex", "pairs"])
+@pytest.mark.parametrize("which", ["p2m", "p2m_dipole", "l2p"])
+def test_p2m_l2p_twins_match_reference_hooks(hook_refs, which, kind, via):
+    """K28, K29 and K30's twins and their CPU wrappers, one particle per
+    box (centre 0, scale s_i), against the reference's ``_p2m_terms``
+    (and its JVP along ``d / r``) and ``_l2p_eval`` at the same scaled
+    offsets.  The first particle sits on its box's centre (``r = 0``):
+    its charge lands on ``R_0^0`` alone, its dipole on the ``n = 1``
+    terms alone, and its potential is ``L_0^0``."""
+    x = _kind_inputs(kind)
+    n = HOOK_N
+    ref = hook_refs[kind][which]
+    starts, counts, rows = _one_per_box(n)[:3]
+    centers = torch.zeros((3, n), dtype=torch.float64)
+    scale = _t(x["s"])
+    pts = _t(x["rel"] * x["s"])
+    name = {"p2m": "p2m_laplace3d", "p2m_dipole": "p2m_laplace3d_dipole",
+            "l2p": "l2p_laplace3d"}[which]
+    fn = getattr(l3, name if via == "wrapper" else f"{name}_plain")
+    if which == "l2p":
+        got = fn(pts, starts[:n], counts[:n], rows, _t(x["coef"]), centers,
+                 scale, HOOK_ORDER)
+        assert got[0] == ref[0] == x["coef"][0, 0]
+    else:
+        dip = (_t(x["dip"]),) if which == "p2m_dipole" else ()
+        got = fn(pts, _t(x["q"]), *dip, starts[:n], counts[:n], rows,
+                 centers, scale, HOOK_ORDER)
+        k = sh.ncoeffs(HOOK_ORDER)
+        lanes = np.arange(ref.shape[1]) % k
+        at = (lanes == 0) if which == "p2m" else (lanes >= 1) & (lanes < 4)
+        assert (got[0].numpy()[~at] == 0).all() and (ref[0][~at] == 0).all()
+        assert (ref[0][at] != 0).any()
+        if which == "p2m":
+            assert got[0, 0] == ref[0, 0] == x["q"][0]
+    assert _hook_compare(got, ref) <= HOOK_RTOL
 
 
 @pytest.mark.parametrize("kind", ["complex", "pairs"])
@@ -379,7 +427,7 @@ def test_p2p_twins_match_reference_hook(hook_refs, kind, dipoles):
 # {{{ against boxtree_tpu's recorded FMMs, stage by stage
 
 def _lap(trav, kind, dip):
-    pairs, dtype, dipoles = KINDS[kind]
+    pairs, dtype, dipoles = {**KINDS, **KINDS32}[kind]
     if dipoles:
         kw = dict(level_to_order=level_to_order, dipole_vec=dip)
     else:
@@ -426,7 +474,7 @@ def _as_layout(x, kind):
     im]`` lanes of expansions and the real part of potentials for the
     pairs."""
     x = np.asarray(x)
-    if KINDS[kind][0]:
+    if {**KINDS, **KINDS32}[kind][0]:
         return x.real if x.ndim == 1 else np.concatenate([x.real, x.imag],
                                                          axis=1)
     return x
@@ -496,17 +544,27 @@ def _record(points, ref, kind):
 
 
 @pytest.fixture(scope="module")
-def recorded(points):
+def recordings(points):
+    """The two recordings of :func:`_jax_recording`, by whether it has
+    the dipoles and ``level_to_order``, each made on first use."""
+    cache = {}
+
+    def get(dipoles):
+        if dipoles not in cache:
+            cache[dipoles] = _jax_recording(points, dipoles)
+        return cache[dipoles]
+    return get
+
+
+@pytest.fixture(scope="module")
+def recorded(points, recordings):
     """``(stages, w, reference potentials, reference wrangler)`` per kind,
-    each recording and each kind made on first use."""
-    recordings, cache = {}, {}
+    each kind made on first use."""
+    cache = {}
 
     def get(kind):
         if kind not in cache:
-            dipoles = KINDS[kind][2]
-            if dipoles not in recordings:
-                recordings[dipoles] = _jax_recording(points, dipoles)
-            ref, jpot, jw = recordings[dipoles]
+            ref, jpot, jw = recordings(KINDS[kind][2])
             cache[kind] = (*_record(points, ref, kind),
                            _as_layout(jpot, kind), jw)
         return cache[kind]
@@ -558,6 +616,95 @@ def test_slice_matches_reference(points, recorded, kind):
     assert got.dtype == KINDS[kind][1] and got.shape == (N,)
     assert set(timing) == set(FMM_STAGES)
     assert _rel_linf(got.numpy(), jpot) <= RTOL
+
+
+def _as_complex(x, kind):
+    """Pair-layout expansions as complex columns, so that a coefficient's
+    two lanes are held to the coefficient's scale."""
+    if {**KINDS, **KINDS32}[kind][0] and x.ndim == 2:
+        k = x.shape[1] // 2
+        return x[:, :k] + 1j * x[:, k:]
+    return x
+
+
+@pytest.mark.parametrize("stage", ["P2M", "L2P"])
+@pytest.mark.parametrize("kind", sorted(KINDS) + sorted(KINDS32))
+def test_p2m_l2p_twins_match_recorded(points, recordings, kind, stage):
+    """P2M and L2P through K28-K30's twins called directly (the level
+    mask applied as the wrangler applies it) and, for the float32 pairs,
+    through the wrangler's stages, against the recorded reference stage:
+    1e-11 in complex128 and float64, 1e-5 in float32 (expansions per
+    coefficient column)."""
+    _, q, dip, trav = points
+    pairs, dtype, dipoles = {**KINDS, **KINDS32}[kind]
+    ref, _, _ = recordings(dipoles)
+    w = _lap(trav, kind, dip)
+    tree = trav.tree
+    tq = w.reorder_sources(torch.from_numpy(q))
+    if stage == "P2M":
+        want = _as_layout(ref["form_multipoles"], kind)
+        args = (tree.box_source_starts, tree.box_source_counts_nonchild,
+                w._source_rows, w.centers, w.box_scale, w.order)
+        if dipoles:
+            twin = l3.p2m_laplace3d_dipole_plain(w._sources, tq,
+                                                 w.dipole_vec, *args)
+        else:
+            twin = l3.p2m_laplace3d_plain(w._sources, tq, *args)
+        got = [w._mask_levels(twin)]
+        if dtype == torch.float32:
+            got.append(w.form_multipoles(None, None, [tq]))
+    else:
+        want = _as_layout(ref["eval_locals"], kind)
+        loc = w._mask_levels(_t(_as_layout(ref["refine_locals"],
+                                           kind)).to(dtype))
+        got = [l3.l2p_laplace3d_plain(
+            w._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, w._target_rows, loc, w.centers,
+            w.box_scale, w.order)]
+        if dtype == torch.float32:
+            got.append(w.eval_locals(None, None, loc))
+    rtol = RTOL32 if dtype == torch.float32 else RTOL
+    for g in got:
+        g = g.numpy()
+        assert g.dtype == {torch.complex128: np.complex128,
+                           torch.float64: np.float64,
+                           torch.float32: np.float32}[dtype]
+        assert g.shape == want.shape
+        if g.ndim == 1:
+            assert _rel_linf(g, want) <= rtol
+        else:
+            assert _cols_rel(_as_complex(g.astype(want.dtype), kind),
+                             _as_complex(want, kind)) <= rtol
+
+
+def assert_rows_cover(tree, what, rows):
+    """The ranges ``[box_<what>_starts, + box_<what>_counts_nonchild)`` of
+    the boxes *rows* (int32, ascending) are the boxes with particles, and
+    cover every particle exactly once, in the box ``box_id_of_<what>``
+    names."""
+    counts = getattr(tree, f"box_{what}_counts_nonchild").numpy()
+    starts = getattr(tree, f"box_{what}_starts").numpy()
+    owner = getattr(tree, f"box_id_of_{what}").numpy()
+    rows = rows.numpy()
+    assert rows.dtype == np.int32
+    np.testing.assert_array_equal(rows, np.flatnonzero(counts > 0))
+    idx = np.concatenate([np.arange(starts[b], starts[b] + counts[b])
+                          for b in rows])
+    np.testing.assert_array_equal(np.sort(idx), np.arange(len(owner)))
+    np.testing.assert_array_equal(owner[idx], np.repeat(rows, counts[rows]))
+
+
+@pytest.mark.parametrize("what", ["source", "target"])
+@pytest.mark.parametrize("tree_of", ["sources_are_targets",
+                                     "separate_targets"])
+def test_particle_rows_cover_each_particle_once(points, dipole_case,
+                                                tree_of, what):
+    trav = (points[3] if tree_of == "sources_are_targets"
+            else dipole_case[0])
+    assert trav.tree.sources_are_targets == (tree_of ==
+                                             "sources_are_targets")
+    w = make_laplace_wrangler(trav, 2, pairs=True)
+    assert_rows_cover(trav.tree, what, getattr(w, f"_{what}_rows"))
 
 
 @pytest.mark.parametrize("kind", ["complex_dipoles", "pairs_dipoles"])
