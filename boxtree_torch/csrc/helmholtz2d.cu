@@ -1,4 +1,4 @@
-// K16-K18: the particle-pair stages of the 2D Helmholtz FMM, kernel
+// K16-K18 and K33-K34: the particle stages of the 2D Helmholtz FMM, kernel
 // G(t, s) = (i/4) H_0(k |t - s|) for a real wavenumber k, in double
 // precision with complex128 (interleaved re, im) charges, coefficients and
 // potentials.  Coefficient index n = -p..p, stored at n + p.
@@ -17,22 +17,41 @@
 //     added in place into the box's coefficients.  Replaces
 //     expansion_base.py:1629 _form_locals_rowmajor with helmholtz.py:279
 //     _p2l_terms.
+// K33 p2m_helmholtz2d: multipoles, a_n(b) = sum_s (i/4) q_s J_n(k r)
+//     e^{-i n th} s^-|n| over the sources box b owns itself (its nonchild
+//     range, on any level), written once into the box's row; r = 0 gives
+//     the exact limit J_n(0) = [n == 0].  Replaces expansion_base.py:652
+//     form_multipoles with helmholtz.py:267 _p2m_terms (via :232 _basis).
+// K34 l2p_helmholtz2d: phi(t) = sum_n b_n(b) J_n(k r) e^{i n th} s^-|n| for
+//     every target box b owns itself, written once; b_0(b) at r = 0.
+//     Replaces expansion_base.py:1793 eval_locals with helmholtz.py:271
+//     _l2p_eval.
 //
-// Negative orders come from H_{-n} = (-1)^n H_n; s is the box's rscale.  As
+// Negative orders come from F_{-n} = (-1)^n F_n; s is the box's rscale.  As
 // in the 3D kernels (helmholtz3d.cu), a box's nonchild particles are the
 // contiguous tree-order range [box_*_starts, + box_*_counts_nonchild), rows
-// of the CSR lists name boxes, and one CTA (one warp) serves one row.
+// of the CSR lists (K16-K18) or the row list itself (K33, K34, the boxes
+// that own particles) name boxes, and one CTA (one warp) serves one row.
 //
 // Bound: float64 arithmetic.  K16 runs over ~1.2e8 pairs on the path, so it
 // evaluates H_0 with CUDA's double j0() and y0() (a few rational
 // approximations and a log; accurate to a few ulp at the path's k r) rather
 // than the twin's ~56-step recurrence, with its sources staged 32 at a time
-// in shared memory.  K17 and K18 run the recurrence of cyl_bessel.cuh per
-// (particle, box) pair (nstart double divides down, nstart products up) and
-// fold the 2p+1 coefficients: K17 against the box's multipole in shared
-// memory; K18 with each lane writing its source's 2p+1 terms to a column of
-// a shared table, then each lane summing the rows of the coefficients it
-// owns, so no shuffle reductions and no atomics.
+// in shared memory.  K17, K18, K33 and K34 run the recurrence of
+// cyl_bessel.cuh per (particle, box) pair (nstart double divides down,
+// nstart products up) and fold the 2p+1 coefficients: K17 and K34 against
+// the box's expansion in shared memory; K18 with each lane writing its
+// source's 2p+1 terms to a column of a shared table, then each lane summing
+// the rows of the coefficients it owns; K33 summing each coefficient over
+// the warp with shuffles, lane 0 adding it to the box's row in shared
+// memory.  No atomics on the results.  The recurrence's ratios go to a
+// global scratch buffer, one column a thread; these four kernels run a
+// fixed grid (the wrapper's, a few CTAs an SM) whose CTAs take rows one at
+// a time from a counter (the wrapper zeroes it; a row's result does not
+// depend on which CTA computes it), as the hardware hands out CTAs when
+// there is one per row, so the buffer is sized by that grid and the grid's
+// threads reuse their columns.  Only the tables of 2p+1 or p+1 values a
+// lane stay in shared memory.
 #include "cyl_bessel.cuh"
 
 namespace boxtree_torch {
@@ -42,6 +61,13 @@ constexpr int kH2Threads = 32;
 
 __device__ __forceinline__ double2 cmul2(double2 a, double2 b) {
   return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// The next row for the calling CTA (one warp), from the launch's counter.
+__device__ __forceinline__ int next_row(int* counter) {
+  int row = 0;
+  if (threadIdx.x == 0) row = atomicAdd(counter, 1);
+  return __shfl_sync(0xffffffffu, row, 0);
 }
 
 // {{{ K16
@@ -119,81 +145,88 @@ m2p_helmholtz2d_kernel(const double* __restrict__ targets,
                        long long ntargets,
                        const int* __restrict__ box_target_starts,
                        const int* __restrict__ box_target_counts,
-                       const int* __restrict__ rows,
+                       const int* __restrict__ rows, long long nrows,
                        const int* __restrict__ starts,
                        const int* __restrict__ lists,
                        const double2* __restrict__ mpoles,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale, double k, int p,
-                       int nstart, double2* __restrict__ out) {
+                       int nstart, double* __restrict__ scratch,
+                       int* __restrict__ counter,
+                       double2* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = 2 * p + 1;
   double2* smp = reinterpret_cast<double2*>(smem_raw);        // nc
   double2* hb = smp + nc;                                     // (p+1) x warp
-  double* scratch = reinterpret_cast<double*>(hb + (p + 1) * kH2Threads);
-  double* geo = scratch + (nstart + 1) * kH2Threads;          // cx, cy, s
+  double* geo = reinterpret_cast<double*>(hb + (p + 1) * kH2Threads);
   const int lane = threadIdx.x;
-  const int tbox = rows[blockIdx.x];
-  const long long t0 = box_target_starts[tbox];
-  const int nt = box_target_counts[tbox];
-  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
+  const long long stride = (long long)gridDim.x * kH2Threads;
+  double* col = scratch + (long long)blockIdx.x * kH2Threads + lane;
 
-  for (int tb = 0; tb < nt; tb += kH2Threads) {
-    const int ti = tb + lane;
-    const bool active = ti < nt;
-    double tx = 0.0, ty = 0.0;
-    if (active) {
-      tx = targets[t0 + ti];
-      ty = targets[ntargets + t0 + ti];
-    }
-    double ar = 0.0, ai = 0.0;
-    for (int e = e0; e < e1; ++e) {
-      const long long sbox = lists[e];
-      __syncthreads();
-      for (int i = lane; i < nc; i += kH2Threads)
-        smp[i] = mpoles[sbox * nc + i];
-      if (lane == 0) {
-        geo[0] = centers[sbox];
-        geo[1] = centers[nboxes + sbox];
-        geo[2] = box_scale[sbox];
+  for (int row = next_row(counter); row < nrows;
+       row = next_row(counter)) {
+    const int tbox = rows[row];
+    const long long t0 = box_target_starts[tbox];
+    const int nt = box_target_counts[tbox];
+    const int e0 = starts[row], e1 = starts[row + 1];
+    for (int tb = 0; tb < nt; tb += kH2Threads) {
+      const int ti = tb + lane;
+      const bool active = ti < nt;
+      double tx = 0.0, ty = 0.0;
+      if (active) {
+        tx = targets[t0 + ti];
+        ty = targets[ntargets + t0 + ti];
       }
-      __syncthreads();
-      if (!active) continue;
-      // the reference's hook receives (t - c) / s and works on that times s
-      const double s = geo[2];
-      const double x = (tx - geo[0]) / s * s;
-      const double y = (ty - geo[1]) / s * s;
-      const double r = sqrt(x * x + y * y);
-      if (!(r > 0.0)) continue;
-      const double th = atan2(y, x);
-      cylindrical_h(k * r, p, nstart, scratch + lane, hb + lane, kH2Threads);
-      double vr = 0.0, vi = 0.0;
-      for (int m = 0; m <= p; ++m) {
-        double sn, cs;
-        sincos(m * th, &sn, &cs);
-        const double pw = pow(s, double(m));
-        const double2 h = hb[m * kH2Threads + lane];
-        // a_m H_m e^{i m th} s^m
-        double2 b = cmul2(h, make_double2(cs, sn));
-        b = make_double2(b.x * pw, b.y * pw);
-        const double2 a = smp[p + m];
-        vr += a.x * b.x - a.y * b.y;
-        vi += a.x * b.y + a.y * b.x;
-        if (m > 0) {
-          // a_{-m} (-1)^m H_m e^{-i m th} s^m
-          const double sg = (m & 1) ? -1.0 : 1.0;
-          double2 c = cmul2(make_double2(sg * h.x, sg * h.y),
-                            make_double2(cs, -sn));
-          c = make_double2(c.x * pw, c.y * pw);
-          const double2 a2 = smp[p - m];
-          vr += a2.x * c.x - a2.y * c.y;
-          vi += a2.x * c.y + a2.y * c.x;
+      double ar = 0.0, ai = 0.0;
+      for (int e = e0; e < e1; ++e) {
+        const long long sbox = lists[e];
+        __syncthreads();
+        for (int i = lane; i < nc; i += kH2Threads)
+          smp[i] = mpoles[sbox * nc + i];
+        if (lane == 0) {
+          geo[0] = centers[sbox];
+          geo[1] = centers[nboxes + sbox];
+          geo[2] = box_scale[sbox];
         }
+        __syncthreads();
+        if (!active) continue;
+        // the reference's hook receives (t - c) / s and works on that
+        // times s
+        const double s = geo[2];
+        const double x = (tx - geo[0]) / s * s;
+        const double y = (ty - geo[1]) / s * s;
+        const double r = sqrt(x * x + y * y);
+        if (!(r > 0.0)) continue;
+        const double th = atan2(y, x);
+        cylindrical_h(k * r, p, nstart, col, stride, hb + lane, kH2Threads);
+        double vr = 0.0, vi = 0.0;
+        for (int m = 0; m <= p; ++m) {
+          double sn, cs;
+          sincos(m * th, &sn, &cs);
+          const double pw = pow(s, double(m));
+          const double2 h = hb[m * kH2Threads + lane];
+          // a_m H_m e^{i m th} s^m
+          double2 b = cmul2(h, make_double2(cs, sn));
+          b = make_double2(b.x * pw, b.y * pw);
+          const double2 a = smp[p + m];
+          vr += a.x * b.x - a.y * b.y;
+          vi += a.x * b.y + a.y * b.x;
+          if (m > 0) {
+            // a_{-m} (-1)^m H_m e^{-i m th} s^m
+            const double sg = (m & 1) ? -1.0 : 1.0;
+            double2 c = cmul2(make_double2(sg * h.x, sg * h.y),
+                              make_double2(cs, -sn));
+            c = make_double2(c.x * pw, c.y * pw);
+            const double2 a2 = smp[p - m];
+            vr += a2.x * c.x - a2.y * c.y;
+            vi += a2.x * c.y + a2.y * c.x;
+          }
+        }
+        ar += vr;
+        ai += vi;
       }
-      ar += vr;
-      ai += vi;
+      if (active) out[t0 + ti] = make_double2(ar, ai);
     }
-    if (active) out[t0 + ti] = make_double2(ar, ai);
   }
 }
 
@@ -207,96 +240,266 @@ p2l_helmholtz2d_kernel(const double* __restrict__ sources,
                        const double2* __restrict__ charges,
                        const int* __restrict__ box_source_starts,
                        const int* __restrict__ box_source_counts,
-                       const int* __restrict__ rows,
+                       const int* __restrict__ rows, long long nrows,
                        const int* __restrict__ starts,
                        const int* __restrict__ lists,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale, double k, int p,
-                       int nstart, double2* __restrict__ out) {
+                       int nstart, double* __restrict__ scratch,
+                       int* __restrict__ counter,
+                       double2* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = 2 * p + 1;
   double2* terms = reinterpret_cast<double2*>(smem_raw);      // nc x warp
   double2* acc = terms + nc * kH2Threads;                     // nc
   double2* hb = acc + nc;                                     // (p+1) x warp
-  double* scratch = reinterpret_cast<double*>(hb + (p + 1) * kH2Threads);
   const int lane = threadIdx.x;
-  const long long tbox = rows[blockIdx.x];
-  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
-  for (int i = lane; i < nc; i += kH2Threads) acc[i] = make_double2(0, 0);
-  const double cx = centers[tbox], cy = centers[nboxes + tbox];
-  const double s = box_scale[tbox];
+  const long long stride = (long long)gridDim.x * kH2Threads;
+  double* col = scratch + (long long)blockIdx.x * kH2Threads + lane;
 
-  for (int e = e0; e < e1; ++e) {
-    const int sbox = lists[e];
-    const long long s0 = box_source_starts[sbox];
-    const int ns = box_source_counts[sbox];
-    for (int sb = 0; sb < ns; sb += kH2Threads) {
-      const int j = sb + lane;
-      double x = 0.0, y = 0.0, r = 0.0;
-      if (j < ns) {
-        x = (sources[s0 + j] - cx) / s * s;
-        y = (sources[nsources + s0 + j] - cy) / s * s;
-        r = sqrt(x * x + y * y);
-      }
-      if (r > 0.0) {
-        // (i/4) q (-1)^{m [n < 0]} H_m e^{-i n th} s^m, m = |n|
-        const double2 q = charges[s0 + j];
-        const double2 qq = make_double2(-0.25 * q.y, 0.25 * q.x);
-        const double th = atan2(y, x);
-        cylindrical_h(k * r, p, nstart, scratch + lane, hb + lane,
-                      kH2Threads);
-        for (int m = 0; m <= p; ++m) {
-          double sn, cs;
-          sincos(m * th, &sn, &cs);
-          const double pw = pow(s, double(m));
-          const double2 h = hb[m * kH2Threads + lane];
-          double2 b = cmul2(h, make_double2(cs, -sn));
-          b = make_double2(b.x * pw, b.y * pw);
-          terms[(p + m) * kH2Threads + lane] = cmul2(qq, b);
-          if (m > 0) {
-            const double sg = (m & 1) ? -1.0 : 1.0;
-            double2 c = cmul2(make_double2(sg * h.x, sg * h.y),
-                              make_double2(cs, sn));
-            c = make_double2(c.x * pw, c.y * pw);
-            terms[(p - m) * kH2Threads + lane] = cmul2(qq, c);
+  for (int row = next_row(counter); row < nrows;
+       row = next_row(counter)) {
+    const long long tbox = rows[row];
+    const int e0 = starts[row], e1 = starts[row + 1];
+    for (int i = lane; i < nc; i += kH2Threads) acc[i] = make_double2(0, 0);
+    const double cx = centers[tbox], cy = centers[nboxes + tbox];
+    const double s = box_scale[tbox];
+
+    for (int e = e0; e < e1; ++e) {
+      const int sbox = lists[e];
+      const long long s0 = box_source_starts[sbox];
+      const int ns = box_source_counts[sbox];
+      for (int sb = 0; sb < ns; sb += kH2Threads) {
+        const int j = sb + lane;
+        double x = 0.0, y = 0.0, r = 0.0;
+        if (j < ns) {
+          x = (sources[s0 + j] - cx) / s * s;
+          y = (sources[nsources + s0 + j] - cy) / s * s;
+          r = sqrt(x * x + y * y);
+        }
+        if (r > 0.0) {
+          // (i/4) q (-1)^{m [n < 0]} H_m e^{-i n th} s^m, m = |n|
+          const double2 q = charges[s0 + j];
+          const double2 qq = make_double2(-0.25 * q.y, 0.25 * q.x);
+          const double th = atan2(y, x);
+          cylindrical_h(k * r, p, nstart, col, stride, hb + lane,
+                        kH2Threads);
+          for (int m = 0; m <= p; ++m) {
+            double sn, cs;
+            sincos(m * th, &sn, &cs);
+            const double pw = pow(s, double(m));
+            const double2 h = hb[m * kH2Threads + lane];
+            double2 b = cmul2(h, make_double2(cs, -sn));
+            b = make_double2(b.x * pw, b.y * pw);
+            terms[(p + m) * kH2Threads + lane] = cmul2(qq, b);
+            if (m > 0) {
+              const double sg = (m & 1) ? -1.0 : 1.0;
+              double2 c = cmul2(make_double2(sg * h.x, sg * h.y),
+                                make_double2(cs, sn));
+              c = make_double2(c.x * pw, c.y * pw);
+              terms[(p - m) * kH2Threads + lane] = cmul2(qq, c);
+            }
           }
+        } else {
+          for (int i = 0; i < nc; ++i)
+            terms[i * kH2Threads + lane] = make_double2(0.0, 0.0);
         }
-      } else {
-        for (int i = 0; i < nc; ++i)
-          terms[i * kH2Threads + lane] = make_double2(0.0, 0.0);
-      }
-      __syncwarp();
-      // each lane sums the rows of the coefficients it owns
-      for (int i = lane; i < nc; i += kH2Threads) {
-        double tr = 0.0, tim = 0.0;
-        for (int jj = 0; jj < kH2Threads; ++jj) {
-          const double2 t = terms[i * kH2Threads + jj];
-          tr += t.x;
-          tim += t.y;
+        __syncwarp();
+        // each lane sums the rows of the coefficients it owns
+        for (int i = lane; i < nc; i += kH2Threads) {
+          double tr = 0.0, tim = 0.0;
+          for (int jj = 0; jj < kH2Threads; ++jj) {
+            const double2 t = terms[i * kH2Threads + jj];
+            tr += t.x;
+            tim += t.y;
+          }
+          acc[i].x += tr;
+          acc[i].y += tim;
         }
-        acc[i].x += tr;
-        acc[i].y += tim;
+        __syncwarp();
       }
-      __syncwarp();
     }
-  }
-  for (int i = lane; i < nc; i += kH2Threads) {
-    out[tbox * nc + i].x += acc[i].x;
-    out[tbox * nc + i].y += acc[i].y;
+    for (int i = lane; i < nc; i += kH2Threads) {
+      out[tbox * nc + i].x += acc[i].x;
+      out[tbox * nc + i].y += acc[i].y;
+    }
   }
 }
 
 // }}}
 
-size_t m2p_smem(long long p, long long nstart) {
-  return ((2 * p + 1) + (p + 1) * kH2Threads) * sizeof(double2) +
-         ((nstart + 1) * kH2Threads + 3) * sizeof(double);
+// {{{ K33
+
+__global__ void __launch_bounds__(kH2Threads)
+p2m_helmholtz2d_kernel(const double* __restrict__ sources,
+                       long long nsources,
+                       const double2* __restrict__ charges,
+                       const int* __restrict__ box_source_starts,
+                       const int* __restrict__ box_source_counts,
+                       const int* __restrict__ rows, long long nrows,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale, double k, int p,
+                       int nstart, double* __restrict__ scratch,
+                       int* __restrict__ counter,
+                       double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = 2 * p + 1;
+  double2* acc = reinterpret_cast<double2*>(smem_raw);        // nc
+  double* jt = reinterpret_cast<double*>(acc + nc);           // (p+1) x warp
+  const int lane = threadIdx.x;
+  const long long stride = (long long)gridDim.x * kH2Threads;
+  double* col = scratch + (long long)blockIdx.x * kH2Threads + lane;
+
+  for (int row = next_row(counter); row < nrows;
+       row = next_row(counter)) {
+    const long long box = rows[row];
+    const long long s0 = box_source_starts[box];
+    const int ns = box_source_counts[box];
+    for (int i = lane; i < nc; i += kH2Threads) acc[i] = make_double2(0, 0);
+    const double cx = centers[box], cy = centers[nboxes + box];
+    const double s = box_scale[box];
+    __syncwarp();
+
+    for (int sb = 0; sb < ns; sb += kH2Threads) {
+      const int j = sb + lane;
+      // idle lanes evaluate at the centre with zero charge; r = 0 takes
+      // J_n(0) = [n == 0] and th = 0, the reference's one-hot limit
+      double x = 0.0, y = 0.0;
+      double2 qq = make_double2(0.0, 0.0);
+      if (j < ns) {
+        x = (sources[s0 + j] - cx) / s * s;
+        y = (sources[nsources + s0 + j] - cy) / s * s;
+        const double2 q = charges[s0 + j];
+        qq = make_double2(-0.25 * q.y, 0.25 * q.x);  // (i/4) q
+      }
+      const double r = sqrt(x * x + y * y);
+      const double th = atan2(y, x);
+      cylindrical_j(k * r, p, nstart, col, stride, jt + lane, kH2Threads);
+      for (int m = 0; m <= p; ++m) {
+        double sn, cs;
+        sincos(m * th, &sn, &cs);
+        const double pw = pow(s, -double(m));
+        const double jm = jt[m * kH2Threads + lane];
+        // (i/4) q J_m e^{-i m th} s^-m at n = m, and (i/4) q (-1)^m J_m
+        // e^{i m th} s^-m at n = -m, each summed over the warp
+        const double2 b = cmul2(qq, make_double2(jm * cs * pw,
+                                                 -(jm * sn) * pw));
+        const double vr = warp_sum(b.x), vi = warp_sum(b.y);
+        double ur = 0.0, ui = 0.0;
+        if (m > 0) {
+          const double sj = (m & 1) ? -jm : jm;
+          const double2 c = cmul2(qq, make_double2(sj * cs * pw,
+                                                   sj * sn * pw));
+          ur = warp_sum(c.x);
+          ui = warp_sum(c.y);
+        }
+        if (lane == 0) {
+          acc[p + m].x += vr;
+          acc[p + m].y += vi;
+          if (m > 0) {
+            acc[p - m].x += ur;
+            acc[p - m].y += ui;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < nc; i += kH2Threads) out[box * nc + i] = acc[i];
+    __syncwarp();
+  }
 }
 
-size_t p2l_smem(long long p, long long nstart) {
+// }}}
+
+// {{{ K34
+
+__global__ void __launch_bounds__(kH2Threads)
+l2p_helmholtz2d_kernel(const double* __restrict__ targets,
+                       long long ntargets,
+                       const int* __restrict__ box_target_starts,
+                       const int* __restrict__ box_target_counts,
+                       const int* __restrict__ rows, long long nrows,
+                       const double2* __restrict__ locs,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale, double k, int p,
+                       int nstart, double* __restrict__ scratch,
+                       int* __restrict__ counter,
+                       double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = 2 * p + 1;
+  double2* sl = reinterpret_cast<double2*>(smem_raw);         // nc
+  double* jt = reinterpret_cast<double*>(sl + nc);            // (p+1) x warp
+  double* geo = jt + (p + 1) * kH2Threads;                    // cx, cy, s
+  const int lane = threadIdx.x;
+  const long long stride = (long long)gridDim.x * kH2Threads;
+  double* col = scratch + (long long)blockIdx.x * kH2Threads + lane;
+
+  for (int row = next_row(counter); row < nrows;
+       row = next_row(counter)) {
+    const long long box = rows[row];
+    const long long t0 = box_target_starts[box];
+    const int nt = box_target_counts[box];
+    __syncthreads();
+    for (int i = lane; i < nc; i += kH2Threads) sl[i] = locs[box * nc + i];
+    if (lane == 0) {
+      geo[0] = centers[box];
+      geo[1] = centers[nboxes + box];
+      geo[2] = box_scale[box];
+    }
+    __syncthreads();
+    const double s = geo[2];
+
+    for (int ti = lane; ti < nt; ti += kH2Threads) {
+      // r = 0 takes J_n(0) = [n == 0] and th = 0: b_0, as the reference
+      const double x = (targets[t0 + ti] - geo[0]) / s * s;
+      const double y = (targets[ntargets + t0 + ti] - geo[1]) / s * s;
+      const double r = sqrt(x * x + y * y);
+      const double th = atan2(y, x);
+      cylindrical_j(k * r, p, nstart, col, stride, jt + lane, kH2Threads);
+      double vr = 0.0, vi = 0.0;
+      for (int m = 0; m <= p; ++m) {
+        double sn, cs;
+        sincos(m * th, &sn, &cs);
+        const double pw = pow(s, -double(m));
+        const double jm = jt[m * kH2Threads + lane];
+        // b_m J_m e^{i m th} s^-m + b_{-m} (-1)^m J_m e^{-i m th} s^-m
+        const double br = jm * cs * pw, bi = jm * sn * pw;
+        const double2 a = sl[p + m];
+        vr += a.x * br - a.y * bi;
+        vi += a.x * bi + a.y * br;
+        if (m > 0) {
+          const double sg = (m & 1) ? -1.0 : 1.0;
+          const double cr = sg * jm * cs * pw, ci = -(sg * jm * sn) * pw;
+          const double2 a2 = sl[p - m];
+          vr += a2.x * cr - a2.y * ci;
+          vi += a2.x * ci + a2.y * cr;
+        }
+      }
+      out[t0 + ti] = make_double2(vr, vi);
+    }
+  }
+}
+
+// }}}
+
+size_t m2p_smem(long long p) {
+  return ((2 * p + 1) + (p + 1) * kH2Threads) * sizeof(double2) +
+         3 * sizeof(double);
+}
+
+size_t p2l_smem(long long p) {
   return ((2 * p + 1) * (kH2Threads + 1) + (p + 1) * kH2Threads) *
-             sizeof(double2) +
-         (nstart + 1) * kH2Threads * sizeof(double);
+         sizeof(double2);
+}
+
+size_t p2m_smem(long long p) {
+  return (2 * p + 1) * sizeof(double2) +
+         (p + 1) * kH2Threads * sizeof(double);
+}
+
+size_t l2p_smem(long long p) {
+  return (2 * p + 1) * sizeof(double2) +
+         ((p + 1) * kH2Threads + 3) * sizeof(double);
 }
 
 }  // namespace
@@ -320,23 +523,28 @@ extern "C" int p2p_helmholtz2d_c128(
   return (int)cudaGetLastError();
 }
 
+// K17, K18, K33 and K34 launch *grid* CTAs over their *nrows* rows, with
+// *scratch* holding nstart x (grid x 32) doubles and *counter* one int,
+// zeroed.
+
 extern "C" int m2p_helmholtz2d_c128(
     const void* targets, long long ntargets, const void* bts, const void* btc,
     const void* rows, long long nrows, const void* starts, const void* lists,
     const void* mpoles, const void* centers, long long nboxes,
     const void* box_scale, double k, long long order, long long nstart,
-    void* out, void* stream) {
+    long long grid, void* scratch, void* counter, void* out, void* stream) {
   using namespace boxtree_torch;
-  if (nrows > 0) {
-    const size_t smem = m2p_smem(order, nstart);
+  if (nrows > 0 && grid > 0) {
+    const size_t smem = m2p_smem(order);
     const cudaError_t err = allow_smem(m2p_helmholtz2d_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    m2p_helmholtz2d_kernel<<<(unsigned)nrows, kH2Threads, smem,
+    m2p_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
                              (cudaStream_t)stream>>>(
         (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
-        (const int*)rows, (const int*)starts, (const int*)lists,
+        (const int*)rows, nrows, (const int*)starts, (const int*)lists,
         (const double2*)mpoles, (const double*)centers, nboxes,
-        (const double*)box_scale, k, (int)order, (int)nstart, (double2*)out);
+        (const double*)box_scale, k, (int)order, (int)nstart,
+        (double*)scratch, (int*)counter, (double2*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -346,18 +554,64 @@ extern "C" int p2l_helmholtz2d_c128(
     const void* bss, const void* bsc, const void* rows, long long nrows,
     const void* starts, const void* lists, const void* centers,
     long long nboxes, const void* box_scale, double k, long long order,
-    long long nstart, void* out, void* stream) {
+    long long nstart, long long grid, void* scratch, void* counter,
+    void* out, void* stream) {
   using namespace boxtree_torch;
-  if (nrows > 0) {
-    const size_t smem = p2l_smem(order, nstart);
+  if (nrows > 0 && grid > 0) {
+    const size_t smem = p2l_smem(order);
     const cudaError_t err = allow_smem(p2l_helmholtz2d_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    p2l_helmholtz2d_kernel<<<(unsigned)nrows, kH2Threads, smem,
+    p2l_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
                              (cudaStream_t)stream>>>(
         (const double*)sources, nsources, (const double2*)charges,
-        (const int*)bss, (const int*)bsc, (const int*)rows,
+        (const int*)bss, (const int*)bsc, (const int*)rows, nrows,
         (const int*)starts, (const int*)lists, (const double*)centers, nboxes,
-        (const double*)box_scale, k, (int)order, (int)nstart, (double2*)out);
+        (const double*)box_scale, k, (int)order, (int)nstart,
+        (double*)scratch, (int*)counter, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int p2m_helmholtz2d_c128(
+    const void* sources, long long nsources, const void* charges,
+    const void* bss, const void* bsc, const void* rows, long long nrows,
+    const void* centers, long long nboxes, const void* box_scale, double k,
+    long long order, long long nstart, long long grid, void* scratch,
+    void* counter, void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0 && grid > 0) {
+    const size_t smem = p2m_smem(order);
+    const cudaError_t err = allow_smem(p2m_helmholtz2d_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    p2m_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
+                             (cudaStream_t)stream>>>(
+        (const double*)sources, nsources, (const double2*)charges,
+        (const int*)bss, (const int*)bsc, (const int*)rows, nrows,
+        (const double*)centers, nboxes, (const double*)box_scale, k,
+        (int)order, (int)nstart, (double*)scratch, (int*)counter,
+        (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int l2p_helmholtz2d_c128(
+    const void* targets, long long ntargets, const void* bts, const void* btc,
+    const void* rows, long long nrows, const void* locs, const void* centers,
+    long long nboxes, const void* box_scale, double k, long long order,
+    long long nstart, long long grid, void* scratch, void* counter,
+    void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0 && grid > 0) {
+    const size_t smem = l2p_smem(order);
+    const cudaError_t err = allow_smem(l2p_helmholtz2d_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    l2p_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
+                             (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
+        (const int*)rows, nrows, (const double2*)locs,
+        (const double*)centers, nboxes, (const double*)box_scale, k,
+        (int)order, (int)nstart, (double*)scratch, (int*)counter,
+        (double2*)out);
   }
   return (int)cudaGetLastError();
 }

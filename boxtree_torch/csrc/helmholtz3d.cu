@@ -1,4 +1,4 @@
-// K9-K11: the particle-pair stages of the 3D Helmholtz FMM, kernel
+// K9-K11 and K31-K32: the particle stages of the 3D Helmholtz FMM, kernel
 // G(t, s) = exp(ik|t - s|) / |t - s| for a real wavenumber k, in double
 // precision with complex128 (interleaved re, im) charges, coefficients and
 // potentials.
@@ -16,6 +16,16 @@
 //     h_n(k r) s^n conj(A_n^m(u)) with r u = ((x_s - c_b) / s) s, added in
 //     place into the box's coefficients.  Replaces expansion_base.py:1629
 //     _form_locals_rowmajor with helmholtz3d.py:351 _p2l_terms.
+// K31 p2m_helmholtz3d: multipoles, M_nm(b) = sum q_s w_nm j_n(k r) s^-n
+//     conj(A_n^m(u)) with r u = ((x_s - c_b) / s) s, over the sources box b
+//     owns itself (its nonchild range, on any level), written once into the
+//     box's row; a source at the centre adds q w_00 to M_00 alone.
+//     Replaces expansion_base.py:652 form_multipoles with helmholtz3d.py:316
+//     _p2m_terms.
+// K32 l2p_helmholtz3d: phi(t) = sum_nm L_nm(b) j_n(k r) s^-n A_n^m(u) for
+//     every target box b owns itself, written once; L_00(b) at r = 0.
+//     Replaces expansion_base.py:1793 eval_locals with helmholtz3d.py:330
+//     _l2p_eval.
 //
 // A_n^m are the regular solid harmonics of the unit direction
 // (harmonics.cuh), h_n = j_n + i y_n the spherical Hankel functions
@@ -33,7 +43,17 @@
 // against one read of a 2.7 KB multipole (K10) or one warp's shuffle
 // reductions (K11).  The harmonics never leave registers; each thread's
 // h_n s^n table sits in shared memory (one column per thread), so no
-// (particles x coefficients) array is stored and nothing spills.
+// (particles x coefficients) array is stored and nothing spills.  K31 and
+// K32 run per particle the j_n recurrence (p + 25 divides down, p products
+// up) and the order-p harmonics against the box's (p+1)^2 coefficients,
+// ~2,000 flops at p = 12; the bytes they must move are each particle once
+// and each box's row once (~0.4 GB at 1e6 points, order 12, ~0.13 ms).  As
+// K28 / K30 (p2m.cu, l2p.cu) do: one CTA (one warp) per box that owns
+// particles; K31 sums each coefficient over the warp with shuffles as the
+// harmonics come, lane 0 adds it to the box's row in shared memory, and
+// the row is stored once (times w_nm s^-n), so there are no atomics; K32
+// stages the box's row in shared memory and each lane folds its target's
+// basis into it.
 #include "bessel.cuh"
 #include "harmonics.cuh"
 
@@ -290,10 +310,174 @@ p2l_helmholtz3d_kernel(const double* __restrict__ sources,
 
 // }}}
 
+// {{{ K31
+
+__global__ void __launch_bounds__(kHelmThreads)
+p2m_helmholtz3d_kernel(const double* __restrict__ sources,
+                       long long nsources,
+                       const double2* __restrict__ charges,
+                       const int* __restrict__ box_source_starts,
+                       const int* __restrict__ box_source_counts,
+                       const int* __restrict__ rows,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale,
+                       const double2* __restrict__ w_nm, double k, int p,
+                       double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (p + 1) * (p + 1);
+  double2* acc = reinterpret_cast<double2*>(smem_raw);        // nc
+  double* jt = reinterpret_cast<double*>(acc + nc);           // (p+1) x warp
+  const int lane = threadIdx.x;
+  const long long box = rows[blockIdx.x];
+  const long long s0 = box_source_starts[box];
+  const int ns = box_source_counts[box];
+  for (int i = lane; i < nc; i += kHelmThreads) acc[i] = make_double2(0, 0);
+  const double cx = centers[box], cy = centers[nboxes + box],
+               cz = centers[2 * nboxes + box];
+  const double s = box_scale[box];
+  __syncwarp();
+
+  for (int sb = 0; sb < ns; sb += kHelmThreads) {
+    const int j = sb + lane;
+    // idle lanes and r = 0 evaluate at direction (0, 0, 1) with k r = 0:
+    // j_n(0) = [n == 0] and A_0^0 = 1, so a source at the centre adds q to
+    // coefficient 0 alone (the reference's zero limit); idle lanes carry
+    // no charge
+    double ux = 0.0, uy = 0.0, uz = 1.0, kr = 0.0;
+    double2 q = make_double2(0.0, 0.0);
+    if (j < ns) {
+      const double x = (sources[s0 + j] - cx) / s * s;
+      const double y = (sources[nsources + s0 + j] - cy) / s * s;
+      const double z = (sources[2 * nsources + s0 + j] - cz) / s * s;
+      const double r2 = x * x + y * y + z * z;
+      q = charges[s0 + j];
+      if (r2 > 0.0) {
+        const double r = sqrt(r2);
+        ux = x / r;
+        uy = y / r;
+        uz = z / r;
+        kr = k * r;
+      }
+    }
+    spherical_jn(kr, p, jt + lane, kHelmThreads);
+    regular_pairs_foreach(
+        ux, uy, uz, p, [&](int n, int m, double a_r, double a_i) {
+          const double jn = jt[n * kHelmThreads + lane];
+          // q j_n conj(A_n^m), summed over the warp
+          const double2 t = cmul(q, make_double2(jn * a_r, -(jn * a_i)));
+          const double vr = warp_sum(t.x), vi = warp_sum(t.y);
+          double ur = 0.0, ui = 0.0;
+          if (m > 0) {
+            // conj(A_n^{-m}) = (-1)^m A_n^m
+            const double sj = (m & 1) ? -jn : jn;
+            const double2 t2 = cmul(q, make_double2(sj * a_r, sj * a_i));
+            ur = warp_sum(t2.x);
+            ui = warp_sum(t2.y);
+          }
+          if (lane == 0) {
+            const int i = n * n + n + m;
+            acc[i].x += vr;
+            acc[i].y += vi;
+            if (m > 0) {
+              acc[i - 2 * m].x += ur;
+              acc[i - 2 * m].y += ui;
+            }
+          }
+        });
+  }
+  __syncwarp();
+  for (int i = lane; i < nc; i += kHelmThreads) {
+    int n = (int)sqrt((double)i);
+    while (n * n > i) --n;
+    while ((n + 1) * (n + 1) <= i) ++n;
+    const double pw = pow(s, -double(n));
+    out[box * nc + i] =
+        cmul(w_nm[i], make_double2(acc[i].x * pw, acc[i].y * pw));
+  }
+}
+
+// }}}
+
+// {{{ K32
+
+__global__ void __launch_bounds__(kHelmThreads)
+l2p_helmholtz3d_kernel(const double* __restrict__ targets,
+                       long long ntargets,
+                       const int* __restrict__ box_target_starts,
+                       const int* __restrict__ box_target_counts,
+                       const int* __restrict__ rows,
+                       const double2* __restrict__ locs,
+                       const double* __restrict__ centers, long long nboxes,
+                       const double* __restrict__ box_scale, double k, int p,
+                       double2* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (p + 1) * (p + 1);
+  double2* sl = reinterpret_cast<double2*>(smem_raw);         // nc
+  double* jt = reinterpret_cast<double*>(sl + nc);            // (p+1) x warp
+  double* geo = jt + (p + 1) * kHelmThreads;                  // centre, s
+  const int lane = threadIdx.x;
+  const long long box = rows[blockIdx.x];
+  const long long t0 = box_target_starts[box];
+  const int nt = box_target_counts[box];
+  for (int i = lane; i < nc; i += kHelmThreads) sl[i] = locs[box * nc + i];
+  if (lane == 0) {
+    geo[0] = centers[box];
+    geo[1] = centers[nboxes + box];
+    geo[2] = centers[2 * nboxes + box];
+    geo[3] = box_scale[box];
+  }
+  __syncthreads();
+  const double s = geo[3];
+
+  for (int ti = lane; ti < nt; ti += kHelmThreads) {
+    const double x = (targets[t0 + ti] - geo[0]) / s * s;
+    const double y = (targets[ntargets + t0 + ti] - geo[1]) / s * s;
+    const double z = (targets[2 * ntargets + t0 + ti] - geo[2]) / s * s;
+    const double r2 = x * x + y * y + z * z;
+    if (!(r2 > 0.0)) {
+      out[t0 + ti] = sl[0];
+      continue;
+    }
+    const double r = sqrt(r2);
+    double* jl = jt + lane;
+    spherical_jn(k * r, p, jl, kHelmThreads);
+    // j_n s^-n
+    for (int n = 0; n <= p; ++n)
+      jl[n * kHelmThreads] *= pow(s, -double(n));
+    double vr = 0.0, vi = 0.0;
+    regular_pairs_foreach(
+        x / r, y / r, z / r, p, [&](int n, int m, double a_r, double a_i) {
+          const double f = jl[n * kHelmThreads];
+          // L_{n,m} j_n s^-n A_n^m
+          const double br = f * a_r, bi = f * a_i;
+          const double2 l = sl[n * n + n + m];
+          vr += l.x * br - l.y * bi;
+          vi += l.x * bi + l.y * br;
+          if (m > 0) {
+            // A_n^{-m} = (-1)^m conj(A_n^m)
+            const double sf = (m & 1) ? -f : f;
+            const double cr = sf * a_r, ci = -(sf * a_i);
+            const double2 l2 = sl[n * n + n - m];
+            vr += l2.x * cr - l2.y * ci;
+            vi += l2.x * ci + l2.y * cr;
+          }
+        });
+    out[t0 + ti] = make_double2(vr, vi);
+  }
+}
+
+// }}}
+
 size_t helmholtz_smem(long long order) {
   return ((order + 1) * (order + 1) + (order + 1) * kHelmThreads) *
              sizeof(double2) +
          4 * sizeof(double);
+}
+
+// K31 (K32 takes 4 doubles more): the box's row and a j_n table a lane
+size_t p2m_l2p_smem(long long order) {
+  return (order + 1) * (order + 1) * sizeof(double2) +
+         (order + 1) * kHelmThreads * sizeof(double);
 }
 
 }  // namespace
@@ -350,6 +534,45 @@ extern "C" int p2l_helmholtz3d_c128(
         (const int*)starts, (const int*)lists, (const double*)centers, nboxes,
         (const double*)box_scale, (const double2*)w_nm, k, (int)order,
         (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int p2m_helmholtz3d_c128(
+    const void* sources, long long nsources, const void* charges,
+    const void* bss, const void* bsc, const void* rows, long long nrows,
+    const void* centers, long long nboxes, const void* box_scale,
+    const void* w_nm, double k, long long order, void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    const size_t smem = p2m_l2p_smem(order);
+    const cudaError_t err = allow_smem(p2m_helmholtz3d_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    p2m_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads, smem,
+                             (cudaStream_t)stream>>>(
+        (const double*)sources, nsources, (const double2*)charges,
+        (const int*)bss, (const int*)bsc, (const int*)rows,
+        (const double*)centers, nboxes, (const double*)box_scale,
+        (const double2*)w_nm, k, (int)order, (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int l2p_helmholtz3d_c128(
+    const void* targets, long long ntargets, const void* bts, const void* btc,
+    const void* rows, long long nrows, const void* locs, const void* centers,
+    long long nboxes, const void* box_scale, double k, long long order,
+    void* out, void* stream) {
+  using namespace boxtree_torch;
+  if (nrows > 0) {
+    const size_t smem = p2m_l2p_smem(order) + 4 * sizeof(double);
+    const cudaError_t err = allow_smem(l2p_helmholtz3d_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    l2p_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads, smem,
+                             (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
+        (const int*)rows, (const double2*)locs, (const double*)centers,
+        nboxes, (const double*)box_scale, k, (int)order, (double2*)out);
   }
   return (int)cudaGetLastError();
 }

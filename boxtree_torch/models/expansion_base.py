@@ -5,8 +5,10 @@ Port of :class:`boxtree_tpu.models.expansion_base.ExpansionWranglerBase`
 
 - P2M and L2P: the hooks ``_p2m`` / ``_l2p``; by default per-particle
   basis evaluation in chunks, ``index_add_`` into the boxes / a gather of
-  the box's local expansion; the 3D Laplace wranglers launch the kernels
-  of :mod:`boxtree_torch.ops.laplace3d` over the rows
+  the box's local expansion; the 3D Laplace and the 3D and 2D Helmholtz
+  wranglers launch the kernels of :mod:`boxtree_torch.ops.laplace3d`,
+  :mod:`~boxtree_torch.ops.helmholtz3d` and
+  :mod:`~boxtree_torch.ops.helmholtz2d` over the rows
   :attr:`_source_rows` / :attr:`_target_rows` (the boxes that own
   particles, on every level) instead;
 - M2M and L2L: per (level, child digit), a gather and one ``torch.matmul``

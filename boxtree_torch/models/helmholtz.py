@@ -6,7 +6,10 @@ H_0^(1)(k |t - s|)``, real k.  Expansions about a box centre, coefficient
 index n over ``-p..p``: multipoles ``phi = sum_n a_n H_n(k r) e^{i n th}``
 with P2M ``a_n = (i/4) sum_j q_j J_n(k r_j) e^{-i n th_j}``, locals ``phi =
 sum_n b_n J_n(k r) e^{i n th}`` with P2L ``b_n = (i/4) q H_n(k r_s) e^{-i n
-th_s}`` (the basis is :func:`boxtree_torch.ops.helmholtz2d.basis`).
+th_s}`` (the basis is :func:`boxtree_torch.ops.helmholtz2d.basis`).  Every
+particle stage runs a kernel of :mod:`boxtree_torch.ops.helmholtz2d` (P2M
+K33, P2P K16, M2P K17, P2L K18, L2P K34), on any k r: their recurrence
+scratch is global memory, not shared.
 
 Translations are Graf's addition theorem, with ``d = c_old - c_new``
 (M2M/L2L) or ``d = c_src - c_tgt`` (M2L):
@@ -72,10 +75,6 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
         root = float(traversal.tree.root_extent)
         xmax = self.k * root * (2.0 * np.sqrt(tree_indep.dim) + 1.0)
         self._nstart = miller_start(p + 2, xmax)
-        if traversal.tree.box_levels.device.type == "cuda":
-            # K17/K18's shared memory grows with the order and the start:
-            # refuse here what they would refuse mid-FMM
-            hops._check_args(self.k, self.dtype, p, self._nstart)
         super().__init__(tree_indep, traversal, **kwargs)
 
     def _ncoeff(self):
@@ -141,17 +140,23 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ particle hooks (helmholtz.py:267-274), plain torch
+    # {{{ P2M / L2P hooks (helmholtz.py:267-274): K33 and K34, over the
+    # boxes that own particles
 
-    def _p2m_terms(self, rel, q, scale):
-        vals, _ = hops.basis(rel, "J", -1, scale, self.k, self.order,
-                             self._nstart)
-        return 0.25j * q[..., None] * vals
+    def _p2m(self, q):
+        tree = self.tree
+        return hops.p2m_helmholtz2d(
+            self._sources, q.contiguous(), tree.box_source_starts,
+            tree.box_source_counts_nonchild, self._source_rows, self.centers,
+            self.box_scale, self.k, self.order, self._nstart)
 
-    def _l2p_eval(self, rel, loc, scale):
-        vals, _ = hops.basis(rel, "J", +1, scale, self.k, self.order,
-                             self._nstart)
-        return (loc * vals).sum(-1)
+    def _l2p(self, local_exps):
+        tree = self.tree
+        return hops.l2p_helmholtz2d(
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, self._target_rows,
+            local_exps.contiguous(), self.centers, self.box_scale, self.k,
+            self.order, self._nstart)
 
     # }}}
 

@@ -12,9 +12,11 @@ unit sphere):
 with ``G = sum_nm w_nm HR_nm(y')* HS_nm(x')``, ``w_nm = 4 pi i k D_nm^2``
 and ``Y_n^m = D_nm A_n^m`` (orthonormal Y).  P2M is ``M_nm += q w_nm
 conj(HR_nm(y - c))``, evaluation ``phi = sum M_nm HS_nm(x - c)``; P2L/L2P
-mirror them with h and j swapped.  Coefficients are rscaled as the
-reference's are (``M~_n = M_n s^-n``, ``L~_n = L_n s^n`` for the level's
-rscale s, ``helmholtz3d.py:188-196``).
+mirror them with h and j swapped.  Every particle stage runs a kernel of
+:mod:`boxtree_torch.ops.helmholtz3d` (P2M K31, P2P K9, M2P K10, P2L K11,
+L2P K32).  Coefficients are rscaled as the reference's are (``M~_n = M_n
+s^-n``, ``L~_n = L_n s^n`` for the level's rscale s,
+``helmholtz3d.py:188-196``).
 
 Translations use the reference's exact Gaunt-series addition theorem
 (``helmholtz3d.py:23-33``)::
@@ -290,23 +292,23 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ particle hooks (helmholtz3d.py:316-339)
+    # {{{ P2M / L2P hooks (helmholtz3d.py:316-339): K31 and K32, over the
+    # boxes that own particles
 
-    def _p2m_terms(self, rel, q, scale):
-        pw = hops.dpow(scale, -1, self.order)
-        r, ok, a = hops.angular(rel * scale, self.order)
-        basis = hops.radial_j(r, self.k, self.order) * torch.conj(a) * pw
-        qw = q[..., None] * self._w_nm
-        # r = 0 exact limit: j_n(0) = delta_n0, A_0^0 = 1 (scale^0 = 1)
-        zero_lim = torch.zeros_like(qw)
-        zero_lim[..., 0] = qw[..., 0]
-        return torch.where(ok[..., None], qw * basis, zero_lim)
+    def _p2m(self, q):
+        tree = self.tree
+        return hops.p2m_helmholtz3d(
+            self._sources, q.contiguous(), tree.box_source_starts,
+            tree.box_source_counts_nonchild, self._source_rows, self.centers,
+            self.box_scale, self._w_nm, self.k, self.order)
 
-    def _l2p_eval(self, rel, loc, scale):
-        pw = hops.dpow(scale, -1, self.order)
-        r, ok, a = hops.angular(rel * scale, self.order)
-        basis = hops.radial_j(r, self.k, self.order) * a * pw
-        return torch.where(ok, (loc * basis).sum(-1), loc[..., 0])
+    def _l2p(self, local_exps):
+        tree = self.tree
+        return hops.l2p_helmholtz3d(
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, self._target_rows,
+            local_exps.contiguous(), self.centers, self.box_scale, self.k,
+            self.order)
 
     # }}}
 

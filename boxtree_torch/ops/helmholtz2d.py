@@ -1,7 +1,7 @@
-"""The particle-pair stages of the 2D Helmholtz FMM: P2P (List 1), M2P
-(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin, in
-complex128 (coordinates float64), and the expansion basis they share with
-the wrangler's P2M and L2P hooks.
+"""The particle stages of the 2D Helmholtz FMM: P2M, P2P (List 1), M2P
+(List 3), P2L (List 4) and L2P, each as a kernel wrapper and its plain
+twin, in complex128 (coordinates float64), over the expansion basis they
+share.
 
 Kernel ``G(t, s) = (i/4) H_0^(1)(k |t - s|)`` for a real wavenumber k.
 Expansions about a box centre ``c``, with ``(r, th)`` the polar form of
@@ -15,10 +15,16 @@ Scaled by the box's rscale s, a multipole coefficient is ``a_n s^-|n|``
 and a local one ``b_n s^|n|``, so the bases carry ``s^+|n|`` (H) and
 ``s^-|n|`` (J).  Each wrapper takes the tree's particle arrays in tree
 order, the per-box particle ranges ``[box_*_starts, +
-box_*_counts_nonchild)`` and a CSR list whose rows name boxes.  On CPU
-tensors it runs the plain PyTorch twin; on CUDA tensors it launches the
-hand-written kernel of ``csrc/helmholtz2d.cu`` or raises.
+box_*_counts_nonchild)`` and either a CSR list whose rows name boxes (the
+list stages) or the rows alone, the boxes that own particles (P2M, L2P).
+On CPU tensors it runs the plain PyTorch twin; on CUDA tensors it launches
+the hand-written kernel of ``csrc/helmholtz2d.cu`` or raises.
 
+- P2M (K33): ``a_n(b) = sum (i/4) q_s J_n(k r) e^{-i n th} s^-|n|`` over
+  the sources box ``b`` owns, the one-hot ``J_n(0) = [n == 0]`` at ``r =
+  0`` (``helmholtz.py:267-269``).
+- L2P (K34): ``phi(t) = sum_n b_n(b) J_n(k r) e^{i n th} s^-|n|``,
+  ``b_0(b)`` at ``r = 0`` (``helmholtz.py:271-273``).
 - P2P: ``phi(t) = sum q_s (i/4) H_0(k r)``, ``r = 0`` skipped
   (``helmholtz.py:284-294``).
 - M2P: ``phi(t) += sum_n a_n(b) H_n(k r) e^{i n th} s^|n|`` with ``r e^{i
@@ -27,10 +33,16 @@ hand-written kernel of ``csrc/helmholtz2d.cu`` or raises.
   = ((x_s - c_b) / s) s`` (``helmholtz.py:279-282``).
 
 ``s`` is the box's rscale (the source box's for M2P, the target box's for
-P2L); the hooks of the reference receive ``rel`` divided by it and work on
-``rel * s``, which the twins and the kernels repeat.  *nstart* is the
-start order of the J recurrence (:func:`~boxtree_torch.ops.
-cylinder_bessel.miller_start` of the wrangler's bound on ``k r``).
+P2L, the particle's own box's for P2M and L2P); the hooks of the reference
+receive ``rel`` divided by it and work on ``rel * s``, which the twins and
+the kernels repeat.  *nstart* is the start order of the J recurrence
+(:func:`~boxtree_torch.ops.cylinder_bessel.miller_start` of the wrangler's
+bound on ``k r``).  K17, K18, K33 and K34 keep the recurrence's ratios in
+a global scratch buffer, one column a thread of a fixed grid whose CTAs
+take rows from a counter (:func:`launch_grid`, :func:`scratch_bytes`), so
+a large ``k r`` costs memory traffic but is never refused; only their
+tables of ``2p + 1`` or ``p + 1`` values a lane stay in shared memory
+(:func:`smem_bytes`).
 """
 
 from __future__ import annotations
@@ -39,16 +51,31 @@ import torch
 
 from boxtree_torch.ops import kernels
 from boxtree_torch.ops.cylinder_bessel import cylindrical_jy, even_start
-from boxtree_torch.ops.laplace3d import _blocks, _edges, _max_count
+from boxtree_torch.ops.laplace3d import (
+    _blocks,
+    _edges,
+    _max_count,
+    _row_particles,
+)
 
-#: element budget of one chunk's largest temporary in the plain twins
-#: (the J recurrence keeps ~nstart temporaries of it alive)
-_PLAIN_CHUNK_ELEMS = 1 << 21
+#: budget of one chunk of the plain twins in elements times recurrence
+#: steps: the J recurrence keeps ~nstart temporaries of its argument alive
+_PLAIN_CHUNK_WORK = 1 << 27
 #: the kernels' threads per CTA (one warp), as in csrc/helmholtz2d.cu
 _KERNEL_THREADS = 32
+#: CTAs a streaming multiprocessor of the fixed grid that K17, K18, K33 and
+#: K34 take their rows with (twice what shared memory let K17 / K18 keep
+#: resident when their scratch lived there: more warps to hide the
+#: recurrence's latency)
+_CTAS_PER_SM = 16
 
 
-# {{{ the basis, shared with the wrangler's P2M / L2P hooks
+def _plain_chunk(width, order, nstart):
+    """Rows of *width* elements a plain twin takes at once."""
+    return max(1, _PLAIN_CHUNK_WORK // (width * even_start(nstart, order)))
+
+
+# {{{ the basis and the per-particle terms of each stage
 
 def coeff_orders(order, device):
     """The coefficient index ``n = -p..p`` as an int64 tensor."""
@@ -104,34 +131,75 @@ def p2l_terms(rel, q, scale, k, order, nstart):
     vals, ok = basis(rel, "H", -1, scale, k, order, nstart)
     return torch.where(ok[..., None], 0.25j * q[..., None] * vals, 0)
 
+
+def p2m_terms(rel, q, scale, k, order, nstart):
+    """Multipole coefficients of charges *q* at offsets *rel* pre-divided
+    by *scale* (``helmholtz.py:267-269``)."""
+    vals, _ = basis(rel, "J", -1, scale, k, order, nstart)
+    return 0.25j * q[..., None] * vals
+
+
+def l2p_eval(rel, loc, scale, k, order, nstart):
+    """Potentials of locals *loc* at offsets *rel* pre-divided by *scale*
+    (``helmholtz.py:271-273``)."""
+    vals, _ = basis(rel, "J", +1, scale, k, order, nstart)
+    return (loc * vals).sum(-1)
+
 # }}}
 
 
-def smem_bytes(name, order, nstart):
-    """Shared memory of one CTA of K17 (``"m2p"``) or K18 (``"p2l"``), as
-    ``csrc/helmholtz2d.cu`` sizes it: the ratio scratch of the J recurrence
-    and the H table, one column per thread, and the box's multipole and
-    geometry (K17) or each thread's terms and their sums (K18)."""
+def smem_bytes(name, order):
+    """Shared memory of one CTA of K17 (``"m2p"``), K18 (``"p2l"``), K33
+    (``"p2m"``) or K34 (``"l2p"``), as ``csrc/helmholtz2d.cu`` sizes it: a
+    table of the p + 1 radial values (H: complex; J: real) a thread, and
+    the box's expansion and geometry (K17, K34), each thread's terms and
+    their sums (K18), or the box's sums (K33)."""
     nc = 2 * order + 1
-    scratch = (even_start(nstart, order) + 1) * _KERNEL_THREADS * 8
-    table = (order + 1) * _KERNEL_THREADS * 16
-    if name == "p2l":
-        return scratch + table + nc * (_KERNEL_THREADS + 1) * 16
-    return scratch + table + nc * 16 + 3 * 8
+    if name in ("m2p", "p2l"):
+        table = (order + 1) * _KERNEL_THREADS * 16
+        if name == "p2l":
+            return table + nc * (_KERNEL_THREADS + 1) * 16
+        return table + nc * 16 + 3 * 8
+    table = (order + 1) * _KERNEL_THREADS * 8
+    return table + nc * 16 + (3 * 8 if name == "l2p" else 0)
 
 
-def _check_args(k, dtype, order=None, nstart=None):
+def launch_grid(device, nrows):
+    """CTAs of the fixed grid K17, K18, K33 and K34 launch over *nrows*
+    rows on *device*: a few an SM, never more than the rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(int(nrows), _CTAS_PER_SM * sms)
+
+
+def scratch_bytes(grid, order, nstart):
+    """Bytes of the ratio scratch of one launch on *grid* CTAs: the
+    recurrence's ``even_start(nstart, order)`` ratios for each thread."""
+    return even_start(nstart, order) * grid * _KERNEL_THREADS * 8
+
+
+def _launch_scratch(device, nrows, order, nstart):
+    """``(grid, scratch, counter)`` of one launch: the grid, its ratio
+    buffer, ``(ns, grid x 32)`` float64, one column a thread, and the
+    zeroed int32 counter its CTAs take rows from."""
+    grid = launch_grid(device, nrows)
+    ns = even_start(nstart, order)
+    return (grid, torch.empty((ns, grid * _KERNEL_THREADS),
+                              dtype=torch.float64, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def _check_args(k, dtype, order=None):
     if dtype != torch.complex128:
         raise TypeError(f"the Helmholtz kernels take complex128, not {dtype}")
     if not isinstance(k, float):
         raise TypeError("the Helmholtz kernels take a real wavenumber")
     if order is not None:
-        smem = max(smem_bytes(name, order, nstart) for name in ("m2p", "p2l"))
+        smem = max(smem_bytes(name, order)
+                   for name in ("m2p", "p2l", "p2m", "l2p"))
         if smem > kernels.SMEM_MAX:
             raise ValueError(
-                f"order {order} with a recurrence from {nstart} needs {smem} "
-                "bytes of shared memory per CTA; the kernels take up to "
-                "227 KiB")
+                f"order {order} needs {smem} bytes of shared memory per "
+                "CTA; the kernels take up to 227 KiB")
 
 
 # {{{ P2P
@@ -147,7 +215,7 @@ def p2p_helmholtz2d_plain(targets, sources, charges, box_target_starts,
         return out
     pt = _max_count(box_target_counts_nonchild, tbox)
     ps = _max_count(box_source_counts_nonchild, sbox)
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * ps))
+    chunk = _plain_chunk(pt * ps, 0, nstart)
     for c0 in range(0, tbox.shape[0], chunk):
         tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
         tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
@@ -209,7 +277,7 @@ def m2p_helmholtz2d_plain(targets, box_target_starts,
     if tbox.numel() == 0:
         return out
     pt = _max_count(box_target_counts_nonchild, tbox)
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // (pt * (2 * order + 1)))
+    chunk = _plain_chunk(pt * (2 * order + 1), order, nstart)
     for c0 in range(0, tbox.shape[0], chunk):
         tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
         tidx, tmask = _blocks(box_target_starts, box_target_counts_nonchild,
@@ -232,7 +300,7 @@ def m2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
             starts, lists, mpoles, centers, box_scale)
     if targets.device.type == "cpu":
         return m2p_helmholtz2d_plain(*args, k, order, nstart)
-    _check_args(k, mpoles.dtype, order, nstart)
+    _check_args(k, mpoles.dtype, order)
     kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
     kernels.check_tensors(mpoles, dtype=torch.complex128)
     kernels.check_tensors(*args[1:6], dtype=torch.int32)
@@ -242,11 +310,13 @@ def m2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
                       device=targets.device)
     if lists.numel() == 0:
         return out
+    grid, scratch, counter = _launch_scratch(targets.device, rows.shape[0],
+                                             order, nstart)
     kernels.launch(
         "m2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
         box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
         starts, lists, mpoles, centers, centers.shape[1], box_scale, k,
-        order, even_start(nstart, order), out)
+        order, even_start(nstart, order), grid, scratch, counter, out)
     return out
 
 # }}}
@@ -262,7 +332,7 @@ def p2l_helmholtz2d_plain(sources, charges, box_source_starts,
     if tbox.numel() == 0:
         return out
     ps = _max_count(box_source_counts_nonchild, sbox)
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // (ps * (2 * order + 1)))
+    chunk = _plain_chunk(ps * (2 * order + 1), order, nstart)
     for c0 in range(0, tbox.shape[0], chunk):
         tb, sb_ = tbox[c0:c0 + chunk], sbox[c0:c0 + chunk]
         sidx, smask = _blocks(box_source_starts, box_source_counts_nonchild,
@@ -288,7 +358,7 @@ def p2l_helmholtz2d(sources, charges, box_source_starts,
             box_scale)
     if sources.device.type == "cpu":
         return p2l_helmholtz2d_plain(*args, k, order, nstart, out)
-    _check_args(k, out.dtype, order, nstart)
+    _check_args(k, out.dtype, order)
     kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
     kernels.check_tensors(charges, out, dtype=torch.complex128)
     kernels.check_tensors(*args[2:7], dtype=torch.int32)
@@ -296,11 +366,112 @@ def p2l_helmholtz2d(sources, charges, box_source_starts,
         raise ValueError("out must be (nboxes, 2 * order + 1)")
     if lists.numel() == 0:
         return out
+    grid, scratch, counter = _launch_scratch(sources.device, rows.shape[0],
+                                             order, nstart)
     kernels.launch(
         "p2l_helmholtz2d", torch.complex128, sources, sources.shape[1],
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
-        k, order, even_start(nstart, order), out)
+        k, order, even_start(nstart, order), grid, scratch, counter, out)
+    return out
+
+# }}}
+
+
+# {{{ P2M / L2P
+
+def p2m_helmholtz2d_plain(sources, charges, box_source_starts,
+                          box_source_counts_nonchild, rows, centers,
+                          box_scale, k, order, nstart):
+    """Plain twin of :func:`p2m_helmholtz2d`."""
+    nc = 2 * order + 1
+    out = charges.new_zeros((centers.shape[1], nc))
+    idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
+                              rows)
+    chunk = _plain_chunk(nc, order, nstart)
+    for c0 in range(0, idx.shape[0], chunk):
+        i, b = idx[c0:c0 + chunk], box[c0:c0 + chunk]
+        s = box_scale[b]
+        rel = (sources[:, i] - centers[:, b]) / s
+        out.index_add_(0, b, p2m_terms(rel, charges[i], s, k, order,
+                                       nstart))
+    return out
+
+
+def p2m_helmholtz2d(sources, charges, box_source_starts,
+                    box_source_counts_nonchild, rows, centers, box_scale, k,
+                    order, nstart):
+    """Multipoles ``(nboxes, 2 order + 1)`` complex128 of the tree-order
+    sources that the boxes *rows* own (their nonchild ranges, each box at
+    most once); the other boxes' rows are zero.  The K33 kernel on CUDA
+    tensors."""
+    args = (sources, charges, box_source_starts,
+            box_source_counts_nonchild, rows, centers, box_scale)
+    if sources.device.type == "cpu":
+        return p2m_helmholtz2d_plain(*args, k, order, nstart)
+    _check_args(k, charges.dtype, order)
+    kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(charges, dtype=torch.complex128)
+    kernels.check_tensors(box_source_starts, box_source_counts_nonchild,
+                          rows, dtype=torch.int32)
+    out = torch.zeros((centers.shape[1], 2 * order + 1),
+                      dtype=torch.complex128, device=sources.device)
+    if rows.numel() == 0:
+        return out
+    grid, scratch, counter = _launch_scratch(sources.device, rows.shape[0],
+                                             order, nstart)
+    kernels.launch(
+        "p2m_helmholtz2d", torch.complex128, sources, sources.shape[1],
+        charges, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], centers, centers.shape[1], box_scale, k, order,
+        even_start(nstart, order), grid, scratch, counter, out)
+    return out
+
+
+def l2p_helmholtz2d_plain(targets, box_target_starts,
+                          box_target_counts_nonchild, rows, local_exps,
+                          centers, box_scale, k, order, nstart):
+    """Plain twin of :func:`l2p_helmholtz2d`."""
+    out = local_exps.new_zeros(targets.shape[1])
+    idx, box = _row_particles(box_target_starts, box_target_counts_nonchild,
+                              rows)
+    chunk = _plain_chunk(local_exps.shape[1], order, nstart)
+    for c0 in range(0, idx.shape[0], chunk):
+        i, b = idx[c0:c0 + chunk], box[c0:c0 + chunk]
+        s = box_scale[b]
+        rel = (targets[:, i] - centers[:, b]) / s
+        out[i] = l2p_eval(rel, local_exps[b], s, k, order, nstart)
+    return out
+
+
+def l2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
+                    rows, local_exps, centers, box_scale, k, order, nstart):
+    """Potentials (tree-order targets) of the complex128 local expansions
+    *local_exps* at the targets that the boxes *rows* own (their nonchild
+    ranges, each box at most once); the other targets' are zero.  The K34
+    kernel on CUDA tensors."""
+    args = (targets, box_target_starts, box_target_counts_nonchild, rows,
+            local_exps, centers, box_scale)
+    if targets.device.type == "cpu":
+        return l2p_helmholtz2d_plain(*args, k, order, nstart)
+    _check_args(k, local_exps.dtype, order)
+    kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(local_exps, dtype=torch.complex128)
+    kernels.check_tensors(box_target_starts, box_target_counts_nonchild,
+                          rows, dtype=torch.int32)
+    if local_exps.shape != (centers.shape[1], 2 * order + 1):
+        raise ValueError("local_exps must be (nboxes, 2 * order + 1)")
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    if rows.numel() == 0:
+        return out
+    grid, scratch, counter = _launch_scratch(targets.device, rows.shape[0],
+                                             order, nstart)
+    kernels.launch(
+        "l2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
+        box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
+        local_exps, centers, centers.shape[1], box_scale, k, order,
+        even_start(nstart, order), grid, scratch, counter, out)
     return out
 
 # }}}

@@ -1,16 +1,22 @@
-"""The particle-pair stages of the 3D Helmholtz FMM: P2P (List 1), M2P
-(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin, in
-complex128 (coordinates float64).
+"""The particle stages of the 3D Helmholtz FMM: P2M, P2P (List 1), M2P
+(List 3), P2L (List 4) and L2P, each as a kernel wrapper and its plain
+twin, in complex128 (coordinates float64).
 
 Kernel ``G(t, s) = exp(ik|t - s|) / |t - s|`` for a real wavenumber k; the
 basis is that of :mod:`boxtree_torch.models.helmholtz3d`: ``h_n(k r)
 A_n^m(u)`` with ``A_n^m`` the regular solid harmonics on the unit sphere.
 Each wrapper takes the tree's particle arrays in tree order, the per-box
-particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and a CSR list
-whose rows name boxes.  On CPU tensors it runs the plain PyTorch twin; on
-CUDA tensors it launches the hand-written kernel of
+particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and either a
+CSR list whose rows name boxes (the list stages) or the rows alone, the
+boxes that own particles (P2M, L2P).  On CPU tensors it runs the plain
+PyTorch twin; on CUDA tensors it launches the hand-written kernel of
 ``csrc/helmholtz3d.cu`` or raises.
 
+- P2M (K31): ``M_nm(b) = sum q_s w_nm j_n(k r) s^-n conj(A_n^m(u))`` over
+  the sources box ``b`` owns, ``q w_00`` at ``n = 0`` alone for ``r = 0``
+  (``helmholtz3d.py:316-328``).
+- L2P (K32): ``phi(t) = sum L_nm(b) j_n(k r) s^-n A_n^m(u)``, ``L_00(b)``
+  at ``r = 0`` (``helmholtz3d.py:330-339``).
 - P2P: ``phi(t) = sum q_s exp(ik r)/r``, ``r = 0`` skipped
   (``boxtree_tpu/models/helmholtz3d.py:362-368``).
 - M2P: ``phi(t) += sum M_nm(b) h_n(k r) s^n A_n^m(u)`` with ``r u = ((t -
@@ -19,8 +25,9 @@ CUDA tensors it launches the hand-written kernel of
   = ((x_s - c_b) / s) s`` (``helmholtz3d.py:351-360``).
 
 ``s`` is the box's rscale (the source box's for M2P, the target box's for
-P2L); the hooks of the reference receive ``rel`` divided by it and work on
-``rel * s``, which the twins and the kernels repeat.
+P2L, the particle's own box's for P2M and L2P); the hooks of the reference
+receive ``rel`` divided by it and work on ``rel * s``, which the twins and
+the kernels repeat.
 """
 
 from __future__ import annotations
@@ -30,7 +37,13 @@ import torch
 from boxtree_torch.ops import kernels
 from boxtree_torch.ops import solid_harmonics as sh
 from boxtree_torch.ops import spherical_bessel as sb
-from boxtree_torch.ops.laplace3d import _blocks, _edges, _max_count
+from boxtree_torch.ops.laplace3d import (
+    _blocks,
+    _edges,
+    _max_count,
+    _row_chunks,
+    _row_particles,
+)
 
 #: element budget of one chunk's largest temporary in the plain twins
 _PLAIN_CHUNK_ELEMS = 1 << 23
@@ -38,7 +51,7 @@ _PLAIN_CHUNK_ELEMS = 1 << 23
 _KERNEL_THREADS = 32
 
 
-# {{{ the basis, shared with the wrangler's P2M / L2P hooks
+# {{{ the basis and the per-particle terms of each stage
 
 def angular(rel, order):
     """``(r, ok, A)`` of (3, ...) offsets: the length, ``r > 0``, and the
@@ -74,6 +87,28 @@ def dpow(scale, sign, order):
     """``scale^(sign n)`` over the coefficient axis."""
     n = nm_orders(order, scale.device).to(scale.dtype)
     return scale[..., None] ** (sign * n)
+
+
+def p2m_terms(rel, q, scale, w_nm, k, order):
+    """Multipole coefficients of charges *q* at offsets *rel* pre-divided
+    by *scale*; ``q w_00`` at ``n = 0`` alone where ``r = 0``, the exact
+    limit (``helmholtz3d.py:316-328``)."""
+    pw = dpow(scale, -1, order)
+    r, ok, a = angular(rel * scale, order)
+    basis = radial_j(r, k, order) * torch.conj(a) * pw
+    qw = q[..., None] * w_nm
+    zero_lim = torch.zeros_like(qw)
+    zero_lim[..., 0] = qw[..., 0]
+    return torch.where(ok[..., None], qw * basis, zero_lim)
+
+
+def l2p_eval(rel, loc, scale, k, order):
+    """Potentials of locals *loc* at offsets *rel* pre-divided by *scale*;
+    ``loc[..., 0]`` where ``r = 0`` (``helmholtz3d.py:330-339``)."""
+    pw = dpow(scale, -1, order)
+    r, ok, a = angular(rel * scale, order)
+    basis = radial_j(r, k, order) * a * pw
+    return torch.where(ok, (loc * basis).sum(-1), loc[..., 0])
 
 
 def m2p_eval(rel, mp, scale, k, order):
@@ -279,6 +314,101 @@ def p2l_helmholtz3d(sources, charges, box_source_starts,
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
         w_nm, k, order, out)
+    return out
+
+# }}}
+
+
+# {{{ P2M / L2P
+
+def p2m_helmholtz3d_plain(sources, charges, box_source_starts,
+                          box_source_counts_nonchild, rows, centers,
+                          box_scale, w_nm, k, order):
+    """Plain twin of :func:`p2m_helmholtz3d`."""
+    kc = sh.ncoeffs(order)
+    out = charges.new_zeros((centers.shape[1], kc))
+    idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
+                              rows)
+    for c in _row_chunks(idx.shape[0], kc):
+        i, b = idx[c], box[c]
+        s = box_scale[b]
+        rel = (sources[:, i] - centers[:, b]) / s
+        out.index_add_(0, b, p2m_terms(rel, charges[i], s, w_nm, k, order))
+    return out
+
+
+def p2m_helmholtz3d(sources, charges, box_source_starts,
+                    box_source_counts_nonchild, rows, centers, box_scale,
+                    w_nm, k, order):
+    """Multipoles ``(nboxes, (order+1)^2)`` complex128 of the tree-order
+    sources that the boxes *rows* own (their nonchild ranges, each box at
+    most once); the other boxes' rows are zero.  *w_nm* is the
+    ``(order+1)^2`` complex weight ``4 pi i k D^2``.  The K31 kernel on
+    CUDA tensors."""
+    args = (sources, charges, box_source_starts,
+            box_source_counts_nonchild, rows, centers, box_scale, w_nm)
+    if sources.device.type == "cpu":
+        return p2m_helmholtz3d_plain(*args, k, order)
+    _check_args(k, order, charges.dtype)
+    kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(charges, w_nm, dtype=torch.complex128)
+    kernels.check_tensors(box_source_starts, box_source_counts_nonchild,
+                          rows, dtype=torch.int32)
+    kc = sh.ncoeffs(order)
+    if w_nm.shape != (kc,):
+        raise ValueError("w_nm must be ((order + 1)**2,)")
+    out = torch.zeros((centers.shape[1], kc), dtype=torch.complex128,
+                      device=sources.device)
+    if rows.numel() == 0:
+        return out
+    kernels.launch(
+        "p2m_helmholtz3d", torch.complex128, sources, sources.shape[1],
+        charges, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], centers, centers.shape[1], box_scale, w_nm, k, order,
+        out)
+    return out
+
+
+def l2p_helmholtz3d_plain(targets, box_target_starts,
+                          box_target_counts_nonchild, rows, local_exps,
+                          centers, box_scale, k, order):
+    """Plain twin of :func:`l2p_helmholtz3d`."""
+    out = local_exps.new_zeros(targets.shape[1])
+    idx, box = _row_particles(box_target_starts, box_target_counts_nonchild,
+                              rows)
+    for c in _row_chunks(idx.shape[0], local_exps.shape[1]):
+        i, b = idx[c], box[c]
+        s = box_scale[b]
+        rel = (targets[:, i] - centers[:, b]) / s
+        out[i] = l2p_eval(rel, local_exps[b], s, k, order)
+    return out
+
+
+def l2p_helmholtz3d(targets, box_target_starts, box_target_counts_nonchild,
+                    rows, local_exps, centers, box_scale, k, order):
+    """Potentials (tree-order targets) of the complex128 local expansions
+    *local_exps* at the targets that the boxes *rows* own (their nonchild
+    ranges, each box at most once); the other targets' are zero.  The K32
+    kernel on CUDA tensors."""
+    args = (targets, box_target_starts, box_target_counts_nonchild, rows,
+            local_exps, centers, box_scale)
+    if targets.device.type == "cpu":
+        return l2p_helmholtz3d_plain(*args, k, order)
+    _check_args(k, order, local_exps.dtype)
+    kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
+    kernels.check_tensors(local_exps, dtype=torch.complex128)
+    kernels.check_tensors(box_target_starts, box_target_counts_nonchild,
+                          rows, dtype=torch.int32)
+    if local_exps.shape != (centers.shape[1], sh.ncoeffs(order)):
+        raise ValueError("local_exps must be (nboxes, (order + 1)**2)")
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    if rows.numel() == 0:
+        return out
+    kernels.launch(
+        "l2p_helmholtz3d", torch.complex128, targets, targets.shape[1],
+        box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
+        local_exps, centers, centers.shape[1], box_scale, k, order, out)
     return out
 
 # }}}

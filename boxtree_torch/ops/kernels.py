@@ -59,8 +59,8 @@ SIGNATURES = {
     "list4_ext": "piippppppipddippppppip",
     "list3_ext": "iipppppppppddpiiiipppppp",
     "p2p_helmholtz2d": "pipippppppippdpp",
-    "m2p_helmholtz2d": "pipppippppipdiipp",
-    "p2l_helmholtz2d": "pippppipppipdiipp",
+    "m2p_helmholtz2d": "pipppippppipdiiipppp",
+    "p2l_helmholtz2d": "pippppipppipdiiipppp",
     "p2p_laplace2d": "pipippppppipppp",
     "m2p_laplace2d": "pipppippppipipp",
     "p2l_laplace2d": "pippppipppipipp",
@@ -73,6 +73,10 @@ SIGNATURES = {
     "p2m_laplace3d": "pippppipipipp",
     "p2m_laplace3d_dipole": "pipppppipipipp",
     "l2p_laplace3d": "pipppippipipp",
+    "p2m_helmholtz3d": "pippppipippdipp",
+    "l2p_helmholtz3d": "pipppippipdipp",
+    "p2m_helmholtz2d": "pippppipipdiiipppp",
+    "l2p_helmholtz2d": "pipppippipdiiipppp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -113,6 +117,10 @@ DTYPES = {
     "p2m_laplace3d": (*_FLOATS, torch.complex128),
     "p2m_laplace3d_dipole": (*_FLOATS, torch.complex128),
     "l2p_laplace3d": (*_FLOATS, torch.complex128),
+    "p2m_helmholtz3d": (torch.complex128,),
+    "l2p_helmholtz3d": (torch.complex128,),
+    "p2m_helmholtz2d": (torch.complex128,),
+    "l2p_helmholtz2d": (torch.complex128,),
 }
 
 

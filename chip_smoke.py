@@ -20,7 +20,7 @@ paths of the port on the card, each with the kernels' launch counts set to
   to a float64 brute force or an oracle (K1, K5-K8);
 - the 3D Helmholtz FMM (complex128, order 12, k = 2, ``rscale="auto"``) at
   1e6 uniform points in float64, checked against a complex128 direct sum
-  at 2,000 sampled targets (K1, K9-K11);
+  at 2,000 sampled targets (K1, K9-K11, K31 P2M, K32 L2P);
 - the QBX extent tree: Config B's 1e6 sphere points as sources and 1e5
   QBX-like centres with radii as targets (stick-out factor 0.25), the
   traversal with its close lists, the counting FMM exact with the close
@@ -31,7 +31,11 @@ paths of the port on the card, each with the kernels' launch counts set to
   1e6 float64 points in the unit square, 4/15 of them clustered in
   [0.4, 0.5]^2, checked against a complex128 direct sum of ``(i/4) H_0``
   at 2,000 sampled targets, taken with ``torch.special``'s ``j0``/``y0``
-  (held to ``scipy.special.hankel1`` first) (K1, K16-K18);
+  (held to ``scipy.special.hankel1`` first) (K1, K16-K18, K33 P2M, K34
+  L2P); then the 2D wrangler at order 16 and k = 200 on 2e4 such points
+  (a J recurrence from 954, past the 227 KiB a CTA that K17 / K18 once
+  needed): its FMM, finite, and K17, K18, K33 and K34 against their twins
+  at its inputs;
 - the 2D Laplace FMM (order 20, ``rscale="auto"``), complex128 and float64
   pairs on one tree, at 1e6 float64 points in the unit square, 24 % of
   them in [0.45, 0.55]^2, with real charges: the real parts against a
@@ -57,7 +61,10 @@ twins bit for bit on the main-path, Config B, extent and 2D Laplace
 trees.  The ``kernels_p2m_l2p`` lines hold K28-K30 against their twins at
 the main path's, the extent path's and the double layer's inputs (each
 box's multipole row to its own largest value; the twin of K29, a
-``torch.func.jvp``, timed in one call).
+``torch.func.jvp``, timed in one call); the ``kernels_p2m_l2p_helmholtz``
+lines K31-K34 at the 1e6 Helmholtz paths' inputs (each coefficient column
+to its own largest value), and each Helmholtz FMM must launch its P2M and
+L2P kernels once.
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21 and the 3D Laplace kernels at 1e5
@@ -110,6 +117,10 @@ REPLACES = {
     "p2m_laplace3d": "boxtree_tpu/models/expansion_base.py:652",
     "p2m_laplace3d_dipole": "boxtree_tpu/models/expansion_base.py:664",
     "l2p_laplace3d": "boxtree_tpu/models/expansion_base.py:1793",
+    "p2m_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:316",
+    "l2p_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:330",
+    "p2m_helmholtz2d": "boxtree_tpu/models/helmholtz.py:267",
+    "l2p_helmholtz2d": "boxtree_tpu/models/helmholtz.py:271",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -142,6 +153,10 @@ SOURCES = {
     "p2m_laplace3d": "boxtree_torch/csrc/p2m.cu",
     "p2m_laplace3d_dipole": "boxtree_torch/csrc/p2m.cu",
     "l2p_laplace3d": "boxtree_torch/csrc/l2p.cu",
+    "p2m_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
+    "l2p_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
+    "p2m_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
+    "l2p_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
 }
 #: K24-K27, launched by every traversal; the extent tree's Lists 3 and 4
 #: come from K14/K15 instead of K26
@@ -158,11 +173,14 @@ EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
                   *EXTENT_TRAVERSAL_KERNELS, "list4_ext", "list3_ext",
                   "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
                   *P2M_L2P_KERNELS)
+#: K31 and K32 (K33 and K34), launched once by each 3D (2D) Helmholtz FMM
+HELMHOLTZ_P2M_L2P = ("p2m_helmholtz3d", "l2p_helmholtz3d")
+HELMHOLTZ2D_P2M_L2P = ("p2m_helmholtz2d", "l2p_helmholtz2d")
 HELMHOLTZ_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_helmholtz3d",
-                     "m2p_helmholtz3d", "p2l_helmholtz3d")
+                     "m2p_helmholtz3d", "p2l_helmholtz3d", *HELMHOLTZ_P2M_L2P)
 HELMHOLTZ2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
                        "p2p_helmholtz2d", "m2p_helmholtz2d",
-                       "p2l_helmholtz2d")
+                       "p2l_helmholtz2d", *HELMHOLTZ2D_P2M_L2P)
 LAPLACE2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace2d",
                      "m2p_laplace2d", "p2l_laplace2d")
 LAPLACE3D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
@@ -182,6 +200,11 @@ HELMHOLTZ_KERNEL_RTOL = 1e-10
 #: rel l-inf bound of the order-12 Helmholtz FMM against the complex128
 #: direct sum (``tests/test_helmholtz3d.py:94-112``'s bar)
 HELMHOLTZ_FMM_RTOL = 1e-5
+#: rel l-inf tolerance of K31-K34 (P2M and L2P of the 3D and 2D Helmholtz
+#: wranglers) against their twins, multipoles per coefficient column:
+#: float64, the recurrences with FMA contraction (K31, K32) or without
+#: (K33, K34, the twin's step for step), the warp sums in another order
+HELMHOLTZ_P2M_L2P_RTOL = 1e-12
 
 #: rel l-inf tolerance of K16-K18 against their twins: float64; K16's H_0
 #: comes from CUDA's j0/y0 (a few ulp), K17/K18 repeat the twin's
@@ -1198,12 +1221,129 @@ def helmholtz_work(inputs):
     return out
 
 
+def helmholtz_p2m_l2p_inputs(w, q_tree):
+    """K31 and K32 (a 3D wrangler *w*) or K33 and K34 (2D): wrappers, plain
+    twins and arguments at the shapes the Helmholtz FMM of *w* gives them,
+    L2P at this FMM's locals."""
+    from boxtree_torch.ops import helmholtz2d, helmholtz3d
+
+    mod = helmholtz3d if w.dim == 3 else helmholtz2d
+    tree = w.tree
+    tail = (w.k, w.order) if w.dim == 3 else (w.k, w.order, w._nstart)
+    w_nm = (w._w_nm,) if w.dim == 3 else ()
+    args = {
+        "p2m": (w._sources, q_tree, tree.box_source_starts,
+                tree.box_source_counts_nonchild, w._source_rows, w.centers,
+                w.box_scale, *w_nm, *tail),
+        "l2p": (w._targets, tree.box_target_starts,
+                tree.box_target_counts_nonchild, w._target_rows,
+                fmm_locals(w, q_tree).contiguous(), w.centers, w.box_scale,
+                *tail)}
+    out = {}
+    for stage, a in args.items():
+        name = f"{stage}_helmholtz{w.dim}d"
+        out[name] = (getattr(mod, name), getattr(mod, f"{name}_plain"), a)
+    return out
+
+
+def helmholtz_p2m_l2p_work(inputs):
+    """Bytes K31-K34 must move and the float64 operations they must do at
+    *inputs*: each particle of the rows once (coordinates and charge, or
+    coordinates read and potential written), each row box's range, centre
+    and scale once, L2P's local rows read once, P2M's whole multipole array
+    written once (and K31's ``w_nm`` read).  Per particle:
+
+    - 3D (``nc = (p + 1)^2``): the ``j_n`` recurrence (3 per step of ``p +
+      25`` down, 1 per step of ``p`` up), the harmonics (10 per ``(n, m >=
+      0)``), 10 per coefficient (K31: ``j_n`` times the conjugate harmonic
+      2, times ``q`` 6, summed 2; K32: ``j_n s^-n`` times the harmonic 2,
+      times the local coefficient and added 8) and K32's 1 per order (the
+      ``s^-n`` scaling); K31 then 8 per coefficient of each row (``s^-n``
+      and ``w_nm``);
+    - 2D (``nc = 2p + 1``, ``ns`` the even start): the offset and its
+      norm 9, the J recurrence (4 per step down, 1 per product, 2 per even
+      order for the Neumann sum, 1 per order ``J_n``); per order ``m``, for
+      ``+m`` and for ``-m`` each, 10 (K33: ``J`` times the phase and
+      ``s^-m`` 4, times ``(i/4) q`` 6) or 12 (K34: 4, then the complex
+      multiply-add 8).
+
+    ``log``, ``sincos``, ``pow`` and ``atan2`` are not counted."""
+    import torch
+
+    from boxtree_torch.ops.cylinder_bessel import even_start
+
+    out = {}
+    for name, (_, _, args) in inputs.items():
+        pts = args[0]
+        dim = pts.shape[0]
+        p2m = name.startswith("p2m_")
+        starts, counts, rows = args[2:5] if p2m else args[1:4]
+        centers = args[5]
+        order = args[-1] if dim == 3 else args[-2]
+        npart = int(counts.to(torch.int64)[rows.to(torch.int64)].sum())
+        nrows = int(rows.numel())
+        per_row = (starts.element_size() + counts.element_size()
+                   + dim * centers.element_size() + 8)
+        per_part = dim * pts.element_size() + 16
+        if dim == 3:
+            nc = (order + 1) ** 2
+            flops = (3 * (order + 25) + order
+                     + 10 * (order + 1) * (order + 2) // 2 + 10 * nc)
+            flops = flops * npart + (8 * nc * nrows if p2m
+                                     else (order + 1) * npart)
+        else:
+            nc = 2 * order + 1
+            ns = even_start(args[-1], order)
+            per_order = 10 if p2m else 12
+            flops = (9 + 5 * ns + 2 * (ns // 2) + (order + 1)
+                     + per_order * (2 * order + 1)) * npart
+        if p2m:
+            written = centers.shape[1] * nc * 16 + (nc * 16 if dim == 3
+                                                     else 0)
+        else:
+            written = 0
+            per_row += nc * 16
+        out[name] = dict(
+            type="float64", particles=npart, rows=nrows, coefficients=nc,
+            flops=flops,
+            bytes=npart * per_part + nrows * per_row + nbytes(rows)
+            + written)
+    return out
+
+
+def check_p2m_l2p_helmholtz(card, device, path, w, q_tree, plain_reps=3):
+    """K31 / K32 or K33 / K34 against their twins at the inputs of wrangler
+    *w*'s FMM (:func:`helmholtz_p2m_l2p_inputs`); raises on a mismatch,
+    emits a ``kernels_p2m_l2p_helmholtz`` line and returns ``(results,
+    work)``, each result with its bound."""
+    inputs = helmholtz_p2m_l2p_inputs(w, q_tree)
+    work = helmholtz_p2m_l2p_work(inputs)
+    res = check_list_kernels(inputs, device, plain_reps=plain_reps,
+                             rtol=HELMHOLTZ_P2M_L2P_RTOL, slow_s=1.0)
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(work[name])
+    emit({"phase": "kernels_p2m_l2p_helmholtz", "card": card, "path": path,
+          "order": w.order, "k": w.k,
+          "tolerance_rel_linf": HELMHOLTZ_P2M_L2P_RTOL,
+          "p2m_rel": "per coefficient", "kernels": res, "work": work})
+    return res, work
+
+
+def check_p2m_l2p_helmholtz_launches(launches, path, names):
+    """The FMM of a Helmholtz path launches its P2M and L2P kernels once."""
+    got = {name: launches[name] for name in names}
+    if got != dict.fromkeys(names, 1):
+        raise AssertionError(f"{path}: P2M / L2P launches {got}, expected "
+                             "one each")
+
+
 def check_list_kernels(inputs, device, plain_reps,
                        rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None):
-    """Run list kernels (K2-K4, K9-K11, K16-K23) or K28-K30 and their twins
+    """Run list kernels (K2-K4, K9-K11, K16-K23) or K28-K34 and their twins
     on the same inputs; raise on a rel l-inf above *rtol* (a P2L's local
-    coefficients each held to their own column's scale, a P2M's multipoles
-    box by box to their row's).  Returns ``{name: {max_abs_err,
+    coefficients and a Helmholtz P2M's multipoles each held to their own
+    column's scale, a Laplace P2M's multipoles box by box to their
+    row's).  Returns ``{name: {max_abs_err,
     rel_err, ms, plain_ms, plain_reps}}``: the kernel's median of 5, the
     twin's median of *plain_reps*, or its first call alone when that took
     more than *slow_s* seconds."""
@@ -1211,7 +1351,8 @@ def check_list_kernels(inputs, device, plain_reps,
     for name, (kernel, plain, args) in inputs.items():
         got = kernel(*args)
         ref, t_plain = timed(lambda: plain(*args), device)
-        err, rel = (rel_linf_per_coefficient if name.startswith("p2l_")
+        err, rel = (rel_linf_per_coefficient
+                    if name.startswith(("p2l_", "p2m_helmholtz"))
                     else rel_linf_per_row if name.startswith("p2m_")
                     else rel_linf)(got, ref)
         if not rel <= rtol:
@@ -1246,8 +1387,8 @@ def direct_sum_helmholtz(sources, charges, targets, k, chunk=1 << 15):
 def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
                   order=12, nsample=2000):
     """K9-K11 against their twins at 1e5 points, then the Helmholtz FMM at
-    1e6 uniform points (K1, K9-K11) and K9-K11 against their twins at its
-    shapes; returns the K9-K11 summary entries."""
+    1e6 uniform points (K1, K9-K11, K31, K32) and K9-K11, K31 and K32
+    against their twins at its shapes; returns their summary entries."""
     import numpy as np
     import torch
 
@@ -1339,6 +1480,8 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
     if missing:
         raise AssertionError(f"kernels not launched on the Helmholtz path: "
                              f"{missing}")
+    check_p2m_l2p_helmholtz_launches(launches, "Helmholtz FMM",
+                                     HELMHOLTZ_P2M_L2P)
 
     # }}}
 
@@ -1352,6 +1495,10 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
           "tolerance_rel_linf": HELMHOLTZ_KERNEL_RTOL,
           "p2l_helmholtz3d_rel": "per coefficient", "kernels": res,
           "work": work})
+    pres, pwork = check_p2m_l2p_helmholtz(card, device, "helmholtz_fmm", wr,
+                                          wr.reorder_sources(q))
+    res.update(pres)
+    work.update(pwork)
     return [summary_entry(name, launches[name], res[name], work[name])
             for name in res]
 
@@ -1837,15 +1984,16 @@ def check_h0_against_scipy(pts, k, seed, n=10_000):
 def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
                     k=3.0, order=16, nsample=2000, seed=23):
     """K16-K18 against their twins at 1e5 points, then the 2D Helmholtz
-    FMM at 1e6 clustered points (K1, K16-K18) and K16-K18 against their
-    twins at its shapes; returns the K16-K18 summary entries."""
+    FMM at 1e6 clustered points (K1, K16-K18, K33, K34) and K16-K18, K33
+    and K34 against their twins at its shapes, then
+    :func:`large_k_kernels`; returns their summary entries."""
     import numpy as np
     import torch
 
     from boxtree_torch import build_tree
     from boxtree_torch.fmm import drive_fmm
     from boxtree_torch.models import make_helmholtz_wrangler
-    from boxtree_torch.ops import kernels
+    from boxtree_torch.ops import helmholtz2d, kernels
     from boxtree_torch.traversal import build_traversal
     from boxtree_torch.tree.containers import box_flags_enum
 
@@ -1945,6 +2093,8 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
     if missing:
         raise AssertionError(f"kernels not launched on the 2D Helmholtz "
                              f"path: {missing}")
+    check_p2m_l2p_helmholtz_launches(launches, "2D Helmholtz FMM",
+                                     HELMHOLTZ2D_P2M_L2P)
 
     # }}}
 
@@ -1954,15 +2104,75 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
     work = helmholtz2d_work(inputs)
     res = check_list_kernels(inputs, device, plain_reps=3,
                              rtol=HELMHOLTZ2D_KERNEL_RTOL)
+    grid = helmholtz2d.launch_grid(device, tree.nboxes)
     emit({"phase": "kernels_helmholtz2d", "card": card, "points": n_main,
           "order": order, "k": k,
           "tolerance_rel_linf": HELMHOLTZ2D_KERNEL_RTOL,
           "p2l_helmholtz2d_rel": "per coefficient", "kernels": res,
           "launches": {name: launches[name] for name in res},
-          "work": work,
+          "work": work, "scratch_grid": grid,
+          "scratch_bytes": helmholtz2d.scratch_bytes(grid, order,
+                                                     wr._nstart)})
+    pres, pwork = check_p2m_l2p_helmholtz(card, device, "helmholtz2d_fmm",
+                                          wr, wr.reorder_sources(q))
+    res.update(pres)
+    work.update(pwork)
+    del tree, trav, wr, inputs
+    large_k_kernels(device, card, seed + 3)
+    emit({"phase": "helmholtz2d_phases", "card": card,
           "helmholtz2d_phases_s": time.perf_counter() - t_phases})
     return [summary_entry(name, launches[name], res[name], work[name])
             for name in res]
+
+
+def large_k_kernels(device, card, seed, n=20_000, k=200.0, order=16):
+    """Past the old shared-memory limit: the 2D Helmholtz wrangler at
+    order 16 and k = 200 on *n* clustered points of the unit square (a
+    recurrence from 954 where K17 / K18 once refused above about 56 times
+    the root extent), one FMM (finite values, K33 and K34 once), then K17,
+    K18, K33 and K34 against their twins at its inputs."""
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.ops import helmholtz2d, kernels
+    from boxtree_torch.ops.cylinder_bessel import even_start
+    from boxtree_torch.traversal import build_traversal
+
+    pts_np, q_np = clustered_square_points(n, seed)
+    pts = torch.as_tensor(pts_np, device=device)
+    q = torch.as_tensor(q_np, device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    kernels.reset_launch_counts()
+    pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
+    launches = kernels.launch_counts()
+    check_p2m_l2p_helmholtz_launches(launches, "2D Helmholtz FMM at large k",
+                                     HELMHOLTZ2D_P2M_L2P)
+    finite = bool(torch.isfinite(pot).all())
+    if not finite or tuple(pot.shape) != (n,):
+        raise AssertionError("2D Helmholtz FMM at large k: non-finite or "
+                             "misshapen output")
+    tq = wr.reorder_sources(q)
+    inputs = {name: v for name, v in helmholtz2d_inputs(
+        trav, wr, tq).items() if name != "p2p_helmholtz2d"}
+    inputs.update(helmholtz_p2m_l2p_inputs(wr, tq))
+    res = check_list_kernels(inputs, device, plain_reps=1,
+                             rtol=HELMHOLTZ2D_KERNEL_RTOL, slow_s=1.0)
+    grid = helmholtz2d.launch_grid(device, trav.tree.nboxes)
+    emit({"phase": "kernels_helmholtz2d_large_k", "card": card, "points": n,
+          "order": order, "k": k, "root_extent": float(trav.tree.root_extent),
+          "nboxes": trav.tree.nboxes, "nlevels": trav.tree.nlevels,
+          "recurrence_start": even_start(wr._nstart, order),
+          "scratch_grid": grid,
+          "scratch_bytes": helmholtz2d.scratch_bytes(grid, order,
+                                                     wr._nstart),
+          "fmm_s": t_fmm, "finite": finite,
+          "tolerance_rel_linf": HELMHOLTZ2D_KERNEL_RTOL,
+          "rel": "per coefficient (P2L, P2M), potentials (M2P, L2P)",
+          "kernels": res,
+          "launches": {name: launches[name] for name in res}})
 
 # }}}
 

@@ -1,6 +1,6 @@
-"""Where the time of boxtree_torch's 3D Laplace FMM goes on the card.
+"""Where the time of boxtree_torch's FMMs goes on the card.
 
-One ``torch.profiler`` trace of ``drive_fmm`` on each of two paths of
+One ``torch.profiler`` trace of ``drive_fmm`` on each of four paths of
 ``chip_smoke.py``, after one warm-up call each:
 
 - the main path: 1e6 uniform float32 points in the unit cube (seed 17),
@@ -8,8 +8,12 @@ One ``torch.profiler`` trace of ``drive_fmm`` on each of two paths of
 - the double layer: 1e6 sources on the unit sphere (seed 15) with their
   outward normals as dipoles and real weights, 2e5 targets in [-1, 1]^3,
   the complex128 wrangler at order 12 with ``rscale="auto"``;
+- the 3D Helmholtz path: 1e6 uniform points (seed 17), complex charges,
+  k = 2, order 12, complex128, ``rscale="auto"``;
+- the 2D Helmholtz path: 1e6 points of the unit square, 4/15 of them in
+  [0.4, 0.5]^2 (seed 23), k = 3, order 16, ``rscale="auto"``;
 
-and a third of the double layer's dipole P2M through its plain twin, the
+and one more of the double layer's dipole P2M through its plain twin, the
 ``torch.func.jvp`` of the single-layer P2M that the path ran before K29.
 Each FMM stage runs inside a ``record_function`` range, and every device
 kernel or copy is charged to the stage whose host range holds the CUDA
@@ -26,6 +30,8 @@ by default), and the numbers are read from them.
 Run from the root of a checkout, on a machine with a CUDA card::
 
     PYTHONPATH=. python3 scripts/torch_fmm_profile.py --out build/fmm_traces
+
+``--only helmholtz3d_fmm,helmholtz2d_fmm`` takes those traces alone.
 """
 
 from __future__ import annotations
@@ -43,7 +49,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from boxtree_torch import build_tree
 from boxtree_torch.fmm import drive_fmm
 from boxtree_torch.fmm.drive import FMM_STAGES
-from boxtree_torch.models import make_laplace_wrangler
+from boxtree_torch.models import (
+    make_helmholtz_wrangler,
+    make_laplace_wrangler,
+)
 from boxtree_torch.ops import laplace3d
 from boxtree_torch.traversal import build_traversal
 
@@ -170,6 +179,9 @@ def main():
     parser.add_argument("--targets", type=int, default=200_000)
     parser.add_argument("--out", default="build/fmm_traces",
                         help="directory of the Chrome traces")
+    parser.add_argument("--only", default="",
+                        help="comma-separated traces to take (default: "
+                        "all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -179,43 +191,71 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    rng = np.random.default_rng(17)
-    pts = torch.as_tensor(rng.random((3, args.points), dtype=np.float32),
-                          device=device)
-    q = torch.as_tensor(rng.standard_normal(args.points).astype(np.float32),
-                        device=device)
-    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    main_w = make_laplace_wrangler(trav, order=8, pairs=True, rscale="auto",
-                                   dtype=torch.float32)
+    def main_path():
+        rng = np.random.default_rng(17)
+        pts = torch.as_tensor(rng.random((3, args.points), dtype=np.float32),
+                              device=device)
+        q = torch.as_tensor(
+            rng.standard_normal(args.points).astype(np.float32),
+            device=device)
+        trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+        w = make_laplace_wrangler(trav, order=8, pairs=True, rscale="auto",
+                                  dtype=torch.float32)
+        return (dict(points=args.points, order=8, dtype="float32",
+                     nboxes=trav.tree.nboxes),
+                lambda: drive_fmm(_StagedWrangler(w), [q]))
 
-    src = torch.as_tensor(sphere_points(args.sources, 15), device=device)
-    rng = np.random.default_rng(16)
-    tgt = torch.as_tensor(rng.random((3, args.targets)) * 2 - 1,
-                          device=device)
-    w_dl = torch.as_tensor(rng.standard_normal(args.sources), device=device)
-    trav_dl = build_traversal(build_tree(src, targets=tgt,
-                                         max_particles_in_box=30))
-    dl_w = make_laplace_wrangler(trav_dl, order=12, pairs=False,
-                                 rscale="auto", dipole_vec=src)
-    tree = trav_dl.tree
-    q_dl = dl_w.reorder_sources(w_dl)
-    jvp_args = (dl_w._sources, q_dl, dl_w.dipole_vec,
-                tree.box_source_starts, tree.box_source_counts_nonchild,
-                dl_w._source_rows, dl_w.centers, dl_w.box_scale, dl_w.order)
+    def double_layer(jvp_twin):
+        src = torch.as_tensor(sphere_points(args.sources, 15), device=device)
+        rng = np.random.default_rng(16)
+        tgt = torch.as_tensor(rng.random((3, args.targets)) * 2 - 1,
+                              device=device)
+        w_dl = torch.as_tensor(rng.standard_normal(args.sources),
+                               device=device)
+        trav = build_traversal(build_tree(src, targets=tgt,
+                                          max_particles_in_box=30))
+        w = make_laplace_wrangler(trav, order=12, pairs=False,
+                                  rscale="auto", dipole_vec=src)
+        tree = trav.tree
+        if not jvp_twin:
+            return (dict(sources=args.sources, targets=args.targets,
+                         order=12, dtype="complex128", nboxes=tree.nboxes),
+                    lambda: drive_fmm(_StagedWrangler(w), [w_dl]))
+        jvp_args = (w._sources, w.reorder_sources(w_dl), w.dipole_vec,
+                    tree.box_source_starts, tree.box_source_counts_nonchild,
+                    w._source_rows, w.centers, w.box_scale, w.order)
+        return (dict(sources=args.sources, order=12, dtype="complex128"),
+                lambda: laplace3d.p2m_laplace3d_dipole_plain(*jvp_args))
 
-    runs = {
-        "main_path_fmm": (dict(points=args.points, order=8,
-                               dtype="float32", nboxes=trav.tree.nboxes),
-                          lambda: drive_fmm(_StagedWrangler(main_w), [q])),
-        "double_layer_fmm": (dict(sources=args.sources,
-                                  targets=args.targets, order=12,
-                                  dtype="complex128", nboxes=tree.nboxes),
-                             lambda: drive_fmm(_StagedWrangler(dl_w),
-                                               [w_dl])),
-        "double_layer_p2m_jvp_twin": (
-            dict(sources=args.sources, order=12, dtype="complex128"),
-            lambda: laplace3d.p2m_laplace3d_dipole_plain(*jvp_args)),
+    def helmholtz(dim):
+        # chip_smoke.py's run_helmholtz / run_helmholtz2d paths
+        if dim == 3:
+            rng = np.random.default_rng(17)
+            pts = rng.random((3, args.points))
+            q = rng.standard_normal(args.points) \
+                + 1j * rng.standard_normal(args.points)
+            k, order = 2.0, 12
+        else:
+            from chip_smoke import clustered_square_points
+            pts, q = clustered_square_points(args.points, 23)
+            k, order = 3.0, 16
+        pts = torch.as_tensor(pts, device=device)
+        q = torch.as_tensor(q, device=device)
+        trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+        w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+        return (dict(points=args.points, k=k, order=order,
+                     dtype="complex128", nboxes=trav.tree.nboxes),
+                lambda: drive_fmm(_StagedWrangler(w), [q]))
+
+    builders = {
+        "main_path_fmm": main_path,
+        "double_layer_fmm": lambda: double_layer(False),
+        "double_layer_p2m_jvp_twin": lambda: double_layer(True),
+        "helmholtz3d_fmm": lambda: helmholtz(3),
+        "helmholtz2d_fmm": lambda: helmholtz(2),
     }
+    only = args.only.split(",") if args.only else list(builders)
+    runs = {label: builders[label]() for label in only}
     os.makedirs(args.out, exist_ok=True)
     for label, (about, fn) in runs.items():
         path = os.path.join(args.out, f"{label}.json")

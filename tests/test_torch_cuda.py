@@ -376,6 +376,7 @@ def test_helmholtz_fmm_on_card_matches_cpu(helmholtz):
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in ("p2p_helmholtz3d", "m2p_helmholtz3d",
                                        "p2l_helmholtz3d")), counts
+    assert counts["p2m_helmholtz3d"] == counts["l2p_helmholtz3d"] == 1
     trav_cpu = build_traversal(build_tree(pts.cpu(),
                                           max_particles_in_box=30))
     w_cpu = make_helmholtz_wrangler(trav_cpu, 2.0, 12, rscale="auto")
@@ -628,9 +629,11 @@ def test_helmholtz2d_kernel_edges(helmholtz2d_setup, which):
 
 @pytest.mark.parametrize("order,k", [(24, 3.0), (16, 20.0)])
 def test_helmholtz2d_kernel_large_smem(device, order, k):
-    """K17/K18 past the default 48 KiB of shared memory a CTA: order 24 at
-    k = 3, and order 16 at k = 20 (a recurrence from 338), on the unit
-    square."""
+    """K17/K18 at the settings that took them past the default 48 KiB of
+    shared memory a CTA while their recurrence scratch lived there: order
+    24 at k = 3, and order 16 at k = 20 (a recurrence from 338), on the
+    unit square.  Their tables now stay under it, the ratios going to
+    global scratch."""
     n = 5000
     pts = torch.as_tensor(_clustered_2d(n, seed=5), device=device)
     rng = np.random.default_rng(6)
@@ -638,19 +641,36 @@ def test_helmholtz2d_kernel_large_smem(device, order, k):
                         device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
     w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
-    assert max(helmholtz2d.smem_bytes(name, order, w._nstart)
-               for name in ("m2p", "p2l")) > 48 * 1024
+    assert max(helmholtz2d.smem_bytes(name, order)
+               for name in ("m2p", "p2l")) < 48 * 1024
     tq = w.reorder_sources(q)
     for which in ("m2p", "p2l"):
         args = _h2d_args(trav, w, tq, which)
         assert _h2d_compare(which, args, w) <= H2D_RTOL, which
 
 
-def test_helmholtz2d_wrangler_refuses_past_smem(helmholtz2d_setup):
-    """Past 227 KiB a CTA (order 16 at k = 200 on the unit square) the
-    wrangler refuses at construction, before the FMM."""
-    with pytest.raises(ValueError, match="shared memory"):
-        make_helmholtz_wrangler(helmholtz2d_setup[0], 200.0, 16)
+def test_helmholtz2d_wrangler_past_old_smem_limit(device):
+    """Order 16 at k = 200 on the unit square (a recurrence from 954, past
+    the 227 KiB a CTA that K17/K18's shared scratch once needed) builds a
+    wrangler on the card, and K17, K18, K33 and K34 match their twins
+    there, per coefficient column."""
+    n = 3000
+    pts = torch.as_tensor(_clustered_2d(n, seed=8), device=device)
+    rng = np.random.default_rng(9)
+    q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                        device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    w = make_helmholtz_wrangler(trav, 200.0, 16, rscale="auto")
+    from boxtree_torch.ops.cylinder_bessel import even_start
+    assert even_start(w._nstart, 16) == 954
+    tq = w.reorder_sources(q)
+    assert w._l3_csr[0].numel() > 0 and w._l4_csr[0].numel() > 0
+    for which in ("m2p", "p2l"):
+        args = _h2d_args(trav, w, tq, which)
+        assert _h2d_compare(which, args, w) <= H2D_RTOL, which
+    for which in ("p2m", "l2p"):
+        args = _helm_p2m_l2p_args(w, tq, which, _random_locals(w))
+        assert _helm_p2m_l2p_compare(2, which, args) <= H2D_RTOL, which
 
 
 def test_helmholtz2d_fmm_on_card_matches_cpu(helmholtz2d_setup):
@@ -660,6 +680,7 @@ def test_helmholtz2d_fmm_on_card_matches_cpu(helmholtz2d_setup):
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in ("p2p_helmholtz2d", "m2p_helmholtz2d",
                                        "p2l_helmholtz2d")), counts
+    assert counts["p2m_helmholtz2d"] == counts["l2p_helmholtz2d"] == 1
     trav_cpu = build_traversal(build_tree(pts.cpu(),
                                           max_particles_in_box=30))
     w_cpu = make_helmholtz_wrangler(trav_cpu, 3.0, 16, rscale="auto")
@@ -1357,6 +1378,160 @@ def test_p2m_l2p_wrappers_refuse_dtypes(laplace3d_setup, dtype):
             getattr(laplace3d, name)(*args)
     assert not any(kernels.launch_counts()[k]
                    for k in P2M_L2P_KERNELS.values())
+
+# }}}
+
+
+# {{{ K31-K34: P2M and L2P of the 3D and 2D Helmholtz wranglers
+
+HELM_P2M_L2P = [(dim, which) for dim in (3, 2) for which in ("p2m", "l2p")]
+#: K31 / K32 against their twins: the j_n recurrence and the harmonics
+#: with FMA contraction, the warp sums in another order; K33 / K34 repeat
+#: the twin's uncontracted J recurrence (K16-K18's bar)
+HELM_P2M_L2P_RTOL = {3: 1e-12, 2: H2D_RTOL}
+
+
+def _helm_p2m_l2p_args(w, q, which, local_exps=None, centers=None):
+    """K31-K34's arguments from Helmholtz wrangler *w*, the box centres
+    replaced if given."""
+    tree = w.tree
+    centers = w.centers if centers is None else centers
+    tail = (w.k, w.order) if w.dim == 3 else (w.k, w.order, w._nstart)
+    if which == "l2p":
+        return (w._targets, tree.box_target_starts,
+                tree.box_target_counts_nonchild, w._target_rows, local_exps,
+                centers, w.box_scale, *tail)
+    w_nm = (w._w_nm,) if w.dim == 3 else ()
+    return (w._sources, q, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, centers,
+            w.box_scale, *w_nm, *tail)
+
+
+def _helm_p2m_l2p_compare(dim, which, args):
+    """K31-K34 against their twins on *args*: one launch; multipoles per
+    coefficient column, potentials to their largest value."""
+    mod = helmholtz3d if dim == 3 else helmholtz2d
+    name = f"{which}_helmholtz{dim}d"
+    kernels.reset_launch_counts()
+    got = getattr(mod, name)(*args)
+    assert kernels.launch_counts()[name] == 1
+    torch.cuda.synchronize()
+    ref = getattr(mod, f"{name}_plain")(*args)
+    assert got.dtype == ref.dtype == torch.complex128
+    assert got.shape == ref.shape
+    return _cols_rel(got, ref) if got.ndim == 2 else _rel(got, ref)
+
+
+@pytest.fixture(scope="module")
+def helm_p2m_l2p(helmholtz, helmholtz2d_setup):
+    return {3: helmholtz, 2: helmholtz2d_setup}
+
+
+@pytest.mark.parametrize("dim,which", HELM_P2M_L2P)
+def test_helmholtz_p2m_l2p_kernel(helm_p2m_l2p, dim, which):
+    """At the FMM fixtures' shapes: 2e4 sphere points, order 12, k = 2
+    (3D); 2e4 clustered points, order 16, k = 3 (2D); rscale "auto"."""
+    trav, w, q = helm_p2m_l2p[dim][:3]
+    args = _helm_p2m_l2p_args(w, q, which, _random_locals(w))
+    assert _helm_p2m_l2p_compare(dim, which, args) \
+        <= HELM_P2M_L2P_RTOL[dim]
+
+
+@pytest.mark.parametrize("dim,which", HELM_P2M_L2P)
+def test_helmholtz_p2m_l2p_kernel_at_r0(helm_p2m_l2p, dim, which):
+    """r = 0: the first row's box centre moved onto its first particle,
+    which then adds ``q w_00`` (3D) or ``(i/4) q`` (2D) to the ``n = 0``
+    coefficient alone, or reads ``L_00`` / ``b_0`` exactly; and a second
+    particle of the box 1e-10 from that centre (k r below the series
+    switches)."""
+    trav, w, q = helm_p2m_l2p[dim][:3]
+    tree = trav.tree
+    rows = w._target_rows if which == "l2p" else w._source_rows
+    counts = (tree.box_target_counts_nonchild if which == "l2p"
+              else tree.box_source_counts_nonchild)
+    box = int(rows[torch.nonzero(counts[rows.to(torch.int64)] >= 2)[0, 0]])
+    starts = (tree.box_target_starts if which == "l2p"
+              else tree.box_source_starts)
+    first = int(starts[box])
+    pts = (w._targets if which == "l2p" else w._sources).clone()
+    pts[:, first + 1] = pts[:, first]
+    pts[0, first + 1] += 1e-10
+    centers = w.centers.clone()
+    centers[:, box] = pts[:, first]
+    loc = _random_locals(w)
+    args = list(_helm_p2m_l2p_args(w, q, which, loc, centers))
+    args[0] = pts
+    assert _helm_p2m_l2p_compare(dim, which, args) \
+        <= HELM_P2M_L2P_RTOL[dim]
+    mod = helmholtz3d if dim == 3 else helmholtz2d
+    got = getattr(mod, f"{which}_helmholtz{dim}d")(*args)
+    assert torch.isfinite(got).all()
+    if which == "l2p":
+        assert got[first] == loc[box, 0 if dim == 3 else w.order]
+
+
+def _helm_direct_args(dim, which, order, device, seed=45):
+    """K31-K34's arguments on a tree of 3,000 sources (3D: the sphere; 2D:
+    the clustered square) and 500 separate targets without a wrangler:
+    box scale min(k 2^-level, 1), charges, locals and the weights w_nm from
+    numpy."""
+    from boxtree_torch.ops.cylinder_bessel import miller_start
+    rng = np.random.default_rng(seed)
+    k = 2.0 if dim == 3 else 3.0
+    src = _sphere(3000, 43) if dim == 3 else _clustered_2d(3000, 46)
+    tgt = rng.random((dim, 500)) * 2 - 1
+    tree = build_tree(torch.as_tensor(src, device=device),
+                      targets=torch.as_tensor(tgt, device=device),
+                      max_particles_in_box=30)
+    nc = (order + 1) ** 2 if dim == 3 else 2 * order + 1
+    rows = [torch.nonzero(c > 0)[:, 0].to(torch.int32)
+            for c in (tree.box_source_counts_nonchild,
+                      tree.box_target_counts_nonchild)]
+    scale = torch.clamp(k * float(tree.root_extent)
+                        * 0.5 ** tree.box_levels.to(torch.float64), max=1.0)
+    centers = tree.box_centers.contiguous()
+    tail = ((k, order) if dim == 3 else
+            (k, order, miller_start(order + 2, k * float(tree.root_extent)
+                                    * (2.0 * np.sqrt(2) + 1.0))))
+    if which == "l2p":
+        loc = rng.standard_normal((tree.nboxes, nc)) \
+            + 1j * rng.standard_normal((tree.nboxes, nc))
+        return (tree.targets.contiguous(), tree.box_target_starts,
+                tree.box_target_counts_nonchild, rows[1],
+                torch.as_tensor(loc, device=device), centers, scale, *tail)
+    q = rng.standard_normal(tree.nsources) \
+        + 1j * rng.standard_normal(tree.nsources)
+    w_nm = (torch.as_tensor(rng.standard_normal(nc)
+                            + 1j * rng.standard_normal(nc), device=device),
+            ) if dim == 3 else ()
+    return (tree.sources.contiguous(), torch.as_tensor(q, device=device),
+            tree.box_source_starts, tree.box_source_counts_nonchild, rows[0],
+            centers, scale, *w_nm, *tail)
+
+
+@pytest.mark.parametrize("dim,which", HELM_P2M_L2P)
+@pytest.mark.parametrize("edge", ["p0", "p1", "high"])
+def test_helmholtz_p2m_l2p_kernel_edge_orders(device, dim, which, edge):
+    """Orders 0 and 1, and order 20 in 3D / 24 in 2D, with separate
+    targets."""
+    order = {"p0": 0, "p1": 1, "high": 20 if dim == 3 else 24}[edge]
+    args = _helm_direct_args(dim, which, order, device)
+    assert _helm_p2m_l2p_compare(dim, which, args) \
+        <= HELM_P2M_L2P_RTOL[dim]
+
+
+def test_helmholtz_p2m_l2p_wrappers_refuse_dtypes(helm_p2m_l2p):
+    kernels.reset_launch_counts()
+    for dim, which in HELM_P2M_L2P:
+        trav, w, q = helm_p2m_l2p[dim][:3]
+        args = list(_helm_p2m_l2p_args(w, q, which, _random_locals(w)))
+        i = 4 if which == "l2p" else 1
+        args[i] = args[i].to(torch.complex64)
+        with pytest.raises(TypeError):
+            getattr(helmholtz3d if dim == 3 else helmholtz2d,
+                    f"{which}_helmholtz{dim}d")(*args)
+    assert not any(kernels.launch_counts()[f"{which}_helmholtz{dim}d"]
+                   for dim, which in HELM_P2M_L2P)
 
 # }}}
 

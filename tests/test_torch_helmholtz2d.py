@@ -22,8 +22,15 @@ basis, factory and accuracy.
   stage gets the reference's inputs, and the reference's stage outputs are
   those of its one recorded ``drive_fmm`` per rscale; also the cylindrical
   Bessel twin against the JAX function.
+- The P2M and L2P terms (``p2m_terms`` / ``l2p_eval``) and the twins of
+  K33 / K34, through their CPU wrappers too, against the reference's
+  hooks ``_p2m_terms`` / ``_l2p_eval`` under one ``jax.jit``, with a
+  particle on its box's centre (``r = 0``) and two within k r < 1e-8 of it
+  (the series of J), ``rscale`` off (scale 1) and on (1e-11, expansions per
+  coefficient column); the rows of K33 / K34 cover every particle once.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -300,20 +307,23 @@ def test_bridge_round_trip_2d(points):
 
 
 def test_kernel_entry_points_2d():
-    """K16-K18 exist in complex128 only; K17/K18 take past the default 48
-    KiB of shared memory a CTA (order 24, or a recurrence from 338: k r
-    about 60) up to the 227 KiB of sm_90, and a start far beyond raises
-    before anything is built."""
-    for name in ("p2p_helmholtz2d", "m2p_helmholtz2d", "p2l_helmholtz2d"):
+    """K16-K18 and K33-K34 exist in complex128 only; their shared memory
+    holds tables of 2p + 1 and p + 1 values a lane, whatever the
+    recurrence's start: a start of 2000 (k r about 1,700) is accepted, its
+    ratios going to a global scratch buffer of nstart values a thread of
+    the launch's grid, and only a dtype other than complex128 raises."""
+    names = ("p2p_helmholtz2d", "m2p_helmholtz2d", "p2l_helmholtz2d",
+             "p2m_helmholtz2d", "l2p_helmholtz2d")
+    for name in names:
         assert kernels._entry_names(name) == [f"{name}_c128"]
-    for order, nstart in ((16, 56), (24, 70), (16, 338)):
-        h2._check_args(K, torch.complex128, order, nstart)
-    assert h2.smem_bytes("p2l", 24, 70) > 48 * 1024
-    assert h2.smem_bytes("p2l", 16, 338) > 48 * 1024
-    with pytest.raises(ValueError, match="shared memory"):
-        h2._check_args(K, torch.complex128, 16, 2000)
+    for order, nstart in ((16, 56), (24, 70), (16, 338), (16, 2000)):
+        h2._check_args(K, torch.complex128, order)
+        assert max(h2.smem_bytes(name, order) for name in
+                   ("m2p", "p2l", "p2m", "l2p")) < 48 * 1024
+        assert h2.scratch_bytes(1056, order, nstart) == \
+            t_cb.even_start(nstart, order) * 1056 * 32 * 8
     with pytest.raises(TypeError):
-        h2._check_args(K, torch.complex64, 16, 56)
+        h2._check_args(K, torch.complex64, 16)
 
 # }}}
 
@@ -468,5 +478,122 @@ def test_slice_matches_reference(points, recorded, rscale):
     assert got.dtype == torch.complex128 and got.shape == (N,)
     assert set(timing) == set(FMM_STAGES)
     assert _rel_linf(got.numpy(), jpot) <= RTOL
+
+# }}}
+
+
+# {{{ P2M / L2P: K33 and K34's twins against the reference's hooks
+
+HOOK_N = 40
+
+
+def _hook_inputs():
+    """Offsets pre-divided by their box's rscale: the first at the origin,
+    the next two within k r < 1e-8 of it at any rscale; rscales in [0.01,
+    1], complex charges and local coefficients."""
+    rng = np.random.default_rng(4)
+    nc = 2 * ORDER + 1
+    rel = rng.uniform(-0.5, 0.5, (2, HOOK_N))
+    rel[:, 0] = 0.0
+    rel[:, 1] = [1e-10, 0.0]
+    rel[:, 2] = [-2e-10, 1e-10]
+    return dict(rel=rel, s=rng.uniform(0.01, 1.0, HOOK_N),
+                q=rng.standard_normal(HOOK_N)
+                + 1j * rng.standard_normal(HOOK_N),
+                coef=rng.standard_normal((HOOK_N, nc))
+                + 1j * rng.standard_normal((HOOK_N, nc)))
+
+
+@pytest.fixture(scope="module")
+def hook_refs(recorded):
+    """The reference's ``_p2m_terms`` and ``_l2p_eval`` at
+    :func:`_hook_inputs`, with the scale 1 that ``rscale=None`` hands them
+    and with the rscales, in one ``jax.jit``."""
+    jw = recorded("auto")[2]
+    x = _hook_inputs()
+
+    def f(rel, s, q, coef):
+        return {f"{hook}-{rscale}": fn(rel, arg, sc)
+                for rscale, sc in ((None, 1.0), ("auto", s))
+                for hook, fn, arg in (("p2m", jw._p2m_terms, q),
+                                      ("l2p", jw._l2p_eval, coef))}
+    out = jax.jit(f)(x["rel"], x["s"], x["q"], x["coef"])
+    return {key: np.asarray(v) for key, v in out.items()}
+
+
+def _hook_scale(rscale):
+    x = _hook_inputs()
+    return x["s"] if rscale == "auto" else np.ones(HOOK_N)
+
+
+def _hook_err(got, ref):
+    got = got.numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    return _rows_rel(got.T, ref.T) if got.ndim == 2 else _rel_linf(got, ref)
+
+
+def test_hook_inputs_reach_the_series():
+    x = _hook_inputs()
+    for rscale in RSCALES:
+        kr = K * np.hypot(*(x["rel"] * _hook_scale(rscale)))
+        assert kr[0] == 0 and (kr[1:3] > 0).all()
+        assert (kr[1:3] < t_cb.JN_SMALL_X).all()
+        assert (kr[3:] >= t_cb.JN_SMALL_X).all()
+
+
+@pytest.mark.parametrize("rscale", RSCALES)
+@pytest.mark.parametrize("hook", ["p2m", "l2p"])
+def test_particle_hooks_match_reference(recorded, hook_refs, hook, rscale):
+    """``p2m_terms`` and ``l2p_eval``, the per-particle steps of K33 /
+    K34's twins, against the reference's hooks."""
+    x = {k: _t(v) for k, v in _hook_inputs().items()}
+    s = _t(_hook_scale(rscale))
+    nstart = recorded("auto")[1]._nstart
+    if hook == "p2m":
+        got = h2.p2m_terms(x["rel"], x["q"], s, K, ORDER, nstart)
+    else:
+        got = h2.l2p_eval(x["rel"], x["coef"], s, K, ORDER, nstart)
+    assert _hook_err(got, hook_refs[f"{hook}-{rscale}"]) <= RTOL
+
+
+@pytest.mark.parametrize("via", ["wrapper", "twin"])
+@pytest.mark.parametrize("rscale", RSCALES)
+@pytest.mark.parametrize("which", ["p2m", "l2p"])
+def test_p2m_l2p_twins_match_reference_hooks(recorded, hook_refs, which,
+                                            rscale, via):
+    """K33 and K34's twins and their CPU wrappers, one particle per box
+    (centre 0, scale s_i), against the reference's ``_p2m_terms`` and
+    ``_l2p_eval`` at the same scaled offsets.  The first particle sits on
+    its box's centre (``r = 0``): its charge lands on ``n = 0`` alone, as
+    ``(i/4) q``, and its potential is ``b_0``."""
+    x = _hook_inputs()
+    nstart = recorded("auto")[1]._nstart
+    ref = hook_refs[f"{which}-{rscale}"]
+    s = _hook_scale(rscale)
+    i32 = torch.arange(HOOK_N, dtype=torch.int32)
+    ranges = (i32, torch.ones(HOOK_N, dtype=torch.int32), i32)
+    centers = torch.zeros((2, HOOK_N), dtype=torch.float64)
+    pts = _t(x["rel"] * s)
+    name = f"{which}_helmholtz2d"
+    fn = getattr(h2, name if via == "wrapper" else f"{name}_plain")
+    if which == "p2m":
+        got = fn(pts, _t(x["q"]), *ranges, centers, _t(s), K, ORDER,
+                 nstart)
+        row0 = got[0].numpy()
+        others = np.arange(2 * ORDER + 1) != ORDER
+        assert (row0[others] == 0).all() and (ref[0][others] == 0).all()
+        assert row0[ORDER] == ref[0][ORDER] == 0.25j * x["q"][0]
+    else:
+        got = fn(pts, *ranges, _t(x["coef"]), centers, _t(s), K, ORDER,
+                 nstart)
+        assert got[0] == ref[0] == x["coef"][0, ORDER]
+    assert _hook_err(got, ref) <= RTOL
+
+
+@pytest.mark.parametrize("what", ["source", "target"])
+def test_particle_rows_cover_each_particle_once(recorded, what):
+    from test_torch_laplace3d import assert_rows_cover
+    w = recorded("auto")[1]
+    assert_rows_cover(w.tree, what, getattr(w, f"_{what}_rows"))
 
 # }}}

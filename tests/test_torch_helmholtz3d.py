@@ -18,6 +18,12 @@
   held instead to a correctly rounded direct sum over the same List-1
   pairs, within ``P2P_EPS_COND`` units of ``eps * sum |q_j| / r_ij`` per
   target, as in ``test_torch_laplace_stages.py``.
+- The P2M and L2P terms (``p2m_terms`` / ``l2p_eval``) and the twins of
+  K31 / K32, through their CPU wrappers too, against the reference's
+  hooks ``_p2m_terms`` / ``_l2p_eval`` under one ``jax.jit``, a particle
+  on its box's centre (``r = 0``) among them, with ``rscale`` off (scale
+  1) and on (1e-11, expansions per coefficient column); the rows of K31 /
+  K32 (the boxes that own particles) cover every particle once.
 - The whole slice against ``boxtree_tpu``'s ``drive_fmm`` (1e-11) and, at
   order 12, against the direct sum (< 1e-5).
 - Each option the port does not cover raises NotImplementedError; the
@@ -30,6 +36,7 @@ Points on the unit sphere, so that Lists 3 and 4 are populated.
 import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +53,7 @@ from boxtree_torch.models.helmholtz3d import (
     Helmholtz3DExpansionWrangler,
     Helmholtz3DTreeIndependentDataForWrangler,
 )
+from boxtree_torch.ops import helmholtz3d as h3
 from boxtree_torch.ops import kernels
 from boxtree_torch.ops import scaled_bessel_host as t_sbh
 from boxtree_torch.ops import spherical_bessel as t_sb
@@ -362,6 +370,110 @@ def test_level_operators_match_reference(stages, op):
                                          float(rs[lev]))
                 worst = max(worst, _rows_rel(ops[q].T.numpy(), ref))
     assert worst <= OP_RTOL
+
+# }}}
+
+
+# {{{ P2M / L2P: K31 and K32's twins against the reference's hooks
+
+HOOK_N = 40
+
+
+def _hook_inputs():
+    """Offsets in the unit ball pre-divided by their box's rscale (the
+    first at the origin), rscales in [0.2, 1], complex charges and local
+    coefficients."""
+    rng = np.random.default_rng(9)
+    kc = (ORDER + 1) ** 2
+    rel = rng.uniform(-1.0, 1.0, (3, HOOK_N))
+    rel[:, 0] = 0.0
+    return dict(rel=rel, s=rng.uniform(0.2, 1.0, HOOK_N),
+                q=rng.standard_normal(HOOK_N)
+                + 1j * rng.standard_normal(HOOK_N),
+                coef=rng.standard_normal((HOOK_N, kc))
+                + 1j * rng.standard_normal((HOOK_N, kc)))
+
+
+@pytest.fixture(scope="module")
+def hook_refs(stages):
+    """The reference's ``_p2m_terms`` and ``_l2p_eval`` at
+    :func:`_hook_inputs`, with the scale 1 that ``rscale=None`` hands them
+    and with the rscales, in one ``jax.jit``."""
+    jw = stages[3]
+    x = _hook_inputs()
+
+    def f(rel, s, q, coef):
+        return {f"{hook}-{rscale}": fn(rel, arg, sc)
+                for rscale, sc in ((None, 1.0), ("auto", s))
+                for hook, fn, arg in (("p2m", jw._p2m_terms, q),
+                                      ("l2p", jw._l2p_eval, coef))}
+    out = jax.jit(f)(x["rel"], x["s"], x["q"], x["coef"])
+    return {key: np.asarray(v) for key, v in out.items()}
+
+
+def _hook_scale(rscale):
+    x = _hook_inputs()
+    return x["s"] if rscale == "auto" else np.ones(HOOK_N)
+
+
+def _hook_err(got, ref):
+    got = got.numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    return _rows_rel(got.T, ref.T) if got.ndim == 2 else _rel_linf(got, ref)
+
+
+@pytest.mark.parametrize("rscale", [None, "auto"])
+@pytest.mark.parametrize("hook", ["p2m", "l2p"])
+def test_particle_hooks_match_reference(stages, hook_refs, hook, rscale):
+    """``p2m_terms`` and ``l2p_eval``, the per-particle steps of K31 /
+    K32's twins, against the reference's hooks."""
+    x = {k: _t(v) for k, v in _hook_inputs().items()}
+    s = _t(_hook_scale(rscale))
+    w = stages[2]
+    if hook == "p2m":
+        got = h3.p2m_terms(x["rel"], x["q"], s, w._w_nm, K, ORDER)
+    else:
+        got = h3.l2p_eval(x["rel"], x["coef"], s, K, ORDER)
+    assert _hook_err(got, hook_refs[f"{hook}-{rscale}"]) <= RTOL
+
+
+@pytest.mark.parametrize("via", ["wrapper", "twin"])
+@pytest.mark.parametrize("rscale", [None, "auto"])
+@pytest.mark.parametrize("which", ["p2m", "l2p"])
+def test_p2m_l2p_twins_match_reference_hooks(stages, hook_refs, which,
+                                            rscale, via):
+    """K31 and K32's twins and their CPU wrappers, one particle per box
+    (centre 0, scale s_i), against the reference's ``_p2m_terms`` and
+    ``_l2p_eval`` at the same scaled offsets.  The first particle sits on
+    its box's centre (``r = 0``): its charge lands on coefficient 0 alone,
+    as ``q w_00``, and its potential is ``L_00``."""
+    x = _hook_inputs()
+    w = stages[2]
+    ref = hook_refs[f"{which}-{rscale}"]
+    s = _hook_scale(rscale)
+    i32 = torch.arange(HOOK_N, dtype=torch.int32)
+    ranges = (i32, torch.ones(HOOK_N, dtype=torch.int32), i32)
+    centers = torch.zeros((3, HOOK_N), dtype=torch.float64)
+    pts = _t(x["rel"] * s)
+    name = f"{which}_helmholtz3d"
+    fn = getattr(h3, name if via == "wrapper" else f"{name}_plain")
+    if which == "p2m":
+        got = fn(pts, _t(x["q"]), *ranges, centers, _t(s), w._w_nm, K,
+                 ORDER)
+        row0 = got[0].numpy()
+        assert (row0[1:] == 0).all() and (ref[0][1:] == 0).all()
+        assert row0[0] == ref[0][0] == x["q"][0] * w._w_nm[0].item()
+    else:
+        got = fn(pts, *ranges, _t(x["coef"]), centers, _t(s), K, ORDER)
+        assert got[0] == ref[0] == x["coef"][0, 0]
+    assert _hook_err(got, ref) <= RTOL
+
+
+@pytest.mark.parametrize("what", ["source", "target"])
+def test_particle_rows_cover_each_particle_once(stages, what):
+    from test_torch_laplace3d import assert_rows_cover
+    w = stages[2]
+    assert_rows_cover(w.tree, what, getattr(w, f"_{what}_rows"))
 
 # }}}
 
