@@ -11,12 +11,12 @@ Port of :class:`boxtree_tpu.models.expansion_base.ExpansionWranglerBase`
   :mod:`~boxtree_torch.ops.helmholtz2d` over the rows
   :attr:`_source_rows` / :attr:`_target_rows` (the boxes that own
   particles, on every level) instead;
-- M2M and L2L: per (level, child digit), a gather and one ``torch.matmul``
-  with the (K, K) shift operator;
-- M2L: the parent-block form (``expansion_base.py:915-1086``): per level,
-  one gathered ``2^d * K`` row of children's multipoles per (parent,
-  colleague slot) times a static ``(2^d K, 2^d K)`` block of per-class
-  operators serves all children of the parent;
+- M2M, M2L and L2L: the kernels of :mod:`boxtree_torch.ops.translate`
+  (K36, K35, K37), gathered rows of expansions times operator tables
+  built once at setup: M2M and L2L per (level, child digit), one launch a
+  level; M2L in the parent-block form (``expansion_base.py:915-1086``),
+  one table entry per (level, translation class) that List 2 uses and
+  one launch for all levels, with no host read;
 - P2P, M2P, P2L: the kernels of :mod:`boxtree_torch.ops.laplace3d`.
 
 Subclasses provide ``_ncoeff``, the per-particle hooks ``_p2m_terms`` and
@@ -47,7 +47,7 @@ import torch
 
 from boxtree_torch.config import as_torch_dtype
 from boxtree_torch.fmm.drive import ExpansionWranglerInterface
-from boxtree_torch.ops import morton
+from boxtree_torch.ops import morton, translate
 from boxtree_torch.traversal.containers import compressed_csr, csr_rows
 from boxtree_torch.traversal.neighbors import _offsets
 
@@ -189,10 +189,18 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
             tree.box_source_counts_nonchild, tree.box_target_counts_nonchild)
 
         nchild = 2 ** self.dim
-        parents = tree.box_parent_ids.to(torch.int64)
-        digit = tree.box_morton_prefixes & (nchild - 1)
+        # (nboxes, 2^d) children by digit, and those that are
+        # target-or-target-parent boxes; -1 for none
+        child = tree.box_child_ids.T.to(torch.int32)
+        child = torch.where(child > 0, child, -1).contiguous()
+        totp = traversal.target_or_target_parent_boxes
+        is_totp = torch.zeros(tree.nboxes + 1, dtype=torch.bool, device=dev)
+        is_totp[totp.to(torch.int64)] = True
+        self._child = child
+        self._tgt_child = torch.where(is_totp[child.to(torch.int64)], child,
+                                      -1).contiguous()
 
-        # {{{ M2M / L2L: per (level, digit) operators and box groups
+        # {{{ M2M / L2L: per (level, digit) operators, the L2L parent rows
 
         # (2^d, d) child cell signs, in digit order
         signs = np.array([[1.0 if (q >> (self.dim - 1 - ax)) & 1 else -1.0
@@ -208,22 +216,14 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
                 self._l2l_matrices(child_off, rs[lev - 1], rs[lev])),
                 lev, lev - 1).transpose(1, 2).contiguous()
 
-        def digit_groups(ids):
-            d_ids = digit[ids]
-            return [(ids[d_ids == q], parents[ids[d_ids == q]])
-                    for q in range(nchild)]
-
-        self._m2m_plan = {
-            lev: digit_groups(torch.arange(self._lsb[lev],
-                                           self._lsb[lev + 1], device=dev))
-            for lev in range(nlevels - 1, 2, -1)}
-        totp = traversal.target_or_target_parent_boxes.to(torch.int64)
+        # the target-or-target-parent boxes of each level: their children
+        # at the next level take L2L from them
         ls_totp = [int(x) for x in
                    traversal.level_start_target_or_target_parent_box_nrs
                    .cpu()]
-        self._l2l_plan = {
-            lev: digit_groups(totp[ls_totp[lev]:ls_totp[lev + 1]])
-            for lev in range(1, nlevels)}
+        totp = totp.to(torch.int32)
+        self._l2l_rows = {lev: totp[ls_totp[lev - 1]:ls_totp[lev]]
+                          for lev in range(1, nlevels)}
 
         # }}}
 
@@ -402,45 +402,45 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
     # }}}
 
-    # {{{ M2M / L2L
+    # {{{ M2M / L2L: K36 / K37 a level
 
     def coarsen_multipoles(self, level_start_source_parent_box_nrs,
                            source_parent_boxes, mpoles):
         mpoles = mpoles.clone()
+        lsb = self._lsb
         for lev in range(self.tree.nlevels - 1, 2, -1):
-            for q, (ids, par) in enumerate(self._m2m_plan[lev]):
-                if ids.numel():
-                    mpoles.index_add_(
-                        0, par, torch.matmul(mpoles[ids],
-                                             self._m2m_opsT[lev][q]))
+            translate.m2m_translate(mpoles, self._m2m_opsT[lev], self._child,
+                                    lsb[lev - 1], lsb[lev] - lsb[lev - 1])
         return mpoles
 
     def refine_locals(self, level_start_target_or_target_parent_box_nrs,
                       target_or_target_parent_boxes, local_exps):
         local_exps = local_exps.clone()
         for lev in range(1, self.tree.nlevels):
-            for q, (ids, par) in enumerate(self._l2l_plan[lev]):
-                if ids.numel():
-                    local_exps.index_add_(
-                        0, ids, torch.matmul(local_exps[par],
-                                             self._l2l_opsT[lev][q]))
+            translate.l2l_translate(local_exps, self._l2l_opsT[lev],
+                                    self._l2l_rows[lev], self._tgt_child)
         return local_exps
 
     # }}}
 
-    # {{{ M2L (parent-block form)
+    # {{{ M2L (parent-block form): K35
 
     def _build_m2l_parent_plan(self):
-        """Static parent-block M2L setup (``expansion_base.py:915-1014``).
+        """Static parent-block M2L setup (``expansion_base.py:349-431`` and
+        ``:915-1014``), in :class:`~boxtree_torch.ops.translate.M2LPlan`.
 
         List 2 of every child of a parent P is the set of children of P's
         colleagues that are well separated from it, so the (colleague
         slot j, source digit qs, target digit qt) triple fixes the
         translation ``cell(qt) - cell(qs) - 2 * offset_j`` and hence the
-        operator.  Per level this keeps the per-class operators and a
-        ``(m, 2^d, 2^d)`` index into them (-1: not well separated).  The
-        pair count of the static form is checked against the traversal's
-        List-2 edge count; a mismatch raises.
+        class.  One device pass counts, per (level, j, qs, qt), the pairs
+        whose source child exists and whose target child is a
+        target-or-target-parent box; one host read of those counts gives
+        the pair count, checked against the traversal's List-2 edge count
+        (a mismatch raises), and the (level, class) pairs in use.  The
+        operator table holds those pairs only, in the reference's key
+        order (``particle_blocks.py:148`` ``M2LPlan``), each level's built
+        by one ``_m2l_matrices`` call on its used classes.
         """
         trav = self.traversal
         tree = self.tree
@@ -449,21 +449,23 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         nchild = 2 ** d
         lsb = self._lsb
         nlevels = tree.nlevels
-        offs = _offsets(d, 1)                                # (m, d)
-        m = offs.shape[0]
+        m = 3 ** d
+        # slot j's offset, axis 0 fastest (the reference's slot order)
+        offs = np.stack([(np.arange(m) // 3 ** a) % 3 - 1
+                         for a in range(d)], axis=1)         # (m, d)
         cq = np.array([[(q >> (d - 1 - a)) & 1 for a in range(d)]
                        for q in range(nchild)])              # (2^d, d)
         vec = (cq[None, None, :, :] - cq[None, :, None, :]
                - 2 * offs[:, None, None, :])                 # (m, qs, qt, d)
         wellsep = np.abs(vec).max(axis=-1) > 1
         classes = _offsets(d, 3, min_inf_norm=1)             # (C, d)
-        lin = ((vec + 3) * 7 ** np.arange(d)[::-1]).sum(axis=-1)
-        table = np.full(7 ** d, -1, np.int64)
-        table[((classes + 3) * 7 ** np.arange(d)[::-1]).sum(axis=-1)] = \
-            np.arange(len(classes))
-        self._m2l_class = torch.as_tensor(
-            np.where(wellsep, table[lin], -1), device=dev)   # (m, qs, qt)
-        self._m2l_slots = [j for j in range(m) if wellsep[j].any()]
+        nclasses = len(classes)
+        pow7 = 7 ** np.arange(d)[::-1]
+        class_of_offset = np.full(7 ** d, -1, np.int64)
+        class_of_offset[((classes + 3) * pow7).sum(axis=-1)] = \
+            np.arange(nclasses)
+        cls = np.where(wellsep, class_of_offset[((vec + 3) * pow7)
+                                                .sum(axis=-1)], -1)
 
         # (nboxes, m) colleague of each box in each offset slot
         lists = trav.same_level_non_well_sep_boxes_lists.to(torch.int64)
@@ -473,53 +475,101 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         off = cells[:, lists] - cells[:, rows]
         slot = torch.zeros_like(rows)
         for a in range(d):
-            slot = slot + (off[a] + 1) * 3 ** (d - 1 - a)
-        pmap = torch.full((tree.nboxes, m), -1, dtype=torch.int64,
+            slot = slot + (off[a] + 1) * 3 ** a
+        pmap = torch.full((tree.nboxes, m), -1, dtype=torch.int32,
                           device=dev)
-        pmap[rows, slot] = lists
-        self._m2l_pmap = pmap
-        self._child_rows = tree.box_child_ids.T.to(torch.int64)
-        totp = torch.zeros(tree.nboxes + 1, dtype=torch.bool, device=dev)
-        totp[trav.target_or_target_parent_boxes.to(torch.int64)] = True
-        self._m2l_totp = totp
+        pmap[rows, slot] = lists.to(torch.int32)
 
-        ws = torch.as_tensor(wellsep.reshape(m * nchild, nchild),
-                             dtype=torch.float64, device=dev)
-        count = 0
+        # per (level, j, qs, qt): the pairs with a source child and a
+        # target child; per level: the parents with a target child
+        child = self._child.to(torch.int64)
+        tgt_ok = self._tgt_child >= 0                        # (nboxes, qt)
+        sel = torch.zeros(tree.nboxes, dtype=torch.bool, device=dev)
+        cnt = torch.zeros((nlevels, m * nchild, nchild), dtype=torch.float64,
+                          device=dev)
         for lev in range(2, nlevels):
-            pm = pmap[lsb[lev - 1]:lsb[lev]]                 # (np, m)
+            p0, p1 = lsb[lev - 1], lsb[lev]
+            pm = pmap[p0:p1].to(torch.int64)                 # (np, m)
             src_ok = (pm[..., None] >= 0) & (
-                self._child_rows[pm.clamp(min=0)] > 0)       # (np, m, qs)
-            ch = self._child_rows[lsb[lev - 1]:lsb[lev]]
-            tgt_ok = (ch > 0) & totp[ch]                     # (np, qt)
-            count += int(((src_ok.reshape(len(pm), -1).to(torch.float64)
-                           @ ws) * tgt_ok).sum())
+                child[pm.clamp(min=0)] >= 0)                 # (np, m, qs)
+            cnt[lev] = (src_ok.reshape(p1 - p0, -1).T.to(torch.float64)
+                        @ tgt_ok[p0:p1].to(torch.float64))
+            sel[p0:p1] = tgt_ok[p0:p1].any(dim=1)
+        nsel = torch.zeros(nlevels, dtype=torch.float64, device=dev)
+        for lev in range(2, nlevels):
+            nsel[lev] = sel[lsb[lev - 1]:lsb[lev]].sum()
+        # the one host read of the setup
+        host = torch.cat([nsel, cnt.reshape(-1)]).cpu().numpy()
+        nsel, cnt = host[:nlevels].astype(np.int64), host[nlevels:]
+        cnt = cnt.reshape(nlevels, m, nchild, nchild) * wellsep[None]
+        count = int(cnt.sum())
         nedges = int(trav.from_sep_siblings_lists.shape[0])
         if count != nedges:
             raise RuntimeError(
                 f"parent-block M2L covers {count} List-2 pairs, the "
                 f"traversal has {nedges}")
 
-        # per-level (C, K, K) operator stacks, transposed for row vectors
-        self._m2l_opsT = {}
+        # the operator table of the used (level, class) pairs, in key order
+        level_opid = np.full((nlevels, nclasses), -1, np.int64)
+        used, mats = [], []
         for lev in range(2, nlevels):
+            used_c = np.unique(cls[cnt[lev] > 0])
+            if not len(used_c):
+                continue
+            level_opid[lev, used_c] = len(used) + np.arange(len(used_c))
+            used.extend((lev, int(c)) for c in used_c)
             size = self.root_extent / (1 << lev)
-            mats = self._truncate(self._operator(self._m2l_matrices(
-                classes, size, float(self._rscale_np[lev]))), lev, lev)
-            self._m2l_opsT[lev] = mats.transpose(1, 2).contiguous()
-
-    def _m2l_block(self, lev, j):
-        """(2^d K, 2^d K) operator block of colleague slot *j* at child
-        level *lev*: rows (source digit, coefficient), columns (target
-        digit, coefficient)."""
+            mats.append(self._truncate(self._operator(self._m2l_matrices(
+                classes[used_c], size, float(self._rscale_np[lev]))),
+                lev, lev).transpose(1, 2))
         k = self.ncoeff
-        nchild = 2 ** self.dim
-        ops = self._m2l_opsT[lev]
-        cls = self._m2l_class[j]                             # (qs, qt)
-        blk = torch.where((cls >= 0)[..., None, None],
-                          ops[cls.clamp(min=0)],
-                          torch.zeros((), dtype=ops.dtype, device=ops.device))
-        return blk.permute(0, 2, 1, 3).reshape(nchild * k, nchild * k)
+        ops = (torch.cat(mats).contiguous() if mats else torch.zeros(
+            (0, k, k), dtype=self.dtype, device=dev))
+        opid = np.where(cls[None] >= 0,
+                        level_opid[:, np.clip(cls, 0, None)], -1)
+
+        # the target parents, each level's padded to whole tiles: ranks
+        # within the level scattered to the level's padded offset
+        pad = translate.ROW_PAD
+        npar = -(-nsel // pad) * pad                 # by child level
+        starts = np.concatenate([[0], np.cumsum(npar)])
+        npad = int(starts[-1])
+        box_start = torch.as_tensor(
+            np.repeat(starts[1:], np.diff(lsb)), device=dev)
+        rank = torch.zeros(tree.nboxes, dtype=torch.int64, device=dev)
+        for lev in range(2, nlevels):
+            p0, p1 = lsb[lev - 1], lsb[lev]
+            rank[p0:p1] = torch.cumsum(sel[p0:p1], 0) - 1
+        pos = torch.where(sel, box_start + rank, npad)
+        sel_rows = torch.full((npad + 1,), -1, dtype=torch.int32, device=dev)
+        sel_rows[pos] = torch.arange(tree.nboxes, dtype=torch.int32,
+                                     device=dev)
+        sel_rows = sel_rows[:npad].contiguous()
+        sel_pmap = torch.where(
+            (sel_rows >= 0)[:, None], pmap[sel_rows.clamp(min=0).to(
+                torch.int64)], -1).contiguous()
+        # the source box of each (slot, source digit) pair and row
+        col = sel_pmap.to(torch.int64)
+        src = torch.where((col >= 0)[..., None], self._child[col.clamp(min=0)],
+                          -1)                                # (npad, m, qs)
+        src = src.reshape(npad, m * nchild).T.contiguous()
+        row_level = torch.as_tensor(
+            np.repeat(np.arange(nlevels), npar).astype(np.int32),
+            device=dev)
+
+        self._m2l_opsT = ops
+        self._m2l_plan = translate.M2LPlan(
+            ops=ops, used=used,
+            opid=torch.as_tensor(np.ascontiguousarray(opid, np.int32),
+                                 device=dev),
+            rows=sel_rows, pmap=sel_pmap, src=src, row_level=row_level,
+            child=self._child, tgt_child=self._tgt_child,
+            level_opid=torch.as_tensor(level_opid, device=dev),
+            class_of_offset=torch.as_tensor(class_of_offset, device=dev),
+            radius=3, cells=cells, box_levels=self._box_levels,
+            l2_rows=trav.target_or_target_parent_boxes,
+            l2_starts=trav.from_sep_siblings_starts,
+            l2_lists=trav.from_sep_siblings_lists)
 
     def multipole_to_local(self, level_start_target_or_target_parent_box_nrs,
                            target_or_target_parent_boxes, starts, lists,
@@ -527,34 +577,8 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         self._check_own_lists(
             target_or_target_parent_boxes=target_or_target_parent_boxes,
             from_sep_siblings_starts=starts, from_sep_siblings_lists=lists)
-        k = self.ncoeff
-        nchild = 2 ** self.dim
-        lsb = self._lsb
-        out = self.local_expansion_zeros()
-        chunk = max(1, _CHUNK_ELEMS // (nchild * k))
-        for lev in range(2, self.tree.nlevels):
-            p0, p1 = lsb[lev - 1], lsb[lev]
-            npar = p1 - p0
-            ch = self._child_rows[p0:p1]                     # (np, 2^d)
-            mp8 = torch.where((ch > 0)[..., None], mpole_exps[ch], 0)
-            mp8 = torch.cat([mp8.reshape(npar, nchild * k),
-                             mp8.new_zeros(1, nchild * k)])
-            tgt_ok = (ch > 0) & self._m2l_totp[ch]
-            # parents with target children only; colleagues index mp8
-            sel = torch.nonzero(tgt_ok.any(dim=1))[:, 0]
-            if sel.numel() == 0:
-                continue
-            pm = self._m2l_pmap[p0 + sel]
-            pml = torch.where(pm >= 0, pm - p0, npar)
-            y = mp8.new_zeros(sel.shape[0], nchild * k)
-            for j in self._m2l_slots:
-                blk = self._m2l_block(lev, j)
-                for c0 in range(0, sel.shape[0], chunk):
-                    y[c0:c0 + chunk] += torch.matmul(
-                        mp8[pml[c0:c0 + chunk, j]], blk)
-            ok = tgt_ok[sel]
-            out[ch[sel][ok]] = y.reshape(-1, nchild, k)[ok]
-        return out
+        return translate.m2l_translate(mpole_exps.contiguous(),
+                                       self._m2l_plan)
 
     # }}}
 

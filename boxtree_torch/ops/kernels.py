@@ -77,6 +77,9 @@ SIGNATURES = {
     "l2p_helmholtz3d": "pipppippipdipp",
     "p2m_helmholtz2d": "pippppipipdiiipppp",
     "l2p_helmholtz2d": "pipppippipdiiipppp",
+    "m2l_translate": "pppppppiiiipp",
+    "m2m_translate": "pppiiiip",
+    "l2l_translate": "ppppiiip",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -121,6 +124,9 @@ DTYPES = {
     "l2p_helmholtz3d": (torch.complex128,),
     "p2m_helmholtz2d": (torch.complex128,),
     "l2p_helmholtz2d": (torch.complex128,),
+    "m2l_translate": (*_FLOATS, torch.complex128),
+    "m2m_translate": (*_FLOATS, torch.complex128),
+    "l2l_translate": (*_FLOATS, torch.complex128),
 }
 
 

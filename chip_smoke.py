@@ -66,6 +66,25 @@ lines K31-K34 at the 1e6 Helmholtz paths' inputs (each coefficient column
 to its own largest value), and each Helmholtz FMM must launch its P2M and
 L2P kernels once.
 
+Every FMM of the expansion wranglers runs M2M, M2L and L2L through K36,
+K35 and K37 (``csrc/translate.cu``); each path's FMM line counts its host
+reads (device-to-host copies in a ``torch.profiler`` trace of one FMM and
+of its M2L stage alone), and its ``kernels_translation`` line holds
+K35-K37 against their twins at the stage inputs of one more FMM (per
+coefficient column, 1e-12 in float64 and complex128, 1e-5 in float32),
+with their launches per FMM, times, bounds and the library yardstick (the
+reference's own form on cuBLAS: per level a gathered ``(rows, m 2^d K)``
+block times the ``(m 2^d K, 2^d K)`` block operator for M2L, a
+``torch.matmul`` and an ``index_add_`` per (level, digit) for M2M and
+L2L), on the main path (float32), the double layer (complex128, float64
+pairs, ``level_to_order``), 3D Helmholtz, 2D Helmholtz, 2D Laplace
+(complex128, float64 pairs) and the QBX extent tree (float64 pairs).  The
+``laplace3d_stability`` phase runs ``tests/test_stability.py:28``'s
+(3, 31) line on the card (17 levels, 1,024 coefficients a row): its FMM
+within the reference's bar (3/4)^32, the M2L table's bytes and used keys,
+K2-K4, K28-K30 and K35-K37 launched at that width and held to their
+twins.
+
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21 and the 3D Laplace kernels at 1e5
 points as well, a shallower tree; K19-K21, K2-K4 and K22-K23 on every
@@ -121,6 +140,9 @@ REPLACES = {
     "l2p_helmholtz3d": "boxtree_tpu/models/helmholtz3d.py:330",
     "p2m_helmholtz2d": "boxtree_tpu/models/helmholtz.py:267",
     "l2p_helmholtz2d": "boxtree_tpu/models/helmholtz.py:271",
+    "m2l_translate": "boxtree_tpu/models/expansion_base.py:1016",
+    "m2m_translate": "boxtree_tpu/models/expansion_base.py:684",
+    "l2l_translate": "boxtree_tpu/models/expansion_base.py:723",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -157,6 +179,9 @@ SOURCES = {
     "l2p_helmholtz3d": "boxtree_torch/csrc/helmholtz3d.cu",
     "p2m_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
     "l2p_helmholtz2d": "boxtree_torch/csrc/helmholtz2d.cu",
+    "m2l_translate": "boxtree_torch/csrc/translate.cu",
+    "m2m_translate": "boxtree_torch/csrc/translate.cu",
+    "l2l_translate": "boxtree_torch/csrc/translate.cu",
 }
 #: K24-K27, launched by every traversal; the extent tree's Lists 3 and 4
 #: come from K14/K15 instead of K26
@@ -165,28 +190,34 @@ TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "lists_43",
 EXTENT_TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "list1")
 #: K28 and K30, launched once by each 3D Laplace FMM without dipoles
 P2M_L2P_KERNELS = ("p2m_laplace3d", "l2p_laplace3d")
+#: K35-K37, launched by every FMM of the expansion wranglers
+FMM_TRANSLATE = ("m2l_translate", "m2m_translate", "l2l_translate")
 MAIN_PATH_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
-                     "m2p_laplace3d", "p2l_laplace3d", *P2M_L2P_KERNELS)
+                     "m2p_laplace3d", "p2l_laplace3d", *P2M_L2P_KERNELS,
+                     *FMM_TRANSLATE)
 CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", *TRAVERSAL_KERNELS,
                     "area_query_sweep", "space_invader_sweep", "peer_lists")
 EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
                   *EXTENT_TRAVERSAL_KERNELS, "list4_ext", "list3_ext",
                   "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
-                  *P2M_L2P_KERNELS)
+                  *P2M_L2P_KERNELS, *FMM_TRANSLATE)
 #: K31 and K32 (K33 and K34), launched once by each 3D (2D) Helmholtz FMM
 HELMHOLTZ_P2M_L2P = ("p2m_helmholtz3d", "l2p_helmholtz3d")
 HELMHOLTZ2D_P2M_L2P = ("p2m_helmholtz2d", "l2p_helmholtz2d")
 HELMHOLTZ_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_helmholtz3d",
-                     "m2p_helmholtz3d", "p2l_helmholtz3d", *HELMHOLTZ_P2M_L2P)
+                     "m2p_helmholtz3d", "p2l_helmholtz3d", *HELMHOLTZ_P2M_L2P,
+                     *FMM_TRANSLATE)
 HELMHOLTZ2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
                        "p2p_helmholtz2d", "m2p_helmholtz2d",
-                       "p2l_helmholtz2d", *HELMHOLTZ2D_P2M_L2P)
+                       "p2l_helmholtz2d", *HELMHOLTZ2D_P2M_L2P,
+                       *FMM_TRANSLATE)
 LAPLACE2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace2d",
-                     "m2p_laplace2d", "p2l_laplace2d")
+                     "m2p_laplace2d", "p2l_laplace2d", *FMM_TRANSLATE)
 LAPLACE3D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
                      "m2p_laplace3d", "p2l_laplace3d",
                      "p2p_laplace3d_dipole", "p2l_laplace3d_dipole",
-                     *P2M_L2P_KERNELS, "p2m_laplace3d_dipole")
+                     *P2M_L2P_KERNELS, "p2m_laplace3d_dipole",
+                     *FMM_TRANSLATE)
 #: rel l-inf tolerance of K2-K4 against their twins: float32 sums in
 #: another order, with rsqrt/FMA rounding (a few ulp each)
 KERNEL_RTOL = 1e-5
@@ -548,7 +579,7 @@ def direct_sum_f64(sources, charges, targets, chunk=1 << 16):
     return out
 
 
-def run_main_path(device, card, trav_trees, n_kernels=200_000,
+def run_main_path(device, card, trav_trees, translation, n_kernels=200_000,
                   n_main=1_000_000, order=8, nsample=2000):
     """The counting and the Laplace FMM at 1e6 uniform points (K1-K4),
     then K24-K27 against their twins on its tree; returns the K1-K4 and
@@ -646,7 +677,7 @@ def run_main_path(device, card, trav_trees, n_kernels=200_000,
           "traversal_s": t_trav, "wrangler_setup_s": t_setup,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
-          "stage_s": stages,
+          "stage_s": stages, "host_reads_per_fmm": fmm_host_reads(wr, q),
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
               "l2": int(trav.from_sep_siblings_lists.shape[0]),
@@ -680,6 +711,8 @@ def run_main_path(device, card, trav_trees, n_kernels=200_000,
           "kernels": res, "work": work})
     pres, pwork = check_p2m_l2p(card, device, "main path", [
         ("f32", wr, wr.reorder_sources(q), P2M_L2P_KERNELS)])
+    check_translation(card, device, "main path", [("f32", wr, q)],
+                      translation)
     tres, twork = check_traversal_kernels(tree, device, card, "main path",
                                           trav_trees)
     return [summary_entry(name, launches[name], r, work[name])
@@ -1384,7 +1417,8 @@ def direct_sum_helmholtz(sources, charges, targets, k, chunk=1 << 15):
     return out
 
 
-def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
+def run_helmholtz(device, card, translation, n_kernels=100_000,
+                  n_main=1_000_000, k=2.0,
                   order=12, nsample=2000):
     """K9-K11 against their twins at 1e5 points, then the Helmholtz FMM at
     1e6 uniform points (K1, K9-K11, K31, K32) and K9-K11, K31 and K32
@@ -1458,7 +1492,7 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
           "traversal_s": t_trav, "wrangler_setup_s": t_setup,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
-          "stage_s": stages,
+          "stage_s": stages, "host_reads_per_fmm": fmm_host_reads(wr, q),
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
               "l2": int(trav.from_sep_siblings_lists.shape[0]),
@@ -1497,6 +1531,8 @@ def run_helmholtz(device, card, n_kernels=100_000, n_main=1_000_000, k=2.0,
           "work": work})
     pres, pwork = check_p2m_l2p_helmholtz(card, device, "helmholtz_fmm", wr,
                                           wr.reorder_sources(q))
+    check_translation(card, device, "helmholtz3d", [("c128", wr, q)],
+                      translation)
     res.update(pres)
     work.update(pwork)
     return [summary_entry(name, launches[name], res[name], work[name])
@@ -1657,7 +1693,8 @@ def extent_work(inputs, outputs, tree):
     return out
 
 
-def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
+def run_extents(device, card, trav_trees, translation, n=1_000_000,
+                ncenters=100_000,
                 order=10, nsample=2000, seed=15):
     """The QBX extent tree: Config B's sphere points and balls as sources
     and targets with radii, the traversal with its close lists, the
@@ -1743,6 +1780,7 @@ def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
           "counting_exact": nbad == [0, 0],
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm,
           "fmm_warm_s": t_fmm_warm, "total_s": t_total, "stage_s": stages,
+          "host_reads_per_fmm": fmm_host_reads(wr, q),
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
               "l2": int(trav.from_sep_siblings_lists.shape[0]),
@@ -1774,6 +1812,8 @@ def run_extents(device, card, trav_trees, n=1_000_000, ncenters=100_000,
     check_p2m_l2p_launches(launches, "extent path", 1)
     pres, pwork = check_p2m_l2p(card, device, "extent", [
         ("f64", wr, wr.reorder_sources(q), P2M_L2P_KERNELS)])
+    check_translation(card, device, "qbx extent tree", [("f64", wr, q)],
+                      translation)
 
     # }}}
 
@@ -1981,7 +2021,8 @@ def check_h0_against_scipy(pts, k, seed, n=10_000):
     return float((np.abs(got - ref) / np.abs(ref)).max()), int(x.numel())
 
 
-def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
+def run_helmholtz2d(device, card, translation, n_kernels=100_000,
+                    n_main=1_000_000,
                     k=3.0, order=16, nsample=2000, seed=23):
     """K16-K18 against their twins at 1e5 points, then the 2D Helmholtz
     FMM at 1e6 clustered points (K1, K16-K18, K33, K34) and K16-K18, K33
@@ -2069,6 +2110,7 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm,
           "fmm_warm_s": t_fmm_warm, "total_s": t_total, "stage_s": stages,
+          "host_reads_per_fmm": fmm_host_reads(wr, q),
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
               "l1_particle_pairs": l1,
@@ -2115,6 +2157,8 @@ def run_helmholtz2d(device, card, n_kernels=100_000, n_main=1_000_000,
                                                      wr._nstart)})
     pres, pwork = check_p2m_l2p_helmholtz(card, device, "helmholtz2d_fmm",
                                           wr, wr.reorder_sources(q))
+    check_translation(card, device, "helmholtz2d", [("c128", wr, q)],
+                      translation)
     res.update(pres)
     work.update(pwork)
     del tree, trav, wr, inputs
@@ -2301,7 +2345,7 @@ def direct_sum_log2d(sources, charges, targets, chunk=1 << 15):
     return out
 
 
-def run_laplace2d(device, card, trav_trees, n_kernels=100_000,
+def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
                   n_main=1_000_000, order=20, nsample=2000, seed=20,
                   stability_order=35):
     """K19-K21 against their twins at 1e5 points on every entry point,
@@ -2412,6 +2456,8 @@ def run_laplace2d(device, card, trav_trees, n_kernels=100_000,
           "fmm_warm_s": {"complex128": t_warm_c, "float64_pairs": t_warm_p},
           "total_s": t_total,
           "stage_s": {"complex128": stages_c, "float64_pairs": stages_p},
+          "host_reads_per_fmm": {"complex128": fmm_host_reads(wc, q),
+                                 "float64_pairs": fmm_host_reads(wp, q)},
           "counting_fmm_s": t_count, "counting_exact": nbad == 0,
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
@@ -2452,6 +2498,8 @@ def run_laplace2d(device, card, trav_trees, n_kernels=100_000,
     if missing:
         raise AssertionError(f"kernels not launched on the 2D Laplace "
                              f"path: {missing}")
+    check_translation(card, device, "laplace2d",
+                      [("c128", wc, q), ("f64", wp, q)], translation)
 
     # }}}
 
@@ -2774,7 +2822,8 @@ def direct_sum_dipole_f64(sources, dipoles, charges, targets,
     return out
 
 
-def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
+def run_laplace3d(device, card, translation, n_kernels=100_000,
+                  n_main=1_000_000,
                   n_targets=200_000, order=12, nsample=2000, seed=15):
     """K2-K4's complex128 entry points, K22 and K23 against their twins at
     1e5 sphere points on every entry point; then the 3D Laplace double
@@ -2895,6 +2944,8 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
           "total_s": t_total, "stage_s": stages,
+          "host_reads_per_fmm": {name: fmm_host_reads(w, q)
+                                 for name, w in ws.items()},
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
               "l1_particle_pairs": l1_pairs(
@@ -2943,6 +2994,10 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
     for name, counts in per_fmm.items():
         check_p2m_l2p_launches(counts, f"3D Laplace FMM {name}", 1,
                                int("dipole_vec" in runs[name]))
+    check_translation(card, device, "double layer", [
+        ("c128", ws["complex128"], q), ("f64", ws["float64_pairs"], q),
+        ("f64_level_to_order", ws["float64_pairs_level_to_order"], q)],
+        translation)
 
     # }}}
 
@@ -2989,6 +3044,432 @@ def run_laplace3d(device, card, n_kernels=100_000, n_main=1_000_000,
 # }}}
 
 
+# {{{ K35-K37: M2L, M2M and L2L
+
+#: rel l-inf tolerance of K35-K37 against their twins, per coefficient
+#: column (the pairs' two lanes as one complex coefficient): float64 and
+#: complex128 sums in another order (the twin of K35 is the edge form, one
+#: matmul per operator), float32 likewise
+TRANSLATE_RTOL = {"float32": 1e-5, "float64": 1e-12, "complex128": 1e-12}
+#: the same at order 31 (the stability line): dot products of 1,024
+#: complex terms, against 33-338 on the paths, summed in another order
+#: (the CUDA tests' float64 pairs there lie 2.1e-12 apart)
+LINE_TRANSLATE_RTOL = 1e-11
+#: the peak rates of K35-K37's bounds: float32 outside the tensor cores,
+#: float64 and complex128 on the FP64 tensor cores (NVIDIA's H100 SXM data
+#: sheet, dense, 700 W; a complex multiply-add counts 8 real operations)
+TRANSLATE_PEAK = {"float32": (67e12, "67 TFLOP/s float32 (SIMT)"),
+                  "float64": (67e12, "67 TFLOP/s float64 (FP64 tensor "
+                                     "cores)")}
+
+
+def host_reads(fn):
+    """Device-to-host copies (the host reads) during one call of *fn*,
+    from a ``torch.profiler`` trace (its Chrome export, as
+    ``scripts/torch_fmm_profile.py`` reads it); None if the trace shows no
+    device activity."""
+    import json
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return None
+    return sum(e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]
+               for e in dev)
+
+
+def fmm_host_reads(w, q):
+    """Host reads of one ``drive_fmm`` of wrangler *w* on user-order
+    charges *q*, and of its M2L stage alone."""
+    from boxtree_torch.fmm import drive_fmm
+
+    trav = w.traversal
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [w.reorder_sources(q)]))
+    return {"fmm": host_reads(lambda: drive_fmm(w, [q])),
+            "multipole_to_local": host_reads(lambda: w.multipole_to_local(
+                trav.level_start_target_or_target_parent_box_nrs,
+                trav.target_or_target_parent_boxes,
+                trav.from_sep_siblings_starts, trav.from_sep_siblings_lists,
+                mp))}
+
+
+def translation_rel(got, ref):
+    """``(max_abs_err, rel)`` of (boxes, coefficients) expansions per
+    coefficient column, the pairs' ``[re | im]`` lanes as one complex
+    coefficient (an ``m = 0`` imaginary lane is zero but for rounding); a
+    column that is zero in *ref* must be zero in *got*."""
+    import torch
+    if not ref.is_complex():
+        k = ref.shape[1] // 2
+        got, ref = (torch.complex(x[:, :k].double(), x[:, k:].double())
+                    for x in (got, ref))
+    err = (got - ref).abs()
+    ecol, scale = err.amax(0), ref.abs().amax(0)
+    zero = scale == 0
+    if bool((ecol[zero] > 0).any()):
+        return err.max().item(), float("inf")
+    return err.max().item(), (ecol[~zero] / scale[~zero]).max().item()
+
+
+def m2m_twin_stage(w, mp):
+    """``coarsen_multipoles`` with K36's twin."""
+    from boxtree_torch.ops import translate
+    out, lsb = mp.clone(), w._lsb
+    for lev in range(w.tree.nlevels - 1, 2, -1):
+        translate.m2m_translate_plain(out, w._m2m_opsT[lev], w._child,
+                                      lsb[lev - 1], lsb[lev] - lsb[lev - 1])
+    return out
+
+
+def l2l_twin_stage(w, loc):
+    """``refine_locals`` with K37's twin."""
+    from boxtree_torch.ops import translate
+    out = loc.clone()
+    for lev in range(1, w.tree.nlevels):
+        translate.l2l_translate_plain(out, w._l2l_opsT[lev],
+                                      w._l2l_rows[lev], w._tgt_child)
+    return out
+
+
+def shift_groups(w, which):
+    """The library yardstick of M2M (*which* ``"m2m"``) or L2L: today's
+    form before K36 / K37, one gather, ``torch.matmul`` and ``index_add_``
+    per (level, digit), its ``(level, digit, rows, sources)`` groups
+    built here (host reads) and not timed."""
+    import torch
+    groups = []
+    if which == "m2m":
+        lsb = w._lsb
+        for lev in range(w.tree.nlevels - 1, 2, -1):
+            par = torch.arange(lsb[lev - 1], lsb[lev], device=w.device)
+            ch = w._child[lsb[lev - 1]:lsb[lev]].to(torch.int64)
+            for q in range(ch.shape[1]):
+                ok = ch[:, q] >= 0
+                groups.append((lev, q, par[ok], ch[ok, q]))
+    else:
+        for lev in range(1, w.tree.nlevels):
+            rows = w._l2l_rows[lev].to(torch.int64)
+            tc = w._tgt_child[rows].to(torch.int64)
+            for q in range(tc.shape[1]):
+                ok = tc[:, q] >= 0
+                groups.append((lev, q, tc[ok, q], rows[ok]))
+    return groups
+
+
+def shift_library(x, ops, groups):
+    out = x.clone()
+    for lev, q, dst, src in groups:
+        out.index_add_(0, dst, out[src] @ ops[lev][q])
+    return out
+
+
+def m2l_library_plan(w):
+    """The library yardstick of M2L: the reference's own form
+    (``expansion_base.py:1016``) on cuBLAS, per level a gather of the
+    target parents' colleagues' children, ``(rows, m 2^d K)``, times the
+    ``(m 2^d K, 2^d K)`` block operator of the level's table entries.
+    Returns per level ``(gather ids, block operator, target rows, their
+    product rows)``, built here and not timed."""
+    import torch
+    plan = w._m2l_plan
+    k, nboxes = w.ncoeff, w.tree.nboxes
+    m, nchild = plan.pmap.shape[1], plan.child.shape[1]
+    rows, lev_of = plan.rows.to(torch.int64), plan.row_level.to(torch.int64)
+    child = plan.child.to(torch.int64)
+    out = []
+    for lev in sorted({lev for lev, _ in plan.used}):
+        sel = torch.nonzero((lev_of == lev) & (rows >= 0))[:, 0]
+        pm = plan.pmap[sel].to(torch.int64)
+        src = torch.where(pm[..., None] >= 0, child[pm.clamp(min=0)], -1)
+        src = torch.where(src >= 0, src, nboxes).reshape(sel.shape[0], -1)
+        op = plan.opid[lev].to(torch.int64)                 # (m, qs, qt)
+        blk = torch.where((op >= 0)[..., None, None],
+                          plan.ops[op.clamp(min=0)], 0)
+        blk = blk.permute(0, 1, 3, 2, 4).reshape(m * nchild * k, nchild * k)
+        tgt = plan.tgt_child[rows[sel]].to(torch.int64).reshape(-1)
+        ok = torch.nonzero(tgt >= 0)[:, 0]
+        out.append((src, blk.contiguous(), tgt[ok], ok))
+    return out
+
+
+def m2l_library(mp, lib_plan, chunk_bytes=1 << 30):
+    import torch
+    k = mp.shape[1]
+    mpz = torch.cat([mp, mp.new_zeros(1, k)])
+    out = torch.zeros_like(mp)
+    for src, blk, tgt, ok in lib_plan:
+        n, width = src.shape
+        y = mp.new_empty(n, blk.shape[1])
+        chunk = max(1, chunk_bytes // (width * k * mp.element_size()))
+        for c0 in range(0, n, chunk):
+            y[c0:c0 + chunk] = mpz[src[c0:c0 + chunk]].reshape(
+                -1, width * k) @ blk
+        out[tgt] = y.reshape(-1, k)[ok]
+    return out
+
+
+def translation_work(w):
+    """Bytes K35-K37 must move in one FMM (each input row read once, each
+    output row written once, the operators and the index tables read
+    once) and the operations they must do: a multiply-add (2 real
+    operations, 8 complex) per coefficient pair of every List-2 edge
+    (K35), every child box below level 3 (K36) and every
+    target-or-target-parent child (K37)."""
+    import torch
+    plan = w._m2l_plan
+    k, es = w.ncoeff, w.multipole_expansion_zeros()[:1].element_size()
+    mac = 8 if w.dtype.is_complex else 2
+    typ = "float32" if w.dtype == torch.float32 else "float64"
+    lsb, nl = w._lsb, w.tree.nlevels
+    starts = plan.l2_starts.to(torch.int64)
+    nedges = int(plan.l2_lists.shape[0])
+    nsrc = int(torch.unique(plan.l2_lists).numel())
+    ntgt = int((starts[1:] > starts[:-1]).sum())
+    nchildren = lsb[nl] - lsb[3] if nl > 3 else 0
+    nparents = lsb[nl - 1] - lsb[2] if nl > 3 else 0
+    nl2l = sum(int((w._tgt_child[w._l2l_rows[lev].to(torch.int64)] >= 0)
+                   .sum()) for lev in range(1, nl))
+    nl2l_par = sum(int(w._l2l_rows[lev].numel()) for lev in range(1, nl))
+    return {
+        "m2l_translate": dict(
+            type=typ, list2_edges=nedges, flops=mac * k * k * nedges,
+            bytes=((nsrc + ntgt) * k * es + nbytes(
+                plan.ops, plan.opid, plan.rows, plan.pmap, plan.row_level,
+                plan.child, plan.tgt_child))),
+        "m2m_translate": dict(
+            type=typ, children=nchildren, flops=mac * k * k * nchildren,
+            bytes=((nchildren + 2 * nparents) * k * es + nbytes(
+                w._child, *(w._m2m_opsT[lev] for lev in range(3, nl))))),
+        "l2l_translate": dict(
+            type=typ, children=nl2l, flops=mac * k * k * nl2l,
+            bytes=((nl2l_par + 2 * nl2l) * k * es + nbytes(
+                w._tgt_child, *(w._l2l_opsT[lev] for lev in range(1, nl))))),
+    }
+
+
+def translation_bound(work):
+    """``(bound_ms, bound_by, rate)`` of one of K35-K37's work."""
+    rate, label = TRANSLATE_PEAK[work["type"]]
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S
+    t_ops = work["flops"] / rate
+    if t_ops > t_bytes:
+        return t_ops * 1e3, "operations", label
+    return t_bytes * 1e3, "bytes", "3.35 TB/s HBM3"
+
+
+def check_translation(card, device, path, cases, translation, library=True,
+                      rtol=None):
+    """K35-K37 against their twins at the stage inputs of a second FMM on
+    a path: *cases* is ``[(entry point, wrangler, user-order charges)]``.
+    For each: one more ``drive_fmm`` counts the kernels' launches per FMM;
+    the kernel's time (median of 5, the stage as the FMM runs it), the
+    twin's (median of 3, or one call over 3 s) and the library
+    yardstick's (median of 5; None without *library*), each kernel held to
+    its twin per coefficient column.  Emits a ``kernels_translation`` line
+    and records the results in *translation* by path and entry point;
+    raises on a mismatch."""
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.ops import kernels, translate
+
+    res, works = {}, {}
+    for key, w, q in cases:
+        q_tree = w.reorder_sources(q)
+        kernels.reset_launch_counts()
+        drive_fmm(w, [q])
+        per_fmm = kernels.launch_counts()
+        trav, plan = w.traversal, w._m2l_plan
+        mp = w.form_multipoles(None, None, [q_tree])
+        mp_up = w.coarsen_multipoles(None, None, mp)
+        loc = w.form_locals(None, trav.target_or_target_parent_boxes,
+                            trav.from_sep_bigger_starts,
+                            trav.from_sep_bigger_lists, [q_tree],
+                            translate.m2l_translate(mp_up, plan))
+        lib = lib_m2l = None
+        if library:
+            lib_m2l = m2l_library_plan(w)
+            g_m2m, g_l2l = shift_groups(w, "m2m"), shift_groups(w, "l2l")
+            lib = {"m2l_translate": lambda: m2l_library(mp_up, lib_m2l),
+                   "m2m_translate": lambda: shift_library(mp, w._m2m_opsT,
+                                                          g_m2m),
+                   "l2l_translate": lambda: shift_library(loc, w._l2l_opsT,
+                                                          g_l2l)}
+        fns = {"m2l_translate": (
+                   lambda: translate.m2l_translate(mp_up, plan),
+                   lambda: translate.m2l_translate_plain(mp_up, plan)),
+               "m2m_translate": (
+                   lambda: w.coarsen_multipoles(None, None, mp),
+                   lambda: m2m_twin_stage(w, mp)),
+               "l2l_translate": (
+                   lambda: w.refine_locals(None, None, loc),
+                   lambda: l2l_twin_stage(w, loc))}
+        tol = rtol or TRANSLATE_RTOL[str(w.dtype).removeprefix("torch.")]
+        works[key] = translation_work(w)
+        res[key] = {}
+        for name, (kern, twin) in fns.items():
+            got = kern()
+            ref, t_twin = timed(twin, device)
+            err, rel = translation_rel(got, ref)
+            if not rel <= tol:
+                raise AssertionError(f"{path} {key} {name}: rel l-inf "
+                                     f"{rel:.3e} > {tol}")
+            rel_lib = (translation_rel(lib[name](), ref)[1] if library
+                       else None)
+            del got, ref
+            reps = 1 if t_twin > 3.0 else 3
+            r = dict(max_abs_err=err, rel_err=rel, library_rel_err=rel_lib,
+                     ms=median_ms(kern, device),
+                     plain_ms=(t_twin * 1e3 if reps == 1 else
+                               median_ms(twin, device, reps=reps)),
+                     plain_reps=reps,
+                     library_ms=(median_ms(lib[name], device) if library
+                                 else None),
+                     launches_per_fmm=per_fmm[name])
+            if device.type == "cuda" and per_fmm[name] <= 0:
+                raise AssertionError(f"{path} {key}: {name} not launched "
+                                     "by its FMM")
+            r["bound_ms"], r["bound_by"], r["bound_rate"] = \
+                translation_bound(works[key][name])
+            res[key][name] = r
+        del lib, lib_m2l
+    emit({"phase": "kernels_translation", "card": card, "path": path,
+          "tolerance_rel_linf": {k: rtol or TRANSLATE_RTOL[str(
+              w.dtype).removeprefix("torch.")] for k, w, _ in cases},
+          "rel": "per coefficient column, pair lanes as one coefficient",
+          "library": ("M2L: per level a gather of (rows, m 2^d K) and one "
+                      "torch.matmul with the (m 2^d K, 2^d K) block operator;"
+                      " M2M / L2L: torch.matmul + index_add_ per (level, "
+                      "digit)") if library else None,
+          "kernels": res, "work": works})
+    translation.setdefault(path, {}).update(
+        {key: (res[key], works[key]) for key in res})
+    return res, works
+
+
+def translation_entries(translation):
+    """The summary entries of K35-K37: the main path's float32 numbers,
+    every other path's and entry point's beside them."""
+    out = []
+    main = translation["main path"]["f32"]
+    for name in FMM_TRANSLATE:
+        r, work = main[0][name], main[1][name]
+        e = summary_entry(name, r["launches_per_fmm"], r, work)
+        e["bound_ms"], e["bound_by"], e["bound_rate"] = translation_bound(
+            work)
+        e["library_ms"] = r["library_ms"]
+        e["paths"] = {
+            f"{path} {key}": {
+                "launches": rk[name]["launches_per_fmm"],
+                **{f: rk[name][f] for f in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "bound_rate")}}
+            for path, by_key in translation.items()
+            for key, (rk, _) in by_key.items()
+            if (path, key) != ("main path", "f32")}
+        out.append(e)
+    return out
+
+
+def run_laplace3d_stability(device, card, translation, order=31,
+                            nsources=30):
+    """``tests/test_stability.py:28-65``'s (3, 31) case on the card: the
+    geometric line (17 levels, separate targets), the complex128 wrangler
+    at order 31 with ``rscale="auto"`` (1,024 coefficients a row), its
+    FMM against a float64 direct sum within the reference's bar
+    (3/4)^(p+1); K2-K4, K28 and K30 (the FMM) and K29 (called on the same
+    rows with unit dipoles) launched at that width and held to their
+    twins, and K35-K37 likewise (a ``kernels_translation`` line, without
+    the library yardstick, whose block operator would take ~29 GB a
+    level)."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_laplace_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    line = np.array([2.0 ** -i for i in range(nsources // 2)])
+    line = np.hstack([line, 3 - line])
+    zero = np.zeros(nsources)
+    src_np = np.vstack([line, zero, zero])
+    tgt_np = src_np * (1 + 1e-3)
+    src = torch.as_tensor(src_np, device=device)
+    tree = build_tree(src, targets=torch.as_tensor(tgt_np, device=device),
+                      max_particles_in_box=2)
+    trav = build_traversal(tree)
+    w, t_setup = timed(lambda: make_laplace_wrangler(
+        trav, order, rscale="auto", pairs=False), device)
+    q = torch.ones(nsources, dtype=torch.float64, device=device)
+    kernels.reset_launch_counts()
+    pot, t_fmm = timed(lambda: drive_fmm(w, [q]), device)
+    launches = kernels.launch_counts()
+    diff = src_np[:, None, :] - tgt_np[:, :, None]
+    ref = (1 / np.sqrt((diff * diff).sum(0))).sum(1)
+    got = pot.real.cpu().numpy()
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    bar = 0.75 ** (order + 1)
+    q_tree = w.reorder_sources(q)
+    dip = torch.nn.functional.normalize(torch.as_tensor(
+        np.random.default_rng(31).standard_normal((3, nsources)),
+        device=device), dim=0)
+    w.dipole_vec = dip[:, tree.user_source_ids.to(torch.int64)].contiguous()
+    inputs = {**laplace3d_inputs(trav, w, q_tree, (
+        "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d")),
+        **p2m_l2p_inputs(w, q_tree, (*P2M_L2P_KERNELS,
+                                     "p2m_laplace3d_dipole"))}
+    w.dipole_vec = None
+    kernels.reset_launch_counts()
+    kres = check_list_kernels(inputs, device, plain_reps=3,
+                              rtol=LAPLACE3D_KERNEL_RTOL["c128"], slow_s=3.0)
+    launches["p2m_laplace3d_dipole"] = kernels.launch_counts()[
+        "p2m_laplace3d_dipole"]
+    names = ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
+             *P2M_L2P_KERNELS, "p2m_laplace3d_dipole", *FMM_TRANSLATE)
+    emit({"phase": "laplace3d_stability", "card": card, "order": order,
+          "coefficients": w.ncoeff, "sources": nsources,
+          "nlevels": tree.nlevels, "nboxes": tree.nboxes,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "m2l_table_bytes": w._m2l_plan.nbytes,
+          "m2l_used_keys": len(w._m2l_plan.used),
+          "wrangler_setup_s": t_setup, "fmm_s": t_fmm,
+          "rel_linf_vs_f64_direct": rel, "bar": bar,
+          "launched_at_width": {n: launches[n] for n in names},
+          "launched_by": "the FMM; K29 by its comparison with its twin",
+          "kernels_vs_twins": kres,
+          "tolerance_rel_linf": LAPLACE3D_KERNEL_RTOL["c128"]})
+    if not rel < bar or not np.isfinite(got).all():
+        raise AssertionError(f"order-{order} line: rel l-inf {rel:.3e} >= "
+                             f"{bar:.3e}")
+    missing = [n for n in names if launches[n] <= 0]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"order-{order} line: not launched {missing}")
+    check_translation(card, device, "line tree order 31",
+                      [("c128", w, q)], translation, library=False,
+                      rtol=LINE_TRANSLATE_RTOL)
+
+# }}}
+
+
 def _ptxas_summary(log):
     """Registers / spills per kernel from ``nvcc -Xptxas -v``."""
     out, entry = {}, None
@@ -3024,14 +3505,15 @@ def main():
           "library": str(lib.path.relative_to(lib.path.parents[3])),
           "ptxas": _ptxas_summary(lib.build_log)})
 
-    trav_trees = {}
-    entries = run_main_path(device, card, trav_trees)
+    trav_trees, translation = {}, {}
+    entries = run_main_path(device, card, trav_trees, translation)
     b_entries, _ = run_config_b(device, card, trav_trees)
-    h_entries = run_helmholtz(device, card)
-    e_entries, e_p2m_l2p = run_extents(device, card, trav_trees)
-    h2_entries = run_helmholtz2d(device, card)
-    l2_entries = run_laplace2d(device, card, trav_trees)
-    l3 = run_laplace3d(device, card)
+    h_entries = run_helmholtz(device, card, translation)
+    e_entries, e_p2m_l2p = run_extents(device, card, trav_trees, translation)
+    h2_entries = run_helmholtz2d(device, card, translation)
+    l2_entries = run_laplace2d(device, card, trav_trees, translation)
+    l3 = run_laplace3d(device, card, translation)
+    run_laplace3d_stability(device, card, translation)
     # K2-K4 keep the main path's float32 numbers, with those of their
     # complex128 entry points beside them; K22 and K23 stand by their
     # complex128 entry points, the float64 pairs' beside them.
@@ -3060,7 +3542,8 @@ def main():
                           if label != "main path" and e["name"] in res}
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
-          + h2_entries + l2_entries + l3_entries})
+          + h2_entries + l2_entries + l3_entries
+          + translation_entries(translation)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -42,7 +42,13 @@ equal the ones built on the CPU.  K24-K27 (the neighbour table, the
 colleagues and List 2, Lists 4 and 3, List 1) compute integers and must
 equal their twins bit for bit, CSR order included, on 3D uniform, 2D
 clustered, level-restricted and extent trees, and the traversal they build
-on the card must equal the CPU port's field by field.
+on the card must equal the CPU port's field by field.  K35-K37 (M2L, M2M
+and L2L) agree with their twins to 1e-12 in complex128 and float64 and
+1e-5 in float32, per coefficient column, on the 3D Laplace (dipoles,
+``level_to_order``), 3D and 2D Helmholtz and 2D Laplace wranglers and on
+the order-31 line (1,024 and 2,048 coefficients a row); an FMM launches
+K35 once, K36 and K37 once a level; the order-31 line on the card meets
+the reference's stability bar.
 """
 
 import dataclasses
@@ -78,6 +84,7 @@ from boxtree_torch.ops import (
     restrict,
 )
 from boxtree_torch.ops import traversal as tops
+from boxtree_torch.ops import translate as tops_translate
 from boxtree_torch.traversal import build_traversal
 from boxtree_torch.traversal.build import close_list_inputs, list_inputs
 from boxtree_torch.traversal.neighbors import _offsets
@@ -1051,9 +1058,9 @@ def test_laplace3d_m2l_table_on_card(laplace3d_setup):
     trav, ws, *_ = laplace3d_setup
     classes = _offsets(3, 3, min_inf_norm=1)
     for w in ws.values():
-        assert w._m2l_opsT and all(
-            isinstance(t, torch.Tensor) and t.device.type == "cuda"
-            and t.dtype == w.dtype for t in w._m2l_opsT.values())
+        t = w._m2l_opsT
+        assert t.shape[0] == len(w._m2l_plan.used) > 0
+        assert t.device.type == "cuda" and t.dtype == w.dtype
         table = w._m2l_matrices(classes, 0.25, 0.5)
         assert table.device.type == "cuda" and table.dtype in (
             torch.complex128, torch.float64)
@@ -1677,5 +1684,192 @@ def test_traversal_launches_k24_to_k27(traversal_tree):
     else:
         # the fill pass only where Lists 3 or 4 have entries
         assert launches["lists_43"] in (1, 2)
+
+# }}}
+
+
+# {{{ K35-K37: M2L, M2M and L2L
+
+#: per coefficient column (the pairs' two lanes as one complex value):
+#: float64 and complex128 sums in another order, float32 likewise
+TRANSLATE_RTOL = {torch.complex128: 1e-12, torch.float64: 1e-12,
+                  torch.float32: 1e-5}
+#: the same at order 31 (the line): dot products of 1,024 complex or 2,048
+#: real terms, against 33-338 on the paths above, summed in another order;
+#: the float64 pairs' M2L columns lie 2.1e-12 apart
+LINE_TRANSLATE_RTOL = 1e-11
+TRANSLATE_CASES = ["l3d_c128", "l3d_f64", "l3d_f32", "l3d_l2o", "h3d",
+                   "h2d", "l2d_c128", "l2d_f64", "l2d_f32", "line_c128",
+                   "line_f64"]
+
+
+def _line_3d(device, nsources=30):
+    """``tests/test_stability.py``'s geometric line in 3D (17 levels)."""
+    line = np.array([2.0 ** -i for i in range(nsources // 2)])
+    line = np.hstack([line, 3 - line])
+    zero = np.zeros(nsources)
+    src = np.vstack([line, zero, zero])
+    tgt = src * (1 + 1e-3)
+    tree = build_tree(torch.as_tensor(src, device=device),
+                      targets=torch.as_tensor(tgt, device=device),
+                      max_particles_in_box=2)
+    return src, tgt, build_traversal(tree)
+
+
+@pytest.fixture(scope="module")
+def line_tree(device):
+    return _line_3d(device)
+
+
+@pytest.fixture(scope="module", params=TRANSLATE_CASES)
+def translate_case(request, device, line_tree):
+    """A wrangler of each path's kind (3D Laplace with dipoles in three
+    entry points and with ``level_to_order``, 3D and 2D Helmholtz, 2D
+    Laplace in three, the order-31 line at K = 1024 complex and 2048
+    pairs) and tree-order charges in its dtype."""
+    case = request.param
+    rng = np.random.default_rng(31)
+    if case.startswith("l3d"):
+        src = torch.as_tensor(_sphere(20000, 15), device=device)
+        trav = build_traversal(build_tree(src, max_particles_in_box=30))
+        kw = ({"level_to_order": lambda lev: 8 - min(lev, 4),
+               "pairs": True} if case == "l3d_l2o" else
+              {"order": 8, "pairs": case != "l3d_c128",
+               "dtype": L3D_KINDS[case[4:]][1]})
+        w = make_laplace_wrangler(trav, rscale="auto", dipole_vec=src, **kw)
+    elif case == "h3d":
+        trav = build_traversal(build_tree(torch.as_tensor(
+            _sphere(20000), device=device), max_particles_in_box=30))
+        w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto")
+    elif case == "h2d":
+        trav = build_traversal(build_tree(torch.as_tensor(
+            _clustered_2d(20000), device=device), max_particles_in_box=30))
+        w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto")
+    elif case.startswith("l2d"):
+        trav = build_traversal(build_tree(torch.as_tensor(
+            _clustered_laplace(20000), device=device),
+            max_particles_in_box=20))
+        pairs, dt = L2D_KINDS[case[4:]]
+        w = make_laplace_wrangler(trav, 20, pairs=pairs, dtype=dt,
+                                  rscale="auto")
+    else:
+        w = make_laplace_wrangler(line_tree[2], 31, rscale="auto",
+                                  pairs=case == "line_f64",
+                                  dtype=(torch.float64 if case == "line_f64"
+                                         else torch.complex128))
+    q = torch.as_tensor(rng.standard_normal(w.tree.nsources),
+                        device=device)
+    return case, w, w.reorder_sources(q), q
+
+
+def _translate_rtol(case, w):
+    return (LINE_TRANSLATE_RTOL if case.startswith("line")
+            else TRANSLATE_RTOL[w.dtype])
+
+
+def _coef_rel(got, ref):
+    """Worst coefficient column, the pairs' two lanes as one complex
+    coefficient (an ``m = 0`` imaginary lane is zero but for rounding);
+    a column that is zero in *ref* must be zero in *got*."""
+    if not ref.is_complex():
+        k = ref.shape[1] // 2
+        got, ref = (torch.complex(x[:, :k].double(), x[:, k:].double())
+                    for x in (got, ref))
+    return _zero_safe_cols_rel(got, ref)
+
+
+def test_m2l_translate_kernel(translate_case):
+    """K35 (one launch, every level) against its twin, the edge form, on
+    the M2M output of the wrangler's own kernels."""
+    case, w, q_tree, _ = translate_case
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                            [q_tree]))
+    kernels.reset_launch_counts()
+    got = tops_translate.m2l_translate(mp, w._m2l_plan)
+    assert kernels.launch_counts()["m2l_translate"] == 1
+    ref = tops_translate.m2l_translate_plain(mp, w._m2l_plan)
+    assert ref.abs().max() > 0
+    assert _coef_rel(got, ref) <= _translate_rtol(case, w), case
+
+
+def test_m2m_translate_kernel(translate_case):
+    """K36, level by level bottom-up, against its twin."""
+    case, w, q_tree, _ = translate_case
+    mp = w.form_multipoles(None, None, [q_tree])
+    got, ref = mp.clone(), mp.clone()
+    lsb = w._lsb
+    for lev in range(w.tree.nlevels - 1, 2, -1):
+        args = (w._m2m_opsT[lev], w._child, lsb[lev - 1],
+                lsb[lev] - lsb[lev - 1])
+        tops_translate.m2m_translate(got, *args)
+        tops_translate.m2m_translate_plain(ref, *args)
+    assert _coef_rel(got, ref) <= _translate_rtol(case, w), case
+
+
+def test_l2l_translate_kernel(translate_case):
+    """K37, level by level top-down, against its twin, on the M2L output
+    plus P2L's."""
+    case, w, q_tree, _ = translate_case
+    trav = w.traversal
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                            [q_tree]))
+    loc = w.form_locals(None, trav.target_or_target_parent_boxes,
+                        trav.from_sep_bigger_starts,
+                        trav.from_sep_bigger_lists, [q_tree],
+                        tops_translate.m2l_translate(mp, w._m2l_plan))
+    got, ref = loc.clone(), loc.clone()
+    for lev in range(1, w.tree.nlevels):
+        args = (w._l2l_opsT[lev], w._l2l_rows[lev], w._tgt_child)
+        tops_translate.l2l_translate(got, *args)
+        tops_translate.l2l_translate_plain(ref, *args)
+    assert _coef_rel(got, ref) <= _translate_rtol(case, w), case
+
+
+def test_translate_launches_per_fmm(translate_case):
+    """An FMM launches K35 once, K36 once a level from the finest up to
+    level 3, K37 once a level with target-or-target-parent parents."""
+    case, w, _, q = translate_case
+    kernels.reset_launch_counts()
+    drive_fmm(w, [q])
+    got = {k: v for k, v in kernels.launch_counts().items()
+           if "translate" in k}
+    nlevels = w.tree.nlevels
+    want = {"m2l_translate": 1,
+            "m2m_translate": max(0, nlevels - 3),
+            "l2l_translate": sum(w._l2l_rows[lev].numel() > 0
+                                 for lev in range(1, nlevels))}
+    assert got == want, case
+
+
+def test_line_tree_order31_on_card(line_tree):
+    """``tests/test_stability.py:28``'s (3, 31) case on the card, through
+    K28, K30 and K35-K37 at 1,024 coefficients a row: within the
+    reference's bar (3/4)^32 of a direct sum, the M2L table ~0.18 GB."""
+    src, tgt, trav = line_tree
+    w = make_laplace_wrangler(trav, 31, rscale="auto", pairs=False)
+    kernels.reset_launch_counts()
+    pot = drive_fmm(w, [torch.ones(src.shape[1], dtype=torch.float64,
+                                   device=trav.tree.sources.device)])
+    launches = kernels.launch_counts()
+    for name in ("p2m_laplace3d", "l2p_laplace3d", "m2l_translate"):
+        assert launches[name] == 1, name
+    assert w._m2l_plan.nbytes == len(w._m2l_plan.used) * 1024 ** 2 * 16
+    pot = pot.real.cpu().numpy()
+    diff = src[:, None, :] - tgt[:, :, None]
+    ref = (1 / np.sqrt((diff * diff).sum(0))).sum(1)
+    assert np.abs(pot - ref).max() / np.abs(ref).max() < 0.75 ** 32
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float16])
+def test_translate_wrappers_refuse_dtypes(translate_case, dtype):
+    _, w, q_tree, _ = translate_case
+    mp = w.form_multipoles(None, None, [q_tree]).to(dtype)
+    with pytest.raises(TypeError):
+        tops_translate.m2l_translate(mp, w._m2l_plan)
+    with pytest.raises(TypeError):
+        tops_translate.m2m_translate(mp, w._m2m_opsT[3], w._child, 0, 1)
+    with pytest.raises(TypeError):
+        tops_translate.l2l_translate(mp, w._l2l_opsT[2], w._l2l_rows[2],
+                                     w._tgt_child)
 
 # }}}

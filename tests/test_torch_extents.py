@@ -63,6 +63,7 @@ from boxtree_tpu.utils.particles import (
     make_uniform_particle_array,
 )
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_translate import parent_block_m2l
 
 RTOL = 1e-11
 #: P2P against the correctly rounded direct sum, in units of
@@ -655,6 +656,17 @@ def test_laplace_stage_matches_reference(laplace, stage):
     ref = np.asarray(ref)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert np.abs(got - ref).max() <= RTOL * np.abs(ref).max()
+
+
+def test_m2l_parent_blocks_match_reference(laplace):
+    """What K35 computes, from the plan's own tables, against the
+    reference's M2L on its own multipoles (on the extent tree, whose
+    sources stop on coarser boxes)."""
+    out, w = laplace[0], laplace[4]
+    mp_up, loc = out["M2M"][0], np.asarray(out["M2L"][0])
+    got = parent_block_m2l(torch.from_numpy(np.asarray(mp_up)),
+                           w._m2l_plan).numpy()
+    assert np.abs(got - loc).max() <= RTOL * np.abs(loc).max()
 
 
 @pytest.mark.parametrize("stage", ["P2M", "L2P"])

@@ -65,6 +65,7 @@ from test_torch_helmholtz3d import (
     _rows_rel,
 )
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_translate import parent_block_m2l
 
 K = 3.0
 N = 800
@@ -426,6 +427,14 @@ def test_stages_match_reference(recorded, rscale, stage):
     assert err <= RTOL
 
 
+@pytest.mark.parametrize("rscale", RSCALES)
+def test_m2l_parent_blocks_match_reference(recorded, rscale):
+    """What K35 computes, from the plan's own tables, against the
+    reference's M2L on its own multipoles."""
+    stages, w = recorded(rscale)[:2]
+    got = parent_block_m2l(_t(stages["M2M"][0]), w._m2l_plan).numpy()
+    assert _rows_rel(got.T, np.asarray(stages["M2L"][0]).T) <= RTOL
+
 @pytest.mark.parametrize("op", ["M2M", "L2L", "M2L"])
 @pytest.mark.parametrize("rscale", RSCALES)
 def test_level_operators_match_reference(recorded, rscale, op):
@@ -443,10 +452,12 @@ def test_level_operators_match_reference(recorded, rscale, op):
     for lev in range(1 if op != "M2L" else 2, w.tree.nlevels):
         size = w.root_extent / (1 << lev)
         if op == "M2L":
-            got = w._m2l_opsT[lev].transpose(1, 2).numpy()
-            for c in range(len(classes)):
-                worst = max(worst, _rows_rel(got[c], jw._m2l_matrix(
-                    classes[c] * size, float(rs[lev]))))
+            # the table holds the (level, class) pairs that List 2 uses
+            for i, (lv, c) in enumerate(w._m2l_plan.used):
+                if lv == lev:
+                    worst = max(worst, _rows_rel(
+                        w._m2l_opsT[i].T.numpy(), jw._m2l_matrix(
+                            classes[c] * size, float(rs[lev]))))
             continue
         for q in range(4):
             sign = np.array([1.0 if (q >> (1 - ax)) & 1 else -1.0

@@ -74,6 +74,7 @@ from boxtree_tpu.traversal.containers import (
 )
 from boxtree_tpu.tree.containers import Tree as JaxTree
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_translate import parent_block_m2l
 
 K = 2.0
 N = 800
@@ -335,6 +336,13 @@ def test_stage_matches_reference(stages, stage):
         assert _rel_linf(got, ref) <= RTOL
 
 
+def test_m2l_parent_blocks_match_reference(stages):
+    """What K35 computes, from the plan's own tables, against the
+    reference's M2L on its own multipoles."""
+    out, _, w = stages[:3]
+    got = parent_block_m2l(_t(out["M2M"][0]), w._m2l_plan).numpy()
+    assert _rows_rel(got.T, np.asarray(out["M2L"][0]).T) <= RTOL
+
 @pytest.mark.parametrize("op", ["M2M", "L2L", "M2L"])
 def test_level_operators_match_reference(stages, op):
     """The wrangler's per-level operators against the JAX builders
@@ -348,12 +356,14 @@ def test_level_operators_match_reference(stages, op):
     worst = 0.0
     if op == "M2L":
         classes = _offsets(3, 3, min_inf_norm=1)
-        for lev in range(2, nlevels):
+        # the table holds the (level, class) pairs that List 2 uses
+        assert {lev for lev, _ in w._m2l_plan.used} == set(
+            range(2, nlevels))
+        for i in range(0, len(w._m2l_plan.used), 3):
+            lev, c = w._m2l_plan.used[i]
             size = w.root_extent / (1 << lev)
-            got = w._m2l_opsT[lev].transpose(1, 2).numpy()
-            for c in range(0, len(classes), 3):
-                ref = jw._m2l_matrix(classes[c] * size, float(rs[lev]))
-                worst = max(worst, _rows_rel(got[c], ref))
+            ref = jw._m2l_matrix(classes[c] * size, float(rs[lev]))
+            worst = max(worst, _rows_rel(w._m2l_opsT[i].T.numpy(), ref))
     else:
         for lev in range(1, nlevels):
             size = w.root_extent / (1 << lev)

@@ -45,6 +45,7 @@ from boxtree_torch.models import (
 )
 from boxtree_torch.ops import kernels
 from boxtree_torch.ops import laplace2d as l2
+from boxtree_torch.ops.translate import ROW_PAD
 from boxtree_torch.traversal import build_traversal
 from boxtree_torch.traversal.neighbors import _offsets
 from boxtree_tpu.fmm import drive_fmm as jax_drive_fmm
@@ -59,6 +60,7 @@ from test_torch_helmholtz3d import (
     _rows_rel,
 )
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_translate import check_rows, parent_block_m2l
 
 N = 800
 MAX_IN_BOX = 30
@@ -168,10 +170,12 @@ def test_level_operators_match_reference(recorded, points, kind, rscale,
     for lev in range(1 if op != "M2L" else 2, w.tree.nlevels):
         size = w.root_extent / (1 << lev)
         if op == "M2L":
-            got = w._m2l_opsT[lev].transpose(1, 2).numpy()
-            for c in range(len(classes)):
-                worst = max(worst, _rows_rel(got[c], jw._m2l_matrix(
-                    classes[c] * size, float(rs[lev]))))
+            # the table holds the (level, class) pairs that List 2 uses
+            for i, (lv, c) in enumerate(w._m2l_plan.used):
+                if lv == lev:
+                    worst = max(worst, _rows_rel(
+                        w._m2l_opsT[i].T.numpy(), jw._m2l_matrix(
+                            classes[c] * size, float(rs[lev]))))
             continue
         for q in range(4):
             sign = np.array([1.0 if (q >> (1 - ax)) & 1 else -1.0
@@ -390,6 +394,16 @@ def test_stages_match_reference(recorded, kind, stage):
     err = _cols_rel(got, ref) if got.ndim == 2 else _rel_linf(got, ref)
     assert err <= RTOL
 
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_m2l_parent_blocks_match_reference(recorded, kind):
+    """What K35 computes, from the plan's own tables (m = 9 slots, 4
+    digits), against the reference's M2L on its own multipoles; the
+    plan's rows padded per level."""
+    stages, w = recorded(kind)[:2]
+    got = parent_block_m2l(_t(stages["M2M"][0]), w._m2l_plan)
+    assert _cols_rel(got.numpy(), stages["M2L"][0]) <= RTOL
+    check_rows(w._m2l_plan, w.tree, ROW_PAD)
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_slice_matches_reference(points, recorded, kind):

@@ -55,6 +55,7 @@ from boxtree_torch.models import (
     make_laplace_wrangler,
 )
 from boxtree_torch.ops import laplace3d as l3
+from boxtree_torch.ops import translate as tops
 from boxtree_torch.ops import solid_harmonics as sh
 from boxtree_torch.traversal import build_traversal
 from boxtree_torch.traversal.neighbors import _offsets
@@ -65,9 +66,11 @@ from boxtree_tpu.models.laplace import (
     LaplaceTreeIndependentDataForWrangler as JaxTreeIndependent,
     make_laplace_wrangler as jax_make_laplace_wrangler,
 )
+from boxtree_tpu.models.particle_blocks import M2LPlan as JaxM2LPlan
 from test_torch_helmholtz3d import _jax_traversal, _Recorder, _rel_linf
-from test_torch_laplace2d import _cols_rel
+from test_torch_laplace2d import _cols_rel, clustered
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_translate import check_rows, parent_block_m2l
 
 N = 800
 MAX_IN_BOX = 20
@@ -177,13 +180,10 @@ def test_m2l_table_matches_recorded_reference(recorded, kind):
     for the (level, class) pairs its lists use, with ``rscale="auto"``
     and, for the second recording, truncated by ``level_to_order``."""
     _, w, _, jw = recorded(kind)
-    classes = {tuple(c): i for i, c in enumerate(_offsets(3, 3,
-                                                          min_inf_norm=1))}
     ref = np.asarray(jw._m2l_opsT)
     assert jw.m2l_plan.nops == len(ref) > 0
-    got = np.stack([
-        w._m2l_opsT[lev][classes[tuple(jw.m2l_plan.offsets[c])]].numpy()
-        for lev, c in jw.m2l_plan.used])
+    assert w._m2l_plan.used == jw.m2l_plan.used
+    got = w._m2l_opsT.numpy()
     assert got.dtype == ref.dtype == np.complex128
     assert _op_rel(got, ref) <= OP_RTOL
 
@@ -218,7 +218,9 @@ def test_m2l_table_level_truncation(points):
                               rscale="auto")
     assert w.order == ORDER
     nm_n = w.tree_indep.nm_n
-    for lev, ops in w._m2l_opsT.items():
+    levels = np.array([lev for lev, _ in w._m2l_plan.used])
+    for lev in np.unique(levels):
+        ops = w._m2l_opsT[torch.as_tensor(levels == lev)]
         keep = nm_n <= level_to_order(lev)
         nz = (ops != 0).any(0)
         assert not nz[~keep].any() and not nz[:, ~keep].any()
@@ -720,6 +722,151 @@ def test_level_to_order_masks_expansions(recorded, kind):
     assert past.any()
     for name in ("P2M", "M2M", "M2L+P2L", "L2L"):
         assert (stages[name][1].numpy()[past] == 0).all(), name
+
+# }}}
+
+
+# {{{ the M2L plan: its used keys, opid and rows, and K35's computation
+
+def _expansions_rel(got, ref, kind):
+    """Worst coefficient column of expansions, the pairs' two lanes of a
+    coefficient to its complex scale (see test_stages_match_reference)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if {**KINDS, **KINDS32}[kind][0]:
+        k = got.shape[1] // 2
+        got, ref = (x[:, :k] + 1j * x[:, k:] for x in (got, ref))
+    return _cols_rel(got, ref)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_m2l_parent_blocks_match_reference(recorded, kind):
+    """What K35 computes, from the plan's own tables (the padded target
+    parents, their colleague slots, ``opid``, the child tables), against
+    the reference's M2L on its own multipoles."""
+    stages, w, _, _ = recorded(kind)
+    mp_up, loc = stages["M2M"][0], stages["M2L"][0]
+    got = parent_block_m2l(_t(mp_up), w._m2l_plan)
+    assert _expansions_rel(got.numpy(), loc, kind) <= RTOL
+
+
+@pytest.mark.parametrize("stage", ["M2M", "M2L", "L2L"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_translate_twins_match_reference(recorded, kind, stage):
+    """The plain twins of K35-K37, called as the wrangler's stages call
+    the kernels (M2M and L2L level by level, in place), against the
+    reference's stages."""
+    stages, w, _, _ = recorded(kind)
+    lsb = w._lsb
+    if stage == "M2M":
+        mp = _t(stages["P2M"][0])
+        for lev in range(w.tree.nlevels - 1, 2, -1):
+            tops.m2m_translate_plain(mp, w._m2m_opsT[lev], w._child,
+                                     lsb[lev - 1], lsb[lev] - lsb[lev - 1])
+        got, ref = mp, stages["M2M"][0]
+    elif stage == "M2L":
+        got = tops.m2l_translate_plain(_t(stages["M2M"][0]), w._m2l_plan)
+        ref = stages["M2L"][0]
+    else:
+        got = _t(stages["M2L+P2L"][0])
+        for lev in range(1, w.tree.nlevels):
+            tops.l2l_translate_plain(got, w._l2l_opsT[lev],
+                                     w._l2l_rows[lev], w._tgt_child)
+        ref = stages["L2L"][0]
+    assert _expansions_rel(got.numpy(), ref, kind) <= RTOL
+
+
+def test_m2l_plan_rows(recorded):
+    """K35's rows: each level's target parents, ascending, padded to
+    whole tiles."""
+    w = recorded("complex")[1]
+    check_rows(w._m2l_plan, w.tree, tops.ROW_PAD)
+    assert w._m2l_plan.pmap.shape == (w._m2l_plan.rows.shape[0], 27)
+
+
+def test_m2l_opid_matches_reference(recorded):
+    """``opid`` against the reference's ``(nlevels, m, qs, qt)`` map of
+    its parent-block plan (``expansion_base.py:951-968``), and the
+    colleague slots of the target parents against its ``pmap``."""
+    w, jw = recorded("complex")[1], recorded("complex")[3]
+    try:
+        assert jw._build_m2l_parent_plan()
+        jpmap, jopid = jw._m2l_parent[:2]
+        jpmap = np.asarray(jpmap)
+    finally:
+        jw._m2l_parent = None
+    plan = w._m2l_plan
+    assert np.array_equal(plan.opid.numpy(), jopid)
+    rows = plan.rows.numpy()
+    ok = rows >= 0
+    assert np.array_equal(plan.pmap.numpy()[ok], jpmap[rows[ok]])
+
+
+def _uniform_tree():
+    pts = np.random.default_rng(61).random((3, 1500))
+    return build_traversal(build_tree(pts, max_particles_in_box=12,
+                                      device="cpu"))
+
+
+def _line_tree(dims, nsources=30):
+    """``tests/test_stability.py:36-43``'s geometric line: a 15+-level
+    tree of separate sources and targets."""
+    line = np.array([2.0 ** -i for i in range(nsources // 2)])
+    line = np.hstack([line, 3 - line])
+    zero = np.zeros(nsources)
+    src = np.vstack([line, zero, zero])[:dims]
+    tgt = src * (1 + 1e-3)
+    trav = build_traversal(build_tree(src, targets=tgt,
+                                      max_particles_in_box=2, device="cpu"))
+    assert trav.tree.nlevels >= 15
+    return src, tgt, trav
+
+
+@pytest.mark.parametrize("tree", ["uniform3d", "clustered2d", "line3d"])
+def test_m2l_used_keys_match_reference(tree):
+    """The table's (level, class) keys, and its row count, equal the
+    reference ``M2LPlan``'s ``_used_keys`` on the port's traversal
+    (``particle_blocks.py:148-298``, classified from List 2's edges): a
+    uniform 3D tree, a clustered 2D tree and the line tree at order 8."""
+    if tree == "uniform3d":
+        trav = _uniform_tree()
+        w = make_laplace_wrangler(trav, 2, pairs=True)
+    elif tree == "clustered2d":
+        trav = build_traversal(build_tree(clustered(1200, 62),
+                                          max_particles_in_box=10,
+                                          device="cpu"))
+        w = make_laplace_wrangler(trav, 3, pairs=True)
+    else:
+        trav = _line_tree(3)[2]
+        w = make_laplace_wrangler(trav, 8, rscale="auto")
+    d = trav.tree.dimensions
+    jplan = JaxM2LPlan(_jax_traversal(trav), _offsets(d, 3, min_inf_norm=1))
+    keys = [lev * jplan.nclasses + c for lev, c in w._m2l_plan.used]
+    assert len(keys) > 0
+    assert np.array_equal(np.array(keys), jplan._used_keys)
+    assert w._m2l_opsT.shape == (jplan.nops, w.ncoeff, w.ncoeff)
+
+
+@pytest.mark.parametrize("order", [15, 31])
+def test_line_tree_table_and_accuracy(order):
+    """``tests/test_stability.py:28``'s 3D line at order 15 and 31 on the
+    port: the M2L table holds one ((p+1)^2, (p+1)^2) complex128 operator
+    per used (level, class), at most one a List-2 edge (15; not 316 a
+    level: at order 31, 0.18 GB against ~79.5 GB), and the potentials meet
+    the reference's bar (3/4)^(p+1).  Order 31 takes ~26 s and ~5 GB here,
+    most of it the M2M / L2L operators of 16 levels."""
+    src, tgt, trav = _line_tree(3)
+    w = make_laplace_wrangler(trav, order, rscale="auto")
+    k = (order + 1) ** 2
+    nops = len(w._m2l_plan.used)
+    assert 0 < nops <= trav.from_sep_siblings_lists.shape[0] == 15
+    assert w._m2l_plan.nbytes == nops * k * k * 16
+    pot = drive_fmm(w, [torch.ones(src.shape[1], dtype=torch.float64)])
+    pot = pot.numpy().real
+    assert not np.isnan(pot).any()
+    diff = src[:, None, :] - tgt[:, :, None]
+    ref = (1 / np.sqrt((diff * diff).sum(0))).sum(1)
+    assert np.abs(pot - ref).max() / np.abs(ref).max() < (3 / 4) ** (
+        order + 1)
 
 # }}}
 
