@@ -3,24 +3,23 @@
 Port of :class:`boxtree_tpu.models.expansion_base.ExpansionWranglerBase`
 (``expansion_base.py:212-1803``) with one formulation per stage:
 
-- P2M and L2P: the hooks ``_p2m`` / ``_l2p``; by default per-particle
-  basis evaluation in chunks, ``index_add_`` into the boxes / a gather of
-  the box's local expansion; the 3D Laplace and the 3D and 2D Helmholtz
-  wranglers launch the kernels of :mod:`boxtree_torch.ops.laplace3d`,
-  :mod:`~boxtree_torch.ops.helmholtz3d` and
-  :mod:`~boxtree_torch.ops.helmholtz2d` over the rows
+- P2M and L2P: the hooks ``_p2m`` / ``_l2p``; every wrangler launches
+  the kernels of its module (:mod:`boxtree_torch.ops.laplace2d`,
+  :mod:`~boxtree_torch.ops.laplace3d`,
+  :mod:`~boxtree_torch.ops.helmholtz3d`,
+  :mod:`~boxtree_torch.ops.helmholtz2d`) over the rows
   :attr:`_source_rows` / :attr:`_target_rows` (the boxes that own
-  particles, on every level) instead;
+  particles, on every level);
 - M2M, M2L and L2L: the kernels of :mod:`boxtree_torch.ops.translate`
   (K36, K35, K37), gathered rows of expansions times operator tables
   built once at setup: M2M and L2L per (level, child digit), one launch a
   level; M2L in the parent-block form (``expansion_base.py:915-1086``),
   one table entry per (level, translation class) that List 2 uses and
   one launch for all levels, with no host read;
-- P2P, M2P, P2L: the kernels of :mod:`boxtree_torch.ops.laplace3d`.
+- P2P, M2P, P2L: the list kernels of each wrangler's module.
 
-Subclasses provide ``_ncoeff``, the per-particle hooks ``_p2m_terms`` and
-``_l2p_eval``, the batched operator builders ``_m2m_matrices``,
+Subclasses provide ``_ncoeff``, the particle hooks ``_p2m`` and
+``_l2p``, the batched operator builders ``_m2m_matrices``,
 ``_l2l_matrices`` and ``_m2l_matrices`` (numpy or a tensor), which
 :meth:`_operator` turns into tensors of the coefficient dtype, and the
 list-stage hooks ``_p2p``, ``_m2p`` and ``_p2l``.  Coefficients and
@@ -29,10 +28,9 @@ geometry, particles and rscales of its real counterpart, ``real_dtype``.
 
 Two options follow the reference (``expansion_base.py:227-347``):
 
-- ``dipole_vec``: the sources are dipoles, for the kernels that set
-  ``_supports_dipoles``.  The default P2M takes the JVP of ``_p2m_terms``
-  in the source offsets; the P2M and list-stage hooks of a class with
-  dipole kernels read :attr:`dipole_vec` and launch them.
+- ``dipole_vec``: the sources are dipoles, for the classes that set
+  ``_supports_dipoles``: their P2M and list-stage hooks read
+  :attr:`dipole_vec` and launch their dipole kernels.
 - ``level_to_order``: expansions keep the maximum order with each level's
   tail masked to zero (after P2M, after P2L and on L2P's input), and the
   M2M, L2L and M2L operators are truncated to the orders of the levels
@@ -50,10 +48,6 @@ from boxtree_torch.fmm.drive import ExpansionWranglerInterface
 from boxtree_torch.ops import morton, translate
 from boxtree_torch.traversal.containers import compressed_csr, csr_rows
 from boxtree_torch.traversal.neighbors import _offsets
-
-#: element budget of one chunk of the per-particle and M2L temporaries
-_CHUNK_ELEMS = 1 << 26
-
 
 def merge_list3(target_boxes_by_source_level, from_sep_smaller_by_level):
     """Merge the per-source-level List-3 CSRs into one CSR over target
@@ -257,14 +251,14 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         ``|k|`` for oscillatory kernels."""
         return 1.0
 
-    def _p2m_terms(self, rel, q, scale):
-        """Multipole terms of charges *q* at offsets *rel* pre-divided by
-        *scale*, the box's rscale (``expansion_base.py:532-538``)."""
+    def _p2m(self, src_weights):
+        """Multipoles ``(nboxes, K)`` of the tree-order *src_weights*,
+        before the level mask (``expansion_base.py:651-677``)."""
         raise NotImplementedError
 
-    def _l2p_eval(self, rel, loc, scale):
-        """Potentials of locals *loc* at offsets *rel* pre-divided by
-        *scale*."""
+    def _l2p(self, local_exps):
+        """Potentials (tree-order targets) of the masked *local_exps*
+        (``expansion_base.py:1793-1803``)."""
         raise NotImplementedError
 
     def _m2m_matrices(self, ts, r_child, r_parent):
@@ -347,49 +341,9 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
                     f"{name} is not the wrangler's traversal's own: M2L, "
                     "M2P and P2L run on plans built from it at setup")
 
-    def _particle_chunks(self, n):
-        chunk = max(1, _CHUNK_ELEMS // self.ncoeff)
-        for c0 in range(0, n, chunk):
-            yield slice(c0, min(n, c0 + chunk))
-
     # }}}
 
     # {{{ P2M / L2P (hooks: _p2m, _l2p)
-
-    def _p2m(self, src_weights):
-        """Multipoles ``(nboxes, K)`` of the tree-order *src_weights*,
-        before the level mask: ``_p2m_terms`` a chunk of particles at a
-        time, summed into each particle's box."""
-        box = self.tree.box_id_of_source.to(torch.int64)
-        mp = self.multipole_expansion_zeros()
-        for c in self._particle_chunks(box.shape[0]):
-            b = box[c]
-            s = self.box_scale[b]
-            rel = (self._sources[:, c] - self.centers[:, b]) / s
-            q = src_weights[c]
-            if self.dipole_vec is None:
-                terms = self._p2m_terms(rel, q, s)
-            else:
-                # the dipole is the JVP in the source offset, d(rel) = d/s
-                # (expansion_base.py:664-673)
-                terms = torch.func.jvp(
-                    lambda r, q=q, s=s: self._p2m_terms(r, q, s), (rel,),
-                    (self.dipole_vec[:, c] / s,))[1]
-            mp.index_add_(0, b, terms)
-        return mp
-
-    def _l2p(self, local_exps):
-        """Potentials (tree-order targets) of the masked *local_exps*:
-        ``_l2p_eval`` a chunk of targets at a time against its box's
-        local expansion."""
-        box = self.tree.box_id_of_target.to(torch.int64)
-        pot = self.output_zeros()
-        for c in self._particle_chunks(box.shape[0]):
-            b = box[c]
-            s = self.box_scale[b]
-            rel = (self._targets[:, c] - self.centers[:, b]) / s
-            pot[c] = self._l2p_eval(rel, local_exps[b], s)
-        return pot
 
     def form_multipoles(self, level_start_source_box_nrs, source_boxes,
                         src_weight_vecs):

@@ -15,7 +15,9 @@ table is built on the wrangler's device in torch from the translation
 classes (``_m2l_ops_device``, ``:160-189`` and ``:271-316``).  Two
 wranglers: :class:`Laplace2DExpansionWrangler` on complex128 coefficients,
 and :class:`Laplace2DPairsExpansionWrangler` on ``[re | im]`` pair lanes
-of float64 or float32 (real potentials).
+of float64 or float32 (real potentials).  Every particle stage of both
+runs a kernel of :mod:`boxtree_torch.ops.laplace2d` (P2M K38, P2P K19, M2P
+K20, P2L K21, L2P K40), and both take dipole sources (K39, K41, K42).
 
 **3D** (``laplace.py:379-612``): kernel ``G(t, s) = 1/|t - s|`` with scaled
 solid harmonics (:mod:`boxtree_torch.ops.solid_harmonics`), in which every
@@ -85,17 +87,79 @@ class LaplaceTreeIndependentDataForWrangler(TreeIndependentDataForWrangler):
                 [np.arange(-n, n + 1) for n in range(order + 1)])
 
 
+class _LaplaceParticleStages:
+    """The particle stages of the Laplace wranglers, each a kernel wrapper
+    of ``_kernels`` (``{stage: wrapper}``, the dipole forms under
+    ``"<stage>_dipole"``): P2M and L2P over the boxes that own particles,
+    P2P, M2P and P2L over the lists; with ``dipole_vec`` set, P2M, P2P and
+    P2L run their dipole kernels."""
+
+    _kernels = None
+
+    def _with_dipoles(self, stage, lead, q, *rest):
+        if self.dipole_vec is None:
+            return self._kernels[stage](*lead, q.contiguous(), *rest)
+        return self._kernels[f"{stage}_dipole"](
+            *lead, q.contiguous(), self.dipole_vec, *rest)
+
+    def _p2m(self, q):
+        tree = self.tree
+        return self._with_dipoles(
+            "p2m", (self._sources,), q, tree.box_source_starts,
+            tree.box_source_counts_nonchild, self._source_rows, self.centers,
+            self.box_scale, self.order)
+
+    def _l2p(self, local_exps):
+        tree = self.tree
+        return self._kernels["l2p"](
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, self._target_rows,
+            local_exps.contiguous(), self.centers, self.box_scale,
+            self.order)
+
+    def _p2p(self, target_boxes, starts, lists, q):
+        tree = self.tree
+        return self._with_dipoles(
+            "p2p", (self._targets, self._sources), q, tree.box_target_starts,
+            tree.box_target_counts_nonchild, tree.box_source_starts,
+            tree.box_source_counts_nonchild, target_boxes, starts, lists)
+
+    def _m2p(self, rows, starts, lists, mpole_exps):
+        tree = self.tree
+        return self._kernels["m2p"](
+            self._targets, tree.box_target_starts,
+            tree.box_target_counts_nonchild, rows, starts, lists,
+            mpole_exps.contiguous(), self.centers, self.box_scale,
+            self.order)
+
+    def _p2l(self, rows, starts, lists, q, out):
+        tree = self.tree
+        return self._with_dipoles(
+            "p2l", (self._sources,), q, tree.box_source_starts,
+            tree.box_source_counts_nonchild, rows, starts, lists,
+            self.centers, self.box_scale, self.order, out)
+
+
 # {{{ 2D
 
-class Laplace2DExpansionWrangler(ExpansionWranglerBase):
+class Laplace2DExpansionWrangler(_LaplaceParticleStages,
+                                 ExpansionWranglerBase):
     """2D Laplace FMM wrangler on complex128 power-series coefficients
     (see module doc); the counterpart of ``boxtree_tpu``'s wrangler of the
-    same name."""
+    same name.  Takes dipole sources (K39, K41, K42)."""
 
     dtype = torch.complex128
     _supports_rscale = True
+    _supports_dipoles = True
     #: the coefficient dtypes the class computes in
     _dtypes = (torch.complex128,)
+    _kernels = {
+        "p2m": laplace2d.p2m_laplace2d,
+        "p2m_dipole": laplace2d.p2m_laplace2d_dipole,
+        "l2p": laplace2d.l2p_laplace2d, "p2p": laplace2d.p2p_laplace2d,
+        "p2p_dipole": laplace2d.p2p_laplace2d_dipole,
+        "m2p": laplace2d.m2p_laplace2d, "p2l": laplace2d.p2l_laplace2d,
+        "p2l_dipole": laplace2d.p2l_laplace2d_dipole}
 
     def __init__(self, tree_indep, traversal, **kwargs):
         self.order = tree_indep.order
@@ -106,7 +170,7 @@ class Laplace2DExpansionWrangler(ExpansionWranglerBase):
                 f"{type(self).__name__} is ported in "
                 f"{', '.join(map(str, self._dtypes))}, not {dt}")
         if traversal.tree.box_levels.device.type == "cuda":
-            # K20/K21 refuse here what they would refuse mid-FMM
+            # K20, K21 and K42 refuse here what they would refuse mid-FMM
             laplace2d.check_order(self.order, dt)
         super().__init__(tree_indep, traversal, **kwargs)
 
@@ -207,43 +271,6 @@ class Laplace2DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ particle hooks (laplace.py:191-208), plain torch
-
-    def _p2m_terms(self, rel, q, scale):
-        return laplace2d.p2m_terms(rel, q, self.order)
-
-    def _l2p_eval(self, rel, loc, scale):
-        return laplace2d.l2p_eval(rel, loc, self.order)
-
-    # }}}
-
-    # {{{ list-stage hooks: the K19-K21 kernels
-
-    def _p2p(self, target_boxes, starts, lists, q):
-        tree = self.tree
-        return laplace2d.p2p_laplace2d(
-            self._targets, self._sources, q.contiguous(),
-            tree.box_target_starts, tree.box_target_counts_nonchild,
-            tree.box_source_starts, tree.box_source_counts_nonchild,
-            target_boxes, starts, lists)
-
-    def _m2p(self, rows, starts, lists, mpole_exps):
-        tree = self.tree
-        return laplace2d.m2p_laplace2d(
-            self._targets, tree.box_target_starts,
-            tree.box_target_counts_nonchild, rows, starts, lists,
-            mpole_exps.contiguous(), self.centers, self.box_scale,
-            self.order)
-
-    def _p2l(self, rows, starts, lists, q, out):
-        tree = self.tree
-        return laplace2d.p2l_laplace2d(
-            self._sources, q.contiguous(), tree.box_source_starts,
-            tree.box_source_counts_nonchild, rows, starts, lists,
-            self.centers, self.box_scale, self.order, out)
-
-    # }}}
-
 
 class Laplace2DPairsExpansionWrangler(Laplace2DExpansionWrangler):
     """2D Laplace FMM wrangler on ``[re | im]`` pair-lane coefficients of
@@ -277,19 +304,14 @@ class Laplace2DPairsExpansionWrangler(Laplace2DExpansionWrangler):
     def _m2l_matrices(self, classes, size, r):
         return sh.pair_blocks(*self._m2l_lanes(classes, size, r))
 
-    def _p2m_terms(self, rel, q, scale):
-        return laplace2d.p2m_terms_pairs(rel, q, self.order)
-
-    def _l2p_eval(self, rel, loc, scale):
-        return laplace2d.l2p_eval_pairs(rel, loc, self.order)
-
 # }}}
 
 
 # {{{ 3D
 
 
-class Laplace3DExpansionWrangler(ExpansionWranglerBase):
+class Laplace3DExpansionWrangler(_LaplaceParticleStages,
+                                 ExpansionWranglerBase):
     """3D Laplace FMM wrangler on complex128 solid-harmonic coefficients
     (see module doc); the counterpart of ``boxtree_tpu``'s wrangler of the
     same name.  Takes dipole sources (K22, K23)."""
@@ -299,6 +321,13 @@ class Laplace3DExpansionWrangler(ExpansionWranglerBase):
     _supports_dipoles = True
     #: the coefficient dtypes the class computes in
     _dtypes = (torch.complex128,)
+    _kernels = {
+        "p2m": laplace3d.p2m_laplace3d,
+        "p2m_dipole": laplace3d.p2m_laplace3d_dipole,
+        "l2p": laplace3d.l2p_laplace3d, "p2p": laplace3d.p2p_laplace3d,
+        "p2p_dipole": laplace3d.p2p_laplace3d_dipole,
+        "m2p": laplace3d.m2p_laplace3d, "p2l": laplace3d.p2l_laplace3d,
+        "p2l_dipole": laplace3d.p2l_laplace3d_dipole}
 
     def __init__(self, tree_indep, traversal, **kwargs):
         self.order = tree_indep.order
@@ -378,64 +407,6 @@ class Laplace3DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ P2M / L2P hooks (laplace.py:473-480, pairs :581-593): K28, or
-    # K29 for dipoles, and K30, over the boxes that own particles
-
-    def _p2m(self, q):
-        tree = self.tree
-        args = (tree.box_source_starts, tree.box_source_counts_nonchild,
-                self._source_rows, self.centers, self.box_scale, self.order)
-        if self.dipole_vec is None:
-            return laplace3d.p2m_laplace3d(self._sources, q.contiguous(),
-                                           *args)
-        return laplace3d.p2m_laplace3d_dipole(
-            self._sources, q.contiguous(), self.dipole_vec, *args)
-
-    def _l2p(self, local_exps):
-        tree = self.tree
-        return laplace3d.l2p_laplace3d(
-            self._targets, tree.box_target_starts,
-            tree.box_target_counts_nonchild, self._target_rows,
-            local_exps.contiguous(), self.centers, self.box_scale,
-            self.order)
-
-    # }}}
-
-    # {{{ list-stage hooks: K2-K4, or K22 and K23 for dipoles
-
-    def _p2p(self, target_boxes, starts, lists, q):
-        tree = self.tree
-        args = (tree.box_target_starts, tree.box_target_counts_nonchild,
-                tree.box_source_starts, tree.box_source_counts_nonchild,
-                target_boxes, starts, lists)
-        if self.dipole_vec is None:
-            return laplace3d.p2p_laplace3d(
-                self._targets, self._sources, q.contiguous(), *args)
-        return laplace3d.p2p_laplace3d_dipole(
-            self._targets, self._sources, q.contiguous(), self.dipole_vec,
-            *args)
-
-    def _m2p(self, rows, starts, lists, mpole_exps):
-        tree = self.tree
-        return laplace3d.m2p_laplace3d(
-            self._targets, tree.box_target_starts,
-            tree.box_target_counts_nonchild, rows, starts, lists,
-            mpole_exps.contiguous(), self.centers, self.box_scale,
-            self.order)
-
-    def _p2l(self, rows, starts, lists, q, out):
-        tree = self.tree
-        args = (tree.box_source_starts, tree.box_source_counts_nonchild,
-                rows, starts, lists, self.centers, self.box_scale,
-                self.order, out)
-        if self.dipole_vec is None:
-            return laplace3d.p2l_laplace3d(self._sources, q.contiguous(),
-                                           *args)
-        return laplace3d.p2l_laplace3d_dipole(
-            self._sources, q.contiguous(), self.dipole_vec, *args)
-
-    # }}}
-
 
 class Laplace3DPairsExpansionWrangler(Laplace3DExpansionWrangler):
     """3D Laplace FMM wrangler on ``[re | im]`` real-pair coefficients of
@@ -484,7 +455,7 @@ def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
         The pairs take a complex ``dtype=`` as its real counterpart.
 
     Other keyword arguments (``rscale``, ``dtype``, ``dipole_vec``,
-    ``dipoles_already_reordered``) go to the wrangler.  Dipoles in 2D,
+    ``dipoles_already_reordered``) go to the wrangler.
     ``m2l_mode="rotation"``, complex64 and dimensions other than 2 and 3
     raise :class:`NotImplementedError`.
     """

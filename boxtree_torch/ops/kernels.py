@@ -80,6 +80,11 @@ SIGNATURES = {
     "m2l_translate": "pppppppiiiipp",
     "m2m_translate": "pppiiiip",
     "l2l_translate": "ppppiiip",
+    "p2m_laplace2d": "pippppipipipp",
+    "p2m_laplace2d_dipole": "pipppppipipipp",
+    "l2p_laplace2d": "pipppippipipp",
+    "p2p_laplace2d_dipole": "pipipppppppipppp",
+    "p2l_laplace2d_dipole": "pipppppipppipipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -127,6 +132,11 @@ DTYPES = {
     "m2l_translate": (*_FLOATS, torch.complex128),
     "m2m_translate": (*_FLOATS, torch.complex128),
     "l2l_translate": (*_FLOATS, torch.complex128),
+    "p2m_laplace2d": (*_FLOATS, torch.complex128),
+    "p2m_laplace2d_dipole": (*_FLOATS, torch.complex128),
+    "l2p_laplace2d": (*_FLOATS, torch.complex128),
+    "p2p_laplace2d_dipole": (*_FLOATS, torch.complex128),
+    "p2l_laplace2d_dipole": (*_FLOATS, torch.complex128),
 }
 
 

@@ -1,6 +1,7 @@
-"""The particle-pair stages of the 2D Laplace FMM: P2P (List 1), M2P
-(List 3) and P2L (List 4), each as a kernel wrapper and its plain twin, and
-the expansions they share with the wrangler's P2M and L2P hooks.
+"""The particle stages of the 2D Laplace FMM: P2M, P2P (List 1), M2P
+(List 3), P2L (List 4) and L2P, and the dipole forms of P2M, P2P and P2L,
+each as a kernel wrapper and its plain twin, and the expansions they
+share.
 
 Kernel ``G(t, s) = log(t - s)`` (complex; its real part ``log |t - s|`` is
 the potential).  Expansions about a box centre ``c``, with ``w = (z - c) /
@@ -32,10 +33,11 @@ Each follows its reference's edges, which differ:
   ``-0``.
 
 Each wrapper takes the tree's particle arrays in tree order, the per-box
-particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and a CSR list
-whose rows name boxes.  On CPU tensors it runs the plain PyTorch twin; on
-CUDA tensors it launches the hand-written kernel of ``csrc/laplace2d.cu``
-(K19-K21) or raises.
+particle ranges ``[box_*_starts, + box_*_counts_nonchild)`` and either a
+CSR list whose rows name boxes (the list stages) or the rows alone, the
+boxes that own particles (P2M, L2P).  On CPU tensors it runs the plain
+PyTorch twin; on CUDA tensors it launches the hand-written kernel of
+``csrc/laplace2d.cu`` (K19-K21, K38-K42) or raises.
 
 - P2P: ``phi(t) = sum q_s log |t - s| = sum q_s (1/2) log r^2``, ``r = 0``
   skipped (``laplace.py:232-240``).
@@ -43,6 +45,16 @@ CUDA tensors it launches the hand-written kernel of ``csrc/laplace2d.cu``
   (``laplace.py:210-219``, pairs ``:340-354``).
 - P2L: ``L(b) += P2L terms of (x_s - c_b) / s_b`` (``laplace.py:221-230``,
   pairs ``:356-366``), added into the box's coefficients in place.
+- P2M (K38): ``M(b) = P2M terms of (x_s - c_b) / s_b`` over the sources box
+  ``b`` owns (``laplace.py:191-198``, pairs ``:318-327``).
+- L2P (K40): ``phi(t) = sum L_l(b) w^l``, its real part for the pairs
+  (``laplace.py:200-207``, pairs ``:329-338``).
+- Dipoles (K39, K41, K42): the JVP of P2M, P2P and P2L in the source
+  positions along ``dipole_vec`` (``expansion_base.py:664-673``,
+  ``:1314-1324``, ``:1688-1694``): P2M's and P2L's offsets take the
+  tangent ``d / s``, P2P's difference ``-d``.  The twins take
+  :func:`torch.func.jvp` of the charge twins in the source positions, the
+  reference's own construction.
 """
 
 from __future__ import annotations
@@ -50,7 +62,13 @@ from __future__ import annotations
 import torch
 
 from boxtree_torch.ops import kernels
-from boxtree_torch.ops.laplace3d import _blocks, _edges, _max_count
+from boxtree_torch.ops.laplace3d import (
+    _blocks,
+    _edges,
+    _max_count,
+    _row_chunks,
+    _row_particles,
+)
 
 #: element budget of one chunk's largest temporary in the plain twins
 _PLAIN_CHUNK_ELEMS = 1 << 22
@@ -59,7 +77,7 @@ _KERNEL_THREADS = 32
 _DTYPES = (torch.float32, torch.float64, torch.complex128)
 
 
-# {{{ the expansions, shared with the wrangler's P2M / L2P hooks
+# {{{ the expansions the twins evaluate
 
 def _complex(rel):
     """``rel[0] + 1j * rel[1]`` as the reference forms it: a ``-0.0``
@@ -248,6 +266,12 @@ def p2p_laplace2d_plain(targets, sources, charges, box_target_starts,
     return out
 
 
+def _check_dipoles(sources, dipole_vec):
+    kernels.check_tensors(sources, dipole_vec, dtype=sources.dtype)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+
+
 def p2p_laplace2d(targets, sources, charges, box_target_starts,
                   box_target_counts_nonchild, box_source_starts,
                   box_source_counts_nonchild, target_boxes, starts, lists):
@@ -269,6 +293,47 @@ def p2p_laplace2d(targets, sources, charges, box_target_starts,
     kernels.launch(
         "p2p_laplace2d", charges.dtype, targets, targets.shape[1], sources,
         sources.shape[1], charges, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, out)
+    return out
+
+
+def p2p_laplace2d_dipole_plain(targets, sources, charges, dipole_vec,
+                               *args):
+    """Plain twin of :func:`p2p_laplace2d_dipole`: the JVP of
+    :func:`p2p_laplace2d_plain` in the source positions along
+    *dipole_vec*."""
+    return torch.func.jvp(
+        lambda s: p2p_laplace2d_plain(targets, s, charges, *args),
+        (sources,), (dipole_vec,))[1]
+
+
+def p2p_laplace2d_dipole(targets, sources, charges, dipole_vec,
+                         box_target_starts, box_target_counts_nonchild,
+                         box_source_starts, box_source_counts_nonchild,
+                         target_boxes, starts, lists):
+    """List-1 potentials of dipole sources, ``sum q_s d_s . (s - t) / |t -
+    s|^2``, 0 at ``r = 0`` (*dipole_vec* ``(2, nsources)`` in tree order);
+    the K41 kernel on CUDA tensors."""
+    args = (box_target_starts, box_target_counts_nonchild,
+            box_source_starts, box_source_counts_nonchild, target_boxes,
+            starts, lists)
+    if targets.device.type == "cpu":
+        return p2p_laplace2d_dipole_plain(targets, sources, charges,
+                                          dipole_vec, *args)
+    _check_dtypes(charges.dtype, targets.dtype)
+    kernels.check_tensors(targets, sources, dtype=targets.dtype)
+    kernels.check_tensors(charges, dtype=charges.dtype)
+    kernels.check_tensors(*args, dtype=torch.int32)
+    _check_dipoles(sources, dipole_vec)
+    out = torch.zeros(targets.shape[1], dtype=charges.dtype,
+                      device=targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_laplace2d_dipole", charges.dtype, targets, targets.shape[1],
+        sources, sources.shape[1], charges, dipole_vec, box_target_starts,
         box_target_counts_nonchild, box_source_starts,
         box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
         starts, lists, out)
@@ -369,19 +434,184 @@ def p2l_laplace2d(sources, charges, box_source_starts,
             box_scale)
     if sources.device.type == "cpu":
         return p2l_laplace2d_plain(*args, order, out)
-    _check_dtypes(out.dtype, sources.dtype)
-    check_order(order, out.dtype)
-    kernels.check_tensors(sources, centers, box_scale, dtype=sources.dtype)
-    kernels.check_tensors(charges, out, dtype=out.dtype)
-    kernels.check_tensors(*args[2:7], dtype=torch.int32)
-    if out.shape != (centers.shape[1], ncoeffs(order, out.dtype)):
-        raise ValueError("out must be (nboxes, ncoeffs)")
+    _check_p2l(sources, charges, centers, box_scale, order, out, *args[2:7])
     if lists.numel() == 0:
         return out
     kernels.launch(
         "p2l_laplace2d", out.dtype, sources, sources.shape[1], charges,
         box_source_starts, box_source_counts_nonchild, rows, rows.shape[0],
         starts, lists, centers, centers.shape[1], box_scale, order, out)
+    return out
+
+
+def _check_p2l(sources, charges, centers, box_scale, order, out, *ints):
+    _check_dtypes(out.dtype, sources.dtype)
+    check_order(order, out.dtype)
+    kernels.check_tensors(sources, centers, box_scale, dtype=sources.dtype)
+    kernels.check_tensors(charges, out, dtype=out.dtype)
+    kernels.check_tensors(*ints, dtype=torch.int32)
+    if out.shape != (centers.shape[1], ncoeffs(order, out.dtype)):
+        raise ValueError("out must be (nboxes, ncoeffs)")
+
+
+def p2l_laplace2d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2l_laplace2d_dipole`: the JVP of
+    :func:`p2l_laplace2d_plain` in the source positions along
+    *dipole_vec*, added into *out* (the last of *args*)."""
+    *args, out = args
+    terms = torch.func.jvp(
+        lambda s: p2l_laplace2d_plain(s, charges, *args,
+                                      torch.zeros_like(out)),
+        (sources,), (dipole_vec,))[1]
+    return out.add_(terms)
+
+
+def p2l_laplace2d_dipole(sources, charges, dipole_vec, box_source_starts,
+                         box_source_counts_nonchild, rows, starts, lists,
+                         centers, box_scale, order, out):
+    """:func:`p2l_laplace2d` for dipole sources (*dipole_vec* ``(2,
+    nsources)`` in tree order); the K42 kernel on CUDA tensors."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, starts,
+            lists, centers, box_scale)
+    if sources.device.type == "cpu":
+        return p2l_laplace2d_dipole_plain(sources, charges, dipole_vec,
+                                          *args, order, out)
+    _check_p2l(sources, charges, centers, box_scale, order, out, *args[:5])
+    _check_dipoles(sources, dipole_vec)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2l_laplace2d_dipole", out.dtype, sources, sources.shape[1],
+        charges, dipole_vec, box_source_starts, box_source_counts_nonchild,
+        rows, rows.shape[0], starts, lists, centers, centers.shape[1],
+        box_scale, order, out)
+    return out
+
+# }}}
+
+
+# {{{ P2M / L2P
+
+def p2m_laplace2d_plain(sources, charges, box_source_starts,
+                        box_source_counts_nonchild, rows, centers,
+                        box_scale, order):
+    """Plain twin of :func:`p2m_laplace2d`."""
+    width = ncoeffs(order, charges.dtype)
+    out = charges.new_zeros((centers.shape[1], width))
+    terms_of = p2m_terms if charges.is_complex() else p2m_terms_pairs
+    idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
+                              rows)
+    for c in _row_chunks(idx.shape[0], width):
+        i, b = idx[c], box[c]
+        rel = (sources[:, i] - centers[:, b]) / box_scale[b]
+        out.index_add_(0, b, terms_of(rel, charges[i], order))
+    return out
+
+
+def _check_rows(pts, values, centers, box_scale, *ints):
+    _check_dtypes(values.dtype, pts.dtype)
+    kernels.check_tensors(pts, centers, box_scale, dtype=pts.dtype)
+    kernels.check_tensors(values, dtype=values.dtype)
+    kernels.check_tensors(*ints, dtype=torch.int32)
+
+
+def p2m_laplace2d(sources, charges, box_source_starts,
+                  box_source_counts_nonchild, rows, centers, box_scale,
+                  order):
+    """Multipoles ``(nboxes, ncoeffs)``, complex128 of complex charges or
+    ``[re | im]`` pair lanes of real ones, of the tree-order sources that
+    the boxes *rows* own (their nonchild ranges, each box at most once);
+    the other boxes' rows are zero.  The K38 kernel on CUDA tensors."""
+    args = (sources, charges, box_source_starts,
+            box_source_counts_nonchild, rows, centers, box_scale, order)
+    if sources.device.type == "cpu":
+        return p2m_laplace2d_plain(*args)
+    _check_rows(sources, charges, centers, box_scale, box_source_starts,
+                box_source_counts_nonchild, rows)
+    out = torch.zeros((centers.shape[1], ncoeffs(order, charges.dtype)),
+                      dtype=charges.dtype, device=sources.device)
+    if rows.numel() == 0:
+        return out
+    kernels.launch(
+        "p2m_laplace2d", charges.dtype, sources, sources.shape[1], charges,
+        box_source_starts, box_source_counts_nonchild, rows, rows.shape[0],
+        centers, centers.shape[1], box_scale, order, out)
+    return out
+
+
+def p2m_laplace2d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2m_laplace2d_dipole`: the JVP of
+    :func:`p2m_laplace2d_plain` in the source positions along
+    *dipole_vec*."""
+    return torch.func.jvp(
+        lambda s: p2m_laplace2d_plain(s, charges, *args),
+        (sources,), (dipole_vec,))[1]
+
+
+def p2m_laplace2d_dipole(sources, charges, dipole_vec, box_source_starts,
+                         box_source_counts_nonchild, rows, centers,
+                         box_scale, order):
+    """:func:`p2m_laplace2d` for dipole sources (*dipole_vec* ``(2,
+    nsources)`` in tree order); the K39 kernel on CUDA tensors."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, centers,
+            box_scale, order)
+    if sources.device.type == "cpu":
+        return p2m_laplace2d_dipole_plain(sources, charges, dipole_vec,
+                                          *args)
+    _check_rows(sources, charges, centers, box_scale, box_source_starts,
+                box_source_counts_nonchild, rows)
+    _check_dipoles(sources, dipole_vec)
+    out = torch.zeros((centers.shape[1], ncoeffs(order, charges.dtype)),
+                      dtype=charges.dtype, device=sources.device)
+    if rows.numel() == 0:
+        return out
+    kernels.launch(
+        "p2m_laplace2d_dipole", charges.dtype, sources, sources.shape[1],
+        charges, dipole_vec, box_source_starts, box_source_counts_nonchild,
+        rows, rows.shape[0], centers, centers.shape[1], box_scale, order,
+        out)
+    return out
+
+
+def l2p_laplace2d_plain(targets, box_target_starts,
+                        box_target_counts_nonchild, rows, local_exps,
+                        centers, box_scale, order):
+    """Plain twin of :func:`l2p_laplace2d`."""
+    out = local_exps.new_zeros(targets.shape[1])
+    evaluate = l2p_eval if local_exps.is_complex() else l2p_eval_pairs
+    idx, box = _row_particles(box_target_starts, box_target_counts_nonchild,
+                              rows)
+    for c in _row_chunks(idx.shape[0], local_exps.shape[1]):
+        i, b = idx[c], box[c]
+        rel = (targets[:, i] - centers[:, b]) / box_scale[b]
+        out[i] = evaluate(rel, local_exps[b], order)
+    return out
+
+
+def l2p_laplace2d(targets, box_target_starts, box_target_counts_nonchild,
+                  rows, local_exps, centers, box_scale, order):
+    """Potentials (tree-order targets) of the local expansions
+    *local_exps* (complex128, or ``[re | im]`` pairs with real potentials)
+    at the targets that the boxes *rows* own (their nonchild ranges, each
+    box at most once); the other targets' are zero.  The K40 kernel on
+    CUDA tensors."""
+    args = (targets, box_target_starts, box_target_counts_nonchild, rows,
+            local_exps, centers, box_scale, order)
+    if targets.device.type == "cpu":
+        return l2p_laplace2d_plain(*args)
+    _check_rows(targets, local_exps, centers, box_scale, box_target_starts,
+                box_target_counts_nonchild, rows)
+    if local_exps.shape != (centers.shape[1],
+                            ncoeffs(order, local_exps.dtype)):
+        raise ValueError("local_exps must be (nboxes, ncoeffs)")
+    out = torch.zeros(targets.shape[1], dtype=local_exps.dtype,
+                      device=targets.device)
+    if rows.numel() == 0:
+        return out
+    kernels.launch(
+        "l2p_laplace2d", local_exps.dtype, targets, targets.shape[1],
+        box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
+        local_exps, centers, centers.shape[1], box_scale, order, out)
     return out
 
 # }}}

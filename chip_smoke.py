@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives seven
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives eight
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -41,7 +41,16 @@ paths of the port on the card, each with the kernels' launch counts set to
   them in [0.45, 0.55]^2, with real charges: the real parts against a
   float64 direct sum at 2,000 sampled targets, the pairs against the
   complex real part, the counting FMM on the same traversal; then the
-  order-35 geometric line of ``tests/test_stability.py`` (K1, K19-K21);
+  order-35 geometric line of ``tests/test_stability.py`` (K1, K19-K21,
+  K38 P2M and K40 L2P, each once an FMM);
+- the 2D Laplace double layer (order 20, ``rscale="auto"``): 1e6 sources
+  on the five-armed starfish ``r = 1 + 0.25 cos 5 theta`` with their unit
+  outward normals as dipoles and real normal weights, 2e5 targets in
+  [-1.5, 1.5]^2, the complex128, float64 pairs and float32 pairs wranglers
+  on one tree: the real parts against a float64 direct sum of ``w d . (s
+  - t) / |t - s|^2`` at 2,000 sampled targets, the pairs against the
+  complex real part (K1, K20, K39 dipole P2M, K40, K41 dipole P2P, K42
+  dipole P2L, each once an FMM, and K35-K37);
 - the 3D Laplace double layer (order 12, ``rscale="auto"``): 1e6 sources
   on the unit sphere (Config B's generator and seed) with their outward
   normals as dipoles and real normal weights, 2e5 targets uniform in
@@ -86,9 +95,9 @@ K2-K4, K28-K30 and K35-K37 launched at that width and held to their
 twins.
 
 Every kernel is also held against its plain PyTorch twin at the shapes of
-its path (K9-K11, K16-K18, K19-K21 and the 3D Laplace kernels at 1e5
-points as well, a shallower tree; K19-K21, K2-K4 and K22-K23 on every
-entry point there),
+its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
+1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
+on every entry point there),
 and timed beside it (median of 5 synchronised calls; 3 for the slow
 Helmholtz twins at 1e6) and beside its bound, the least time the card
 could take for the same work.  Each phase prints one JSON line; then come
@@ -143,6 +152,11 @@ REPLACES = {
     "m2l_translate": "boxtree_tpu/models/expansion_base.py:1016",
     "m2m_translate": "boxtree_tpu/models/expansion_base.py:684",
     "l2l_translate": "boxtree_tpu/models/expansion_base.py:723",
+    "p2m_laplace2d": "boxtree_tpu/models/laplace.py:191",
+    "p2m_laplace2d_dipole": "boxtree_tpu/models/expansion_base.py:664",
+    "l2p_laplace2d": "boxtree_tpu/models/laplace.py:201",
+    "p2p_laplace2d_dipole": "boxtree_tpu/models/expansion_base.py:1314",
+    "p2l_laplace2d_dipole": "boxtree_tpu/models/expansion_base.py:1688",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -182,6 +196,11 @@ SOURCES = {
     "m2l_translate": "boxtree_torch/csrc/translate.cu",
     "m2m_translate": "boxtree_torch/csrc/translate.cu",
     "l2l_translate": "boxtree_torch/csrc/translate.cu",
+    "p2m_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
+    "p2m_laplace2d_dipole": "boxtree_torch/csrc/laplace2d.cu",
+    "l2p_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
+    "p2p_laplace2d_dipole": "boxtree_torch/csrc/laplace2d.cu",
+    "p2l_laplace2d_dipole": "boxtree_torch/csrc/laplace2d.cu",
 }
 #: K24-K27, launched by every traversal; the extent tree's Lists 3 and 4
 #: come from K14/K15 instead of K26
@@ -211,8 +230,19 @@ HELMHOLTZ2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
                        "p2p_helmholtz2d", "m2p_helmholtz2d",
                        "p2l_helmholtz2d", *HELMHOLTZ2D_P2M_L2P,
                        *FMM_TRANSLATE)
+#: K38 and K40, launched once by each 2D Laplace FMM without dipoles
+LAPLACE2D_P2M_L2P = ("p2m_laplace2d", "l2p_laplace2d")
 LAPLACE2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace2d",
-                     "m2p_laplace2d", "p2l_laplace2d", *FMM_TRANSLATE)
+                     "m2p_laplace2d", "p2l_laplace2d", *LAPLACE2D_P2M_L2P,
+                     *FMM_TRANSLATE)
+#: the kernels each 2D double-layer FMM launches once (K36 / K37 once a
+#: level)
+LAPLACE2D_DIPOLE_FMM = ("p2m_laplace2d_dipole", "p2p_laplace2d_dipole",
+                        "m2p_laplace2d", "p2l_laplace2d_dipole",
+                        "l2p_laplace2d", "m2l_translate")
+LAPLACE2D_DIPOLE_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
+                            *LAPLACE2D_DIPOLE_FMM, "m2m_translate",
+                            "l2l_translate")
 LAPLACE3D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
                      "m2p_laplace3d", "p2l_laplace3d",
                      "p2p_laplace3d_dipole", "p2l_laplace3d_dipole",
@@ -262,6 +292,14 @@ LAPLACE2D_FMM_RTOL = 1e-5
 LAPLACE2D_PAIRS_RTOL = 1e-10
 #: rel l-inf bound of the order-35 line (``tests/test_stability.py:58``)
 LAPLACE2D_STABILITY_RTOL = 0.5 ** 36
+#: rel l-inf bounds of the 2D double layer (order 20) against the float64
+#: direct sum: complex128 and float64 pairs ``tests/test_laplace.py:110``'s
+#: bar; the float32 pairs 4 times the largest rel l-inf (5.91e-4, rounded
+#: up) that ``scripts/torch_laplace2d_dipole_accuracy.py`` gave on the CPU
+#: at 3e4 sources and 6e3 targets over seeds 7, 8 and 9: near the curve
+#: the kernel's 1 / r^2 magnifies the float32 rounding of ``s - t``
+LAPLACE2D_DIPOLE_RTOL = {"complex128": 1e-5, "float64_pairs": 1e-5,
+                         "float32_pairs": 2.4e-3}
 
 #: rel l-inf tolerance of K2-K4's complex128 entry points, K22 and K23
 #: against their twins, by entry point: complex128 and float64 (the
@@ -1372,11 +1410,11 @@ def check_p2m_l2p_helmholtz_launches(launches, path, names):
 
 def check_list_kernels(inputs, device, plain_reps,
                        rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None):
-    """Run list kernels (K2-K4, K9-K11, K16-K23) or K28-K34 and their twins
-    on the same inputs; raise on a rel l-inf above *rtol* (a P2L's local
-    coefficients and a Helmholtz P2M's multipoles each held to their own
-    column's scale, a Laplace P2M's multipoles box by box to their
-    row's).  Returns ``{name: {max_abs_err,
+    """Run list kernels (K2-K4, K9-K11, K16-K23, K41, K42) or K28-K34,
+    K38-K40 and their twins on the same inputs; raise on a rel l-inf above
+    *rtol* (a P2L's local coefficients and a Helmholtz or 2D Laplace P2M's
+    multipoles each held to their own column's scale, a 3D Laplace P2M's
+    multipoles box by box to their row's).  Returns ``{name: {max_abs_err,
     rel_err, ms, plain_ms, plain_reps}}``: the kernel's median of 5, the
     twin's median of *plain_reps*, or its first call alone when that took
     more than *slow_s* seconds."""
@@ -1385,7 +1423,8 @@ def check_list_kernels(inputs, device, plain_reps,
         got = kernel(*args)
         ref, t_plain = timed(lambda: plain(*args), device)
         err, rel = (rel_linf_per_coefficient
-                    if name.startswith(("p2l_", "p2m_helmholtz"))
+                    if name.startswith(("p2l_", "p2m_helmholtz",
+                                        "p2m_laplace2d"))
                     else rel_linf_per_row if name.startswith("p2m_")
                     else rel_linf)(got, ref)
         if not rel <= rtol:
@@ -2235,98 +2274,181 @@ def laplace2d_points(n, seed):
     return pts, rng.standard_normal(n)
 
 
-def laplace2d_inputs(trav, wrangler, q_tree):
-    """K19-K21's wrappers, plain twins and arguments at the shapes the 2D
-    Laplace FMM of *wrangler* (complex or pairs) gives them."""
+#: K19-K21, then K38 and K40
+LAPLACE2D_CHARGE_KERNELS = ("p2p_laplace2d", "m2p_laplace2d",
+                            "p2l_laplace2d", *LAPLACE2D_P2M_L2P)
+#: K39, K41 and K42
+LAPLACE2D_DIPOLE_ONLY = ("p2m_laplace2d_dipole", "p2p_laplace2d_dipole",
+                         "p2l_laplace2d_dipole")
+
+
+def laplace2d_inputs(trav, wrangler, q_tree,
+                     names=LAPLACE2D_CHARGE_KERNELS):
+    """K19-K21 and K38-K42's wrappers, plain twins and arguments at the
+    shapes the 2D Laplace FMM of *wrangler* (complex or pairs; with
+    dipoles for K39, K41 and K42) gives them, K40 the masked locals of
+    this FMM; *names* picks them."""
     from boxtree_torch.ops import laplace2d
 
     w = wrangler
     tree = trav.tree
-    mpoles = w.coarsen_multipoles(None, None, w.form_multipoles(
-        None, None, [q_tree]))
-    return {
-        "p2p_laplace2d": (
-            laplace2d.p2p_laplace2d, laplace2d.p2p_laplace2d_plain,
-            (w._targets, w._sources, q_tree, tree.box_target_starts,
-             tree.box_target_counts_nonchild, tree.box_source_starts,
-             tree.box_source_counts_nonchild, trav.target_boxes,
-             trav.neighbor_source_boxes_starts,
-             trav.neighbor_source_boxes_lists)),
-        "m2p_laplace2d": (
-            laplace2d.m2p_laplace2d, laplace2d.m2p_laplace2d_plain,
-            (w._targets, tree.box_target_starts,
-             tree.box_target_counts_nonchild, *w._l3_csr, mpoles, w.centers,
-             w.box_scale, w.order)),
-        "p2l_laplace2d": (
-            lambda *a: laplace2d.p2l_laplace2d(
-                *a, w.local_expansion_zeros()),
-            lambda *a: laplace2d.p2l_laplace2d_plain(
-                *a, w.local_expansion_zeros()),
-            (w._sources, q_tree, tree.box_source_starts,
-             tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
-             w.box_scale, w.order)),
-    }
+    l1 = (tree.box_target_starts, tree.box_target_counts_nonchild,
+          tree.box_source_starts, tree.box_source_counts_nonchild,
+          trav.target_boxes, trav.neighbor_source_boxes_starts,
+          trav.neighbor_source_boxes_lists)
+    l4 = (tree.box_source_starts, tree.box_source_counts_nonchild,
+          *w._l4_csr, w.centers, w.box_scale, w.order)
+    src_rows = (tree.box_source_starts, tree.box_source_counts_nonchild,
+                w._source_rows, w.centers, w.box_scale, w.order)
+    dip = (w.dipole_vec,) if w.dipole_vec is not None else ()
+    out = {}
+    for name in names:
+        if name.startswith("p2p_"):
+            args = (w._targets, w._sources, q_tree,
+                    *(dip if name.endswith("dipole") else ()), *l1)
+        elif name == "m2p_laplace2d":
+            mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+                None, None, [q_tree]))
+            args = (w._targets, tree.box_target_starts,
+                    tree.box_target_counts_nonchild, *w._l3_csr, mp,
+                    w.centers, w.box_scale, w.order)
+        elif name.startswith("p2l_"):
+            args = (w._sources, q_tree,
+                    *(dip if name.endswith("dipole") else ()), *l4)
+        elif name.startswith("p2m_"):
+            args = (w._sources, q_tree,
+                    *(dip if name.endswith("dipole") else ()), *src_rows)
+        else:
+            args = (w._targets, tree.box_target_starts,
+                    tree.box_target_counts_nonchild, w._target_rows,
+                    w._mask_levels(fmm_locals(w, q_tree)).contiguous(),
+                    w.centers, w.box_scale, w.order)
+        kernel = getattr(laplace2d, name)
+        plain = getattr(laplace2d, f"{name}_plain")
+        if name.startswith("p2l_"):
+            out[name] = (
+                lambda *a, k=kernel: k(*a, w.local_expansion_zeros()),
+                lambda *a, k=plain: k(*a, w.local_expansion_zeros()), args)
+        else:
+            out[name] = (kernel, plain, args)
+    return out
 
 
 def laplace2d_work(inputs):
-    """Bytes K19-K21 must move (each input they need read once, each output
-    written once, on this run's lists: :func:`p2p_bytes` and its kin) and
-    the float operations they must do, at *inputs*, for the entry point
-    the inputs take (complex128, or real pairs of the points' type).
+    """Bytes K19-K21 and K38-K42 must move (each input they need read
+    once, each output written once, on this run's lists: :func:`p2p_bytes`
+    and its kin; the dipoles of the listed or owned sources too) and the
+    float operations they must do, at *inputs*, for the entry point the
+    inputs take (complex128, or real pairs of the points' type).  Logs,
+    ``hypot`` and ``atan2`` are not counted.
 
-    - K19: per List-1 particle pair with ``r > 0`` (not each target with
-      itself), 8: difference 2, ``r^2`` 3, the half 1, times the charge
-      and added 2; 10 with complex charges (two real sums).  The log is
-      not counted.
+    - K19, per List-1 particle pair with ``r > 0`` (with sources =
+      targets, not each target with itself), 8: difference 2, ``r^2`` 3, the half 1, times the charge
+      and added 2; 10 with complex charges (two real sums).  K41 16 (18):
+      ``r^2`` and its tangent 8, the tangent over ``r^2`` and halved 2.
     - K20, per (target particle, List-3 source box) pair: the scaled offset
       4; complex: ``log s`` added 1, times ``a_0`` 6, ``1/w`` 5, then per
       order ``k >= 1`` 14 (the power 6, times ``a_k`` 6, added 2); pairs:
       ``r^2`` 3, ``log`` halves and sums 2, the ``a_0`` lanes 3, ``1/w`` 3,
-      then per order 10 (the power 6, the lanes 4).  Logs, ``hypot`` and
-      ``atan2`` are not counted.
+      then per order 10 (the power 6, the lanes 4).
     - K21, per (List-4 source particle, target box) pair: the offset 4;
       complex: ``log s`` 1, times ``q`` 6, ``1/z0`` 5, per order 14 (power
       6, times ``-q`` 6, over ``l`` 2), and 2 per coefficient for the sum
       over sources; pairs: ``r^2`` 3, logs 2, times ``q`` 2, ``1/z0`` 3,
       per order 12 (power 6, both lanes 6), and 1 per coefficient lane for
-      the sum; then each row's coefficients added into the output.
+      the sum; then each row's coefficients added into the output.  K42
+      the same with the power and ``1/z0`` on dual numbers: per order 10
+      more (the tangent of the power), ``1/z0`` and the logs' tangents 12
+      more, the dipole over ``s`` 2.
+    - K38, per source of the rows: the offset 4, then per order ``k >= 1``
+      the power 6, times ``-q`` 6 (2 a lane for the pairs' real charges),
+      over ``k`` 2, and the warp sums 2; K39 the power's tangent 10 more a
+      order and the dipole over ``s`` 2.
+    - K40, per target of the rows: the offset 4, then per order the power
+      6 and the multiply-add 8 (complex) or 4 (the pairs' real part).
     """
     import torch
 
     from boxtree_torch.traversal.containers import csr_rows
 
     out = {}
-    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls) = \
-        inputs["p2p_laplace2d"][2]
-    cplx = q.is_complex()
-    typ = str(tgt.dtype).removeprefix("torch.")
-    pairs = list1_pairs(tcn, scn, tb, st, ls)
-    out["p2p_laplace2d"] = dict(
-        type=typ, particle_pairs=pairs, flops=(10 if cplx else 8) * pairs,
-        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
-                        q.element_size()))
-
-    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, order) = \
-        inputs["m2p_laplace2d"][2]
-    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
-        csr_rows(st, ls.shape[0])]].sum())
-    per = (16 + 14 * order) if cplx else (15 + 10 * order)
-    out["m2p_laplace2d"] = dict(
-        type=typ, target_box_pairs=pairs, coefficients=mp.shape[1],
-        flops=per * pairs,
-        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
-                        mp.element_size()))
-
-    (src, q, sst, scn, rows, st, ls, centers, scale, order) = \
-        inputs["p2l_laplace2d"][2]
-    nc = order + 1 if cplx else 2 * (order + 1)
-    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
-    per = (16 + 14 * order + 2 * nc) if cplx else (14 + 12 * order + nc)
-    out["p2l_laplace2d"] = dict(
-        type=typ, source_box_pairs=pairs, coefficients=nc,
-        flops=per * pairs + (2 if cplx else 1) * nc * rows.shape[0],
-        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
-                        nc * q.element_size()))
+    for name, (_, _, args) in inputs.items():
+        typ = str(args[0].dtype).removeprefix("torch.")
+        dipole = name.endswith("dipole")
+        if name.startswith("p2p_"):
+            tgt, src, q = args[:3]
+            tst, tcn, sst, scn, tb, st, ls = args[-7:]
+            cplx = q.is_complex()
+            # sources = targets: less each target with itself
+            pairs = (list1_pairs if tgt is src else l1_pairs)(
+                tcn, scn, tb, st, ls)
+            nb = p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
+                           q.element_size())
+            if dipole:
+                nb += int(scn[_boxes(ls)].sum()) * 2 * src.element_size()
+            per = (16 if dipole else 8) + (2 if cplx else 0)
+            out[name] = dict(type=typ, particle_pairs=pairs,
+                             flops=per * pairs, bytes=nb)
+        elif name == "m2p_laplace2d":
+            (tgt, tst, tcn, rows, st, ls, mp, centers, scale, order) = args
+            cplx = mp.is_complex()
+            pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+                csr_rows(st, ls.shape[0])]].sum())
+            per = (16 + 14 * order) if cplx else (15 + 10 * order)
+            out[name] = dict(
+                type=typ, target_box_pairs=pairs, coefficients=mp.shape[1],
+                flops=per * pairs,
+                bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers,
+                                scale, mp.element_size()))
+        elif name.startswith("p2l_"):
+            src, q = args[:2]
+            sst, scn, rows, st, ls, centers, scale, order = args[-8:]
+            cplx = q.is_complex()
+            nc = order + 1 if cplx else 2 * (order + 1)
+            pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+            per = (16 + 14 * order + 2 * nc) if cplx \
+                else (14 + 12 * order + nc)
+            if dipole:
+                per += 14 + 10 * order
+            nb = p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                           nc * q.element_size())
+            if dipole:
+                nb += int(scn[_boxes(ls)].sum()) * 2 * src.element_size()
+            out[name] = dict(
+                type=typ, source_box_pairs=pairs, coefficients=nc,
+                flops=per * pairs + (2 if cplx else 1) * nc * rows.shape[0],
+                bytes=nb)
+        else:
+            # K38-K40: the rows' own particles
+            pts, order = args[0], args[-1]
+            centers, scale = args[-3], args[-2]
+            starts, counts, rows = (args[1:4] if name == "l2p_laplace2d"
+                                    else args[-6:-3])
+            npart = int(counts.to(torch.int64)[rows.to(torch.int64)].sum())
+            per_row = (starts.element_size() + counts.element_size()
+                       + 2 * centers.element_size() + scale.element_size())
+            if name == "l2p_laplace2d":
+                loc = args[4]
+                cplx = loc.is_complex()
+                per_part = 2 * pts.element_size() + loc.element_size()
+                per_row += loc.shape[1] * loc.element_size()
+                written = 0
+                per = 4 + (14 if cplx else 10) * order
+            else:
+                q = args[1]
+                cplx = q.is_complex()
+                per_part = (2 * pts.element_size() + q.element_size()
+                            + (2 * pts.element_size() if dipole else 0))
+                written = (centers.shape[1] * (order + 1)
+                           * (1 if cplx else 2) * q.element_size())
+                per = 4 + (16 if cplx else 12) * order
+                if dipole:
+                    per += 2 + 10 * order
+            out[name] = dict(
+                type=typ, particles=npart, rows=int(rows.numel()),
+                flops=per * npart,
+                bytes=(npart * per_part + int(rows.numel()) * per_row
+                       + nbytes(rows) + written))
     return out
 
 
@@ -2341,6 +2463,41 @@ def direct_sum_log2d(sources, charges, targets, chunk=1 << 15):
         r2 = (d * d).sum(0)
         ok = r2 > 0
         g = torch.where(ok, 0.5 * torch.log(torch.where(ok, r2, 1.0)), 0.0)
+        out += g @ charges[c0:c0 + chunk]
+    return out
+
+
+def laplace2d_dipole_points(nsources, ntargets, seed):
+    """The 2D double layer's inputs: *nsources* points on the five-armed
+    starfish ``r(theta) = 1 + 0.25 cos 5 theta`` (meshmode's
+    ``NArmedStarfish(5, 0.25)``) at angles uniform from *seed*, their unit
+    outward normals as dipoles, *ntargets* targets uniform in [-1.5,
+    1.5]^2 and standard-normal weights, all float64 numpy arrays from one
+    stream: ``(sources, normals, targets, weights)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0.0, 2 * np.pi, nsources)
+    r, dr = 1 + 0.25 * np.cos(5 * th), -1.25 * np.sin(5 * th)
+    tx = dr * np.cos(th) - r * np.sin(th)
+    ty = dr * np.sin(th) + r * np.cos(th)
+    nrm = np.stack([ty, -tx]) / np.hypot(tx, ty)
+    src = np.stack([r * np.cos(th), r * np.sin(th)])
+    tgt = rng.uniform(-1.5, 1.5, (2, ntargets))
+    return src, nrm, tgt, rng.standard_normal(nsources)
+
+
+def direct_sum_dipole2d(sources, dipoles, charges, targets, chunk=1 << 15):
+    """sum_s q_s d_s . (s - t) / |t - s|^2 over all sources, r = 0
+    skipped, in float64."""
+    import torch
+    out = torch.zeros(targets.shape[1], dtype=torch.float64,
+                      device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = sources[:, None, c0:c0 + chunk] - targets[:, :, None]
+        r2 = (d * d).sum(0)
+        ok = r2 > 0
+        g = torch.where(ok, (dipoles[:, None, c0:c0 + chunk] * d).sum(0)
+                        / torch.where(ok, r2, 1.0), 0.0)
         out += g @ charges[c0:c0 + chunk]
     return out
 
@@ -2379,25 +2536,32 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
     # the pairs
     qc = torch.as_tensor(q_np + 1j * np.random.default_rng(
         seed + 3).standard_normal(n_kernels), device=device)
+    # standard-normal dipoles for K39, K41 and K42
+    dip = torch.as_tensor(np.random.default_rng(seed + 4).standard_normal(
+        (2, n_kernels)), device=device)
     tree = build_tree(pts, max_particles_in_box=20)
     trav = build_traversal(tree)
     small = {}
     for name, kw in entries.items():
         wr = make_laplace_wrangler(trav, order, rscale="auto", **kw)
+        wd = make_laplace_wrangler(trav, order, rscale="auto",
+                                   dipole_vec=dip, **kw)
         if wr._l3_csr is None or not wr._l4_csr[2].numel():
             raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} "
                                  "points")
         q = wr.reorder_sources(qc if name == "c128" else qc.real)
         small[name] = check_list_kernels(
-            laplace2d_inputs(trav, wr, q), device, plain_reps=5,
-            rtol=LAPLACE2D_KERNEL_RTOL[name])
+            {**laplace2d_inputs(trav, wr, q),
+             **laplace2d_inputs(trav, wd, q, LAPLACE2D_DIPOLE_ONLY)},
+            device, plain_reps=5, rtol=LAPLACE2D_KERNEL_RTOL[name])
     emit({"phase": "kernels_laplace2d_small", "card": card,
           "points": n_kernels, "nboxes": tree.nboxes,
           "nlevels": tree.nlevels, "order": order, "rscale": "auto",
           "charges": "complex normal (c128), their real part (pairs)",
+          "dipoles": "standard normal (K39, K41, K42)",
           "tolerance_rel_linf": LAPLACE2D_KERNEL_RTOL,
-          "p2l_laplace2d_rel": "per coefficient", "kernels": small})
-    del tree, trav, wr
+          "p2l_p2m_rel": "per coefficient", "kernels": small})
+    del tree, trav, wr, wd
 
     # }}}
 
@@ -2416,10 +2580,14 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
     trav, t_trav = timed(lambda: build_traversal(tree), device)
     wc, t_setup_c = timed(lambda: make_laplace_wrangler(
         trav, order, pairs=False, rscale="auto"), device)
+    before = kernels.launch_counts()
     pot_c, t_fmm_c = timed(lambda: drive_fmm(wc, [q]), device)
+    per_fmm = {"complex128": launches_since(before)}
     wp, t_setup_p = timed(lambda: make_laplace_wrangler(
         trav, order, pairs=True, rscale="auto"), device)
+    before = kernels.launch_counts()
     pot_p, t_fmm_p = timed(lambda: drive_fmm(wp, [q]), device)
+    per_fmm["float64_pairs"] = launches_since(before)
     t_total = time.perf_counter() - t_start
     launches = kernels.launch_counts()
 
@@ -2493,11 +2661,16 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
         raise AssertionError(f"2D Laplace pairs vs complex: rel l-inf "
                              f"{rel_pc:.3e} > {LAPLACE2D_PAIRS_RTOL}")
     emit({"phase": "launches", "path": "laplace2d_fmm", "card": card,
-          "launches": launches})
+          "launches": launches,
+          "p2m_l2p_per_fmm": {name: {k: c[k] for k in LAPLACE2D_P2M_L2P}
+                              for name, c in per_fmm.items()}})
     missing = [name for name in LAPLACE2D_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the 2D Laplace "
                              f"path: {missing}")
+    for name, counts in per_fmm.items():
+        check_once_per_fmm(counts, f"2D Laplace FMM {name}",
+                           LAPLACE2D_P2M_L2P)
     check_translation(card, device, "laplace2d",
                       [("c128", wc, q), ("f64", wp, q)], translation)
 
@@ -2519,10 +2692,15 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
     for name, pairs in (("complex128", False), ("float64_pairs", True)):
         w = make_laplace_wrangler(trav_l, stability_order, pairs=pairs,
                                   rscale="auto")
+        before = kernels.launch_counts()
         pot = drive_fmm(w, [torch.ones(30, dtype=torch.float64,
                                        device=device)]).real.cpu().numpy()
+        counts = launches_since(before)
+        check_once_per_fmm(counts, f"2D Laplace order-35 line {name}",
+                           LAPLACE2D_P2M_L2P)
         stab[name] = dict(
-            nan=bool(np.isnan(pot).any()),
+            nan=bool(np.isnan(pot).any()), coefficients=w.ncoeff,
+            launches={k: counts[k] for k in LAPLACE2D_P2M_L2P},
             rel_linf_vs_direct=float(np.abs(pot - ref_line).max()
                                      / np.abs(ref_line).max()))
     emit({"phase": "laplace2d_stability", "card": card, "points": 30,
@@ -2549,13 +2727,178 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
             r["bound_ms"], r["bound_by"] = bound(work[name][kname])
     emit({"phase": "kernels_laplace2d", "card": card, "points": n_main,
           "order": order, "tolerance_rel_linf": LAPLACE2D_KERNEL_RTOL,
-          "p2l_laplace2d_rel": "per coefficient", "kernels": res,
+          "p2l_p2m_rel": "per coefficient", "kernels": res,
           "launches": {name: launches[name] for name in res["c128"]},
           "work": work,
           "laplace2d_phases_s": time.perf_counter() - t_phases})
     check_traversal_kernels(tree, device, card, "2D Laplace", trav_trees)
     return [summary_entry(name, launches[name], res["c128"][name],
                           work["c128"][name]) for name in res["c128"]]
+
+
+def launches_since(before):
+    """The kernels' launches since the counts *before*."""
+    from boxtree_torch.ops import kernels
+    return {k: n - before[k] for k, n in kernels.launch_counts().items()}
+
+
+def check_once_per_fmm(counts, path, names):
+    """An FMM launched each of the kernels *names* exactly once: the twins
+    and ``torch.func.jvp`` launch nothing."""
+    got = {k: counts[k] for k in names}
+    if got != dict.fromkeys(names, 1):
+        raise AssertionError(f"{path}: launches {got}, expected one each")
+
+
+def run_laplace2d_dipole(device, card, n_main=1_000_000, n_targets=200_000,
+                         order=20, nsample=2000, seed=22):
+    """The 2D Laplace double layer at full width: 1e6 starfish sources
+    (:func:`laplace2d_dipole_points`) with their normals as dipoles and
+    real normal weights, 2e5 targets in [-1.5, 1.5]^2, one tree, the
+    complex128, float64 pairs and float32 pairs FMMs (order 20,
+    ``rscale="auto"``, 20 a box) against a float64 direct sum at 2,000
+    sampled targets and each other; then K39-K42 against their twins at
+    the path's shapes.  Returns the K39, K41 and K42 summary entries (the
+    complex128 entry points', the float64 pairs' beside them)."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_laplace_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    t_phase = time.perf_counter()
+    src, nrm, tgt, q = (torch.as_tensor(a, device=device)
+                        for a in laplace2d_dipole_points(n_main, n_targets,
+                                                         seed))
+    runs = {"complex128": dict(pairs=False),
+            "float64_pairs": dict(pairs=True, dtype=torch.float64),
+            "float32_pairs": dict(pairs=True, dtype=torch.float32)}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(src, targets=tgt,
+                                            max_particles_in_box=20),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    ws, pots, t_setup, t_fmm, per_fmm = {}, {}, {}, {}, {}
+    for name, kw in runs.items():
+        ws[name], t_setup[name] = timed(lambda: make_laplace_wrangler(
+            trav, order, rscale="auto", dipole_vec=nrm, **kw), device)
+        before = kernels.launch_counts()
+        pots[name], t_fmm[name] = timed(lambda: drive_fmm(ws[name], [q]),
+                                        device)
+        per_fmm[name] = launches_since(before)
+    t_total = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+
+    stages, t_warm = {}, {}
+    for name, w in ws.items():
+        stages[name] = {}
+        _, t_warm[name] = timed(lambda: drive_fmm(
+            w, [q], timing_data=stages[name]), device)
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n_targets, nsample, replace=False), device=device)
+    ref = direct_sum_dipole2d(src, nrm, q, tgt[:, sample])
+    rel, abs_err = {}, {}
+    for name, pot in pots.items():
+        abs_err[name], rel[name] = rel_linf(pot.real[sample], ref)
+    _, rel_pc = rel_linf(pots["float64_pairs"], pots["complex128"].real)
+    finite = all(bool(torch.isfinite(p).all()) for p in pots.values())
+    emit({"phase": "laplace2d_dipole_fmm", "card": card, "sources": n_main,
+          "targets": n_targets,
+          "distribution": "sources on the starfish r = 1 + 0.25 cos 5 theta,"
+                          " targets uniform in [-1.5, 1.5]^2", "seed": seed,
+          "weights": "real normal", "dipoles": "unit outward normals",
+          "order": order, "rscale": "auto", "max_particles_in_box": 20,
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "build_s": t_tree, "traversal_s": t_trav,
+          "wrangler_setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
+          "total_s": t_total, "stage_s": stages,
+          "host_reads_per_fmm": {name: fmm_host_reads(w, q)
+                                 for name, w in ws.items()},
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l1_particle_pairs": l1_pairs(
+                  tree.box_target_counts_nonchild,
+                  tree.box_source_counts_nonchild, trav.target_boxes,
+                  trav.neighbor_source_boxes_starts,
+                  trav.neighbor_source_boxes_lists),
+              "l2": int(trav.from_sep_siblings_lists.shape[0]),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "sampled_targets": nsample,
+          "rel_linf_vs_f64_direct": rel, "abs_linf": abs_err,
+          "bounds": LAPLACE2D_DIPOLE_RTOL,
+          "pairs_vs_complex_rel_linf": rel_pc, "finite": finite,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None)})
+    for name, pot in pots.items():
+        dt = {"complex128": torch.complex128, "float64_pairs": torch.float64,
+              "float32_pairs": torch.float32}[name]
+        if tuple(pot.shape) != (n_targets,) or pot.dtype != dt:
+            raise AssertionError(f"2D double layer ({name}): misshapen "
+                                 "output")
+    if not finite:
+        raise AssertionError("2D double layer: non-finite output")
+    for name, r in rel.items():
+        if not r < LAPLACE2D_DIPOLE_RTOL[name]:
+            raise AssertionError(f"2D double layer ({name}): rel l-inf "
+                                 f"{r:.3e} >= {LAPLACE2D_DIPOLE_RTOL[name]}")
+    if not rel_pc <= LAPLACE2D_PAIRS_RTOL:
+        raise AssertionError(f"2D double layer pairs vs complex: rel l-inf "
+                             f"{rel_pc:.3e} > {LAPLACE2D_PAIRS_RTOL}")
+    emit({"phase": "launches", "path": "laplace2d_dipole_fmm", "card": card,
+          "launches": launches,
+          "per_fmm": {name: {k: c[k] for k in (
+              *LAPLACE2D_DIPOLE_FMM, "m2m_translate", "l2l_translate",
+              "p2m_laplace2d", "p2p_laplace2d", "p2l_laplace2d")}
+              for name, c in per_fmm.items()}})
+    missing = [k for k in LAPLACE2D_DIPOLE_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 2D double "
+                             f"layer: {missing}")
+    for name, counts in per_fmm.items():
+        check_once_per_fmm(counts, f"2D double layer {name}",
+                           LAPLACE2D_DIPOLE_FMM)
+        charge = {k: counts[k] for k in ("p2m_laplace2d", "p2p_laplace2d",
+                                         "p2l_laplace2d") if counts[k]}
+        if charge:
+            raise AssertionError(f"2D double layer {name}: charge kernels "
+                                 f"launched {charge}")
+
+    # K39-K42 against their twins at the path's own shapes
+    names = ("p2m_laplace2d_dipole", "p2p_laplace2d_dipole",
+             "p2l_laplace2d_dipole", "l2p_laplace2d")
+    res, work = {}, {}
+    for key, name in (("c128", "complex128"), ("f64", "float64_pairs")):
+        w = ws[name]
+        inputs = laplace2d_inputs(trav, w, w.reorder_sources(q), names)
+        work[key] = laplace2d_work(inputs)
+        res[key] = check_list_kernels(inputs, device, plain_reps=3,
+                                      rtol=LAPLACE2D_KERNEL_RTOL[key],
+                                      slow_s=0.5)
+        for kname, r in res[key].items():
+            r["bound_ms"], r["bound_by"] = bound(work[key][kname])
+    emit({"phase": "kernels_laplace2d_dipole", "card": card,
+          "sources": n_main, "targets": n_targets, "order": order,
+          "tolerance_rel_linf": LAPLACE2D_KERNEL_RTOL,
+          "p2l_p2m_rel": "per coefficient", "kernels": res,
+          "launches": {k: launches[k] for k in names}, "work": work,
+          "laplace2d_dipole_phases_s": time.perf_counter() - t_phase})
+    out = {}
+    for name in names:
+        entry = summary_entry(name, launches[name], res["c128"][name],
+                              work["c128"][name])
+        entry["entry_point"] = "c128"
+        entry["f64"] = entry_point_numbers(launches[name], res["f64"][name],
+                                           work["f64"][name])
+        out[name] = entry
+    return out
 
 # }}}
 
@@ -3512,6 +3855,17 @@ def main():
     e_entries, e_p2m_l2p = run_extents(device, card, trav_trees, translation)
     h2_entries = run_helmholtz2d(device, card, translation)
     l2_entries = run_laplace2d(device, card, trav_trees, translation)
+    l2d = run_laplace2d_dipole(device, card)
+    # K40 keeps the 2D Laplace path's complex128 numbers, with the double
+    # layer's beside them; K39, K41 and K42 stand by the double layer's
+    # complex128 entry points, the float64 pairs' beside them
+    for e in l2_entries:
+        if e["name"] in l2d:
+            e["double_layer"] = {
+                k: l2d[e["name"]][k] for k in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")}
+    l2d_entries = [l2d[name] for name in LAPLACE2D_DIPOLE_ONLY]
     l3 = run_laplace3d(device, card, translation)
     run_laplace3d_stability(device, card, translation)
     # K2-K4 keep the main path's float32 numbers, with those of their
@@ -3542,7 +3896,7 @@ def main():
                           if label != "main path" and e["name"] in res}
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
-          + h2_entries + l2_entries + l3_entries
+          + h2_entries + l2_entries + l2d_entries + l3_entries
           + translation_entries(translation)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

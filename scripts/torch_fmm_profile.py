@@ -1,6 +1,6 @@
 """Where the time of boxtree_torch's FMMs goes on the card.
 
-One ``torch.profiler`` trace of ``drive_fmm`` on each of four paths of
+One ``torch.profiler`` trace of ``drive_fmm`` on each of six paths of
 ``chip_smoke.py``, after one warm-up call each:
 
 - the main path: 1e6 uniform float32 points in the unit cube (seed 17),
@@ -12,6 +12,13 @@ One ``torch.profiler`` trace of ``drive_fmm`` on each of four paths of
   k = 2, order 12, complex128, ``rscale="auto"``;
 - the 2D Helmholtz path: 1e6 points of the unit square, 4/15 of them in
   [0.4, 0.5]^2 (seed 23), k = 3, order 16, ``rscale="auto"``;
+- the 2D Laplace path: 1e6 points of the unit square, 24 % of them in
+  [0.45, 0.55]^2 (seed 20), real charges, the complex128 wrangler at order
+  20 with ``rscale="auto"``, 20 a box;
+- the 2D double layer: 1e6 sources on the five-armed starfish (seed 22)
+  with their normals as dipoles and real weights, 2e5 targets in [-1.5,
+  1.5]^2, the complex128 wrangler at order 20, ``rscale="auto"``, 20 a
+  box;
 
 and one more of the double layer's dipole P2M through its plain twin, the
 ``torch.func.jvp`` of the single-layer P2M that the path ran before K29.
@@ -247,12 +254,37 @@ def main():
                      dtype="complex128", nboxes=trav.tree.nboxes),
                 lambda: drive_fmm(_StagedWrangler(w), [q]))
 
+    def laplace2d(dipoles):
+        # chip_smoke.py's run_laplace2d / run_laplace2d_dipole paths
+        import chip_smoke
+        if dipoles:
+            src, nrm, tgt, q = chip_smoke.laplace2d_dipole_points(
+                args.sources, args.targets, 22)
+            kw = dict(dipole_vec=torch.as_tensor(nrm, device=device))
+            about = dict(sources=args.sources, targets=args.targets)
+        else:
+            src, q = chip_smoke.laplace2d_points(args.points, 20)
+            tgt, kw, about = None, {}, dict(points=args.points)
+        tree = build_tree(
+            torch.as_tensor(src, device=device),
+            targets=None if tgt is None else torch.as_tensor(tgt,
+                                                             device=device),
+            max_particles_in_box=20)
+        trav = build_traversal(tree)
+        w = make_laplace_wrangler(trav, 20, pairs=False, rscale="auto", **kw)
+        q = torch.as_tensor(q, device=device)
+        return (dict(**about, order=20, dtype="complex128",
+                     nboxes=tree.nboxes),
+                lambda: drive_fmm(_StagedWrangler(w), [q]))
+
     builders = {
         "main_path_fmm": main_path,
         "double_layer_fmm": lambda: double_layer(False),
         "double_layer_p2m_jvp_twin": lambda: double_layer(True),
         "helmholtz3d_fmm": lambda: helmholtz(3),
         "helmholtz2d_fmm": lambda: helmholtz(2),
+        "laplace2d_fmm": lambda: laplace2d(False),
+        "laplace2d_dipole_fmm": lambda: laplace2d(True),
     }
     only = args.only.split(",") if args.only else list(builders)
     runs = {label: builders[label]() for label in only}

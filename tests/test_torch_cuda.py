@@ -48,7 +48,13 @@ and L2L) agree with their twins to 1e-12 in complex128 and float64 and
 ``level_to_order``), 3D and 2D Helmholtz and 2D Laplace wranglers and on
 the order-31 line (1,024 and 2,048 coefficients a row); an FMM launches
 K35 once, K36 and K37 once a level; the order-31 line on the card meets
-the reference's stability bar.
+the reference's stability bar.  K38-K42 (2D Laplace P2M and L2P, dipole
+P2M, P2P and P2L) agree with their twins to 1e-12 in complex128 and
+float64 pairs and 1e-5 in float32 pairs, per coefficient column, on a
+starfish curve with separate targets and on the clustered tree, at r = 0,
+w = z0 = 0 and on centre lines, at orders 0, 1 and 35; the 2D double
+layer on the card matches the CPU port and launches each of its kernels
+once.
 """
 
 import dataclasses
@@ -945,6 +951,239 @@ def test_laplace2d_fmm_on_card_matches_cpu(laplace2d_setup, kind):
     ref = drive_fmm(w_cpu, [q.cpu()])
     assert got.dtype == dt
     assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
+
+# }}}
+
+
+# {{{ K38-K42: 2D Laplace P2M and L2P, and the dipole P2M, P2P and P2L
+
+L2D_PARTICLE = {"p2m": "p2m_laplace2d", "p2m_dipole": "p2m_laplace2d_dipole",
+                "l2p": "l2p_laplace2d", "p2p_dipole": "p2p_laplace2d_dipole",
+                "p2l_dipole": "p2l_laplace2d_dipole"}
+
+
+def _starfish(n, seed):
+    """*n* points on ``r(theta) = 1 + 0.25 cos 5 theta`` at uniform random
+    angles, and their unit outward normals."""
+    th = np.random.default_rng(seed).uniform(0, 2 * np.pi, n)
+    r, dr = 1 + 0.25 * np.cos(5 * th), -1.25 * np.sin(5 * th)
+    tx = dr * np.cos(th) - r * np.sin(th)
+    ty = dr * np.sin(th) + r * np.cos(th)
+    nrm = np.stack([ty, -tx]) / np.hypot(tx, ty)
+    return np.stack([r * np.cos(th), r * np.sin(th)]), nrm
+
+
+@pytest.fixture(scope="module")
+def laplace2d_dipoles(device, laplace2d_setup):
+    """Per tree and kind, a 2D Laplace wrangler with dipoles at order 20,
+    ``rscale="auto"``: ``"starfish"``, 2e4 sources on the five-armed
+    starfish with their normals and 5,000 separate targets in [-1.5,
+    1.5]^2; ``"clustered"``, ``laplace2d_setup``'s tree (sources =
+    targets) with standard-normal dipoles.  Also the complex charges."""
+    src, nrm = _starfish(20000, 24)
+    tgt = np.random.default_rng(25).uniform(-1.5, 1.5, (2, 5000))
+    trav_s = build_traversal(build_tree(
+        torch.as_tensor(src, device=device),
+        targets=torch.as_tensor(tgt, device=device),
+        max_particles_in_box=20))
+    trav_c, _, pts, qc = laplace2d_setup
+    dip_c = np.random.default_rng(26).standard_normal(tuple(pts.shape))
+    rng = np.random.default_rng(27)
+    qs = torch.as_tensor(rng.standard_normal(20000)
+                         + 1j * rng.standard_normal(20000), device=device)
+    out = {"starfish_inputs": (src, tgt, nrm)}
+    for tree, trav, dip, q in (("starfish", trav_s, nrm, qs),
+                               ("clustered", trav_c, dip_c, qc)):
+        for kind, (pairs, dt) in L2D_KINDS.items():
+            out[tree, kind] = (make_laplace_wrangler(
+                trav, 20, pairs=pairs, dtype=dt, rscale="auto",
+                dipole_vec=torch.as_tensor(dip, device=device)), q)
+    return out
+
+
+def _l2d_particle_args(w, q, which, sources=None, targets=None,
+                       centers=None, local_exps=None):
+    """K38-K42's arguments from wrangler *w* (tree-order charges *q*), the
+    particles and box centres replaced if given."""
+    tree, trav = w.tree, w.traversal
+    src = w._sources if sources is None else sources
+    tgt = w._targets if targets is None else targets
+    centers = w.centers if centers is None else centers
+    dip = (w.dipole_vec,) if which.endswith("dipole") else ()
+    if which == "l2p":
+        return (tgt, tree.box_target_starts,
+                tree.box_target_counts_nonchild, w._target_rows, local_exps,
+                centers, w.box_scale, w.order)
+    if which == "p2p_dipole":
+        return (tgt, src, q, *dip, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists)
+    if which == "p2l_dipole":
+        return (src, q, *dip, tree.box_source_starts,
+                tree.box_source_counts_nonchild, *w._l4_csr, centers,
+                w.box_scale, w.order)
+    return (src, q, *dip, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, centers,
+            w.box_scale, w.order)
+
+
+def _l2d_particle_compare(which, args, w):
+    """K38-K42 against their twins on *args*: one launch; expansions per
+    coefficient column (a column zero in the twin must be zero),
+    potentials to their largest value."""
+    name = L2D_PARTICLE[which]
+    out = (w.local_expansion_zeros,) if which == "p2l_dipole" else ()
+    kernels.reset_launch_counts()
+    got = getattr(laplace2d, name)(*args, *(f() for f in out))
+    assert kernels.launch_counts()[name] == 1
+    torch.cuda.synchronize()
+    ref = getattr(laplace2d, f"{name}_plain")(*args, *(f() for f in out))
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    if not ref.any():
+        # the dipole P2M at order 0: a_0 has no tangent
+        assert not got.any()
+        return 0.0
+    return _zero_safe_cols_rel(got, ref) if got.ndim == 2 else _rel(got,
+                                                                   ref)
+
+
+def _l2d_w_charges(w, q):
+    return w.reorder_sources(q if w.dtype.is_complex else q.real)
+
+
+@pytest.mark.parametrize("which", sorted(L2D_PARTICLE))
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+@pytest.mark.parametrize("tree", ["starfish", "clustered"])
+def test_laplace2d_particle_kernel(laplace2d_dipoles, tree, kind, which):
+    """K38-K42 at order 20 on both trees (the starfish's rows have
+    separate targets), L2P on standard-normal locals."""
+    w, q = laplace2d_dipoles[tree, kind]
+    args = _l2d_particle_args(w, _l2d_w_charges(w, q), which,
+                              local_exps=_random_locals(w))
+    assert _l2d_particle_compare(which, args, w) <= L2D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", sorted(L2D_PARTICLE))
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+def test_laplace2d_particle_kernel_edges(laplace2d_dipoles, kind, which):
+    """The twins' edges, on the clustered tree: the first particle of
+    each of 300 rows moved onto the centre of the box it is expanded
+    about (P2M zeta = 0, L2P w = 0, dipole P2L z0 = 0: the complex form's
+    constant z0 = 1 adds nothing, the pairs' tangents of th and 1 / z0
+    stay) or onto its horizontal centre line on either side, the second
+    of 30 rows to y = -0.0 with the centre's y at +0.0; dipole P2P with
+    the second target of 200 boxes moved onto the first (r = 0)."""
+    w, q = laplace2d_dipoles["clustered", kind]
+    tree, trav = w.tree, w.traversal
+    pts = w._sources.clone()
+    centers = w.centers.clone()
+    if which == "p2p_dipole":
+        tb = trav.target_boxes[:200].to(torch.int64)
+        first = tree.box_target_starts[tb].to(torch.int64)
+        two = tree.box_target_counts_nonchild[tb] >= 2
+        pts[:, first[two] + 1] = pts[:, first[two]]
+    else:
+        if which == "p2l_dipole":
+            rows, starts, lists = (t.to(torch.int64) for t in w._l4_csr)
+            n = min(300, rows.shape[0])
+            pbox, cbox = lists[starts[:n]], rows[:n]
+        else:
+            cbox = pbox = (w._target_rows if which == "l2p"
+                           else w._source_rows)[:300].to(torch.int64)
+        part = "target" if which == "l2p" else "source"
+        first = getattr(tree, f"box_{part}_starts")[pbox].to(torch.int64)
+        count = getattr(tree, f"box_{part}_counts_nonchild")[pbox]
+        ctr = centers[:, cbox]
+        s = w.box_scale[cbox]
+        third = torch.arange(cbox.shape[0], device=pts.device) % 3
+        dx = torch.where(third == 1, -0.75 * s, 0.75 * s)
+        dx = torch.where(third == 0, torch.zeros_like(dx), dx)
+        pts[0, first] = ctr[0] + dx
+        pts[1, first] = ctr[1]
+        sel = (count[:30] >= 2).nonzero()[:, 0]
+        centers[1, cbox[sel]] = 0.0
+        pts[1, first[sel] + 1] = -0.0
+        pts[0, first[sel] + 1] = ctr[0, sel] + torch.where(
+            third[sel] == 1, -0.5, 0.5) * s[sel]
+    args = _l2d_particle_args(w, _l2d_w_charges(w, q), which, sources=pts,
+                              targets=pts, centers=centers,
+                              local_exps=_random_locals(w))
+    assert _l2d_particle_compare(which, args, w) <= L2D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("which", ["p2m", "p2m_dipole", "l2p"])
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+@pytest.mark.parametrize("order", [0, 1, 35])
+def test_laplace2d_particle_kernel_orders(laplace2d_dipoles, order, kind,
+                                          which):
+    """K38-K40 at orders 0, 1 and 35 on the starfish tree, with the
+    wrangler's arguments at order 20 and the coefficient count of
+    *order*."""
+    w, q = laplace2d_dipoles["starfish", kind]
+    args = list(_l2d_particle_args(w, _l2d_w_charges(w, q), which))
+    args[-1] = order
+    if which == "l2p":
+        rng = np.random.default_rng(9)
+        loc = rng.standard_normal((w.tree.nboxes,
+                                   laplace2d.ncoeffs(order, w.dtype)))
+        if w.dtype.is_complex:
+            loc = loc + 1j * rng.standard_normal(loc.shape)
+        args[4] = torch.as_tensor(loc, device=w.device).to(w.dtype)
+    assert _l2d_particle_compare(which, tuple(args), w) <= L2D_RTOL[w.dtype]
+
+
+@pytest.mark.parametrize("kind", sorted(L2D_KINDS))
+def test_laplace2d_dipole_fmm_on_card_matches_cpu(laplace2d_dipoles, kind):
+    """The starfish double layer on the card against the CPU port (1e-10,
+    float32 1e-5), one launch each of K39, K41, K42, K20, K40 and K35, and
+    none of K38 or of the charge kernels K19 and K21."""
+    w, q = laplace2d_dipoles["starfish", kind]
+    qr = q.real
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [qr])
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(("p2m_laplace2d_dipole", "p2p_laplace2d_dipole",
+                          "p2l_laplace2d_dipole", "m2p_laplace2d",
+                          "l2p_laplace2d", "m2l_translate"), 1)
+    want.update(dict.fromkeys(("p2m_laplace2d", "p2p_laplace2d",
+                               "p2l_laplace2d"), 0))
+    assert {k: counts[k] for k in want} == want
+    src, tgt, nrm = laplace2d_dipoles["starfish_inputs"]
+    trav_cpu = build_traversal(build_tree(src, targets=tgt,
+                                          max_particles_in_box=20,
+                                          device="cpu"))
+    pairs, dt = L2D_KINDS[kind]
+    w_cpu = make_laplace_wrangler(trav_cpu, 20, pairs=pairs, dtype=dt,
+                                  rscale="auto", dipole_vec=nrm)
+    ref = drive_fmm(w_cpu, [qr.cpu()])
+    assert got.dtype == dt
+    assert _rel(got.cpu(), ref) <= (1e-5 if dt == torch.float32 else 1e-10)
+
+
+def test_laplace2d_particle_wrappers_refuse(laplace2d_dipoles):
+    """A complex64 charge or coefficient array, or dipoles shaped other
+    than the sources, raise before any launch."""
+    w, q = laplace2d_dipoles["starfish", "c128"]
+    kernels.reset_launch_counts()
+    for which, name in L2D_PARTICLE.items():
+        args = list(_l2d_particle_args(w, _l2d_w_charges(w, q), which,
+                                       local_exps=_random_locals(w)))
+        out = ((w.local_expansion_zeros(),) if which == "p2l_dipole"
+               else ())
+        i = 4 if which == "l2p" else 2 if which == "p2p_dipole" else 1
+        bad = list(args)
+        bad[i] = bad[i].to(torch.complex64)
+        with pytest.raises(TypeError):
+            getattr(laplace2d, name)(*bad, *out)
+        if which.endswith("dipole"):
+            bad = list(args)
+            bad[i + 1] = bad[i + 1][:, :-1].contiguous()
+            with pytest.raises(ValueError, match="dipole_vec"):
+                getattr(laplace2d, name)(*bad, *out)
+    assert not any(kernels.launch_counts()[k] for k in L2D_PARTICLE.values())
 
 # }}}
 

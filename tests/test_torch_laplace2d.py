@@ -24,6 +24,17 @@ boxtree_tpu's, and alone against direct sums.
   ``tests/test_laplace.py:23-53``'s points (< 1e-5); the order-35 line of
   ``tests/test_stability.py:28-65`` (< (1/2)^36); the factory's dispatch
   and each option still refused; K19-K21's entry points and checks.
+- K38-K42 (P2M, L2P, and the dipole P2M, P2P and P2L): their twins and
+  CPU wrappers against the reference's hooks under ``jax.jit``, the
+  dipoles through ``jax.jvp``, per entry point (complex128 and float64
+  pairs 1e-12, float32 pairs 1e-5), on centre lines and at ``w = z0 =
+  0``; their rows covering each particle once.
+- The double layer (dipoles): every stage and the slice of the complex128
+  and float64 pairs wranglers within 1e-11 of one recorded JAX
+  ``drive_fmm`` on the points' traversal; the float32 pairs' particle
+  stages and slice within 1e-5 of the float64 pairs' on a starfish curve
+  with separate targets; ``tests/test_laplace.py:88-110`` against the
+  direct sum (< 1e-5) and ``:200-225`` pairs against complex (<= 1e-12).
 """
 
 import jax
@@ -530,8 +541,8 @@ def test_factory_dispatch(points):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(dipole_vec=np.zeros((2, N))),
-    dict(dipole_vec=np.zeros((2, N)), pairs=True),
+    dict(m2l_mode="rotation", pairs=True),
+    dict(dtype=np.float16),
     dict(m2l_mode="rotation"),
     dict(pairs=False, dtype=np.complex64),
     dict(dtype=np.complex64),
@@ -597,5 +608,485 @@ def test_kernel_entry_points_2d():
                       (torch.complex128, torch.float32)):
         with pytest.raises(TypeError):
             l2._check_dtypes(val, real)
+
+# }}}
+
+
+# {{{ K38-K42's twins against the reference's hooks and their JVPs
+
+#: the entry points: (reference layout, value dtype), and their bars
+#: against the reference in float64
+PKINDS = {"c128": ("complex", torch.complex128),
+          "f64": ("pairs", torch.float64), "f32": ("pairs", torch.float32)}
+PRTOL = {"c128": 1e-12, "f64": 1e-12, "f32": 1e-5}
+PARTICLE = {"p2m": "p2m_laplace2d", "p2m_dipole": "p2m_laplace2d_dipole",
+            "l2p": "l2p_laplace2d", "p2p_dipole": "p2p_laplace2d_dipole",
+            "p2l_dipole": "p2l_laplace2d_dipole"}
+
+
+def _particle_inputs(layout):
+    """:func:`_hook_offsets` (centre lines, either zero sign, and ``w =
+    z0 = 0`` last) with rscales, charges, dipoles and coefficients; P2P's
+    20 targets and 30 sources, the fourth target on the eighth source.
+    Complex charges and coefficients for the complex layout, real ones
+    and pair lanes for the pairs."""
+    rel = _hook_offsets()
+    n = rel.shape[1]
+    rng = np.random.default_rng(11)
+    src = rng.uniform(-1, 1, (2, 30))
+    tgt = rng.uniform(-1, 1, (2, 20))
+    tgt[:, 3] = src[:, 7]
+    x = dict(rel=rel, s=rng.uniform(0.1, 1.0, n),
+             q=rng.standard_normal(n) + 1j * rng.standard_normal(n),
+             dip=rng.standard_normal((2, n)),
+             coef=rng.standard_normal((n, 2 * (ORDER + 1))), tgt=tgt,
+             src=src, qp=rng.standard_normal(30)
+             + 1j * rng.standard_normal(30),
+             dipp=rng.standard_normal((2, 30)))
+    if layout == "pairs":
+        x["q"], x["qp"] = x["q"].real, x["qp"].real
+    else:
+        k = ORDER + 1
+        x["coef"] = x["coef"][:, :k] + 1j * x["coef"][:, k:]
+    return x
+
+
+@pytest.fixture(scope="module")
+def particle_refs():
+    """Per layout, the reference's P2M, L2P, P2L and P2P hooks and the
+    JVPs of P2M and P2L along ``d / s`` and of P2P along ``d`` at
+    :func:`_particle_inputs`, each layout in one ``jax.jit``."""
+    refs = {}
+    for layout in ("complex", "pairs"):
+        jw = _jax_hook_wrangler(layout)
+        x = _particle_inputs(layout)
+        valid = np.ones(30, bool)
+
+        def f(rel, s, q, dip, coef, tgt, src, qp, dipp, jw=jw):
+            p2m = lambda r: jw._p2m_terms(r, q)  # noqa: E731
+            p2l = lambda r: jw._p2l_terms(r, q, s)  # noqa: E731
+            p2p = lambda ss: jw._p2p(tgt, ss, valid, qp)  # noqa: E731
+            return {"p2m": p2m(rel),
+                    "p2m_dipole": jax.jvp(p2m, (rel,), (dip / s,))[1],
+                    "l2p": jw._l2p_eval(rel, coef),
+                    "p2l_dipole": jax.jvp(p2l, (rel,), (dip / s,))[1],
+                    "p2p_dipole": jax.jvp(p2p, (src,), (dipp,))[1]}
+        refs[layout] = {name: np.asarray(v) for name, v in jax.jit(f)(
+            x["rel"], x["s"], x["q"], x["dip"], x["coef"], x["tgt"].T,
+            x["src"].T, x["qp"], x["dipp"].T).items()}
+    return refs
+
+
+def _one_per_box(n):
+    """CSR arguments with row box i listing box n + i, each box holding
+    particle i: box starts and counts over 2n boxes, rows, starts,
+    lists."""
+    i32 = torch.arange(n, dtype=torch.int32)
+    return (torch.cat([i32, i32]), torch.ones(2 * n, dtype=torch.int32),
+            i32, torch.arange(n + 1, dtype=torch.int32), i32 + n)
+
+
+@pytest.mark.parametrize("via", ["wrapper", "twin"])
+@pytest.mark.parametrize("which", sorted(PARTICLE))
+@pytest.mark.parametrize("kind", sorted(PKINDS))
+def test_particle_twins_match_reference_hooks(particle_refs, kind, which,
+                                              via):
+    """K38-K42's twins and their CPU wrappers against the reference's
+    hooks under ``jax.jit`` (the dipoles through ``jax.jvp``): one
+    particle a box (centre 0, scale s_i) for P2M, L2P and the dipole P2L
+    (row box i lists box n + i), one target box and one source box for
+    the dipole P2P.  The last offset is 0: P2M puts the charge on ``a_0``
+    alone and its dipole on ``a_1`` alone; the dipole P2L adds nothing
+    there in the complex form (``z0 = 1`` is a constant) and keeps the
+    tangents of ``th`` and ``1 / z0`` on the pairs."""
+    layout, dt = PKINDS[kind]
+    rdt = dt.to_real()
+    x = {k: _t(v) for k, v in _particle_inputs(layout).items()}
+    x = {k: v.to(dt if v.is_complex() or k in ("q", "qp", "coef") else rdt)
+         for k, v in x.items()}
+    ref = particle_refs[layout][which]
+    name = PARTICLE[which]
+    fn = getattr(l2, name if via == "wrapper" else f"{name}_plain")
+    n = x["rel"].shape[1]
+    starts, counts, rows, csr, lists = _one_per_box(n)
+    pts = x["rel"] * x["s"]
+    nc = ref.shape[-1] if ref.ndim == 2 else 0
+    if which == "p2p_dipole":
+        i32 = torch.zeros(1, dtype=torch.int32)
+        got = fn(x["tgt"], x["src"], x["qp"], x["dipp"], i32,
+                 torch.tensor([20], dtype=torch.int32), i32,
+                 torch.tensor([30], dtype=torch.int32), i32,
+                 torch.tensor([0, 1], dtype=torch.int32), i32)
+    elif which == "l2p":
+        got = fn(pts, starts[:n], counts[:n], rows, x["coef"],
+                 torch.zeros((2, n), dtype=rdt), x["s"], ORDER)
+    elif which == "p2l_dipole":
+        out = torch.zeros((2 * n, nc), dtype=dt)
+        got = fn(pts, x["q"], x["dip"], starts, counts, rows, csr, lists,
+                 torch.zeros((2, 2 * n), dtype=rdt), torch.cat(
+                     [x["s"], x["s"]]), ORDER, out)[:n]
+        at = np.zeros(nc, bool)
+        if layout == "pairs":
+            at[[1, ORDER + 1, ORDER + 2]] = True
+        assert (got[-1].numpy()[~at] == 0).all()
+        assert (ref[-1][~at] == 0).all() and (ref[-1][at] != 0).all()
+    else:
+        dip = (x["dip"],) if which == "p2m_dipole" else ()
+        got = fn(pts, x["q"], *dip, starts[:n], counts[:n], rows,
+                 torch.zeros((2, n), dtype=rdt), x["s"], ORDER)
+        lane = np.arange(nc) % (ORDER + 1)
+        at = (lane == 0) if which == "p2m" else (lane == 1)
+        assert (got[-1].numpy()[~at] == 0).all() and (ref[-1][~at] == 0).all()
+    got = got.numpy()
+    assert got.dtype == {torch.complex128: np.complex128,
+                         torch.float64: np.float64,
+                         torch.float32: np.float32}[dt]
+    assert got.shape == ref.shape
+    got = got.astype(ref.dtype)
+    if got.ndim == 1:
+        err = np.abs(got - ref).max() / np.abs(ref).max()
+    else:
+        err = _cols_rel(got, ref)
+    assert err <= PRTOL[kind]
+
+
+def test_particle_kernel_entry_points_2d():
+    """K38-K42 have float32, float64 and complex128 entry points, with
+    the argument lists of their 3D counterparts K28-K30, K22 and K23."""
+    for name in PARTICLE.values():
+        assert kernels._entry_names(name) == [
+            f"{name}_f32", f"{name}_f64", f"{name}_c128"]
+        assert kernels.SIGNATURES[name] == kernels.SIGNATURES[
+            name.replace("2d", "3d")]
+
+# }}}
+
+
+# {{{ the double layer against boxtree_tpu's recorded FMM, stage by stage
+
+#: the port wranglers held to the recorded complex double layer, in their
+#: layout (the pairs' lanes, the real potentials): (pairs, dtype)
+DKINDS = {"c128": (False, torch.complex128), "f64": (True, torch.float64)}
+#: the float32 pairs' stages held to the float64 pairs'
+STAGES32 = ["P2M", "P2P", "P2L", "L2P"]
+
+
+def _dlayout(x, kind):
+    """A complex reference array in the layout of *kind*: ``[re | im]``
+    lanes of expansions and the real part of potentials for the pairs."""
+    x = np.asarray(x)
+    if not DKINDS[kind][0]:
+        return x
+    return x.real if x.ndim == 1 else np.concatenate([x.real, x.imag], 1)
+
+
+@pytest.fixture(scope="module")
+def dipole_recording(points, recorded):
+    """One recorded JAX ``drive_fmm`` of the complex double layer on the
+    points' traversal (a tenth of them on centre lines, sources = targets,
+    so List 1 holds ``r = 0``) at ORDER with ``rscale="auto"`` and
+    standard-normal dipoles: ``(stage outputs, potentials, dipoles)``.
+    The complex recording's compiles serve it (~6 s instead of ~45 s)."""
+    recorded("complex")
+    _, q, trav = points
+    dip = np.random.default_rng(12).standard_normal((2, N))
+    jw = _Recorder(jax_make_laplace_wrangler(
+        _jax_traversal(trav), order=ORDER, pairs=False, rscale="auto",
+        dipole_vec=dip))
+    jpot = np.asarray(jax_drive_fmm(jw, [jnp.asarray(q)]))
+    return ({name: np.asarray(v) for name, v in jw.outputs.items()}, jpot,
+            dip)
+
+
+def _dwrangler(trav, kind, dip):
+    pairs, dt = {**DKINDS, "f32": (True, torch.float32)}[kind]
+    return make_laplace_wrangler(trav, ORDER, pairs=pairs, dtype=dt,
+                                 rscale="auto", dipole_vec=dip)
+
+
+@pytest.fixture(scope="module")
+def dipole_stages(points, dipole_recording):
+    """Per kind, each stage's reference (in the kind's layout) and port
+    output, each port stage fed the reference's inputs, and the
+    wrangler."""
+    _, q, trav = points
+    ref, _, dip = dipole_recording
+    cache = {}
+
+    def get(kind):
+        if kind in cache:
+            return cache[kind]
+        w = _dwrangler(trav, kind, dip)
+        tq = w.reorder_sources(torch.from_numpy(q))
+
+        def lay(name):
+            return _dlayout(ref[name], kind)
+        mp_up, loc, p2l = (lay(k) for k in ("coarsen_multipoles",
+                                             "multipole_to_local",
+                                             "form_locals"))
+        lsb_totp = trav.level_start_target_or_target_parent_box_nrs
+        totp = trav.target_or_target_parent_boxes
+        cache[kind] = ({
+            "P2M": (lay("form_multipoles"),
+                    w.form_multipoles(None, None, [tq])),
+            "M2M": (mp_up, w.coarsen_multipoles(
+                None, None, _t(lay("form_multipoles")))),
+            "P2P": (lay("eval_direct"), w.eval_direct(
+                trav.target_boxes, trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, [tq])),
+            "M2L": (loc, w.multipole_to_local(
+                lsb_totp, totp, trav.from_sep_siblings_starts,
+                trav.from_sep_siblings_lists, _t(mp_up))),
+            "M2P": (lay("eval_multipoles"), w.eval_multipoles(
+                trav.target_boxes_sep_smaller_by_source_level,
+                trav.from_sep_smaller_by_level, _t(mp_up))),
+            "P2L": (p2l, w.form_locals(
+                lsb_totp, totp, trav.from_sep_bigger_starts,
+                trav.from_sep_bigger_lists, [tq])),
+            "M2L+P2L": (loc + p2l, w.form_locals(
+                lsb_totp, totp, trav.from_sep_bigger_starts,
+                trav.from_sep_bigger_lists, [tq], _t(loc))),
+            "L2L": (lay("refine_locals"), w.refine_locals(
+                lsb_totp, totp, _t(loc + p2l))),
+            "L2P": (lay("eval_locals"), w.eval_locals(
+                None, None, _t(lay("refine_locals")))),
+        }, w)
+        return cache[kind]
+    return get
+
+
+def _as_coeffs(x, kind):
+    """Pair-lane expansions as complex columns, a coefficient's two lanes
+    held to the coefficient's scale."""
+    if kind != "c128" and x.ndim == 2:
+        k = x.shape[1] // 2
+        return x[:, :k] + 1j * x[:, k:]
+    return x
+
+
+@pytest.mark.parametrize("stage", STAGES)
+@pytest.mark.parametrize("kind", sorted(DKINDS))
+def test_dipole_stages_match_reference(dipole_stages, kind, stage):
+    """Every stage of the complex128 and float64 pairs double layer within
+    1e-11 of the recorded reference, expansions per coefficient column:
+    with dipoles ``a_0 = 0``, so the logs' branches on the centre lines,
+    where the two references part, meet only zero coefficients."""
+    ref, got = dipole_stages(kind)[0][stage]
+    got = got.numpy()
+    assert got.shape == ref.shape
+    assert got.dtype == {"c128": np.complex128, "f64": np.float64}[kind]
+    if got.ndim == 1:
+        err = _rel_linf(got, ref)
+    else:
+        err = _cols_rel(_as_coeffs(got, kind), _as_coeffs(ref, kind))
+    assert err <= RTOL
+
+
+@pytest.mark.parametrize("kind", sorted(DKINDS))
+def test_dipole_slice_matches_reference(points, dipole_recording,
+                                        dipole_stages, kind):
+    q = points[1]
+    jpot = _dlayout(dipole_recording[1], kind)
+    w = dipole_stages(kind)[1]
+    timing = {}
+    got = drive_fmm(w, [torch.from_numpy(q)], timing_data=timing)
+    assert got.dtype == DKINDS[kind][1] and got.shape == (N,)
+    assert set(timing) == set(FMM_STAGES)
+    assert _rel_linf(got.numpy(), jpot) <= RTOL
+
+
+def starfish(n, seed):
+    """*n* points on the five-armed starfish ``r(theta) = 1 + 0.25 cos 5
+    theta`` at uniform random angles, and their unit outward normals."""
+    th = np.random.default_rng(seed).uniform(0, 2 * np.pi, n)
+    r, dr = 1 + 0.25 * np.cos(5 * th), -1.25 * np.sin(5 * th)
+    tx = dr * np.cos(th) - r * np.sin(th)
+    ty = dr * np.sin(th) + r * np.cos(th)
+    nrm = np.stack([ty, -tx]) / np.hypot(tx, ty)
+    return np.stack([r * np.cos(th), r * np.sin(th)]), nrm
+
+
+@pytest.fixture(scope="module")
+def starfish_case():
+    """2,000 starfish sources with their normals as dipoles, 600
+    separate targets in [-1.5, 1.5]^2, standard-normal weights, each
+    rounded to float32 (so that the float32 wrangler sees the float64
+    one's inputs, and the bar measures its arithmetic, not the rounding
+    of ``s - t`` that the kernel's ``1 / r^2`` magnifies near the
+    curve); the float64 and float32 pairs wranglers and each one's
+    weights, and the float64 one's locals."""
+    src, nrm = starfish(2000, 30)
+    rng = np.random.default_rng(31)
+    tgt = rng.uniform(-1.5, 1.5, (2, 600))
+    w = rng.standard_normal(2000)
+    src, nrm, tgt, w = (a.astype(np.float32).astype(np.float64)
+                        for a in (src, nrm, tgt, w))
+    trav = build_traversal(build_tree(src, targets=tgt,
+                                      max_particles_in_box=MAX_IN_BOX,
+                                      device="cpu"))
+    ws = {kind: _dwrangler(trav, kind, nrm) for kind in ("f64", "f32")}
+    qs = {kind: wr.reorder_sources(torch.from_numpy(w))
+          for kind, wr in ws.items()}
+    return trav, ws, qs, w, fmm_locals(ws["f64"], qs["f64"])
+
+
+def fmm_locals(w, q_tree):
+    """The local expansions ``drive_fmm`` hands to L2P, stage by stage."""
+    trav = w.traversal
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [q_tree]))
+    lsb, totp = (trav.level_start_target_or_target_parent_box_nrs,
+                 trav.target_or_target_parent_boxes)
+    loc = w.multipole_to_local(lsb, totp, trav.from_sep_siblings_starts,
+                               trav.from_sep_siblings_lists, mp)
+    loc = w.form_locals(lsb, totp, trav.from_sep_bigger_starts,
+                        trav.from_sep_bigger_lists, [q_tree], loc)
+    return w.refine_locals(lsb, totp, loc)
+
+
+def _box_rows_rel(got, ref):
+    """Worst box of ``max |got - ref| / max |ref|`` over its row of
+    coefficients; a row that is zero in the reference must be zero."""
+    scale = np.abs(ref).max(axis=1)
+    err = np.abs(got - ref).max(axis=1)
+    assert (err[scale == 0] == 0).all()
+    return (err[scale > 0] / scale[scale > 0]).max()
+
+
+@pytest.mark.parametrize("stage", [*STAGES32, "slice"])
+def test_dipole_float32_matches_float64(starfish_case, stage):
+    """The float32 pairs' particle stages (K39-K42 through their twins)
+    and slice on the starfish double layer, within 1e-5 of the float64
+    pairs': expansions box by box to each row's largest coefficient (a
+    float32 centre keeps ~5 bits fewer of the offset ``y - c`` at the
+    finest level, and ``zeta^k`` carries that k-fold into the high
+    orders)."""
+    trav, ws, qs, w_user, loc64 = starfish_case
+    lsb_totp = trav.level_start_target_or_target_parent_box_nrs
+    totp = trav.target_or_target_parent_boxes
+    got = {}
+    for kind, w in ws.items():
+        q = qs[kind]
+        if stage == "P2M":
+            got[kind] = w.form_multipoles(None, None, [q])
+        elif stage == "P2P":
+            got[kind] = w.eval_direct(
+                trav.target_boxes, trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, [q])
+        elif stage == "P2L":
+            got[kind] = w.form_locals(
+                lsb_totp, totp, trav.from_sep_bigger_starts,
+                trav.from_sep_bigger_lists, [q])
+        elif stage == "L2P":
+            got[kind] = w.eval_locals(None, None, loc64.to(w.dtype))
+        else:
+            got[kind] = drive_fmm(w, [torch.from_numpy(w_user)])
+    assert got["f32"].dtype == torch.float32
+    g, r = got["f32"].double().numpy(), got["f64"].numpy()
+    if g.ndim == 1:
+        err = _rel_linf(g, r)
+    else:
+        err = _box_rows_rel(_as_coeffs(g, "f32"), _as_coeffs(r, "f32"))
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("what", ["source", "target"])
+@pytest.mark.parametrize("tree_of", ["sources_are_targets",
+                                     "separate_targets"])
+def test_particle_rows_cover_each_particle_once(points, starfish_case,
+                                                tree_of, what):
+    """K38 / K39's source rows and K40's target rows are the boxes with
+    particles and cover each particle once."""
+    from test_torch_laplace3d import assert_rows_cover
+    trav = (points[2] if tree_of == "sources_are_targets"
+            else starfish_case[0])
+    assert trav.tree.sources_are_targets == (tree_of ==
+                                             "sources_are_targets")
+    w = make_laplace_wrangler(trav, 2, pairs=True)
+    assert_rows_cover(trav.tree, what, getattr(w, f"_{what}_rows"))
+
+
+def test_dipole_lists_populated(points, starfish_case):
+    """Both double layers' trees hold every list."""
+    for trav in (points[2], starfish_case[0]):
+        w = _dwrangler(trav, "f64", None)
+        assert w._l3_csr is not None and w._l4_csr[2].numel() > 0
+        assert trav.from_sep_siblings_lists.numel() > 0
+
+# }}}
+
+
+# {{{ the double layer, the port alone
+
+def _dipole_direct(tgt, src, w, dip):
+    """``sum_s w_s d_s . (s - t) / |t - s|^2`` in float64."""
+    diff = src[:, None, :] - tgt[:, :, None]
+    r2 = (diff * diff).sum(axis=0)
+    return ((dip[:, None, :] * diff).sum(axis=0) / r2) @ w
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+def test_dipoles_against_direct_sum(pairs):
+    """``tests/test_laplace.py:88-110`` on the port: 2,000 uniform
+    sources with standard-normal dipoles and weights, 1,500 targets,
+    order 20, rel l-inf < 1e-5."""
+    rng = np.random.default_rng(44)
+    sources = rng.random((2, 2000))
+    targets = rng.random((2, 1500))
+    weights = rng.standard_normal(2000)
+    dip = rng.standard_normal((2, 2000))
+    trav = build_traversal(build_tree(sources, targets=targets,
+                                      max_particles_in_box=20,
+                                      device="cpu"))
+    w = make_laplace_wrangler(trav, 20, pairs=pairs, dipole_vec=dip)
+    pot = drive_fmm(w, [torch.from_numpy(weights)]).numpy().real
+    assert _rel_linf(pot, _dipole_direct(targets, sources, weights,
+                                         dip)) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["order", "rscale", "level_to_order"])
+def test_dipole_pairs_match_complex(case):
+    """``tests/test_laplace.py:200-225``'s cases with dipoles: the pairs
+    wrangler against the complex one's real part, <= 1e-12."""
+    rng = np.random.default_rng(44)
+    n = 1400
+    pts = rng.random((2, n))
+    trav = build_traversal(build_tree(pts, max_particles_in_box=25,
+                                      device="cpu"))
+    q = torch.from_numpy(rng.standard_normal(n))
+    kw = {"order": {"order": 5},
+          "rscale": {"order": 6, "rscale": "auto"},
+          "level_to_order": {"level_to_order": lambda lev: max(3, 7 - lev),
+                             "rscale": "auto"}}[case]
+    kw["dipole_vec"] = rng.standard_normal((2, n))
+    ref = drive_fmm(make_laplace_wrangler(trav, pairs=False, **kw),
+                    [q]).numpy()
+    pot = drive_fmm(make_laplace_wrangler(trav, pairs=True, **kw),
+                    [q]).numpy()
+    assert np.abs(pot - ref.real).max() / np.abs(ref).max() <= 1e-12
+
+
+@pytest.mark.parametrize("shape", [(2, N - 1), (3, N)])
+def test_dipole_vec_wrong_shape_raises_2d(points, shape):
+    with pytest.raises(ValueError, match="dipole_vec"):
+        make_laplace_wrangler(points[2], 4, dipole_vec=np.zeros(shape))
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+def test_dipole_factory_2d(points, pairs):
+    """Both 2D wranglers take dipoles, in user order or already in tree
+    order, in the wrangler's real dtype."""
+    trav = points[2]
+    dip = np.random.default_rng(6).standard_normal((2, N))
+    w = make_laplace_wrangler(trav, 4, pairs=pairs, dipole_vec=dip)
+    assert type(w) is (Laplace2DPairsExpansionWrangler if pairs
+                       else Laplace2DExpansionWrangler)
+    assert w.dipole_vec.dtype == torch.float64
+    tree_order = w.dipole_vec.numpy()
+    b = make_laplace_wrangler(trav, 4, pairs=pairs, dipole_vec=tree_order,
+                              dipoles_already_reordered=True)
+    assert torch.equal(w.dipole_vec, b.dipole_vec)
+    np.testing.assert_array_equal(
+        tree_order, dip[:, trav.tree.user_source_ids.numpy()])
 
 # }}}
