@@ -47,7 +47,7 @@ SIGNATURES = {
     "p2p_laplace3d": "pipippppppipppp",
     "m2p_laplace3d": "pipppippppipipp",
     "p2l_laplace3d": "pippppipppipipp",
-    "restrict_demand": "pipipiiipppppp",
+    "restrict_demand": "pipiiippppppp",
     "area_query_sweep": "ppipippippppippppp",
     "space_invader_sweep": "ppipippippppippppp",
     "peer_lists": "pppiiipppip",
@@ -85,6 +85,10 @@ SIGNATURES = {
     "l2p_laplace2d": "pipppippipipp",
     "p2p_laplace2d_dipole": "pipipppppppipppp",
     "p2l_laplace2d_dipole": "pipppppipppipipp",
+    "tree_leaf_levels": "pipippiiiiippppp",
+    "tree_level_boxes": "pippppp" + "iiiiii" + "p" * 14,
+    "restrict_sweep": "pipipp",
+    "level_box_counts": "pipiiipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -137,6 +141,10 @@ DTYPES = {
     "l2p_laplace2d": (*_FLOATS, torch.complex128),
     "p2p_laplace2d_dipole": (*_FLOATS, torch.complex128),
     "p2l_laplace2d_dipole": (*_FLOATS, torch.complex128),
+    "tree_leaf_levels": (),
+    "tree_level_boxes": _FLOATS,
+    "restrict_sweep": (),
+    "level_box_counts": (),
 }
 
 

@@ -1,4 +1,5 @@
-"""The demand pass of the 2:1 level restriction, and the K5 kernel.
+"""The demand pass and the consistency sweep of the 2:1 level restriction,
+and the K5 and K45 kernels.
 
 One demand pass at level ``m`` (``boxtree_tpu/tree/level_restrict.py:
 50-90``): every leaf box at level ``m`` demands that the level-``m-1``
@@ -15,6 +16,15 @@ result depends on that order.
 :func:`demand_pass` launches ``csrc/restrict.cu`` (K5) on CUDA tensors and
 runs :func:`demand_pass_plain`, the reference's algorithm step for step,
 on CPU tensors.  Both give the same leaf levels bit for bit.
+
+The sweep at level ``t`` (``boxtree_tpu/tree/level_restrict.py:94-116``):
+within each maximal run of active particles (leaf level at least ``t``)
+that share their level-``t`` prefix, every particle at leaf level ``t``
+rises to ``t + 1`` if the run holds a deeper particle.  Mid-round the tree
+need not be consistent, so an inactive particle may split a prefix range
+into two runs.  :func:`sweep` launches K45 on CUDA tensors and runs
+:func:`sweep_plain` (segment bounds by ``cummax`` / ``cummin``) on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from boxtree_torch.ops import kernels, morton
+from boxtree_torch.ops import tree as tree_ops
 from boxtree_torch.traversal.neighbors import _offsets
 
 
@@ -78,8 +89,9 @@ def demand_pass(codes_s, leaf_level, *, m, dimensions, depth):
     :returns: the new ``(n,)`` int32 leaf levels.
 
     CPU tensors take :func:`demand_pass_plain`.  CUDA tensors launch K5
-    (``csrc/restrict.cu``) once over one thread per level-``m`` leaf box,
-    then finish with ``torch.cumsum`` of the marks.
+    (``csrc/restrict.cu``) once (it lists the level-``m`` leaf boxes on
+    the card, then takes them one a thread), then finish with
+    ``torch.cumsum`` of the marks; nothing is read back.
     """
     if codes_s.device.type == "cpu":
         return demand_pass_plain(codes_s, leaf_level, m=m,
@@ -90,27 +102,72 @@ def demand_pass(codes_s, leaf_level, *, m, dimensions, depth):
     kernels.check_tensors(leaf_level, dtype=torch.int32)
     n = codes_s.shape[0]
     dev = codes_s.device
-    shift = dimensions * (depth - m)
-    is_m_leaf = leaf_level == m
-    # one representative per run of level-m leaf particles in one cell:
-    # every particle of a run demands the same ranges
-    pfx = codes_s >> shift
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = (pfx[1:] != pfx[:-1]) | ~is_m_leaf[:-1]
-    reps = torch.nonzero(is_m_leaf & first)[:, 0].contiguous()
-    nrep = reps.shape[0]
-    if nrep == 0:
-        return leaf_level
-    noffs = 3 ** dimensions
     leaf_level = leaf_level.clone()
     marks = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    ev_count = torch.zeros(noffs, dtype=torch.int32, device=dev)
-    ev_q = torch.empty(noffs * nrep, dtype=torch.int64, device=dev)
-    ev_lo = torch.empty(noffs * nrep, dtype=torch.int64, device=dev)
-    ev_val = torch.empty(nrep, dtype=torch.int32, device=dev)
-    kernels.launch("restrict_demand", None, codes_s, n, reps, nrep,
-                   leaf_level, dimensions, depth, m, marks, ev_count, ev_q,
-                   ev_lo, ev_val)
+    noffs = 3 ** dimensions
+    # the listed boxes, then the raise candidates of each offset
+    counts = torch.zeros(1 + noffs, dtype=torch.int32, device=dev)
+    reps = torch.empty(n, dtype=torch.int64, device=dev)
+    # each candidate's box (its first particle) and range start, n slots an
+    # offset (int32, as particle ids are)
+    ev_box = torch.empty(noffs * n, dtype=torch.int32, device=dev)
+    ev_lo = torch.empty(noffs * n, dtype=torch.int32, device=dev)
+    ev_val = torch.empty(n, dtype=torch.int32, device=dev)
+    kernels.launch("restrict_demand", None, codes_s, n, leaf_level,
+                   dimensions, depth, m, marks, counts, reps, ev_box, ev_lo,
+                   ev_val)
     covered = torch.cumsum(marks[:-1], 0) > 0
     return torch.where(covered & (leaf_level < m - 1),
                        torch.full_like(leaf_level, m - 1), leaf_level)
+
+
+def sweep_plain(codes_s, leaf_level, *, t, dimensions, depth):
+    """Plain twin of :func:`sweep`: the reference's segment bounds by
+    ``cummax`` and a reversed ``cummin``, and a cumulative count of the
+    deeper particles."""
+    n = codes_s.shape[0]
+    dev = codes_s.device
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    end = torch.full((1,), n, dtype=torch.int64, device=dev)
+    is_start, active = tree_ops.run_starts(codes_s, leaf_level, t,
+                                           dimensions, depth)
+    lo = torch.cummax(torch.where(is_start, iota, 0), 0).values
+    nxt = torch.where(is_start | ~active, iota, n)
+    suf = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+    hi = torch.cat([suf[1:], end])
+    deeper = torch.cat([end.new_zeros(1), torch.cumsum(
+        (leaf_level > t).to(torch.int64), 0)])
+    has_deeper = (deeper[hi] - deeper[lo]) > 0
+    return torch.where(active & (leaf_level == t) & has_deeper,
+                       torch.full_like(leaf_level, t + 1), leaf_level)
+
+
+def sweep(codes_s, leaf_level, *, t, dimensions, depth, lcp=None):
+    """Leaf levels after the consistency sweep at level *t*.
+
+    :arg codes_s: ``(n,)`` int64 full-depth Morton keys, ascending.
+    :arg leaf_level: ``(n,)`` int32 leaf levels.
+    :arg lcp: the keys' :func:`boxtree_torch.ops.tree.lcp_levels`, or None
+        to compute them here (the restriction computes them once).
+    :returns: the new ``(n,)`` int32 leaf levels.
+
+    CPU tensors take :func:`sweep_plain`.  CUDA tensors launch K45
+    (``csrc/restrict.cu``) once, over the runs' inclusive scan of their
+    starts (a library ``cumsum``); nothing is read back.
+    """
+    if codes_s.device.type == "cpu":
+        return sweep_plain(codes_s, leaf_level, t=t, dimensions=dimensions,
+                           depth=depth)
+    kernels.check_tensors(codes_s, dtype=torch.int64)
+    kernels.check_tensors(leaf_level, dtype=torch.int32)
+    if lcp is None:
+        lcp = tree_ops.lcp_levels(codes_s, dimensions, depth)
+    n = codes_s.shape[0]
+    prev_leaf = torch.cat([leaf_level.new_full((1,), -1), leaf_level[:-1]])
+    is_start = (leaf_level >= t) & (
+        torch.minimum(lcp, prev_leaf.to(torch.int64)) < t)
+    seg = torch.cumsum(is_start, 0, dtype=torch.int32)
+    leaf_level = leaf_level.clone()
+    flag = torch.zeros(n, dtype=torch.int32, device=codes_s.device)
+    kernels.launch("restrict_sweep", None, leaf_level, n, seg, t, flag)
+    return leaf_level

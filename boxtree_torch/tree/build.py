@@ -1,21 +1,28 @@
-"""Sort-based adaptive tree build in PyTorch.
+"""Sort-based tree build in PyTorch.
 
 Port of :mod:`boxtree_tpu.tree.build` (``boxtree_tpu/tree/build.py:45-553,
-583-816``) for the adaptive and the adaptive-level-restricted kinds, the
-adaptive kind also with particle extents (radii):
+583-816``) for the adaptive, the adaptive-level-restricted and the
+non-adaptive kinds, refined by ``max_particles_in_box`` or by refine
+weights, in the particles' bounding box or a given one; the adaptive kind
+also with particle extents (radii):
 
 1. Every particle's full-depth Morton key, packed with its index, comes
    from the K1 kernel (:func:`boxtree_torch.ops.morton.encode_points`) and
    is sorted once with ``torch.sort``.
 2. :func:`_phase_a` assigns every particle its *leaf level* (the first
-   level at which its box's refine weight is at most the maximum) and
-   counts the boxes of every level.  With extents a particle also stops
-   at its stick-out level (K12, :mod:`boxtree_torch.ops.extents`), and
-   only particles that can still descend count toward a split.
-   For the level-restricted kind, :mod:`.level_restrict` then raises
-   leaf levels until touching leaves differ by at most one level.
-3. :func:`_phase_b` materializes the per-box arrays level by level.  With
-   extents the particles are first re-sorted so that each box's own
+   level at which its box's refine weight is at most the maximum; for the
+   non-adaptive kind the first level at which every box's is) and counts
+   the boxes of every level: K43 (:func:`boxtree_torch.ops.tree.
+   leaf_levels`), whose packed counts are the build's one host read per
+   depth tried.  With extents a particle also stops at its stick-out level
+   (K12, :mod:`boxtree_torch.ops.extents`), and only particles that can
+   still descend count toward a split.  For the level-restricted kind,
+   :mod:`.level_restrict` then raises leaf levels until touching leaves
+   differ by at most one level (one host read a round, one for the
+   recount).
+3. :func:`_phase_b` materializes the per-box arrays level by level (K44,
+   :func:`boxtree_torch.ops.tree.box_levels`) and reads nothing back.
+   With extents the particles are first re-sorted so that each box's own
    ("nonchild") particles precede its subtree, and the boxes' particle
    bounding boxes follow (K13).
 
@@ -30,12 +37,14 @@ reference.
 from __future__ import annotations
 
 import logging
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from boxtree_torch import config
 from boxtree_torch.ops import extents, morton
+from boxtree_torch.ops import tree as tree_ops
 from boxtree_torch.tree.containers import Tree, box_flags_enum
 from boxtree_torch.tree.level_restrict import restrict_leaf_levels
 
@@ -48,28 +57,6 @@ class MaxLevelsExceeded(RuntimeError):
 
 
 _TREE_KINDS = ("adaptive", "adaptive-level-restricted", "non-adaptive")
-
-
-def _segment_totals(vals, is_start):
-    """Per-element totals of each row of *vals* ``(k, n)`` over its run of
-    equal prefixes."""
-    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    nseg = int(seg[-1]) + 1
-    totals = vals.new_zeros(vals.shape[0], nseg).index_add_(1, seg, vals)
-    return totals[:, seg]
-
-
-def _bit_length(x):
-    """``64 - clz(x)`` of an int64 tensor (64 for negative entries)."""
-    neg = x < 0
-    x = torch.where(neg, torch.zeros_like(x), x)
-    bl = torch.zeros_like(x)
-    for s in (32, 16, 8, 4, 2, 1):
-        m = (x >> s) != 0
-        bl = bl + m.to(torch.int64) * s
-        x = torch.where(m, x >> s, x)
-    bl = bl + (x != 0).to(torch.int64)
-    return torch.where(neg, torch.full_like(bl, 64), bl)
 
 
 # {{{ phase A: sort + leaf-level assignment
@@ -85,22 +72,23 @@ def _root_box(coords, radii=None):
                       * (1 + config.ROOT_EXTENT_STRETCH_FACTOR))
 
 
-def _phase_a(coords, max_weight, *, dimensions, depth, radii=None,
-             extent_norm=None, stick_out_factor=0.0):
-    """Morton sort + leaf-level assignment + per-level box counts
-    (``boxtree_tpu/tree/build.py:113-247``, adaptive, unit refine
-    weights); *radii* (``(n,)``) give the particles extents.
+def _sort_keys(coords, *, dimensions, depth, weights=None, radii=None,
+               extent_norm=None, stick_out_factor=0.0, bbox=None):
+    """The root box, the Morton-sorted keys and their permutation, the
+    weights in that order and with *radii* the sorted stick levels: K43's
+    inputs (``boxtree_tpu/tree/build.py:133-168``).
 
-    :returns: ``(codes_s, order, leaf_level, counts, n_unfit, bbox_min,
-        root_extent)``; ``counts[l]`` is the number of boxes at level
-        ``l``, ``n_unfit`` the number of particles still in overfull boxes
-        at depth ``depth``.
+    :arg bbox: ``(bbox_min, root_extent)`` tensors of a given root box, or
+        None for the particles' own.
+    :returns: ``(codes_s, order, weights_s, stick_s, bbox_min,
+        root_extent)``; ``weights_s`` and ``stick_s`` are None without
+        weights and radii.
     """
     n = coords.shape[1]
-    dev = coords.device
-    has_extents = radii is not None
-    bbox_min, root_extent = _root_box(coords, radii)
-
+    if bbox is None:
+        bbox_min, root_extent = _root_box(coords, radii)
+    else:
+        bbox_min, root_extent = bbox
     iota_bits = max(1, int(n - 1).bit_length())
     if dimensions * depth + iota_bits <= 63:
         # the tie-break index packed into the low bits: one key-only sort
@@ -112,41 +100,39 @@ def _phase_a(coords, max_weight, *, dimensions, depth, radii=None,
         codes = morton.encode_points(coords, bbox_min, root_extent, depth)
         codes_s, order = torch.sort(codes, stable=True)
         order = order.to(torch.int32)
-    if has_extents:
+    order64 = order.to(torch.int64)
+    stick_s = None
+    if radii is not None:
         stick_s = extents.stick_levels(
             coords, radii, bbox_min, root_extent, dimensions=dimensions,
             depth=depth, extent_norm=extent_norm,
-            stick_out_factor=stick_out_factor)[order.to(torch.int64)]
+            stick_out_factor=stick_out_factor)[order64]
+    weights_s = weights[order64] if weights is not None else None
+    return codes_s, order, weights_s, stick_s, bbox_min, root_extent
 
-    ones = torch.ones(1, n, dtype=torch.int64, device=dev)
-    counts = torch.zeros(depth + 2, dtype=torch.int64, device=dev)
-    assigned = torch.zeros(n, dtype=torch.bool, device=dev)
-    leaf_level = torch.full((n,), depth, dtype=torch.int32, device=dev)
-    level = 0
-    while level <= depth and not bool(assigned.all()):
-        active = ~assigned
-        pfx = codes_s >> (dimensions * (depth - level))
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              pfx[1:] != pfx[:-1]])
-        if has_extents:
-            # a split counts only particles that can still descend; a box
-            # exists while it holds an active particle
-            w, n_active = _segment_totals(
-                torch.stack([active & (stick_s > level), active]).to(
-                    torch.int64), is_start)
-            counts[level] = (is_start & (n_active > 0)).sum()
-            done = active & ((w <= max_weight) | (stick_s <= level))
-        else:
-            w = _segment_totals(ones, is_start)[0]
-            counts[level] = (is_start & active).sum()
-            done = active & (w <= max_weight)
-        leaf_level = torch.where(done, torch.full_like(leaf_level, level),
-                                 leaf_level)
-        assigned = assigned | done
-        level += 1
-    n_unfit = int((~assigned).sum())
-    return (codes_s, order, leaf_level, counts, n_unfit, bbox_min,
-            root_extent)
+
+def _phase_a(coords, max_weight, *, adaptive=True, **keys):
+    """Morton sort + leaf-level assignment + per-level box counts
+    (``boxtree_tpu/tree/build.py:113-247``): :func:`_sort_keys` with
+    *keys* (``dimensions``, ``depth``, and the refine ``weights``, the
+    ``radii`` and their options, a given ``bbox``), then K43; *adaptive*
+    False builds a non-adaptive tree.
+
+    :returns: ``(codes_s, order, leaf_level, counts, n_unfit, bbox_min,
+        root_extent)``; ``counts[l]`` (a CPU tensor) is the number of boxes
+        at level ``l``, ``n_unfit`` the number of particles still in
+        overfull boxes at depth ``depth``.  Everything else stays on the
+        device of *coords*: the packed counts are the one host read.
+    """
+    codes_s, order, w_s, stick_s, bbox_min, root_extent = _sort_keys(
+        coords, **keys)
+    depth = keys["depth"]
+    leaf_level, packed = tree_ops.leaf_levels(
+        codes_s, w_s, stick_s, max_weight, dimensions=keys["dimensions"],
+        depth=depth, adaptive=adaptive)
+    packed = packed.cpu()
+    return (codes_s, order, leaf_level, packed[:depth + 2],
+            int(packed[depth + 2]), bbox_min, root_extent)
 
 # }}}
 
@@ -157,158 +143,75 @@ def _exclusive_cumsum(x):
     return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
 
 
+def _extent_order(codes_s, order, leaf_level, *, dimensions, depth):
+    """The particles of a tree with extents in its order: sorted by
+    (Morton key with the bits below the leaf level zeroed, leaf level),
+    stably, so that each box's own particles precede its subtree
+    (``boxtree_tpu/tree/build.py:272-284``); returns the masked keys, the
+    order and the leaf levels so sorted."""
+    shift_bits = dimensions * (depth - leaf_level.to(torch.int64))
+    masked = (codes_s >> shift_bits) << shift_bits
+    # stable sort by (masked key, leaf level): the second key first
+    perm = torch.sort(leaf_level, stable=True).indices
+    perm = perm[torch.sort(masked[perm], stable=True).indices]
+    return masked[perm], order[perm], leaf_level[perm]
+
+
 def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
              root_extent, *, dimensions, depth, level_starts, nsources,
-             ntargets, sources_are_targets, has_extents=False):
+             ntargets, sources_are_targets, has_extents=False, plain=False):
     """Per-box arrays from the sorted keys and leaf levels
-    (``boxtree_tpu/tree/build.py:262-530``).
+    (``boxtree_tpu/tree/build.py:262-530``): K44 (or with *plain* its
+    twin) level by level, then the source/target split and the flags, all
+    without a host read.
 
-    Without extents, particle i starts a level-L box exactly for the
-    levels in ``(thr[i], leaf_level[i]]`` with ``thr[i] =
-    min(lcp_level[i], leaf_level[i-1])``, where ``lcp_level`` is the
-    deepest level at which i shares its Morton prefix with i-1; a box's
-    subtree ends at the next position whose prefix changes at or above
-    its level.  With extents, the particles are first sorted by (Morton
-    key with the bits below the leaf level zeroed, leaf level), stably, so
-    that each box's own particles precede its subtree; a level-L box then
-    starts at an active particle whose prefix differs from its
-    predecessor's or whose predecessor is inactive, and its counts are
-    differences of cumulative counts of the particles with leaf level
-    ``>= L`` and ``> L`` (``:272-284, 333-379``).
+    With extents, the particles are first put in :func:`_extent_order`.
     """
-    nlevels = len(level_starts) - 1
     d = dimensions
-    n = codes_s.shape[0]
-    nchild = 2 ** d
     dev = codes_s.device
     cdt = merged_coords.dtype
-    cap = level_starts[-1]
 
-    def zeros(*shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    box_morton = zeros(cap, dtype=torch.int64)
-    box_level = zeros(cap, dtype=torch.int32)
-    box_start = zeros(cap, dtype=torch.int64)
-    box_count_cumul = zeros(cap, dtype=torch.int64)
-    box_count_nonchild = zeros(cap, dtype=torch.int64)
-    box_has_children = zeros(cap, dtype=torch.bool)
-    box_parent = zeros(cap, dtype=torch.int32)
-    box_child = zeros(nchild, cap, dtype=torch.int32)
-    box_centers = zeros(d, cap, dtype=cdt)
-
-    prev_box = zeros(n, dtype=torch.int32)
-    leaf_box = zeros(n, dtype=torch.int32)
-
-    leaf64 = leaf_level.to(torch.int64)
     if has_extents:
-        shift_bits = d * (depth - leaf64)
-        masked = (codes_s >> shift_bits) << shift_bits
-        # stable sort by (masked key, leaf level): the second key first
-        perm = torch.sort(leaf_level, stable=True).indices
-        perm = perm[torch.sort(masked[perm], stable=True).indices]
-        codes_s, order = masked[perm], order[perm]
-        leaf_level, leaf64 = leaf_level[perm], leaf64[perm]
-        # active-particle prefix counts telescope across levels: the
-        # "deeper" count of one level is the "active" count of the next
-        cum_ge = torch.arange(n + 1, dtype=torch.int64, device=dev)
-    else:
-        iota64 = torch.arange(n, dtype=torch.int64, device=dev)
-        xor = torch.cat([
-            torch.full((1,), -1, dtype=torch.int64, device=dev),
-            codes_s[1:] ^ codes_s[:-1]])
-        lcp_level = depth - (_bit_length(xor) + d - 1) // d
-        prev_leaf = torch.cat([
-            torch.full((1,), -1, dtype=torch.int64, device=dev),
-            leaf64[:-1]])
-        thr = torch.minimum(lcp_level, prev_leaf)
+        codes_s, order, leaf_level = _extent_order(
+            codes_s, order, leaf_level, dimensions=d, depth=depth)
 
-    for level in range(nlevels):
-        b0, b1 = level_starts[level], level_starts[level + 1]
-        nl = b1 - b0
-        if has_extents:
-            cum_gt = _exclusive_cumsum((leaf64 > level).to(torch.int64))
-        if nl == 0:
-            if has_extents:
-                cum_ge = cum_gt
-            continue
-        shift = d * (depth - level)
-        active = leaf_level >= level
-        if has_extents:
-            pfx = codes_s >> shift
-            prev_active = torch.cat([active.new_zeros(1), active[:-1]])
-            diff = torch.cat([active.new_ones(1), pfx[1:] != pfx[:-1]])
-            is_start = active & (diff | ~prev_active)
-        else:
-            is_start = (leaf64 >= level) & (thr < level)
-        seg_id = torch.cumsum(is_start.to(torch.int32), 0,
-                              dtype=torch.int32) - 1
-        reps_l = torch.nonzero(is_start)[:, 0]
-        if reps_l.shape[0] != nl:
-            raise RuntimeError(f"level {level}: {reps_l.shape[0]} box "
-                               f"starts, expected {nl}")
+    boxes_fn = tree_ops.box_levels_plain if plain else tree_ops.box_levels
+    boxes = boxes_fn(codes_s, leaf_level, bbox_min.to(cdt),
+                     torch.as_tensor(root_extent).to(cdt),
+                     dimensions=d, depth=depth, level_starts=level_starts,
+                     has_extents=has_extents)
+    box_start = boxes["box_start"]
+    box_count_cumul = boxes["box_count_cumul"]
+    box_count_nonchild = boxes["box_count_nonchild"]
+    box_has_children = boxes["box_has_children"]
+    leaf_box = boxes["leaf_box"]
 
-        if has_extents:
-            nxt_l = torch.cat([reps_l[1:], reps_l.new_full((1,), n)])
-            cumul_l = cum_ge[nxt_l] - cum_ge[reps_l]
-            deeper_l = cum_gt[nxt_l] - cum_gt[reps_l]
-            cum_ge = cum_gt
-        else:
-            # subtree end: next position whose prefix changes at or above
-            # this level (reverse cummin)
-            bnd = torch.where(lcp_level < level, iota64,
-                              torch.full_like(iota64, n))
-            suffmin = torch.flip(
-                torch.cummin(torch.flip(bnd, [0]), 0).values, [0])
-            suffmin = torch.cat([suffmin[1:], suffmin.new_full((1,), n)])
-            cumul_l = suffmin[reps_l] - reps_l
-            deeper_l = torch.where(leaf_level[reps_l] > level, cumul_l,
-                                   torch.zeros_like(cumul_l))
-
-        pfx_l = codes_s[reps_l] >> shift
-        box_morton[b0:b1] = pfx_l
-        box_level[b0:b1] = level
-        box_start[b0:b1] = reps_l
-        box_count_cumul[b0:b1] = cumul_l
-        box_count_nonchild[b0:b1] = cumul_l - deeper_l
-        box_has_children[b0:b1] = deeper_l > 0
-
-        cells = morton.deinterleave(pfx_l, d)
-        size = root_extent.to(cdt) / (1 << level)
-        box_centers[:, b0:b1] = (bbox_min[:, None].to(cdt)
-                                 + (cells.to(cdt) + 0.5) * size)
-
-        if level > 0:
-            parent_l = prev_box[reps_l]
-            box_parent[b0:b1] = parent_l
-            digit_l = pfx_l & (nchild - 1)
-            box_child[digit_l, parent_l.to(torch.int64)] = torch.arange(
-                b0, b1, dtype=torch.int32, device=dev)
-
-        box_of_cur = torch.where(active, b0 + seg_id, prev_box)
-        leaf_box = torch.where(leaf_level == level, box_of_cur, leaf_box)
-        prev_box = box_of_cur
-
-    # {{{ source/target split
+    # {{{ source/target split (boxtree_tpu/tree/build.py:423-484)
 
     pid = config.particle_id_dtype
-    if sources_are_targets:
-        is_source_s = torch.ones(n, dtype=torch.bool, device=dev)
-    else:
-        is_source_s = order < nsources
+    order64 = order.to(torch.int64)
 
     def box_ranges(member):
         cum = _exclusive_cumsum(member.to(torch.int64))
         starts = cum[box_start]
-        return (starts,
+        return (cum,
+                starts,
                 cum[box_start + box_count_cumul] - starts,
                 cum[box_start + box_count_nonchild] - starts)
 
-    (box_source_starts, box_source_counts_cumul,
-     box_source_counts_nonchild) = box_ranges(is_source_s)
+    def compact(values, member, pos, count, dtype):
+        """*values* of the *member* particles at their tree-order
+        positions *pos*; the others land on a dropped slot."""
+        out = torch.zeros(count + 1, dtype=dtype, device=dev)
+        out[torch.where(member, pos, count)] = values.to(dtype)
+        return out[:count]
 
-    order64 = order.to(torch.int64)
     if sources_are_targets:
+        # every particle is a source: the ranges are the boxes' own and
+        # the compactions collapse to identities
+        box_source_starts = box_start
+        box_source_counts_cumul = box_count_cumul
+        box_source_counts_nonchild = box_count_nonchild
         user_source_ids = order.to(pid)
         box_id_of_source = leaf_box
         sources = merged_coords[:, order64]
@@ -318,20 +221,31 @@ def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
         targets = sources
         box_id_of_target = box_id_of_source
         user_target_ids = order64
+        # user target id -> tree-order position (inverse permutation)
+        sorted_target_ids = torch.empty(ntargets, dtype=pid, device=dev)
+        sorted_target_ids[order64] = torch.arange(ntargets, dtype=pid,
+                                                  device=dev)
     else:
-        user_source_ids = order[is_source_s].to(pid)
-        box_id_of_source = leaf_box[is_source_s]
+        is_source_s = order < nsources
+        (cumsrc, box_source_starts, box_source_counts_cumul,
+         box_source_counts_nonchild) = box_ranges(is_source_s)
+        pos_src = cumsrc[:-1]
+        user_source_ids = compact(order, is_source_s, pos_src, nsources,
+                                  pid)
+        box_id_of_source = compact(leaf_box, is_source_s, pos_src,
+                                   nsources, torch.int32)
         sources = merged_coords[:, user_source_ids.to(torch.int64)]
         is_target_s = ~is_source_s
-        (box_target_starts, box_target_counts_cumul,
+        (cumtgt, box_target_starts, box_target_counts_cumul,
          box_target_counts_nonchild) = box_ranges(is_target_s)
-        user_target_ids = order64[is_target_s] - nsources
-        box_id_of_target = leaf_box[is_target_s]
+        pos_tgt = cumtgt[:-1]
+        user_target_ids = compact(order64 - nsources, is_target_s, pos_tgt,
+                                  ntargets, torch.int64)
+        sorted_target_ids = compact(pos_tgt, is_target_s,
+                                    order64 - nsources, ntargets, pid)
+        box_id_of_target = compact(leaf_box, is_target_s, pos_tgt,
+                                   ntargets, torch.int32)
         targets = merged_coords[:, nsources + user_target_ids]
-    # user target id -> tree-order position (inverse permutation)
-    sorted_target_ids = torch.empty(ntargets, dtype=pid, device=dev)
-    sorted_target_ids[user_target_ids] = torch.arange(
-        ntargets, dtype=pid, device=dev)
 
     # }}}
 
@@ -357,11 +271,11 @@ def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
 
     return dict(
         user_target_ids=user_target_ids,
-        box_morton=box_morton,
-        box_level=box_level,
-        box_parent=box_parent,
-        box_child=box_child,
-        box_centers=box_centers,
+        box_morton=boxes["box_morton"],
+        box_level=boxes["box_level"],
+        box_parent=boxes["box_parent"],
+        box_child=boxes["box_child"],
+        box_centers=boxes["box_centers"],
         box_flags=flags,
         box_source_starts=box_source_starts.to(pid),
         box_source_counts_cumul=box_source_counts_cumul.to(pid),
@@ -415,30 +329,62 @@ def _as_coord_tensor(particles, device):
     return arr.contiguous()
 
 
-def build_tree(particles, kind="adaptive", max_particles_in_box=None,
-               targets=None, source_radii=None, target_radii=None,
-               stick_out_factor=None, refine_weights=None,
-               max_leaf_refine_weight=None, extent_norm=None, bbox=None,
-               debug=False, *, device=None):
-    """Build a :class:`Tree` of *particles* (``(dimensions, n)``).
+def _weights_of(refine_weights, n, device):
+    """The refine weights as an int32 tensor, checked as the reference
+    checks them (``boxtree_tpu/tree/build.py:659-669``)."""
+    if not isinstance(refine_weights, torch.Tensor):
+        refine_weights = torch.as_tensor(np.asarray(refine_weights))
+    if refine_weights.dtype != torch.int32:
+        raise TypeError("refine_weights must have dtype int32")
+    if tuple(refine_weights.shape) != (n,):
+        raise ValueError("refine_weights must have one entry per "
+                         "source-and-target particle")
+    return refine_weights.to(device)
 
-    The arguments are those of ``boxtree_tpu.build_tree``; the tree lives
-    on *device*.  When *device* is None, a tensor input keeps its own
-    device and any other input (numpy, lists) goes to the CUDA device;
-    without one that raises, and ``device="cpu"`` builds on the CPU.
-    This port covers the adaptive and the adaptive-level-restricted kinds,
-    refined by ``max_particles_in_box``, in the bounding box of the
-    particles.  The adaptive kind also takes extents: *source_radii* and
-    *target_radii* (which need *targets*), *stick_out_factor* and
-    *extent_norm* (``"linf"``, the default, or ``"l2"``); the tree then
-    carries the radii and the boxes' source and target bounding boxes.
-    The non-adaptive kind, extents with another kind, ``refine_weights``
-    and a given ``bbox`` raise :class:`NotImplementedError`.
-    """
+
+def _given_bbox(bbox, dimensions, coord_dtype, device):
+    """``(bbox_min, root_extent)`` tensors of a given square bounding box,
+    computed as the reference's ``_validate_bbox`` computes them
+    (``boxtree_tpu/tree/build.py:569-580``): in the coordinates' dtype."""
+    np_dtype = np.float32 if coord_dtype == torch.float32 else np.float64
+    if isinstance(bbox, torch.Tensor):
+        bbox = bbox.cpu().numpy()
+    bbox = np.asarray(bbox, dtype=np_dtype)
+    if bbox.shape != (dimensions, 2):
+        raise ValueError("bbox must have shape (dimensions, 2)")
+    bbox_min = bbox[:, 0].copy()
+    exts = bbox[:, 1] - bbox_min
+    if not np.allclose(exts, exts[0], rtol=1e-14, atol=0):
+        raise ValueError("bbox must be square")
+    return (torch.as_tensor(bbox_min, device=device),
+            torch.tensor(exts[0], dtype=coord_dtype, device=device))
+
+
+class _PhaseAInputs(NamedTuple):
+    """What :func:`build_tree` hands phase A: the merged particles (the
+    sources, then the targets) and how many are sources, the largest leaf
+    weight, :func:`_sort_keys`'s keywords at the first depth to try
+    (``keys``), whether the tree is adaptive, and the full depth a failed
+    first try retries at."""
+
+    merged: torch.Tensor
+    nsources: int
+    max_weight: int
+    keys: dict
+    adaptive: bool
+    depth_full: int
+
+
+def _build_inputs(particles, kind="adaptive", max_particles_in_box=None,
+                  targets=None, source_radii=None, target_radii=None,
+                  stick_out_factor=None, refine_weights=None,
+                  max_leaf_refine_weight=None, extent_norm=None, bbox=None,
+                  *, device=None):
+    """The arguments of :func:`build_tree`, checked as the reference
+    checks them (``boxtree_tpu/tree/build.py:602-690``), as
+    :class:`_PhaseAInputs`."""
     if kind not in _TREE_KINDS:
         raise ValueError(f"unknown tree kind: '{kind}'")
-    if kind == "non-adaptive":
-        raise NotImplementedError(f"tree kind '{kind}' is not ported yet")
     sources_have_extent = source_radii is not None
     targets_have_extent = target_radii is not None
     has_extents = sources_have_extent or targets_have_extent
@@ -456,18 +402,11 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
             raise ValueError(f"unexpected extent_norm: {extent_norm}")
     if stick_out_factor is None:
         stick_out_factor = 0.0
-    if refine_weights is not None or max_leaf_refine_weight is not None:
-        raise NotImplementedError("refine_weights is not ported yet")
-    if bbox is not None:
-        raise NotImplementedError("a given bbox is not ported yet")
-    if max_particles_in_box is None:
-        raise ValueError("must specify max_particles_in_box")
 
     coords = _as_coord_tensor(particles, device)
     dev = coords.device
     dimensions, nsources = coords.shape
     coord_dtype = coords.dtype
-    sources_are_targets = targets is None
     if targets is not None:
         tgt_coords = _as_coord_tensor(targets, dev)
         if tgt_coords.dtype != coord_dtype:
@@ -489,11 +428,30 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
             if not isinstance(radii, torch.Tensor):
                 radii = torch.as_tensor(np.asarray(radii))
             return radii.to(device=dev, dtype=coord_dtype)
-        sr = radii_of(source_radii, nsources)
-        tr = radii_of(target_radii, ntargets)
-        merged_radii = torch.cat([sr, tr]).contiguous()
+        merged_radii = torch.cat([radii_of(source_radii, nsources),
+                                  radii_of(target_radii, ntargets)])
 
-    max_weight = int(max_particles_in_box)
+    # refine weights (boxtree_tpu/tree/build.py:651-672)
+    weights = None
+    if max_particles_in_box is not None:
+        if refine_weights is not None or max_leaf_refine_weight is not None:
+            raise ValueError(
+                "may not specify both max_particles_in_box and "
+                "refine_weights/max_leaf_refine_weight")
+        max_weight = int(max_particles_in_box)
+    elif refine_weights is not None:
+        if max_leaf_refine_weight is None:
+            raise ValueError("must specify max_leaf_refine_weight with "
+                             "refine_weights")
+        weights = _weights_of(refine_weights, n, dev)
+        max_weight = int(max_leaf_refine_weight)
+    else:
+        raise ValueError("must specify either max_particles_in_box or "
+                         "refine_weights/max_leaf_refine_weight")
+
+    given = None
+    if bbox is not None:
+        given = _given_bbox(bbox, dimensions, coord_dtype, dev)
 
     depth_full = config.max_morton_depth(dimensions)
     # shallow first try so the sort's tie-break index packs into the key;
@@ -505,22 +463,68 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
         depth = depth_full
     else:
         depth = max(min(depth_full, (63 - iota_bits) // dimensions), 1)
+    return _PhaseAInputs(
+        merged=merged, nsources=nsources, max_weight=max_weight,
+        keys=dict(dimensions=dimensions, depth=depth, weights=weights,
+                  radii=merged_radii, extent_norm=extent_norm,
+                  stick_out_factor=stick_out_factor, bbox=given),
+        adaptive=kind != "non-adaptive", depth_full=depth_full)
+
+
+def build_tree(particles, kind="adaptive", max_particles_in_box=None,
+               targets=None, source_radii=None, target_radii=None,
+               stick_out_factor=None, refine_weights=None,
+               max_leaf_refine_weight=None, extent_norm=None, bbox=None,
+               debug=False, *, device=None):
+    """Build a :class:`Tree` of *particles* (``(dimensions, n)``).
+
+    The arguments are those of ``boxtree_tpu.build_tree``; the tree lives
+    on *device*.  When *device* is None, a tensor input keeps its own
+    device and any other input (numpy, lists) goes to the CUDA device;
+    without one that raises, and ``device="cpu"`` builds on the CPU.
+    Every kind is ported: ``"adaptive"``, ``"adaptive-level-restricted"``
+    and ``"non-adaptive"``, refined by ``max_particles_in_box`` or by
+    int32 *refine_weights* (one per source and target particle) with
+    *max_leaf_refine_weight*, in the bounding box of the particles or in a
+    given square *bbox* (``(dimensions, 2)``, not stretched).  The
+    adaptive kind also takes extents: *source_radii* and *target_radii*
+    (which need *targets*), *stick_out_factor* and *extent_norm*
+    (``"linf"``, the default, or ``"l2"``); the tree then carries the radii
+    and the boxes' source and target bounding boxes.  Extents with another
+    kind raise :class:`NotImplementedError`, as the reference does.
+
+    On the card the build reads the host once per depth tried (K43's
+    packed counts), and a level-restricted build once more a restriction
+    round and once for its recount.
+    """
+    inp = _build_inputs(
+        particles, kind, max_particles_in_box, targets, source_radii,
+        target_radii, stick_out_factor, refine_weights,
+        max_leaf_refine_weight, extent_norm, bbox, device=device)
+    merged, nsources = inp.merged, inp.nsources
+    dimensions, n = merged.shape
+    coord_dtype = merged.dtype
+    sources_are_targets = targets is None
+    ntargets = nsources if sources_are_targets else n - nsources
+    sources_have_extent = source_radii is not None
+    targets_have_extent = target_radii is not None
+    has_extents = sources_have_extent or targets_have_extent
+    keys = dict(inp.keys)
+    depth = keys.pop("depth")
     while True:
         (codes_s, order, leaf_level, counts, n_unfit, bbox_min,
-         root_extent) = _phase_a(merged, max_weight, dimensions=dimensions,
-                                 depth=depth, radii=merged_radii,
-                                 extent_norm=extent_norm,
-                                 stick_out_factor=stick_out_factor)
+         root_extent) = _phase_a(merged, inp.max_weight, depth=depth,
+                                 adaptive=inp.adaptive, **keys)
         if not n_unfit:
             break
-        if depth < depth_full:
-            depth = depth_full
+        if depth < inp.depth_full:
+            depth = inp.depth_full
             continue
         raise MaxLevelsExceeded(
             f"{n_unfit} particles remain in overfull boxes at the deepest "
             f"representable level ({depth})")
 
-    counts = counts.cpu().numpy()
+    counts = counts.numpy()
     if kind == "adaptive-level-restricted":
         leaf_level, counts, rounds = restrict_leaf_levels(
             codes_s, leaf_level, dimensions=dimensions, depth=depth,
@@ -544,9 +548,10 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
     if has_extents:
         # radii in tree order, and the boxes' particle bounding boxes
         # (boxtree_tpu/tree/build.py:757-773)
-        src_radii = sr[out["user_source_ids"].to(torch.int64)]
+        radii = keys["radii"]
+        src_radii = radii[out["user_source_ids"].to(torch.int64)]
         tgt_radii = (src_radii if sources_are_targets
-                     else tr[out["user_target_ids"]])
+                     else radii[nsources:][out["user_target_ids"]])
 
         def bounding_boxes(what, radii, have):
             return extents.box_extents(
@@ -557,8 +562,13 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
         sbb = bounding_boxes("source", src_radii, sources_have_extent)
         tbb = bounding_boxes("target", tgt_radii, targets_have_extent)
 
+    if bbox is not None:
+        # the reference keeps the given extent as a float (float64)
+        root_extent = root_extent.to(torch.float64)
+    else:
+        root_extent = root_extent.to(coord_dtype)
     return Tree(
-        root_extent=root_extent.to(coord_dtype),
+        root_extent=root_extent,
         box_centers=out["box_centers"],
         box_parent_ids=out["box_parent"],
         box_child_ids=out["box_child"],
@@ -571,8 +581,8 @@ def build_tree(particles, kind="adaptive", max_particles_in_box=None,
         coord_dtype=coord_dtype,
         sources_have_extent=sources_have_extent,
         targets_have_extent=targets_have_extent,
-        extent_norm=extent_norm,
-        stick_out_factor=float(stick_out_factor),
+        extent_norm=keys["extent_norm"],
+        stick_out_factor=float(keys["stick_out_factor"]),
         _is_pruned=True,
         max_depth=depth,
         sources_are_targets=sources_are_targets,

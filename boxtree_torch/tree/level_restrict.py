@@ -10,62 +10,39 @@ build, in rounds until nothing changes.  Each round is
    (:func:`boxtree_torch.ops.restrict.demand_pass`, the K5 kernel on the
    card), and
 2. the consistency sweep: a box splits as a whole, so if any particle of a
-   box descends, every particle of it does (segment reductions with
-   ``torch.cummax``, ``torch.cummin`` and ``torch.cumsum``).
+   box descends, every particle of it does
+   (:func:`boxtree_torch.ops.restrict.sweep`, the K45 kernel on the card,
+   one launch a level).
 
-The restriction acts on non-empty leaves only, as the reference's does.
+Each round reads one flag back (did anything change); then the boxes of
+every level are recounted (:func:`boxtree_torch.ops.tree.
+level_box_counts`, K46, one launch).  The restriction acts on non-empty
+leaves only, as the reference's does.
 """
 
 from __future__ import annotations
 
-import torch
-
 from boxtree_torch.ops import restrict
+from boxtree_torch.ops import tree as tree_ops
 
 
-def _box_starts(codes_s, leaf_level, level, dimensions, depth):
-    """Particles that start a box at *level*, and the active mask."""
-    pfx = codes_s >> (dimensions * (depth - level))
-    active = leaf_level >= level
-    is_start = active.clone()
-    is_start[1:] &= (pfx[1:] != pfx[:-1]) | ~active[:-1]
-    return is_start, active
-
-
-def _consistency_sweep(codes_s, leaf_level, *, dimensions, depth,
-                       max_level):
-    """Raise every leaf box at level t that holds a deeper particle
-    (``level_restrict.py:94-114``)."""
-    n = codes_s.shape[0]
-    dev = codes_s.device
-    iota = torch.arange(n, dtype=torch.int64, device=dev)
-    end = torch.full((1,), n, dtype=torch.int64, device=dev)
+def consistency_sweep(codes_s, leaf_level, *, dimensions, depth, max_level,
+                      plain=False):
+    """Raise every leaf box at level t that holds a deeper particle, for t
+    from 0 up (``level_restrict.py:94-114``); *plain* runs the twin of
+    K45 whatever the device."""
+    lcp = None
+    if not plain and codes_s.device.type != "cpu":
+        lcp = tree_ops.lcp_levels(codes_s, dimensions, depth)
     for t in range(max_level):
-        is_start, active = _box_starts(codes_s, leaf_level, t, dimensions,
-                                       depth)
-        lo = torch.cummax(torch.where(is_start, iota, 0), 0).values
-        nxt = torch.where(is_start | ~active, iota, n)
-        suf = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
-        hi = torch.cat([suf[1:], end])
-        deeper = torch.cat([end.new_zeros(1), torch.cumsum(
-            (leaf_level > t).to(torch.int64), 0)])
-        has_deeper = (deeper[hi] - deeper[lo]) > 0
-        leaf_level = torch.where(active & (leaf_level == t) & has_deeper,
-                                 torch.full_like(leaf_level, t + 1),
-                                 leaf_level)
+        if plain:
+            leaf_level = restrict.sweep_plain(
+                codes_s, leaf_level, t=t, dimensions=dimensions, depth=depth)
+        else:
+            leaf_level = restrict.sweep(
+                codes_s, leaf_level, t=t, dimensions=dimensions, depth=depth,
+                lcp=lcp)
     return leaf_level
-
-
-def _recount_boxes(codes_s, leaf_level, *, dimensions, depth, max_level):
-    """Boxes per level, ``(depth + 2,)`` int64 (``level_restrict.py:
-    122-133``)."""
-    counts = torch.zeros(depth + 2, dtype=torch.int64,
-                         device=codes_s.device)
-    for level in range(max_level + 1):
-        is_start, _ = _box_starts(codes_s, leaf_level, level, dimensions,
-                                  depth)
-        counts[level] = is_start.sum()
-    return counts
 
 
 def restrict_leaf_levels(codes_s, leaf_level, *, dimensions, depth,
@@ -77,24 +54,26 @@ def restrict_leaf_levels(codes_s, leaf_level, *, dimensions, depth,
     :arg leaf_level: ``(n,)`` int32 leaf levels from phase A.
     :arg max_level: deepest occupied level; the restriction never deepens
         the tree.
-    :arg plain: run the demand pass's plain twin whatever the device.
+    :arg plain: run the plain twins of K5, K45 and K46 whatever the device.
     :returns: ``(leaf_level, counts, rounds)``: the new leaf levels, the
         per-level box counts as a ``(depth + 2,)`` int64 tensor, and the
         number of rounds run.
     """
     demand = restrict.demand_pass_plain if plain else restrict.demand_pass
+    recount = (tree_ops.level_box_counts_plain if plain
+               else tree_ops.level_box_counts)
     rounds = 0
     for _ in range(max_level + 1):
         leaf_in = leaf_level
         for m in range(max_level, 1, -1):
             leaf_level = demand(codes_s, leaf_level, m=m,
                                 dimensions=dimensions, depth=depth)
-        leaf_level = _consistency_sweep(codes_s, leaf_level,
-                                        dimensions=dimensions, depth=depth,
-                                        max_level=max_level)
+        leaf_level = consistency_sweep(codes_s, leaf_level,
+                                       dimensions=dimensions, depth=depth,
+                                       max_level=max_level, plain=plain)
         rounds += 1
         if not bool((leaf_level != leaf_in).any()):
             break
-    counts = _recount_boxes(codes_s, leaf_level, dimensions=dimensions,
-                            depth=depth, max_level=max_level)
+    counts = recount(codes_s, leaf_level, dimensions=dimensions, depth=depth,
+                     max_level=max_level)
     return leaf_level, counts, rounds

@@ -61,6 +61,26 @@ paths of the port on the card, each with the kernels' launch counts set to
   P2P, K23 dipole P2L, K28 P2M and K30 L2P, K29 dipole P2M); each of its
   four FMMs must launch K28 (or K29, with dipoles) and K30 once.
 
+Every path builds its tree with K43 (phase A: leaf levels and box
+counts, one launch and one host read per depth tried) and K44 (phase B,
+one launch a level, no host read), Config B's restricted tree also with
+K45 (the restriction's sweep, one launch a level a round) and K46 (its
+recount); the main path's, Config B's and the 2D double layer's lines
+give ``host_reads_per_build`` (device-to-host copies in a
+``torch.profiler`` trace of one more build: 1 per depth tried, and 1 +
+rounds + 1 restricted), held to those counts with the launches.  The
+``kernels_tree`` lines hold K43 and K44 (and K45 / K46 on Config B's
+tree) against their twins, every output equal and the box centres bit for
+bit, on the main-path, Config B, extent and 2D double-layer trees.  The
+``tree_options`` lines build the main path's 1e6 float32 points as a
+non-adaptive tree, with int32 refine weights uniform in 1..9
+(``max_leaf_refine_weight=150``) and in a given bbox ``[[-0.25, 1.25]] *
+3``: each build's time, host reads and launches, ``tests/test_tree.py``'s
+invariants (1,000 sampled boxes for containment and leaf weights), the
+traversal and the counting FMM exact; the non-adaptive tree also runs the
+order-8 float32 Laplace FMM against a float64 direct sum (rel l-inf <=
+1e-3).
+
 Every path builds its traversal with K24-K27 (the neighbour table, the
 colleagues and List 2, Lists 4 and 3, List 1; the extent tree's Lists 3
 and 4 come from K14/K15), and its line gives ``traversal_s`` beside
@@ -157,6 +177,10 @@ REPLACES = {
     "l2p_laplace2d": "boxtree_tpu/models/laplace.py:201",
     "p2p_laplace2d_dipole": "boxtree_tpu/models/expansion_base.py:1314",
     "p2l_laplace2d_dipole": "boxtree_tpu/models/expansion_base.py:1688",
+    "tree_leaf_levels": "boxtree_tpu/tree/build.py:113",
+    "tree_level_boxes": "boxtree_tpu/tree/build.py:262",
+    "restrict_sweep": "boxtree_tpu/tree/level_restrict.py:42",
+    "level_box_counts": "boxtree_tpu/tree/level_restrict.py:123",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -201,7 +225,15 @@ SOURCES = {
     "l2p_laplace2d": "boxtree_torch/csrc/laplace2d.cu",
     "p2p_laplace2d_dipole": "boxtree_torch/csrc/laplace2d.cu",
     "p2l_laplace2d_dipole": "boxtree_torch/csrc/laplace2d.cu",
+    "tree_leaf_levels": "boxtree_torch/csrc/tree.cu",
+    "tree_level_boxes": "boxtree_torch/csrc/tree.cu",
+    "restrict_sweep": "boxtree_torch/csrc/restrict.cu",
+    "level_box_counts": "boxtree_torch/csrc/tree.cu",
 }
+#: K43 and K44, launched by every tree build (K45 and K46 by a restricted
+#: one)
+TREE_KERNELS = ("tree_leaf_levels", "tree_level_boxes")
+RESTRICT_KERNELS = ("restrict_sweep", "level_box_counts")
 #: K24-K27, launched by every traversal; the extent tree's Lists 3 and 4
 #: come from K14/K15 instead of K26
 TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "lists_43",
@@ -211,40 +243,41 @@ EXTENT_TRAVERSAL_KERNELS = ("neighbor_table", "row_lists_sl_l2", "list1")
 P2M_L2P_KERNELS = ("p2m_laplace3d", "l2p_laplace3d")
 #: K35-K37, launched by every FMM of the expansion wranglers
 FMM_TRANSLATE = ("m2l_translate", "m2m_translate", "l2l_translate")
-MAIN_PATH_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
-                     "m2p_laplace3d", "p2l_laplace3d", *P2M_L2P_KERNELS,
-                     *FMM_TRANSLATE)
-CONFIG_B_KERNELS = ("morton_encode", "restrict_demand", *TRAVERSAL_KERNELS,
+MAIN_PATH_KERNELS = ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
+                     "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
+                     *P2M_L2P_KERNELS, *FMM_TRANSLATE)
+CONFIG_B_KERNELS = ("morton_encode", *TREE_KERNELS, "restrict_demand",
+                    *RESTRICT_KERNELS, *TRAVERSAL_KERNELS,
                     "area_query_sweep", "space_invader_sweep", "peer_lists")
-EXTENT_KERNELS = ("morton_encode", "stick_levels", "box_extents",
-                  *EXTENT_TRAVERSAL_KERNELS, "list4_ext", "list3_ext",
-                  "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
-                  *P2M_L2P_KERNELS, *FMM_TRANSLATE)
+EXTENT_KERNELS = ("morton_encode", *TREE_KERNELS, "stick_levels",
+                  "box_extents", *EXTENT_TRAVERSAL_KERNELS, "list4_ext",
+                  "list3_ext", "p2p_laplace3d", "m2p_laplace3d",
+                  "p2l_laplace3d", *P2M_L2P_KERNELS, *FMM_TRANSLATE)
 #: K31 and K32 (K33 and K34), launched once by each 3D (2D) Helmholtz FMM
 HELMHOLTZ_P2M_L2P = ("p2m_helmholtz3d", "l2p_helmholtz3d")
 HELMHOLTZ2D_P2M_L2P = ("p2m_helmholtz2d", "l2p_helmholtz2d")
-HELMHOLTZ_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_helmholtz3d",
-                     "m2p_helmholtz3d", "p2l_helmholtz3d", *HELMHOLTZ_P2M_L2P,
-                     *FMM_TRANSLATE)
-HELMHOLTZ2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
+HELMHOLTZ_KERNELS = ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
+                     "p2p_helmholtz3d", "m2p_helmholtz3d", "p2l_helmholtz3d",
+                     *HELMHOLTZ_P2M_L2P, *FMM_TRANSLATE)
+HELMHOLTZ2D_KERNELS = ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
                        "p2p_helmholtz2d", "m2p_helmholtz2d",
                        "p2l_helmholtz2d", *HELMHOLTZ2D_P2M_L2P,
                        *FMM_TRANSLATE)
 #: K38 and K40, launched once by each 2D Laplace FMM without dipoles
 LAPLACE2D_P2M_L2P = ("p2m_laplace2d", "l2p_laplace2d")
-LAPLACE2D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace2d",
-                     "m2p_laplace2d", "p2l_laplace2d", *LAPLACE2D_P2M_L2P,
-                     *FMM_TRANSLATE)
+LAPLACE2D_KERNELS = ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
+                     "p2p_laplace2d", "m2p_laplace2d", "p2l_laplace2d",
+                     *LAPLACE2D_P2M_L2P, *FMM_TRANSLATE)
 #: the kernels each 2D double-layer FMM launches once (K36 / K37 once a
 #: level)
 LAPLACE2D_DIPOLE_FMM = ("p2m_laplace2d_dipole", "p2p_laplace2d_dipole",
                         "m2p_laplace2d", "p2l_laplace2d_dipole",
                         "l2p_laplace2d", "m2l_translate")
-LAPLACE2D_DIPOLE_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS,
-                            *LAPLACE2D_DIPOLE_FMM, "m2m_translate",
-                            "l2l_translate")
-LAPLACE3D_KERNELS = ("morton_encode", *TRAVERSAL_KERNELS, "p2p_laplace3d",
-                     "m2p_laplace3d", "p2l_laplace3d",
+LAPLACE2D_DIPOLE_KERNELS = ("morton_encode", *TREE_KERNELS,
+                            *TRAVERSAL_KERNELS, *LAPLACE2D_DIPOLE_FMM,
+                            "m2m_translate", "l2l_translate")
+LAPLACE3D_KERNELS = ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
+                     "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
                      "p2p_laplace3d_dipole", "p2l_laplace3d_dipole",
                      *P2M_L2P_KERNELS, "p2m_laplace3d_dipole",
                      *FMM_TRANSLATE)
@@ -617,11 +650,11 @@ def direct_sum_f64(sources, charges, targets, chunk=1 << 16):
     return out
 
 
-def run_main_path(device, card, trav_trees, translation, n_kernels=200_000,
-                  n_main=1_000_000, order=8, nsample=2000):
+def run_main_path(device, card, trav_trees, translation, tree_trees,
+                  n_kernels=200_000, n_main=1_000_000, order=8, nsample=2000):
     """The counting and the Laplace FMM at 1e6 uniform points (K1-K4),
-    then K24-K27 against their twins on its tree; returns the K1-K4 and
-    K24-K27 summary entries."""
+    then K24-K27 and K43 / K44 against their twins on its tree; returns
+    the K1-K4, K24-K27 and K43 / K44 summary entries."""
     import numpy as np
     import torch
 
@@ -703,6 +736,8 @@ def run_main_path(device, card, trav_trees, translation, n_kernels=200_000,
     stages = {}
     _, t_fmm_warm = timed(lambda: drive_fmm(wr, [q], timing_data=stages),
                           device)
+    build_reads = build_host_reads(
+        lambda: build_tree(pts, max_particles_in_box=30), tree, launches)
 
     sample = torch.as_tensor(np.random.default_rng(5).choice(
         n_main, nsample, replace=False), device=device)
@@ -715,7 +750,8 @@ def run_main_path(device, card, trav_trees, translation, n_kernels=200_000,
           "traversal_s": t_trav, "wrangler_setup_s": t_setup,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
-          "stage_s": stages, "host_reads_per_fmm": fmm_host_reads(wr, q),
+          "stage_s": stages, "host_reads_per_build": build_reads,
+          "host_reads_per_fmm": fmm_host_reads(wr, q),
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
               "l2": int(trav.from_sep_siblings_lists.shape[0]),
@@ -753,12 +789,17 @@ def run_main_path(device, card, trav_trees, translation, n_kernels=200_000,
                       translation)
     tres, twork = check_traversal_kernels(tree, device, card, "main path",
                                           trav_trees)
+    kres, kwork = check_tree_kernels(card, device, "main path", pts,
+                                     dict(max_particles_in_box=30),
+                                     tree_trees)
     return [summary_entry(name, launches[name], r, work[name])
             for name, r in res.items()] + [
         summary_entry(name, launches[name], pres["f32"][name],
                       pwork["f32"][name]) for name in P2M_L2P_KERNELS] + [
         summary_entry(name, launches[name], tres[name], twork[name])
-        for name in TRAVERSAL_KERNELS]
+        for name in TRAVERSAL_KERNELS] + [
+        summary_entry(name, launches[name], kres[name], kwork[name])
+        for name in TREE_KERNELS]
 
 
 def summary_entry(name, launches, res, work):
@@ -951,10 +992,10 @@ def check_peers_oracle(tree, pl, boxes, chunk=64):
             raise AssertionError("an adjacent same-level box is no peer")
 
 
-def run_config_b(device, card, trav_trees, n=1_000_000, nballs=100_000,
-                 nsample=1000, seed=15):
-    """Config B on 1e6 sphere points; returns the K5-K8 summary entries
-    and the K1 launches of this path."""
+def run_config_b(device, card, trav_trees, tree_trees, n=1_000_000,
+                 nballs=100_000, nsample=1000, seed=15):
+    """Config B on 1e6 sphere points; returns the K5-K8 and K45 / K46
+    summary entries and the K1 launches of this path."""
     import numpy as np
     import torch
 
@@ -1013,6 +1054,9 @@ def run_config_b(device, card, trav_trees, n=1_000_000, nballs=100_000,
     nbad = int((pot != n).sum())
     if nbad:
         raise AssertionError(f"counting FMM: {nbad} potentials != {n}")
+    build_reads = build_host_reads(lambda: build_tree(
+        pts, kind=kind, max_particles_in_box=30), tree, launches,
+        restricted=True)
     sample = torch.as_tensor(rng.choice(nballs, nsample, replace=False),
                              device=device).sort().values
     lists = aq.leaves_near_ball_lists.to(torch.int64)
@@ -1047,7 +1091,9 @@ def run_config_b(device, card, trav_trees, n=1_000_000, nballs=100_000,
           "distribution": "unit sphere", "dtype": "float64",
           "max_particles_in_box": 30, "seed": seed,
           "nboxes": tree.nboxes, "nlevels": tree.nlevels,
-          "build_s": t_build, "two_to_one_s": t_2to1,
+          "build_s": t_build, "host_reads_per_build": build_reads,
+          "restriction_rounds": launches["restrict_sweep"] // (
+              tree.nlevels - 1), "two_to_one_s": t_2to1,
           "two_to_one_pairs": pairs_2to1, "worst_level_gap": worst,
           "traversal_s": t_trav, "counting_fmm_s": t_fmm,
           "traversal_plain_s": plain_traversal_s(tree, device),
@@ -1157,13 +1203,17 @@ def run_config_b(device, card, trav_trees, n=1_000_000, nballs=100_000,
           "restriction_rounds": rounds, "tolerance": "exact",
           "kernels": res, "work": work})
     check_traversal_kernels(tree, device, card, "Config B", trav_trees)
+    kres, kwork = check_tree_kernels(
+        card, device, "Config B", pts,
+        dict(kind=kind, max_particles_in_box=30), tree_trees)
 
     # }}}
 
     return ([summary_entry(name, launches[name], res[name], work[name])
              for name in ("restrict_demand", "area_query_sweep",
-                          "space_invader_sweep", "peer_lists")],
-            launches)
+                          "space_invader_sweep", "peer_lists")] + [
+        summary_entry(name, launches[name], kres[name], kwork[name])
+        for name in RESTRICT_KERNELS], launches)
 
 
 def sweep_profile(tree, centers, radii):
@@ -1732,9 +1782,9 @@ def extent_work(inputs, outputs, tree):
     return out
 
 
-def run_extents(device, card, trav_trees, translation, n=1_000_000,
-                ncenters=100_000,
-                order=10, nsample=2000, seed=15):
+def run_extents(device, card, trav_trees, translation, tree_trees,
+                n=1_000_000, ncenters=100_000, order=10, nsample=2000,
+                seed=15):
     """The QBX extent tree: Config B's sphere points and balls as sources
     and targets with radii, the traversal with its close lists, the
     counting FMM and the order-10 float64 Laplace FMM (K1-K4, K12-K15),
@@ -1792,6 +1842,9 @@ def run_extents(device, card, trav_trees, translation, n=1_000_000,
     # {{{ checks
 
     nbad = [int((p != n).sum()) for p in (pot1, pot2)]
+    build_reads = build_host_reads(lambda: build_tree(
+        pts, targets=centres, target_radii=radii, stick_out_factor=0.25,
+        max_particles_in_box=30), tree, launches)
     stages = {}
     _, t_fmm_warm = timed(lambda: drive_fmm(wr, [q], timing_data=stages),
                           device)
@@ -1812,7 +1865,8 @@ def run_extents(device, card, trav_trees, translation, n=1_000_000,
               (tree.box_target_counts_nonchild[internal] > 0).sum()),
           "targets_in_internal_boxes": int(
               tree.box_target_counts_nonchild[internal].sum()),
-          "build_s": t_tree, "traversal_s": t_trav,
+          "build_s": t_tree, "host_reads_per_build": build_reads,
+          "traversal_s": t_trav,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "counting_fmm_s": t_count, "merge_close_lists_s": t_merge,
           "counting_fmm_merged_s": t_count2,
@@ -1873,6 +1927,9 @@ def run_extents(device, card, trav_trees, translation, n=1_000_000,
           "centres": ncenters, "tolerance": "exact", "kernels": res,
           "work": work})
     check_traversal_kernels(tree, device, card, "extent", trav_trees)
+    check_tree_kernels(card, device, "extent", pts, dict(
+        targets=centres, target_radii=radii, stick_out_factor=0.25,
+        max_particles_in_box=30), tree_trees)
 
     # }}}
 
@@ -2750,8 +2807,8 @@ def check_once_per_fmm(counts, path, names):
         raise AssertionError(f"{path}: launches {got}, expected one each")
 
 
-def run_laplace2d_dipole(device, card, n_main=1_000_000, n_targets=200_000,
-                         order=20, nsample=2000, seed=22):
+def run_laplace2d_dipole(device, card, tree_trees, n_main=1_000_000,
+                         n_targets=200_000, order=20, nsample=2000, seed=22):
     """The 2D Laplace double layer at full width: 1e6 starfish sources
     (:func:`laplace2d_dipole_points`) with their normals as dipoles and
     real normal weights, 2e5 targets in [-1.5, 1.5]^2, one tree, the
@@ -2801,6 +2858,8 @@ def run_laplace2d_dipole(device, card, n_main=1_000_000, n_targets=200_000,
         stages[name] = {}
         _, t_warm[name] = timed(lambda: drive_fmm(
             w, [q], timing_data=stages[name]), device)
+    build_reads = build_host_reads(lambda: build_tree(
+        src, targets=tgt, max_particles_in_box=20), tree, launches)
     sample = torch.as_tensor(np.random.default_rng(5).choice(
         n_targets, nsample, replace=False), device=device)
     ref = direct_sum_dipole2d(src, nrm, q, tgt[:, sample])
@@ -2819,6 +2878,7 @@ def run_laplace2d_dipole(device, card, n_main=1_000_000, n_targets=200_000,
           "build_s": t_tree, "traversal_s": t_trav,
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
           "total_s": t_total, "stage_s": stages,
+          "host_reads_per_build": build_reads,
           "host_reads_per_fmm": {name: fmm_host_reads(w, q)
                                  for name, w in ws.items()},
           "list_edges": {
@@ -2890,6 +2950,9 @@ def run_laplace2d_dipole(device, card, n_main=1_000_000, n_targets=200_000,
           "p2l_p2m_rel": "per coefficient", "kernels": res,
           "launches": {k: launches[k] for k in names}, "work": work,
           "laplace2d_dipole_phases_s": time.perf_counter() - t_phase})
+    check_tree_kernels(card, device, "2D double layer", src,
+                       dict(targets=tgt, max_particles_in_box=20),
+                       tree_trees)
     out = {}
     for name in names:
         entry = summary_entry(name, launches[name], res["c128"][name],
@@ -3387,6 +3450,328 @@ def run_laplace3d(device, card, translation, n_kernels=100_000,
 # }}}
 
 
+# {{{ K43-K46: the tree build
+
+def tree_kernel_inputs(particles, build_kw, device):
+    """K43's arguments as ``build_tree`` gives them for *particles* and
+    *build_kw* (the depth of its first try), and what phase B and the
+    restriction take after it."""
+    from boxtree_torch.tree.build import _build_inputs, _sort_keys
+
+    inp = _build_inputs(particles, device=device, **build_kw)
+    codes_s, order, w_s, stick_s, bbox_min, root = _sort_keys(inp.merged,
+                                                              **inp.keys)
+    return dict(inp=inp, codes_s=codes_s, order=order, w_s=w_s,
+                stick_s=stick_s, bbox_min=bbox_min, root_extent=root)
+
+
+def check_tree_kernels(card, device, label, particles, build_kw, trees):
+    """K43 and K44 (on a restricted tree also K45, one round's sweep after
+    the first demand pass, and K46) against their plain twins on the card
+    at the inputs ``build_tree(particles, **build_kw)`` gives them, every
+    output equal (box centres bit for bit); each timed beside its twin
+    (one call) and its byte bound.  Emits a ``kernels_tree`` line, keeps
+    the results in the dict *trees* under *label* and returns ``(results,
+    work)``."""
+    import torch
+
+    from boxtree_torch.ops import restrict
+    from boxtree_torch.ops import tree as tree_ops
+    from boxtree_torch.tree.build import _extent_order
+    from boxtree_torch.tree.level_restrict import (
+        consistency_sweep,
+        restrict_leaf_levels,
+    )
+
+    t = tree_kernel_inputs(particles, build_kw, device)
+    inp = t["inp"]
+    d, depth = inp.keys["dimensions"], inp.keys["depth"]
+    codes_s = t["codes_s"]
+    n = codes_s.shape[0]
+    cdt = inp.merged.dtype
+    res, work, outputs = {}, {}, {}
+
+    def compare(name, kernel, plain):
+        got, ref = _flat(kernel()), _flat(plain())
+        if len(got) != len(ref) or not all(
+                g.dtype == r.dtype and g.shape == r.shape
+                and torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{name} != plain twin on the {label} "
+                                 "tree")
+        res[name] = dict(max_abs_err=0.0, ms=median_ms(kernel, device),
+                         plain_ms=timed(plain, device)[1] * 1e3)
+        outputs[name] = got
+
+    k43_args = (codes_s, t["w_s"], t["stick_s"], inp.max_weight)
+    k43_kw = dict(dimensions=d, depth=depth, adaptive=inp.adaptive)
+    compare("tree_leaf_levels",
+            lambda: tree_ops.leaf_levels(*k43_args, **k43_kw),
+            lambda: tree_ops.leaf_levels_plain(*k43_args, **k43_kw))
+    leaf, packed = outputs["tree_leaf_levels"]
+    packed = packed.cpu()
+    if int(packed[depth + 2]):
+        raise AssertionError(f"{label}: particles unfit at depth {depth}")
+    counts = packed[:depth + 2]
+    work["tree_leaf_levels"] = dict(bytes=nbytes(
+        codes_s, leaf, packed, *[x for x in (t["w_s"], t["stick_s"])
+                                 if x is not None]))
+    rounds = None
+    if build_kw.get("kind") == "adaptive-level-restricted":
+        max_level = int(torch.nonzero(counts)[-1, 0])
+        lev = leaf
+        for m in range(max_level, 1, -1):
+            lev = restrict.demand_pass(codes_s, lev, m=m, dimensions=d,
+                                       depth=depth)
+        sweep_kw = dict(dimensions=d, depth=depth, max_level=max_level)
+        compare("restrict_sweep",
+                lambda: consistency_sweep(codes_s, lev, **sweep_kw),
+                lambda: consistency_sweep(codes_s, lev, plain=True,
+                                          **sweep_kw))
+        work["restrict_sweep"] = dict(levels=max_level, bytes=nbytes(
+            codes_s, lev, lev))
+        leaf, counts, rounds = restrict_leaf_levels(
+            codes_s, leaf, dimensions=d, depth=depth, max_level=max_level)
+        compare("level_box_counts",
+                lambda: tree_ops.level_box_counts(codes_s, leaf, **sweep_kw),
+                lambda: tree_ops.level_box_counts_plain(codes_s, leaf,
+                                                        **sweep_kw))
+        counts = counts.cpu()
+        work["level_box_counts"] = dict(bytes=nbytes(codes_s, leaf, counts))
+    nlevels = int(torch.nonzero(counts)[-1, 0]) + 1
+    lsb = tuple(int(x) for x in torch.cat([
+        counts.new_zeros(1), torch.cumsum(counts[:nlevels], 0)]))
+    has_ext = inp.keys["radii"] is not None
+    codes_b, leaf_b = codes_s, leaf
+    if has_ext:
+        codes_b, _, leaf_b = _extent_order(codes_s, t["order"], leaf,
+                                           dimensions=d, depth=depth)
+    k44_args = (codes_b, leaf_b, t["bbox_min"].to(cdt),
+                torch.as_tensor(t["root_extent"]).to(cdt))
+    k44_kw = dict(dimensions=d, depth=depth, level_starts=lsb,
+                  has_extents=has_ext)
+    compare("tree_level_boxes",
+            lambda: list(tree_ops.box_levels(*k44_args, **k44_kw).values()),
+            lambda: list(tree_ops.box_levels_plain(*k44_args,
+                                                   **k44_kw).values()))
+    work["tree_level_boxes"] = dict(levels=nlevels, boxes=lsb[-1],
+                                    bytes=nbytes(codes_b, leaf_b, *outputs[
+                                        "tree_level_boxes"]))
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(work[name])
+    emit({"phase": "kernels_tree", "card": card, "tree": label,
+          "particles": n, "dimensions": d, "depth": depth,
+          "dtype": str(cdt).replace("torch.", ""), "nlevels": nlevels,
+          "nboxes": lsb[-1], "restriction_rounds": rounds,
+          "tolerance": "bit-exact", "kernels": res, "work": work})
+    trees[label] = res
+    return res, work
+
+
+def build_host_reads(build, tree, launches, restricted=False):
+    """The host reads of one more call of *build* (a ``torch.profiler``
+    trace, :func:`host_reads`), held to K43's one packed read (one more a
+    restriction round and one for the recount, the rounds from K45's
+    launches); the launches of K43-K46 held to one K43 launch and one K44
+    launch a level (K45 once a level below the deepest a round, K46
+    once).  Returns the count."""
+    reads = host_reads(build)
+    expect = 1
+    if launches["tree_leaf_levels"] != 1:
+        raise AssertionError(f"K43 launched {launches['tree_leaf_levels']} "
+                             "times in one build (one depth tried)")
+    if launches["tree_level_boxes"] != tree.nlevels:
+        raise AssertionError(f"K44 launched {launches['tree_level_boxes']} "
+                             f"times for {tree.nlevels} levels")
+    if restricted:
+        max_level = tree.nlevels - 1
+        rounds = launches["restrict_sweep"] // max_level
+        if (launches["restrict_sweep"] != rounds * max_level
+                or launches["level_box_counts"] != 1 or rounds < 1):
+            raise AssertionError(f"K45 / K46 launches {launches}")
+        expect += rounds + 1
+    elif launches["restrict_sweep"] or launches["level_box_counts"]:
+        raise AssertionError("K45 / K46 launched by an unrestricted build")
+    if reads != expect:
+        raise AssertionError(f"{reads} host reads in one build, expected "
+                             f"{expect}")
+    return reads
+
+
+def check_tree_invariants(tree, particles, *, max_weight, weights=None,
+                          kind="adaptive", bbox=None, nsample=1000,
+                          seed=3):
+    """``tests/test_tree.py:44-127``'s invariants on the card: the order
+    round trip, every particle once, level-major numbering, parents and
+    children, counts, flags and child centres on all boxes; containment
+    and the leaf weight bound on *nsample* sampled boxes; one leaf level
+    for the non-adaptive kind; centres inside a given *bbox*."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import box_flags_enum as F
+
+    dev = tree.sources.device
+    n = particles.shape[1]
+    nb = tree.nboxes
+    levels = tree.box_levels.to(torch.int64)
+    parents = tree.box_parent_ids.to(torch.int64)
+    children = tree.box_child_ids.to(torch.int64)
+    starts = tree.box_source_starts.to(torch.int64)
+    nonchild = tree.box_source_counts_nonchild.to(torch.int64)
+    cumul = tree.box_source_counts_cumul.to(torch.int64)
+    ids = tree.user_source_ids.to(torch.int64)
+    root = float(tree.root_extent)
+    checks = {}
+    checks["order"] = torch.equal(tree.sources, particles[:, ids])
+    checks["counts"] = int(nonchild.sum()) == n == int(cumul[0])
+    checks["levels"] = bool((levels[1:] >= levels[:-1]).all()) and int(
+        parents[0]) == 0 and int(levels[0]) == 0 and bool(
+        (levels[parents[1:]] == levels[1:] - 1).all())
+    has = children > 0
+    child_sum = torch.where(has, cumul[children], 0).sum(0)
+    checks["cumul"] = bool((nonchild + child_sum == cumul).all())
+    checks["duality"] = bool((parents[children[has]] == torch.nonzero(
+        has)[:, 1]).all())
+    is_leaf = ~has.any(0)
+    flags = tree.box_flags
+    checks["flags"] = bool(((flags & F.IS_LEAF_BOX != 0) == is_leaf).all()
+                           and ((flags & F.IS_SOURCE_BOX != 0)
+                                == (nonchild > 0)).all())
+    checks["internal_empty"] = bool((nonchild[~is_leaf] == 0).all())
+    c_box = torch.nonzero(has)[:, 1]
+    off = (tree.box_centers[:, children[has]]
+           - tree.box_centers[:, c_box]).abs().double()
+    expect = root / 2.0 ** (levels[children[has]] + 1).double()
+    eps = float(torch.finfo(tree.box_centers.dtype).eps)
+    checks["child_centres"] = bool(
+        ((off - expect).abs() <= 8 * root * eps).all())
+    rng = np.random.default_rng(seed)
+    sample = torch.as_tensor(rng.choice(nb, min(nsample, nb), replace=False),
+                             device=dev)
+    cnt = nonchild[sample]
+    box_of = torch.repeat_interleave(sample, cnt)
+    first = torch.repeat_interleave(starts[sample], cnt)
+    pos = (first + torch.arange(int(cnt.sum()), device=dev)
+           - torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt))
+    pts = tree.sources[:, pos].double()
+    rad = (root / 2.0 ** (levels[box_of] + 1).double())
+    tol = 4 * root * eps
+    checks["containment"] = bool(
+        ((pts - tree.box_centers[:, box_of].double()).abs()
+         <= rad + tol).all())
+    w = (torch.ones(n, dtype=torch.int64, device=dev) if weights is None
+         else weights.to(torch.int64))
+    box_w = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(
+        0, box_of, w[ids[pos]])
+    checks["leaf_weight"] = bool((box_w[sample[is_leaf[sample]]]
+                                  <= max_weight).all())
+    if kind == "non-adaptive":
+        checks["one_leaf_level"] = int(torch.unique(levels[is_leaf]).numel()
+                                       ) == 1
+    if bbox is not None:
+        lo, hi = bbox[0][0], bbox[0][1]
+        checks["centres_in_bbox"] = bool(
+            ((tree.box_centers >= lo) & (tree.box_centers <= hi)).all())
+        checks["root_extent"] = root == hi - lo
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tree invariants violated: {bad}")
+    return sorted(checks)
+
+
+def run_tree_options(device, card, n=1_000_000, order=8, nsample=2000):
+    """The non-adaptive kind, refine weights and a given bbox at the main
+    path's width: 1e6 uniform float32 points (its seed 17), (a)
+    ``kind="non-adaptive"``, (b) int32 weights uniform in 1..9 from the
+    seed with ``max_leaf_refine_weight=150``, (c) ``bbox = [[-0.25,
+    1.25]] * 3``, each built on the card (K43, K44, one host read), its
+    invariants checked, its traversal and counting FMM exact; (a) also the
+    order-8 float32 Laplace FMM against a float64 direct sum."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import (
+        ConstantOneExpansionWrangler,
+        make_laplace_wrangler,
+    )
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    rng = np.random.default_rng(17)
+    pts = torch.as_tensor(rng.random((3, n), dtype=np.float32),
+                          device=device)
+    q = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=device)
+    weights = torch.as_tensor(rng.integers(1, 10, n).astype(np.int32),
+                              device=device)
+    bbox = [[-0.25, 1.25]] * 3
+    builds = {
+        "non_adaptive": dict(kind="non-adaptive", max_particles_in_box=30),
+        "refine_weights": dict(refine_weights=weights,
+                               max_leaf_refine_weight=150),
+        "given_bbox": dict(bbox=bbox, max_particles_in_box=30),
+    }
+    out = {}
+    for name, kw in builds.items():
+        kernels.reset_launch_counts()
+        tree, t_build = timed(lambda: build_tree(pts, **kw), device)
+        launches = kernels.launch_counts()
+        reads = build_host_reads(lambda: build_tree(pts, **kw), tree,
+                                 launches)
+        checked = check_tree_invariants(
+            tree, pts, max_weight=kw.get("max_particles_in_box", 150),
+            weights=kw.get("refine_weights"), kind=kw.get("kind"),
+            bbox=kw.get("bbox"))
+        trav, t_trav = timed(lambda: build_traversal(tree), device)
+        pot, t_count = timed(lambda: drive_fmm(
+            ConstantOneExpansionWrangler(None, trav),
+            [torch.ones(n, dtype=torch.float64, device=device)]), device)
+        nbad = int((pot != n).sum())
+        line = {"phase": "tree_options", "card": card, "build": name,
+                "points": n, "dtype": "float32",
+                "options": {k: v for k, v in kw.items()
+                            if k != "refine_weights"},
+                "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+                "leaf_levels": sorted(set(tree.box_levels[
+                    (tree.box_flags & 16) != 0].tolist())),
+                "build_s": t_build, "host_reads_per_build": reads,
+                "launches": {k: launches[k] for k in TREE_KERNELS},
+                "invariants": checked, "traversal_s": t_trav,
+                "counting_fmm_s": t_count, "counting_exact": nbad == 0}
+        if name == "refine_weights":
+            line["options"]["refine_weights"] = "int32 uniform in 1..9"
+        if nbad:
+            emit(line)
+            raise AssertionError(f"counting FMM on the {name} tree: {nbad} "
+                                 f"potentials != {n}")
+        if name == "non_adaptive":
+            wr, t_setup = timed(lambda: make_laplace_wrangler(
+                trav, order=order, pairs=True, rscale="auto",
+                dtype=torch.float32), device)
+            pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
+            sample = torch.as_tensor(np.random.default_rng(5).choice(
+                n, nsample, replace=False), device=device)
+            abs_err, rel = rel_linf(pot[sample], direct_sum_f64(
+                pts, q, pts[:, sample]))
+            line.update(order=order, wrangler_setup_s=t_setup, fmm_s=t_fmm,
+                        sampled_targets=nsample,
+                        rel_linf_vs_f64_direct=rel, abs_linf=abs_err,
+                        finite=bool(torch.isfinite(pot).all()))
+            del wr
+        emit(line)
+        if name == "non_adaptive" and not (line["finite"]
+                                            and rel <= FMM_RTOL):
+            raise AssertionError(f"Laplace FMM on the non-adaptive tree: "
+                                 f"rel l-inf {rel:.3e} > {FMM_RTOL}")
+        out[name] = line
+        del tree, trav, pot
+    return out
+
+# }}}
+
+
 # {{{ K35-K37: M2L, M2M and L2L
 
 #: rel l-inf tolerance of K35-K37 against their twins, per coefficient
@@ -3848,14 +4233,17 @@ def main():
           "library": str(lib.path.relative_to(lib.path.parents[3])),
           "ptxas": _ptxas_summary(lib.build_log)})
 
-    trav_trees, translation = {}, {}
-    entries = run_main_path(device, card, trav_trees, translation)
-    b_entries, _ = run_config_b(device, card, trav_trees)
+    trav_trees, translation, tree_trees = {}, {}, {}
+    entries = run_main_path(device, card, trav_trees, translation,
+                            tree_trees)
+    run_tree_options(device, card)
+    b_entries, _ = run_config_b(device, card, trav_trees, tree_trees)
     h_entries = run_helmholtz(device, card, translation)
-    e_entries, e_p2m_l2p = run_extents(device, card, trav_trees, translation)
+    e_entries, e_p2m_l2p = run_extents(device, card, trav_trees, translation,
+                                       tree_trees)
     h2_entries = run_helmholtz2d(device, card, translation)
     l2_entries = run_laplace2d(device, card, trav_trees, translation)
-    l2d = run_laplace2d_dipole(device, card)
+    l2d = run_laplace2d_dipole(device, card, tree_trees)
     # K40 keeps the 2D Laplace path's complex128 numbers, with the double
     # layer's beside them; K39, K41 and K42 stand by the double layer's
     # complex128 entry points, the float64 pairs' beside them
@@ -3888,12 +4276,17 @@ def main():
         entry["entry_point"] = "c128"
         entry["f64"] = entry_point_numbers(launches, res64, work64)
         l3_entries.append(entry)
-    # K24-K27 stand by the main path's numbers, the other trees' beside
-    for e in entries:
-        if e["name"] in TRAVERSAL_KERNELS:
-            e["trees"] = {label: res[e["name"]]
-                          for label, res in trav_trees.items()
-                          if label != "main path" and e["name"] in res}
+    # K24-K27 and K43 / K44 stand by the main path's numbers, K45 / K46
+    # by Config B's, the other trees' beside
+    for e in entries + b_entries:
+        for name, trees, own in (
+                (TRAVERSAL_KERNELS, trav_trees, "main path"),
+                (TREE_KERNELS, tree_trees, "main path"),
+                (RESTRICT_KERNELS, tree_trees, "Config B")):
+            if e["name"] in name:
+                e["trees"] = {label: res[e["name"]]
+                              for label, res in trees.items()
+                              if label != own and e["name"] in res}
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
           + h2_entries + l2_entries + l2d_entries + l3_entries

@@ -34,9 +34,6 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from boxtree_torch import build_tree
-from boxtree_torch.traversal import build_traversal
-
 #: device kernels of the traversal written for this package
 KERNEL_NAMES = ("neighbor_table_kernel", "row_lists_sl_l2_kernel",
                 "lists_43_kernel", "list1_kernel", "list4_ext_kernel",
@@ -94,8 +91,9 @@ def traced(fn):
     return out, prof, wall
 
 
-def split(prof, wall):
-    """The numbers of one trace (see the module's docstring)."""
+def split(prof, wall, names=KERNEL_NAMES, label="traversal"):
+    """The numbers of one trace (see the module's docstring); the device
+    time of the kernels *names* goes under ``<label>_kernels_ms``."""
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ours, other, copies, by_name = 0.0, 0.0, 0.0, {}
     dtoh = 0
@@ -106,9 +104,9 @@ def split(prof, wall):
             copies += dur
             dtoh += "DtoH" in name
             continue
-        if any(k in name for k in KERNEL_NAMES):
+        if any(k in name for k in names):
             ours += dur
-            name = next(k for k in KERNEL_NAMES if k in name)
+            name = next(k for k in names if k in name)
         else:
             other += dur
         n, t = by_name.get(name, (0, 0.0))
@@ -122,7 +120,7 @@ def split(prof, wall):
     return {"wall_ms": wall * 1e3,
             "device_busy_ms": busy / 1e3,
             "idle_share": 1 - busy / 1e3 / (wall * 1e3),
-            "traversal_kernels_ms": ours / 1e3,
+            f"{label}_kernels_ms": ours / 1e3,
             "other_kernels_ms": other / 1e3,
             "copies_ms": copies / 1e3,
             "device_to_host_copies": dtoh,
@@ -133,6 +131,9 @@ def split(prof, wall):
 
 
 def main():
+    from boxtree_torch import build_tree
+    from boxtree_torch.traversal import build_traversal
+
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--points", type=int, default=1_000_000)
     parser.add_argument("--seed", type=int, default=17)

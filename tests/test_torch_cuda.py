@@ -54,7 +54,13 @@ float64 pairs and 1e-5 in float32 pairs, per coefficient column, on a
 starfish curve with separate targets and on the clustered tree, at r = 0,
 w = z0 = 0 and on centre lines, at orders 0, 1 and 35; the 2D double
 layer on the card matches the CPU port and launches each of its kernels
-once.
+once.  K43-K46 (the tree build's phase A and phase B, the restriction's
+sweep and recount) compute integers and box centres in the twins'
+rounding, so they must equal their twins bit for bit on 3D uniform, 2D
+clustered, restricted, extent, non-adaptive, weighted and given-bbox
+trees (and K43 on coincident points and at 1D's full depth); a tree built
+on the card must equal the CPU build field by field, launching K43 once,
+K44 once a level and, restricted, K45 once a level a round and K46 once.
 """
 
 import dataclasses
@@ -91,6 +97,7 @@ from boxtree_torch.ops import (
 )
 from boxtree_torch.ops import traversal as tops
 from boxtree_torch.ops import translate as tops_translate
+from boxtree_torch.ops import tree as tree_ops
 from boxtree_torch.traversal import build_traversal
 from boxtree_torch.traversal.build import close_list_inputs, list_inputs
 from boxtree_torch.traversal.neighbors import _offsets
@@ -2110,5 +2117,230 @@ def test_translate_wrappers_refuse_dtypes(translate_case, dtype):
     with pytest.raises(TypeError):
         tops_translate.l2l_translate(mp, w._l2l_opsT[2], w._l2l_rows[2],
                                      w._tgt_child)
+
+# }}}
+
+
+# {{{ K43-K46: the tree build
+
+TREE_BUILD_CASES = [*TRAVERSAL_TREES, "3d_nonadaptive", "2d_weights",
+                    "3d_bbox_f32"]
+
+
+def _tree_build_case(name, n=20000):
+    """``(sources, build_tree keywords)`` of a tree of the traversal
+    cases, or a non-adaptive, a weighted (zero weights included) or a
+    given-bbox float32 one."""
+    rng = np.random.default_rng(31)
+    kw = dict(max_particles_in_box=30)
+    if name == "3d_uniform":
+        src = rng.random((3, n))
+    elif name == "2d_clustered":
+        src = _clustered_2d(n)
+    elif name == "3d_restricted":
+        src = _capped_sphere(n)
+        kw["kind"] = "adaptive-level-restricted"
+    elif name == "3d_extent":
+        src, centres, radii = _qbx_inputs(n, 2000, 3)
+        kw.update(targets=centres, target_radii=radii, stick_out_factor=0.25)
+    elif name == "3d_nonadaptive":
+        src = rng.random((3, n))
+        kw["kind"] = "non-adaptive"
+    elif name == "2d_weights":
+        src = _clustered_2d(n)
+        kw = dict(refine_weights=rng.integers(0, 10, n).astype(np.int32),
+                  max_leaf_refine_weight=150)
+    else:
+        src = rng.random((3, n), dtype=np.float32)
+        kw["bbox"] = np.array([[-0.25, 1.25]] * 3)
+    return src, kw
+
+
+def _build_inputs(src, kw, device):
+    """What ``build_tree`` hands phase A (merged coordinates and the
+    keywords of ``_phase_a`` at the depth of its first try) and K43's
+    arguments from there: ``(merged, phase_a_kw, k43_args, k43_kw)``."""
+    from boxtree_torch.tree.build import _build_inputs, _sort_keys
+
+    inp = _build_inputs(src, device=device, **kw)
+    codes_s, _, w_s, stick_s, _, _ = _sort_keys(inp.merged, **inp.keys)
+    return (inp.merged, dict(inp.keys, adaptive=inp.adaptive,
+                             max_weight=inp.max_weight),
+            (codes_s, w_s, stick_s, inp.max_weight),
+            dict(dimensions=inp.keys["dimensions"], depth=inp.keys["depth"],
+                 adaptive=inp.adaptive))
+
+
+@pytest.fixture(scope="module", params=TREE_BUILD_CASES)
+def tree_build(request, device):
+    """``(name, sources, keywords, tree, launches)``: a tree built on the
+    card and the kernels its build launched."""
+    src, kw = _tree_build_case(request.param)
+    kernels.reset_launch_counts()
+    tree = build_tree(src, device=device, **kw)
+    return request.param, src, kw, tree, kernels.launch_counts()
+
+
+def test_tree_build_on_card_matches_cpu(tree_build):
+    """K43-K46 build the tree on the card equal to the CPU build (the
+    twins), field by field, centres bit for bit."""
+    _, src, kw, tree, _ = tree_build
+    ref = build_tree(src, device="cpu", **kw)
+    for f in dataclasses.fields(ref):
+        val, want = getattr(tree, f.name), getattr(ref, f.name)
+        if isinstance(want, torch.Tensor):
+            assert val.device.type == "cuda", f.name
+            assert val.dtype == want.dtype, f.name
+            assert torch.equal(val.cpu(), want), f.name
+        else:
+            assert val == want, f.name
+
+
+def test_tree_build_launches(tree_build):
+    """One K43 launch per depth tried (one here), K44 once a level; the
+    restricted build K45 once a level below the deepest a round (with K5
+    once a level from 2 up) and K46 once; no other build launches K45 or
+    K46."""
+    name, _, _, tree, launches = tree_build
+    assert launches["tree_leaf_levels"] == 1
+    assert launches["tree_level_boxes"] == tree.nlevels
+    if name == "3d_restricted":
+        max_level = tree.nlevels - 1
+        rounds = launches["restrict_sweep"] // max_level
+        assert rounds >= 2
+        assert launches["restrict_sweep"] == rounds * max_level
+        assert launches["restrict_demand"] == rounds * (max_level - 1)
+        assert launches["level_box_counts"] == 1
+    else:
+        assert launches["restrict_sweep"] == launches["restrict_demand"] \
+            == launches["level_box_counts"] == 0
+
+
+def test_leaf_levels_kernel(tree_build, device):
+    """K43 equals its twin on the card: leaf levels and the packed counts,
+    unfit count and level used."""
+    _, src, kw, _, _ = tree_build
+    _, _, args, opts = _build_inputs(src, kw, device)
+    got = tree_ops.leaf_levels(*args, **opts)
+    ref = tree_ops.leaf_levels_plain(*args, **opts)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_level_boxes_kernel(tree_build, device):
+    """Phase B with K44 equals phase B with its twin on the card, every
+    array bit for bit, and the tree's own arrays."""
+    from boxtree_torch.tree.build import _phase_b
+
+    name, src, kw, tree, _ = tree_build
+    merged, akw, _, _ = _build_inputs(src, kw, device)
+    max_weight = akw.pop("max_weight")
+    (codes_s, order, leaf, counts, n_unfit, bmin, root) = _phase_a(
+        merged, max_weight, **akw)
+    assert n_unfit == 0
+    if name == "3d_restricted":
+        leaf, counts, _ = restrict_leaf_levels(
+            codes_s, leaf, dimensions=3, depth=akw["depth"],
+            max_level=int(torch.nonzero(counts)[-1, 0]))
+        counts = counts.cpu()
+    nlevels = int(torch.nonzero(counts)[-1, 0]) + 1
+    lsb = tuple(int(x) for x in torch.cat([
+        counts.new_zeros(1), torch.cumsum(counts[:nlevels], 0)]))
+    assert lsb == tree.level_start_box_nrs
+    nsrc = src.shape[1]
+    bkw = dict(dimensions=akw["dimensions"], depth=akw["depth"],
+               level_starts=lsb, nsources=nsrc,
+               ntargets=merged.shape[1] - nsrc if "targets" in kw else nsrc,
+               sources_are_targets="targets" not in kw,
+               has_extents=akw["radii"] is not None)
+    got = _phase_b(codes_s, order, leaf, merged, bmin, root, **bkw)
+    ref = _phase_b(codes_s, order, leaf, merged, bmin, root, plain=True,
+                   **bkw)
+    for key, val in ref.items():
+        assert got[key].dtype == val.dtype, key
+        assert torch.equal(got[key], val), key
+    assert torch.equal(got["box_centers"], tree.box_centers)
+
+
+def test_restriction_kernels(device):
+    """K45 (one sweep at each level) and K46 equal their twins on the
+    card, and the restriction with K5, K45 and K46 equals the one with the
+    twins: leaf levels, counts and rounds."""
+    from boxtree_torch.tree.level_restrict import consistency_sweep
+
+    src, kw = _tree_build_case("3d_restricted")
+    _, _, args, opts = _build_inputs(src, kw, device)
+    codes_s = args[0]
+    leaf, packed = tree_ops.leaf_levels(*args, **opts)
+    max_level = int(torch.nonzero(packed[:-2])[-1, 0])
+    depth = opts["depth"]
+    lev = leaf
+    for m in range(max_level, 1, -1):
+        lev = restrict.demand_pass(codes_s, lev, m=m, dimensions=3,
+                                   depth=depth)
+    for t in range(max_level):
+        got = restrict.sweep(codes_s, lev, t=t, dimensions=3, depth=depth)
+        ref = restrict.sweep_plain(codes_s, lev, t=t, dimensions=3,
+                                   depth=depth)
+        assert torch.equal(got, ref), t
+        lev = ref
+    assert torch.equal(
+        consistency_sweep(codes_s, leaf, dimensions=3, depth=depth,
+                          max_level=max_level),
+        consistency_sweep(codes_s, leaf, dimensions=3, depth=depth,
+                          max_level=max_level, plain=True))
+    got = restrict_leaf_levels(codes_s, leaf, dimensions=3, depth=depth,
+                               max_level=max_level)
+    ref = restrict_leaf_levels(codes_s, leaf, dimensions=3, depth=depth,
+                               max_level=max_level, plain=True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert got[2] == ref[2] >= 2
+    for lv in (leaf, got[0]):
+        assert torch.equal(
+            tree_ops.level_box_counts(codes_s, lv, dimensions=3, depth=depth,
+                                      max_level=max_level),
+            tree_ops.level_box_counts_plain(codes_s, lv, dimensions=3,
+                                            depth=depth,
+                                            max_level=max_level))
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3])
+def test_leaf_levels_kernel_edges(device, dims):
+    """K43 on coincident points (every particle unfit, adaptive and
+    non-adaptive), on one box, and at the full depth of 1D (62 levels,
+    keys up to 2^62), against its twin."""
+    from boxtree_torch import config
+
+    depth = config.max_morton_depth(dims)
+    rng = np.random.default_rng(dims)
+    cases = [torch.zeros(40, dtype=torch.int64, device=device),
+             torch.sort(torch.as_tensor(rng.integers(
+                 0, 1 << (dims * depth), 4000), device=device)).values]
+    for codes in cases:
+        for adaptive in (True, False):
+            for w in (None, torch.as_tensor(rng.integers(
+                    0, 4, codes.shape[0]), device=device)):
+                got = tree_ops.leaf_levels(codes, w, None, 30,
+                                           dimensions=dims, depth=depth,
+                                           adaptive=adaptive)
+                ref = tree_ops.leaf_levels_plain(codes, w, None, 30,
+                                                 dimensions=dims,
+                                                 depth=depth,
+                                                 adaptive=adaptive)
+                assert torch.equal(got[0], ref[0])
+                assert torch.equal(got[1], ref[1])
+    one = tree_ops.leaf_levels(cases[1][:5], None, None, 30,
+                               dimensions=dims, depth=depth)
+    assert int(one[0].max()) == 0 and int(one[1][0]) == 1
+
+
+def test_tree_wrappers_on_cpu_take_twins():
+    """On CPU tensors the wrappers run their twins and launch nothing."""
+    kernels.reset_launch_counts()
+    pts = torch.as_tensor(np.random.default_rng(0).random((3, 500)))
+    build_tree(pts, kind="adaptive-level-restricted",
+               max_particles_in_box=10)
+    counts = kernels.launch_counts()
+    assert not any(counts.values()), counts
 
 # }}}

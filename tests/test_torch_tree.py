@@ -53,6 +53,40 @@ def _configs():
             targets=rng.random((3, 1000)), max_particles_in_box=25),
         "3d_deep_f64": dict(particles=_deep_points(),
                             max_particles_in_box=1),
+        # the non-adaptive kind, refine weights (zeros among them) and a
+        # given bbox (tests/test_tree.py:159-176)
+        "1d_nonadaptive_f64": dict(
+            particles=rng.random((1, 2000)), kind="non-adaptive",
+            max_particles_in_box=30),
+        "2d_nonadaptive_f64": dict(
+            particles=make_surface_particle_array(3000, 2, np.float64, 7),
+            kind="non-adaptive", max_particles_in_box=30),
+        "3d_nonadaptive_f32": dict(
+            particles=rng.random((3, 4000), dtype=np.float32),
+            kind="non-adaptive", max_particles_in_box=30),
+        "2d_weights_f64": dict(
+            particles=make_surface_particle_array(3000, 2, np.float64, 9),
+            refine_weights=rng.integers(0, 10, 3000).astype(np.int32),
+            max_leaf_refine_weight=100),
+        "3d_weights_f64": dict(
+            particles=rng.standard_normal((3, 3000)),
+            refine_weights=rng.integers(0, 10, 3000).astype(np.int32),
+            max_leaf_refine_weight=120),
+        "3d_nonadaptive_weights_f64": dict(
+            particles=rng.random((3, 2500)), kind="non-adaptive",
+            refine_weights=rng.integers(0, 10, 2500).astype(np.int32),
+            max_leaf_refine_weight=150),
+        "2d_nonadaptive_targets_f64": dict(
+            particles=make_surface_particle_array(1500, 2, np.float64, 2),
+            targets=rng.random((2, 1000)), kind="non-adaptive",
+            max_particles_in_box=25),
+        "3d_bbox_f32": dict(
+            particles=rng.random((3, 3000), dtype=np.float32),
+            bbox=np.array([[-0.25, 1.25]] * 3), max_particles_in_box=30),
+        "2d_bbox_f64": dict(
+            particles=rng.random((2, 3000)) * 0.5 + 0.2,
+            bbox=np.array([[0.0, 2.0], [-0.5, 1.5]]),
+            max_particles_in_box=20),
     }
 
 
@@ -106,18 +140,53 @@ def test_coincident_points_raise():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kind="non-adaptive"),
+    # both refinement rules at once (boxtree_tpu/tree/build.py:652-656)
+    dict(refine_weights=np.ones(100, np.int32), max_leaf_refine_weight=10,
+         raises=ValueError),
     dict(kind="adaptive-level-restricted", source_radii=np.full(100, 0.01),
-         targets=np.zeros((3, 5))),
+         targets=np.zeros((3, 5)), raises=NotImplementedError),
     dict(kind="non-adaptive", source_radii=np.full(100, 0.01),
-         targets=np.zeros((3, 5))),
-    dict(max_particles_in_box=None, refine_weights=np.ones(100, np.int32),
-         max_leaf_refine_weight=10),
-    dict(bbox=np.array([[0.0, 1.0]] * 3)),
+         targets=np.zeros((3, 5)), raises=NotImplementedError),
+    # int64 weights (:664-665)
+    dict(max_particles_in_box=None, refine_weights=np.ones(100, np.int64),
+         max_leaf_refine_weight=10, raises=TypeError),
+    # a non-square and a mis-shaped bbox (:573-579)
+    dict(bbox=np.array([[0.0, 1.0], [0.0, 1.0], [0.0, 2.0]]),
+         raises=ValueError),
 ])
 def test_unported_options_raise(kwargs):
+    """The options the reference refuses raise its exception types (the
+    non-adaptive kind, refine weights and a given bbox are ported; extents
+    with another kind are refused by both)."""
+    kwargs = dict(kwargs)
+    raises = kwargs.pop("raises")
     pts = np.random.default_rng(0).random((3, 100))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(raises):
+        boxtree_tpu.build_tree(pts, **{"max_particles_in_box": 10,
+                                       **kwargs})
+    with pytest.raises(raises):
+        build_tree(pts, **{"max_particles_in_box": 10, "device": "cpu",
+                           **kwargs})
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(max_particles_in_box=None, refine_weights=[1] * 100,
+         max_leaf_refine_weight=10),
+    dict(max_particles_in_box=None, refine_weights=np.ones(99, np.int32),
+         max_leaf_refine_weight=10),
+    dict(max_particles_in_box=None, refine_weights=np.ones(100, np.int32)),
+    dict(max_particles_in_box=None),
+    dict(bbox=np.array([[0.0, 1.0]] * 2)),
+])
+def test_option_refusals_match_reference(kwargs):
+    """Python-int weights (int64), one weight short, weights without their
+    maximum, no refinement rule, a bbox of the wrong dimension: the port
+    raises what the reference raises."""
+    pts = np.random.default_rng(0).random((3, 100))
+    with pytest.raises(Exception) as ref:
+        boxtree_tpu.build_tree(pts, **{"max_particles_in_box": 10,
+                                       **kwargs})
+    with pytest.raises(ref.type):
         build_tree(pts, **{"max_particles_in_box": 10, "device": "cpu",
                            **kwargs})
 
