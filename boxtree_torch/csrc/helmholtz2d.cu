@@ -1,7 +1,23 @@
 // K16-K18 and K33-K34: the particle stages of the 2D Helmholtz FMM, kernel
 // G(t, s) = (i/4) H_0(k |t - s|) for a real wavenumber k, in double
-// precision with complex128 (interleaved re, im) charges, coefficients and
-// potentials.  Coefficient index n = -p..p, stored at n + p.
+// precision.  Coefficient index n = -p..p, stored at n + p.  Each kernel is
+// a template over the layout of its charges and coefficients
+// (helmholtz_layout.cuh): the _c128 entry points take complex128
+// (interleaved re, im) charges and coefficients, the _f64 entry points,
+// K52-K56, real charges and [re | im] rows, as the real-pair wrangler keeps
+// them (boxtree_tpu/models/helmholtz.py:296
+// Helmholtz2DPairsExpansionWrangler; its hooks _p2p :407, _m2p_eval :391,
+// _p2l_terms :400, _p2m_terms :378 and _l2p_eval :384 over :342
+// _basis_pairs and :91 _device_JY compute the same functions in pair
+// lanes).  Potentials are (n, 2) doubles in both.
+//
+// K52 p2p_helmholtz2d_f64, K53 m2p_helmholtz2d_f64, K54
+// p2l_helmholtz2d_f64, K55 p2m_helmholtz2d_f64 and K56 l2p_helmholtz2d_f64
+// are K16, K17, K18, K33 and K34 on the pair layout: a real charge enters
+// the kernels' double2 slot as (q, 0), M2P and L2P stage the box's
+// [re | im] row into the same double2 shared array from its two planes,
+// and P2M and P2L store or add their sums into the two planes.  The inner
+// loops, the global ratio scratch and the fixed grid are the same code.
 //
 // K16 p2p_helmholtz2d: List-1 potentials, phi(t) = sum q_s (i/4) H_0(k r),
 //     r = 0 skipped.  Replaces boxtree_tpu/models/expansion_base.py:1258
@@ -53,6 +69,7 @@
 // threads reuse their columns.  Only the tables of 2p+1 or p+1 values a
 // lane stay in shared memory.
 #include "cyl_bessel.cuh"
+#include "helmholtz_layout.cuh"
 
 namespace boxtree_torch {
 namespace {
@@ -72,11 +89,12 @@ __device__ __forceinline__ int next_row(int* counter) {
 
 // {{{ K16
 
+template <typename L>
 __global__ void __launch_bounds__(kH2Threads)
 p2p_helmholtz2d_kernel(const double* __restrict__ targets,
                        long long ntargets, const double* __restrict__ sources,
                        long long nsources,
-                       const double2* __restrict__ charges,
+                       const typename L::Charge* __restrict__ charges,
                        const int* __restrict__ box_target_starts,
                        const int* __restrict__ box_target_counts,
                        const int* __restrict__ box_source_starts,
@@ -113,7 +131,7 @@ p2p_helmholtz2d_kernel(const double* __restrict__ targets,
           const long long s = s0 + sb + threadIdx.x;
           sx[threadIdx.x] = sources[s];
           sy[threadIdx.x] = sources[nsources + s];
-          sq[threadIdx.x] = charges[s];
+          sq[threadIdx.x] = L::charge(charges, s);
         }
         __syncthreads();
         if (!active) continue;
@@ -140,6 +158,7 @@ p2p_helmholtz2d_kernel(const double* __restrict__ targets,
 
 // {{{ K17
 
+template <typename L>
 __global__ void __launch_bounds__(kH2Threads)
 m2p_helmholtz2d_kernel(const double* __restrict__ targets,
                        long long ntargets,
@@ -148,7 +167,7 @@ m2p_helmholtz2d_kernel(const double* __restrict__ targets,
                        const int* __restrict__ rows, long long nrows,
                        const int* __restrict__ starts,
                        const int* __restrict__ lists,
-                       const double2* __restrict__ mpoles,
+                       const double* __restrict__ mpoles,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale, double k, int p,
                        int nstart, double* __restrict__ scratch,
@@ -182,7 +201,7 @@ m2p_helmholtz2d_kernel(const double* __restrict__ targets,
         const long long sbox = lists[e];
         __syncthreads();
         for (int i = lane; i < nc; i += kH2Threads)
-          smp[i] = mpoles[sbox * nc + i];
+          smp[i] = L::load(mpoles, sbox, nc, i);
         if (lane == 0) {
           geo[0] = centers[sbox];
           geo[1] = centers[nboxes + sbox];
@@ -234,10 +253,11 @@ m2p_helmholtz2d_kernel(const double* __restrict__ targets,
 
 // {{{ K18
 
+template <typename L>
 __global__ void __launch_bounds__(kH2Threads)
 p2l_helmholtz2d_kernel(const double* __restrict__ sources,
                        long long nsources,
-                       const double2* __restrict__ charges,
+                       const typename L::Charge* __restrict__ charges,
                        const int* __restrict__ box_source_starts,
                        const int* __restrict__ box_source_counts,
                        const int* __restrict__ rows, long long nrows,
@@ -247,7 +267,7 @@ p2l_helmholtz2d_kernel(const double* __restrict__ sources,
                        const double* __restrict__ box_scale, double k, int p,
                        int nstart, double* __restrict__ scratch,
                        int* __restrict__ counter,
-                       double2* __restrict__ out) {
+                       double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = 2 * p + 1;
   double2* terms = reinterpret_cast<double2*>(smem_raw);      // nc x warp
@@ -279,7 +299,7 @@ p2l_helmholtz2d_kernel(const double* __restrict__ sources,
         }
         if (r > 0.0) {
           // (i/4) q (-1)^{m [n < 0]} H_m e^{-i n th} s^m, m = |n|
-          const double2 q = charges[s0 + j];
+          const double2 q = L::charge(charges, s0 + j);
           const double2 qq = make_double2(-0.25 * q.y, 0.25 * q.x);
           const double th = atan2(y, x);
           cylindrical_h(k * r, p, nstart, col, stride, hb + lane,
@@ -319,10 +339,8 @@ p2l_helmholtz2d_kernel(const double* __restrict__ sources,
         __syncwarp();
       }
     }
-    for (int i = lane; i < nc; i += kH2Threads) {
-      out[tbox * nc + i].x += acc[i].x;
-      out[tbox * nc + i].y += acc[i].y;
-    }
+    for (int i = lane; i < nc; i += kH2Threads)
+      L::add(out, tbox, nc, i, acc[i]);
   }
 }
 
@@ -330,10 +348,11 @@ p2l_helmholtz2d_kernel(const double* __restrict__ sources,
 
 // {{{ K33
 
+template <typename L>
 __global__ void __launch_bounds__(kH2Threads)
 p2m_helmholtz2d_kernel(const double* __restrict__ sources,
                        long long nsources,
-                       const double2* __restrict__ charges,
+                       const typename L::Charge* __restrict__ charges,
                        const int* __restrict__ box_source_starts,
                        const int* __restrict__ box_source_counts,
                        const int* __restrict__ rows, long long nrows,
@@ -341,7 +360,7 @@ p2m_helmholtz2d_kernel(const double* __restrict__ sources,
                        const double* __restrict__ box_scale, double k, int p,
                        int nstart, double* __restrict__ scratch,
                        int* __restrict__ counter,
-                       double2* __restrict__ out) {
+                       double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = 2 * p + 1;
   double2* acc = reinterpret_cast<double2*>(smem_raw);        // nc
@@ -369,7 +388,7 @@ p2m_helmholtz2d_kernel(const double* __restrict__ sources,
       if (j < ns) {
         x = (sources[s0 + j] - cx) / s * s;
         y = (sources[nsources + s0 + j] - cy) / s * s;
-        const double2 q = charges[s0 + j];
+        const double2 q = L::charge(charges, s0 + j);
         qq = make_double2(-0.25 * q.y, 0.25 * q.x);  // (i/4) q
       }
       const double r = sqrt(x * x + y * y);
@@ -404,7 +423,8 @@ p2m_helmholtz2d_kernel(const double* __restrict__ sources,
       }
     }
     __syncwarp();
-    for (int i = lane; i < nc; i += kH2Threads) out[box * nc + i] = acc[i];
+    for (int i = lane; i < nc; i += kH2Threads)
+      L::store(out, box, nc, i, acc[i]);
     __syncwarp();
   }
 }
@@ -413,13 +433,14 @@ p2m_helmholtz2d_kernel(const double* __restrict__ sources,
 
 // {{{ K34
 
+template <typename L>
 __global__ void __launch_bounds__(kH2Threads)
 l2p_helmholtz2d_kernel(const double* __restrict__ targets,
                        long long ntargets,
                        const int* __restrict__ box_target_starts,
                        const int* __restrict__ box_target_counts,
                        const int* __restrict__ rows, long long nrows,
-                       const double2* __restrict__ locs,
+                       const double* __restrict__ locs,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale, double k, int p,
                        int nstart, double* __restrict__ scratch,
@@ -440,7 +461,8 @@ l2p_helmholtz2d_kernel(const double* __restrict__ targets,
     const long long t0 = box_target_starts[box];
     const int nt = box_target_counts[box];
     __syncthreads();
-    for (int i = lane; i < nc; i += kH2Threads) sl[i] = locs[box * nc + i];
+    for (int i = lane; i < nc; i += kH2Threads)
+      sl[i] = L::load(locs, box, nc, i);
     if (lane == 0) {
       geo[0] = centers[box];
       geo[1] = centers[nboxes + box];
@@ -502,23 +524,22 @@ size_t l2p_smem(long long p) {
          ((p + 1) * kH2Threads + 3) * sizeof(double);
 }
 
-}  // namespace
-}  // namespace boxtree_torch
+// {{{ launches, one per kernel and layout
 
-extern "C" int p2p_helmholtz2d_c128(
-    const void* targets, long long ntargets, const void* sources,
-    long long nsources, const void* charges, const void* bts, const void* btc,
-    const void* bss, const void* bsc, const void* target_boxes,
-    long long nrows, const void* starts, const void* lists, double k,
-    void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int p2p_launch(const void* targets, long long ntargets, const void* sources,
+               long long nsources, const void* charges, const void* bts,
+               const void* btc, const void* bss, const void* bsc,
+               const void* target_boxes, long long nrows, const void* starts,
+               const void* lists, double k, void* out, void* stream) {
   if (nrows > 0) {
-    p2p_helmholtz2d_kernel<<<(unsigned)nrows, kH2Threads, 0,
-                             (cudaStream_t)stream>>>(
+    p2p_helmholtz2d_kernel<L><<<(unsigned)nrows, kH2Threads, 0,
+                                (cudaStream_t)stream>>>(
         (const double*)targets, ntargets, (const double*)sources, nsources,
-        (const double2*)charges, (const int*)bts, (const int*)btc,
-        (const int*)bss, (const int*)bsc, (const int*)target_boxes,
-        (const int*)starts, (const int*)lists, k, (double2*)out);
+        (const typename L::Charge*)charges, (const int*)bts,
+        (const int*)btc, (const int*)bss, (const int*)bsc,
+        (const int*)target_boxes, (const int*)starts, (const int*)lists, k,
+        (double2*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -527,66 +548,88 @@ extern "C" int p2p_helmholtz2d_c128(
 // *scratch* holding nstart x (grid x 32) doubles and *counter* one int,
 // zeroed.
 
-extern "C" int m2p_helmholtz2d_c128(
-    const void* targets, long long ntargets, const void* bts, const void* btc,
-    const void* rows, long long nrows, const void* starts, const void* lists,
-    const void* mpoles, const void* centers, long long nboxes,
-    const void* box_scale, double k, long long order, long long nstart,
-    long long grid, void* scratch, void* counter, void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int m2p_launch(const void* targets, long long ntargets, const void* bts,
+               const void* btc, const void* rows, long long nrows,
+               const void* starts, const void* lists, const void* mpoles,
+               const void* centers, long long nboxes, const void* box_scale,
+               double k, long long order, long long nstart, long long grid,
+               void* scratch, void* counter, void* out, void* stream) {
   if (nrows > 0 && grid > 0) {
     const size_t smem = m2p_smem(order);
-    const cudaError_t err = allow_smem(m2p_helmholtz2d_kernel, smem);
+    const cudaError_t err = allow_smem(m2p_helmholtz2d_kernel<L>, smem);
     if (err != cudaSuccess) return (int)err;
-    m2p_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
-                             (cudaStream_t)stream>>>(
+    m2p_helmholtz2d_kernel<L><<<(unsigned)grid, kH2Threads, smem,
+                                (cudaStream_t)stream>>>(
         (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
         (const int*)rows, nrows, (const int*)starts, (const int*)lists,
-        (const double2*)mpoles, (const double*)centers, nboxes,
+        (const double*)mpoles, (const double*)centers, nboxes,
         (const double*)box_scale, k, (int)order, (int)nstart,
         (double*)scratch, (int*)counter, (double2*)out);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int p2l_helmholtz2d_c128(
-    const void* sources, long long nsources, const void* charges,
-    const void* bss, const void* bsc, const void* rows, long long nrows,
-    const void* starts, const void* lists, const void* centers,
-    long long nboxes, const void* box_scale, double k, long long order,
-    long long nstart, long long grid, void* scratch, void* counter,
-    void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int p2l_launch(const void* sources, long long nsources, const void* charges,
+               const void* bss, const void* bsc, const void* rows,
+               long long nrows, const void* starts, const void* lists,
+               const void* centers, long long nboxes, const void* box_scale,
+               double k, long long order, long long nstart, long long grid,
+               void* scratch, void* counter, void* out, void* stream) {
   if (nrows > 0 && grid > 0) {
     const size_t smem = p2l_smem(order);
-    const cudaError_t err = allow_smem(p2l_helmholtz2d_kernel, smem);
+    const cudaError_t err = allow_smem(p2l_helmholtz2d_kernel<L>, smem);
     if (err != cudaSuccess) return (int)err;
-    p2l_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
-                             (cudaStream_t)stream>>>(
-        (const double*)sources, nsources, (const double2*)charges,
-        (const int*)bss, (const int*)bsc, (const int*)rows, nrows,
-        (const int*)starts, (const int*)lists, (const double*)centers, nboxes,
+    p2l_helmholtz2d_kernel<L><<<(unsigned)grid, kH2Threads, smem,
+                                (cudaStream_t)stream>>>(
+        (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const int*)bss,
+        (const int*)bsc, (const int*)rows, nrows, (const int*)starts,
+        (const int*)lists, (const double*)centers, nboxes,
         (const double*)box_scale, k, (int)order, (int)nstart,
-        (double*)scratch, (int*)counter, (double2*)out);
+        (double*)scratch, (int*)counter, (double*)out);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int p2m_helmholtz2d_c128(
-    const void* sources, long long nsources, const void* charges,
-    const void* bss, const void* bsc, const void* rows, long long nrows,
-    const void* centers, long long nboxes, const void* box_scale, double k,
-    long long order, long long nstart, long long grid, void* scratch,
-    void* counter, void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int p2m_launch(const void* sources, long long nsources, const void* charges,
+               const void* bss, const void* bsc, const void* rows,
+               long long nrows, const void* centers, long long nboxes,
+               const void* box_scale, double k, long long order,
+               long long nstart, long long grid, void* scratch,
+               void* counter, void* out, void* stream) {
   if (nrows > 0 && grid > 0) {
     const size_t smem = p2m_smem(order);
-    const cudaError_t err = allow_smem(p2m_helmholtz2d_kernel, smem);
+    const cudaError_t err = allow_smem(p2m_helmholtz2d_kernel<L>, smem);
     if (err != cudaSuccess) return (int)err;
-    p2m_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
-                             (cudaStream_t)stream>>>(
-        (const double*)sources, nsources, (const double2*)charges,
-        (const int*)bss, (const int*)bsc, (const int*)rows, nrows,
+    p2m_helmholtz2d_kernel<L><<<(unsigned)grid, kH2Threads, smem,
+                                (cudaStream_t)stream>>>(
+        (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const int*)bss,
+        (const int*)bsc, (const int*)rows, nrows, (const double*)centers,
+        nboxes, (const double*)box_scale, k, (int)order, (int)nstart,
+        (double*)scratch, (int*)counter, (double*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename L>
+int l2p_launch(const void* targets, long long ntargets, const void* bts,
+               const void* btc, const void* rows, long long nrows,
+               const void* locs, const void* centers, long long nboxes,
+               const void* box_scale, double k, long long order,
+               long long nstart, long long grid, void* scratch,
+               void* counter, void* out, void* stream) {
+  if (nrows > 0 && grid > 0) {
+    const size_t smem = l2p_smem(order);
+    const cudaError_t err = allow_smem(l2p_helmholtz2d_kernel<L>, smem);
+    if (err != cudaSuccess) return (int)err;
+    l2p_helmholtz2d_kernel<L><<<(unsigned)grid, kH2Threads, smem,
+                                (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
+        (const int*)rows, nrows, (const double*)locs,
         (const double*)centers, nboxes, (const double*)box_scale, k,
         (int)order, (int)nstart, (double*)scratch, (int*)counter,
         (double2*)out);
@@ -594,24 +637,68 @@ extern "C" int p2m_helmholtz2d_c128(
   return (int)cudaGetLastError();
 }
 
-extern "C" int l2p_helmholtz2d_c128(
-    const void* targets, long long ntargets, const void* bts, const void* btc,
-    const void* rows, long long nrows, const void* locs, const void* centers,
-    long long nboxes, const void* box_scale, double k, long long order,
-    long long nstart, long long grid, void* scratch, void* counter,
-    void* out, void* stream) {
-  using namespace boxtree_torch;
-  if (nrows > 0 && grid > 0) {
-    const size_t smem = l2p_smem(order);
-    const cudaError_t err = allow_smem(l2p_helmholtz2d_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    l2p_helmholtz2d_kernel<<<(unsigned)grid, kH2Threads, smem,
-                             (cudaStream_t)stream>>>(
-        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
-        (const int*)rows, nrows, (const double2*)locs,
-        (const double*)centers, nboxes, (const double*)box_scale, k,
-        (int)order, (int)nstart, (double*)scratch, (int*)counter,
-        (double2*)out);
+// }}}
+
+}  // namespace
+}  // namespace boxtree_torch
+
+// The C entry points: <name>_c128 on C128Layout (K16-K18, K33, K34),
+// <name>_f64 on PairLayout (K52-K56).
+#define BOXTREE_TORCH_HELMHOLTZ2D_ENTRIES(suffix, L)                         \
+  extern "C" int p2p_helmholtz2d_##suffix(                                   \
+      const void* targets, long long ntargets, const void* sources,          \
+      long long nsources, const void* charges, const void* bts,              \
+      const void* btc, const void* bss, const void* bsc,                     \
+      const void* target_boxes, long long nrows, const void* starts,         \
+      const void* lists, double k, void* out, void* stream) {                \
+    return boxtree_torch::p2p_launch<boxtree_torch::L>(                      \
+        targets, ntargets, sources, nsources, charges, bts, btc, bss, bsc,   \
+        target_boxes, nrows, starts, lists, k, out, stream);                 \
+  }                                                                          \
+  extern "C" int m2p_helmholtz2d_##suffix(                                   \
+      const void* targets, long long ntargets, const void* bts,              \
+      const void* btc, const void* rows, long long nrows,                    \
+      const void* starts, const void* lists, const void* mpoles,             \
+      const void* centers, long long nboxes, const void* box_scale,          \
+      double k, long long order, long long nstart, long long grid,           \
+      void* scratch, void* counter, void* out, void* stream) {               \
+    return boxtree_torch::m2p_launch<boxtree_torch::L>(                      \
+        targets, ntargets, bts, btc, rows, nrows, starts, lists, mpoles,     \
+        centers, nboxes, box_scale, k, order, nstart, grid, scratch,         \
+        counter, out, stream);                                               \
+  }                                                                          \
+  extern "C" int p2l_helmholtz2d_##suffix(                                   \
+      const void* sources, long long nsources, const void* charges,          \
+      const void* bss, const void* bsc, const void* rows, long long nrows,   \
+      const void* starts, const void* lists, const void* centers,            \
+      long long nboxes, const void* box_scale, double k, long long order,    \
+      long long nstart, long long grid, void* scratch, void* counter,        \
+      void* out, void* stream) {                                             \
+    return boxtree_torch::p2l_launch<boxtree_torch::L>(                      \
+        sources, nsources, charges, bss, bsc, rows, nrows, starts, lists,    \
+        centers, nboxes, box_scale, k, order, nstart, grid, scratch,         \
+        counter, out, stream);                                               \
+  }                                                                          \
+  extern "C" int p2m_helmholtz2d_##suffix(                                   \
+      const void* sources, long long nsources, const void* charges,          \
+      const void* bss, const void* bsc, const void* rows, long long nrows,   \
+      const void* centers, long long nboxes, const void* box_scale,          \
+      double k, long long order, long long nstart, long long grid,           \
+      void* scratch, void* counter, void* out, void* stream) {               \
+    return boxtree_torch::p2m_launch<boxtree_torch::L>(                      \
+        sources, nsources, charges, bss, bsc, rows, nrows, centers, nboxes,  \
+        box_scale, k, order, nstart, grid, scratch, counter, out, stream);   \
+  }                                                                          \
+  extern "C" int l2p_helmholtz2d_##suffix(                                   \
+      const void* targets, long long ntargets, const void* bts,              \
+      const void* btc, const void* rows, long long nrows, const void* locs,  \
+      const void* centers, long long nboxes, const void* box_scale,          \
+      double k, long long order, long long nstart, long long grid,           \
+      void* scratch, void* counter, void* out, void* stream) {               \
+    return boxtree_torch::l2p_launch<boxtree_torch::L>(                      \
+        targets, ntargets, bts, btc, rows, nrows, locs, centers, nboxes,     \
+        box_scale, k, order, nstart, grid, scratch, counter, out, stream);   \
   }
-  return (int)cudaGetLastError();
-}
+
+BOXTREE_TORCH_HELMHOLTZ2D_ENTRIES(c128, C128Layout)
+BOXTREE_TORCH_HELMHOLTZ2D_ENTRIES(f64, PairLayout)

@@ -1,7 +1,21 @@
 // K9-K11 and K31-K32: the particle stages of the 3D Helmholtz FMM, kernel
 // G(t, s) = exp(ik|t - s|) / |t - s| for a real wavenumber k, in double
-// precision with complex128 (interleaved re, im) charges, coefficients and
-// potentials.
+// precision.  Each kernel is a template over the layout of its charges,
+// weights and coefficients (helmholtz_layout.cuh): the _c128 entry points
+// take complex128 (interleaved re, im) charges and coefficients, the _f64
+// entry points, K47-K51, real charges and [re | im] rows, as the real-pair
+// wrangler keeps them (boxtree_tpu/models/helmholtz3d.py:373
+// Helmholtz3DPairsExpansionWrangler; its hooks _p2p :513, _m2p_eval :478,
+// _p2l_terms :494, _p2m_terms :442 and _l2p_eval :461 compute the same
+// functions in pair lanes).  Potentials are (n, 2) doubles in both.
+//
+// K47 p2p_helmholtz3d_f64, K48 m2p_helmholtz3d_f64, K49
+// p2l_helmholtz3d_f64, K50 p2m_helmholtz3d_f64 and K51 l2p_helmholtz3d_f64
+// are K9, K10, K11, K31 and K32 on the pair layout: a real charge enters
+// the kernels' double2 slot as (q, 0), the weight w_nm = i w_c as (0,
+// w_c), M2P and L2P stage the box's [re | im] row into the same double2
+// shared array from its two planes, and P2M and P2L store or add their
+// sums into the two planes.  The inner loops are the same code.
 //
 // K9  p2p_helmholtz3d: List-1 potentials, phi(t) = sum q_s exp(ik r) / r,
 //     r = 0 skipped.  Replaces boxtree_tpu/models/expansion_base.py:1258
@@ -56,6 +70,7 @@
 // basis into it.
 #include "bessel.cuh"
 #include "harmonics.cuh"
+#include "helmholtz_layout.cuh"
 
 namespace boxtree_torch {
 namespace {
@@ -68,11 +83,12 @@ __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
 
 // {{{ K9
 
+template <typename L>
 __global__ void __launch_bounds__(kHelmThreads)
 p2p_helmholtz3d_kernel(const double* __restrict__ targets,
                        long long ntargets, const double* __restrict__ sources,
                        long long nsources,
-                       const double2* __restrict__ charges,
+                       const typename L::Charge* __restrict__ charges,
                        const int* __restrict__ box_target_starts,
                        const int* __restrict__ box_target_counts,
                        const int* __restrict__ box_source_starts,
@@ -111,7 +127,7 @@ p2p_helmholtz3d_kernel(const double* __restrict__ targets,
           sx[threadIdx.x] = sources[s];
           sy[threadIdx.x] = sources[nsources + s];
           sz[threadIdx.x] = sources[2 * nsources + s];
-          sq[threadIdx.x] = charges[s];
+          sq[threadIdx.x] = L::charge(charges, s);
         }
         __syncthreads();
         for (int j = 0; j < cnt; ++j) {
@@ -137,6 +153,7 @@ p2p_helmholtz3d_kernel(const double* __restrict__ targets,
 
 // {{{ K10
 
+template <typename L>
 __global__ void __launch_bounds__(kHelmThreads)
 m2p_helmholtz3d_kernel(const double* __restrict__ targets,
                        long long ntargets,
@@ -145,7 +162,7 @@ m2p_helmholtz3d_kernel(const double* __restrict__ targets,
                        const int* __restrict__ rows,
                        const int* __restrict__ starts,
                        const int* __restrict__ lists,
-                       const double2* __restrict__ mpoles,
+                       const double* __restrict__ mpoles,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale, double k, int p,
                        double2* __restrict__ out) {
@@ -174,7 +191,7 @@ m2p_helmholtz3d_kernel(const double* __restrict__ targets,
       const long long sbox = lists[e];
       __syncthreads();
       for (int i = lane; i < nc; i += kHelmThreads)
-        smp[i] = mpoles[sbox * nc + i];
+        smp[i] = L::load(mpoles, sbox, nc, i);
       if (lane == 0) {
         geo[0] = centers[sbox];
         geo[1] = centers[nboxes + sbox];
@@ -221,10 +238,11 @@ m2p_helmholtz3d_kernel(const double* __restrict__ targets,
 
 // {{{ K11
 
+template <typename L>
 __global__ void __launch_bounds__(kHelmThreads)
 p2l_helmholtz3d_kernel(const double* __restrict__ sources,
                        long long nsources,
-                       const double2* __restrict__ charges,
+                       const typename L::Charge* __restrict__ charges,
                        const int* __restrict__ box_source_starts,
                        const int* __restrict__ box_source_counts,
                        const int* __restrict__ rows,
@@ -232,8 +250,8 @@ p2l_helmholtz3d_kernel(const double* __restrict__ sources,
                        const int* __restrict__ lists,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale,
-                       const double2* __restrict__ w_nm, double k, int p,
-                       double2* __restrict__ out) {
+                       const typename L::Weight* __restrict__ w_nm,
+                       double k, int p, double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = (p + 1) * (p + 1);
   double2* acc = reinterpret_cast<double2*>(smem_raw);       // nc
@@ -268,7 +286,7 @@ p2l_helmholtz3d_kernel(const double* __restrict__ sources,
           uy = y / r;
           uz = z / r;
           kr = k * r;
-          q = charges[s0 + j];
+          q = L::charge(charges, s0 + j);
         }
       }
       spherical_hn1_scaled(kr, s, p, rad + lane, kHelmThreads);
@@ -288,12 +306,12 @@ p2l_helmholtz3d_kernel(const double* __restrict__ sources,
             }
             if (lane == 0) {
               const int i = n * n + n + m;
-              const double2 wv = cmul(w_nm[i], v);
+              const double2 wv = cmul(L::weight(w_nm, i), v);
               acc[i].x += wv.x;
               acc[i].y += wv.y;
               if (m > 0) {
                 const int i2 = n * n + n - m;
-                const double2 wv2 = cmul(w_nm[i2], v2);
+                const double2 wv2 = cmul(L::weight(w_nm, i2), v2);
                 acc[i2].x += wv2.x;
                 acc[i2].y += wv2.y;
               }
@@ -302,27 +320,26 @@ p2l_helmholtz3d_kernel(const double* __restrict__ sources,
     }
   }
   __syncwarp();
-  for (int i = lane; i < nc; i += kHelmThreads) {
-    out[tbox * nc + i].x += acc[i].x;
-    out[tbox * nc + i].y += acc[i].y;
-  }
+  for (int i = lane; i < nc; i += kHelmThreads)
+    L::add(out, tbox, nc, i, acc[i]);
 }
 
 // }}}
 
 // {{{ K31
 
+template <typename L>
 __global__ void __launch_bounds__(kHelmThreads)
 p2m_helmholtz3d_kernel(const double* __restrict__ sources,
                        long long nsources,
-                       const double2* __restrict__ charges,
+                       const typename L::Charge* __restrict__ charges,
                        const int* __restrict__ box_source_starts,
                        const int* __restrict__ box_source_counts,
                        const int* __restrict__ rows,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale,
-                       const double2* __restrict__ w_nm, double k, int p,
-                       double2* __restrict__ out) {
+                       const typename L::Weight* __restrict__ w_nm,
+                       double k, int p, double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = (p + 1) * (p + 1);
   double2* acc = reinterpret_cast<double2*>(smem_raw);        // nc
@@ -350,7 +367,7 @@ p2m_helmholtz3d_kernel(const double* __restrict__ sources,
       const double y = (sources[nsources + s0 + j] - cy) / s * s;
       const double z = (sources[2 * nsources + s0 + j] - cz) / s * s;
       const double r2 = x * x + y * y + z * z;
-      q = charges[s0 + j];
+      q = L::charge(charges, s0 + j);
       if (r2 > 0.0) {
         const double r = sqrt(r2);
         ux = x / r;
@@ -391,8 +408,9 @@ p2m_helmholtz3d_kernel(const double* __restrict__ sources,
     while (n * n > i) --n;
     while ((n + 1) * (n + 1) <= i) ++n;
     const double pw = pow(s, -double(n));
-    out[box * nc + i] =
-        cmul(w_nm[i], make_double2(acc[i].x * pw, acc[i].y * pw));
+    L::store(out, box, nc, i,
+             cmul(L::weight(w_nm, i),
+                  make_double2(acc[i].x * pw, acc[i].y * pw)));
   }
 }
 
@@ -400,13 +418,14 @@ p2m_helmholtz3d_kernel(const double* __restrict__ sources,
 
 // {{{ K32
 
+template <typename L>
 __global__ void __launch_bounds__(kHelmThreads)
 l2p_helmholtz3d_kernel(const double* __restrict__ targets,
                        long long ntargets,
                        const int* __restrict__ box_target_starts,
                        const int* __restrict__ box_target_counts,
                        const int* __restrict__ rows,
-                       const double2* __restrict__ locs,
+                       const double* __restrict__ locs,
                        const double* __restrict__ centers, long long nboxes,
                        const double* __restrict__ box_scale, double k, int p,
                        double2* __restrict__ out) {
@@ -419,7 +438,8 @@ l2p_helmholtz3d_kernel(const double* __restrict__ targets,
   const long long box = rows[blockIdx.x];
   const long long t0 = box_target_starts[box];
   const int nt = box_target_counts[box];
-  for (int i = lane; i < nc; i += kHelmThreads) sl[i] = locs[box * nc + i];
+  for (int i = lane; i < nc; i += kHelmThreads)
+    sl[i] = L::load(locs, box, nc, i);
   if (lane == 0) {
     geo[0] = centers[box];
     geo[1] = centers[nboxes + box];
@@ -480,99 +500,162 @@ size_t p2m_l2p_smem(long long order) {
          (order + 1) * kHelmThreads * sizeof(double);
 }
 
-}  // namespace
-}  // namespace boxtree_torch
+// {{{ launches, one per kernel and layout
 
-extern "C" int p2p_helmholtz3d_c128(
-    const void* targets, long long ntargets, const void* sources,
-    long long nsources, const void* charges, const void* bts, const void* btc,
-    const void* bss, const void* bsc, const void* target_boxes,
-    long long nrows, const void* starts, const void* lists, double k,
-    void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int p2p_launch(const void* targets, long long ntargets, const void* sources,
+               long long nsources, const void* charges, const void* bts,
+               const void* btc, const void* bss, const void* bsc,
+               const void* target_boxes, long long nrows, const void* starts,
+               const void* lists, double k, void* out, void* stream) {
   if (nrows > 0) {
-    p2p_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads, 0,
-                             (cudaStream_t)stream>>>(
+    p2p_helmholtz3d_kernel<L><<<(unsigned)nrows, kHelmThreads, 0,
+                                (cudaStream_t)stream>>>(
         (const double*)targets, ntargets, (const double*)sources, nsources,
-        (const double2*)charges, (const int*)bts, (const int*)btc,
-        (const int*)bss, (const int*)bsc, (const int*)target_boxes,
-        (const int*)starts, (const int*)lists, k, (double2*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int m2p_helmholtz3d_c128(
-    const void* targets, long long ntargets, const void* bts, const void* btc,
-    const void* rows, long long nrows, const void* starts, const void* lists,
-    const void* mpoles, const void* centers, long long nboxes,
-    const void* box_scale, double k, long long order, void* out,
-    void* stream) {
-  using namespace boxtree_torch;
-  if (nrows > 0) {
-    m2p_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads,
-                             helmholtz_smem(order), (cudaStream_t)stream>>>(
-        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
-        (const int*)rows, (const int*)starts, (const int*)lists,
-        (const double2*)mpoles, (const double*)centers, nboxes,
-        (const double*)box_scale, k, (int)order, (double2*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int p2l_helmholtz3d_c128(
-    const void* sources, long long nsources, const void* charges,
-    const void* bss, const void* bsc, const void* rows, long long nrows,
-    const void* starts, const void* lists, const void* centers,
-    long long nboxes, const void* box_scale, const void* w_nm, double k,
-    long long order, void* out, void* stream) {
-  using namespace boxtree_torch;
-  if (nrows > 0) {
-    p2l_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads,
-                             helmholtz_smem(order), (cudaStream_t)stream>>>(
-        (const double*)sources, nsources, (const double2*)charges,
-        (const int*)bss, (const int*)bsc, (const int*)rows,
-        (const int*)starts, (const int*)lists, (const double*)centers, nboxes,
-        (const double*)box_scale, (const double2*)w_nm, k, (int)order,
+        (const typename L::Charge*)charges, (const int*)bts,
+        (const int*)btc, (const int*)bss, (const int*)bsc,
+        (const int*)target_boxes, (const int*)starts, (const int*)lists, k,
         (double2*)out);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int p2m_helmholtz3d_c128(
-    const void* sources, long long nsources, const void* charges,
-    const void* bss, const void* bsc, const void* rows, long long nrows,
-    const void* centers, long long nboxes, const void* box_scale,
-    const void* w_nm, double k, long long order, void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int m2p_launch(const void* targets, long long ntargets, const void* bts,
+               const void* btc, const void* rows, long long nrows,
+               const void* starts, const void* lists, const void* mpoles,
+               const void* centers, long long nboxes, const void* box_scale,
+               double k, long long order, void* out, void* stream) {
   if (nrows > 0) {
-    const size_t smem = p2m_l2p_smem(order);
-    const cudaError_t err = allow_smem(p2m_helmholtz3d_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    p2m_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads, smem,
-                             (cudaStream_t)stream>>>(
-        (const double*)sources, nsources, (const double2*)charges,
-        (const int*)bss, (const int*)bsc, (const int*)rows,
-        (const double*)centers, nboxes, (const double*)box_scale,
-        (const double2*)w_nm, k, (int)order, (double2*)out);
+    m2p_helmholtz3d_kernel<L><<<(unsigned)nrows, kHelmThreads,
+                                helmholtz_smem(order),
+                                (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
+        (const int*)rows, (const int*)starts, (const int*)lists,
+        (const double*)mpoles, (const double*)centers, nboxes,
+        (const double*)box_scale, k, (int)order, (double2*)out);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int l2p_helmholtz3d_c128(
-    const void* targets, long long ntargets, const void* bts, const void* btc,
-    const void* rows, long long nrows, const void* locs, const void* centers,
-    long long nboxes, const void* box_scale, double k, long long order,
-    void* out, void* stream) {
-  using namespace boxtree_torch;
+template <typename L>
+int p2l_launch(const void* sources, long long nsources, const void* charges,
+               const void* bss, const void* bsc, const void* rows,
+               long long nrows, const void* starts, const void* lists,
+               const void* centers, long long nboxes, const void* box_scale,
+               const void* w_nm, double k, long long order, void* out,
+               void* stream) {
+  if (nrows > 0) {
+    p2l_helmholtz3d_kernel<L><<<(unsigned)nrows, kHelmThreads,
+                                helmholtz_smem(order),
+                                (cudaStream_t)stream>>>(
+        (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const int*)bss,
+        (const int*)bsc, (const int*)rows, (const int*)starts,
+        (const int*)lists, (const double*)centers, nboxes,
+        (const double*)box_scale, (const typename L::Weight*)w_nm, k,
+        (int)order, (double*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename L>
+int p2m_launch(const void* sources, long long nsources, const void* charges,
+               const void* bss, const void* bsc, const void* rows,
+               long long nrows, const void* centers, long long nboxes,
+               const void* box_scale, const void* w_nm, double k,
+               long long order, void* out, void* stream) {
+  if (nrows > 0) {
+    const size_t smem = p2m_l2p_smem(order);
+    const cudaError_t err = allow_smem(p2m_helmholtz3d_kernel<L>, smem);
+    if (err != cudaSuccess) return (int)err;
+    p2m_helmholtz3d_kernel<L><<<(unsigned)nrows, kHelmThreads, smem,
+                                (cudaStream_t)stream>>>(
+        (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const int*)bss,
+        (const int*)bsc, (const int*)rows, (const double*)centers, nboxes,
+        (const double*)box_scale, (const typename L::Weight*)w_nm, k,
+        (int)order, (double*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename L>
+int l2p_launch(const void* targets, long long ntargets, const void* bts,
+               const void* btc, const void* rows, long long nrows,
+               const void* locs, const void* centers, long long nboxes,
+               const void* box_scale, double k, long long order, void* out,
+               void* stream) {
   if (nrows > 0) {
     const size_t smem = p2m_l2p_smem(order) + 4 * sizeof(double);
-    const cudaError_t err = allow_smem(l2p_helmholtz3d_kernel, smem);
+    const cudaError_t err = allow_smem(l2p_helmholtz3d_kernel<L>, smem);
     if (err != cudaSuccess) return (int)err;
-    l2p_helmholtz3d_kernel<<<(unsigned)nrows, kHelmThreads, smem,
-                             (cudaStream_t)stream>>>(
+    l2p_helmholtz3d_kernel<L><<<(unsigned)nrows, kHelmThreads, smem,
+                                (cudaStream_t)stream>>>(
         (const double*)targets, ntargets, (const int*)bts, (const int*)btc,
-        (const int*)rows, (const double2*)locs, (const double*)centers,
+        (const int*)rows, (const double*)locs, (const double*)centers,
         nboxes, (const double*)box_scale, k, (int)order, (double2*)out);
   }
   return (int)cudaGetLastError();
 }
+
+// }}}
+
+}  // namespace
+}  // namespace boxtree_torch
+
+// The C entry points: <name>_c128 on C128Layout (K9-K11, K31, K32),
+// <name>_f64 on PairLayout (K47-K51).
+#define BOXTREE_TORCH_HELMHOLTZ3D_ENTRIES(suffix, L)                         \
+  extern "C" int p2p_helmholtz3d_##suffix(                                   \
+      const void* targets, long long ntargets, const void* sources,          \
+      long long nsources, const void* charges, const void* bts,              \
+      const void* btc, const void* bss, const void* bsc,                     \
+      const void* target_boxes, long long nrows, const void* starts,         \
+      const void* lists, double k, void* out, void* stream) {                \
+    return boxtree_torch::p2p_launch<boxtree_torch::L>(                      \
+        targets, ntargets, sources, nsources, charges, bts, btc, bss, bsc,   \
+        target_boxes, nrows, starts, lists, k, out, stream);                 \
+  }                                                                          \
+  extern "C" int m2p_helmholtz3d_##suffix(                                   \
+      const void* targets, long long ntargets, const void* bts,              \
+      const void* btc, const void* rows, long long nrows,                    \
+      const void* starts, const void* lists, const void* mpoles,             \
+      const void* centers, long long nboxes, const void* box_scale,          \
+      double k, long long order, void* out, void* stream) {                  \
+    return boxtree_torch::m2p_launch<boxtree_torch::L>(                      \
+        targets, ntargets, bts, btc, rows, nrows, starts, lists, mpoles,     \
+        centers, nboxes, box_scale, k, order, out, stream);                  \
+  }                                                                          \
+  extern "C" int p2l_helmholtz3d_##suffix(                                   \
+      const void* sources, long long nsources, const void* charges,          \
+      const void* bss, const void* bsc, const void* rows, long long nrows,   \
+      const void* starts, const void* lists, const void* centers,            \
+      long long nboxes, const void* box_scale, const void* w_nm, double k,   \
+      long long order, void* out, void* stream) {                            \
+    return boxtree_torch::p2l_launch<boxtree_torch::L>(                      \
+        sources, nsources, charges, bss, bsc, rows, nrows, starts, lists,    \
+        centers, nboxes, box_scale, w_nm, k, order, out, stream);            \
+  }                                                                          \
+  extern "C" int p2m_helmholtz3d_##suffix(                                   \
+      const void* sources, long long nsources, const void* charges,          \
+      const void* bss, const void* bsc, const void* rows, long long nrows,   \
+      const void* centers, long long nboxes, const void* box_scale,          \
+      const void* w_nm, double k, long long order, void* out,                \
+      void* stream) {                                                        \
+    return boxtree_torch::p2m_launch<boxtree_torch::L>(                      \
+        sources, nsources, charges, bss, bsc, rows, nrows, centers, nboxes,  \
+        box_scale, w_nm, k, order, out, stream);                             \
+  }                                                                          \
+  extern "C" int l2p_helmholtz3d_##suffix(                                   \
+      const void* targets, long long ntargets, const void* bts,              \
+      const void* btc, const void* rows, long long nrows, const void* locs,  \
+      const void* centers, long long nboxes, const void* box_scale,          \
+      double k, long long order, void* out, void* stream) {                  \
+    return boxtree_torch::l2p_launch<boxtree_torch::L>(                      \
+        targets, ntargets, bts, btc, rows, nrows, locs, centers, nboxes,     \
+        box_scale, k, order, out, stream);                                   \
+  }
+
+BOXTREE_TORCH_HELMHOLTZ3D_ENTRIES(c128, C128Layout)
+BOXTREE_TORCH_HELMHOLTZ3D_ENTRIES(f64, PairLayout)

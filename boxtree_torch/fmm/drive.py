@@ -30,6 +30,12 @@ class ExpansionWranglerInterface(ABC):
     """Abstract expansion handling interface for :func:`drive_fmm`
     (``boxtree/fmm.py:69-337``)."""
 
+    #: trailing dims of per-target potentials: () for scalar potentials,
+    #: (2,) for kernels whose complex potential is carried as ``[re, im]``
+    #: real lanes (the real-pair Helmholtz wranglers;
+    #: ``boxtree_tpu/fmm/drive.py:29-32``)
+    _pot_extra_dims = ()
+
     def __init__(self, tree_indep, traversal):
         self.tree_indep = tree_indep
         self.traversal = traversal

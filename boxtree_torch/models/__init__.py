@@ -4,10 +4,12 @@ from boxtree_torch.models.constant_one import (
 )
 from boxtree_torch.models.helmholtz import (
     Helmholtz2DExpansionWrangler,
+    Helmholtz2DPairsExpansionWrangler,
     HelmholtzTreeIndependentDataForWrangler,
 )
 from boxtree_torch.models.helmholtz3d import (
     Helmholtz3DExpansionWrangler,
+    Helmholtz3DPairsExpansionWrangler,
     Helmholtz3DTreeIndependentDataForWrangler,
     make_helmholtz_wrangler,
 )
@@ -24,7 +26,9 @@ __all__ = [
     "ConstantOneExpansionWrangler",
     "ConstantOneTreeIndependentDataForWrangler",
     "Helmholtz2DExpansionWrangler",
+    "Helmholtz2DPairsExpansionWrangler",
     "Helmholtz3DExpansionWrangler",
+    "Helmholtz3DPairsExpansionWrangler",
     "Helmholtz3DTreeIndependentDataForWrangler",
     "HelmholtzTreeIndependentDataForWrangler",
     "Laplace2DExpansionWrangler",

@@ -313,14 +313,17 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
     local_expansion_zeros = multipole_expansion_zeros
 
     def output_zeros(self):
-        return torch.zeros(self.tree.ntargets, dtype=self.dtype,
-                           device=self.device)
+        """Zero potentials, ``(ntargets, *_pot_extra_dims)``
+        (``expansion_base.py:591-600``)."""
+        return torch.zeros((self.tree.ntargets, *self._pot_extra_dims),
+                           dtype=self.dtype, device=self.device)
 
     def reorder_sources(self, source_array):
         return torch.as_tensor(source_array, device=self.device)[
             self.tree.user_source_ids.to(torch.int64)].to(self.dtype)
 
     def reorder_potentials(self, potentials):
+        # along the target axis, keeping any trailing lanes
         return potentials[self.tree.sorted_target_ids.to(torch.int64)]
 
     def multipole_expansions_view(self, mpole_exps, level):

@@ -1,14 +1,15 @@
-"""2D Helmholtz expansion wrangler on complex128 coefficients.
+"""2D Helmholtz expansion wranglers: on complex128 coefficients, and on
+``[re | im]`` real-pair coefficients with ``(ntargets, 2)`` potentials.
 
-Port of ``boxtree_tpu/models/helmholtz.py:43-294`` (the complex wrangler;
-the real-pair one is not ported yet).  Kernel ``G(t, s) = (i/4)
+Port of ``boxtree_tpu/models/helmholtz.py:43-418``.  Kernel ``G(t, s) = (i/4)
 H_0^(1)(k |t - s|)``, real k.  Expansions about a box centre, coefficient
 index n over ``-p..p``: multipoles ``phi = sum_n a_n H_n(k r) e^{i n th}``
 with P2M ``a_n = (i/4) sum_j q_j J_n(k r_j) e^{-i n th_j}``, locals ``phi =
 sum_n b_n J_n(k r) e^{i n th}`` with P2L ``b_n = (i/4) q H_n(k r_s) e^{-i n
 th_s}`` (the basis is :func:`boxtree_torch.ops.helmholtz2d.basis`).  Every
 particle stage runs a kernel of :mod:`boxtree_torch.ops.helmholtz2d` (P2M
-K33, P2P K16, M2P K17, P2L K18, L2P K34), on any k r: their recurrence
+K33, P2P K16, M2P K17, P2L K18, L2P K34; their ``_f64`` entry points K55,
+K52, K53, K54 and K56 on the pair wrangler), on any k r: their recurrence
 scratch is global memory, not shared.
 
 Translations are Graf's addition theorem, with ``d = c_old - c_new``
@@ -25,6 +26,11 @@ scaled_bessel_host` and the leftover powers have nonnegative exponents
 (``helmholtz.py:143-222``).  The port builds each stack of operators in
 one batch: the radial table once per distinct ``k |d|``, the rest by
 broadcasting.
+
+:class:`Helmholtz2DPairsExpansionWrangler` (``helmholtz.py:296-418``) is the
+same FMM with no complex value on the card: real charges, ``[re | im]``
+coefficient rows, the Graf stacks expanded to ``[[Re, -Im], [Im, Re]]`` and
+``[re, im]`` potential lanes.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from boxtree_torch.fmm.drive import TreeIndependentDataForWrangler
 from boxtree_torch.models.expansion_base import ExpansionWranglerBase
 from boxtree_torch.ops import helmholtz2d as hops
 from boxtree_torch.ops import scaled_bessel_host as sbh
+from boxtree_torch.ops import solid_harmonics as sh
 from boxtree_torch.ops.cylinder_bessel import miller_start
 
 
@@ -65,9 +72,10 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
         self.order = p = tree_indep.order
         self.k = tree_indep.helmholtz_k
         if kwargs.get("dtype") is not None and \
-                as_torch_dtype(kwargs["dtype"]) != torch.complex128:
+                as_torch_dtype(kwargs["dtype"]) != type(self).dtype:
             raise NotImplementedError(
-                "the Helmholtz wrangler is ported in complex128 only")
+                f"{type(self).__name__} is ported in {type(self).dtype} "
+                "only")
         self._ns = np.arange(-p, p + 1)
         # static Miller start: k r in every particle stage is bounded by
         # the root diagonal plus slack (the reference's p + 2 leaves room
@@ -185,5 +193,48 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
             tree.box_source_counts_nonchild, rows, starts, lists,
             self.centers, self.box_scale, self.k, self.order, self._nstart,
             out)
+
+    # }}}
+
+
+class Helmholtz2DPairsExpansionWrangler(Helmholtz2DExpansionWrangler):
+    """2D Helmholtz FMM wrangler with no complex value on the card: real
+    float64 charges, ``[re | im]`` real-pair coefficients of 2 (2p+1)
+    values, the Graf operators pair-expanded on the card, and potentials as
+    ``(ntargets, 2)`` float64 ``[re, im]`` lanes; the counterpart of
+    ``boxtree_tpu``'s wrangler of the same name (``helmholtz.py:296-418``).
+    The particle stages run the pair kernels K52-K56, whose twins use the
+    real ``(J, Y)`` recurrences and carry the phase as (cos, sin) lanes."""
+
+    dtype = torch.float64
+    _pot_extra_dims = (2,)
+
+    def reorder_sources(self, source_array):
+        if torch.as_tensor(source_array).is_complex():
+            raise TypeError(
+                "the real-pair wrangler takes REAL source weights; complex "
+                "weights are linear: drive the real and imaginary parts "
+                "separately and combine")
+        return super().reorder_sources(source_array)
+
+    def _ncoeff(self):
+        return 2 * (2 * self.order + 1)
+
+    def _coeff_orders(self):
+        return np.tile(np.abs(self._ns), 2)
+
+    # {{{ operators: the complex Graf stacks, pair-expanded on the card
+
+    def _m2m_matrices(self, ts, r_child, r_parent):
+        return sh.pair_tensor(super()._m2m_matrices(ts, r_child, r_parent),
+                              self.device)
+
+    def _l2l_matrices(self, ts, r_parent, r_child):
+        return sh.pair_tensor(super()._l2l_matrices(ts, r_parent, r_child),
+                              self.device)
+
+    def _m2l_matrices(self, classes, size, r):
+        return sh.pair_tensor(super()._m2l_matrices(classes, size, r),
+                              self.device)
 
     # }}}

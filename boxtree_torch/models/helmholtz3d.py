@@ -1,7 +1,7 @@
-"""3D Helmholtz expansion wrangler on complex128 coefficients.
+"""3D Helmholtz expansion wranglers: on complex128 coefficients, and on
+``[re | im]`` real-pair coefficients with ``(ntargets, 2)`` potentials.
 
-Port of ``boxtree_tpu/models/helmholtz3d.py:43-370, 526-572`` (the complex
-wrangler; the real-pair one is not ported yet).  Kernel ``G(t, s) =
+Port of ``boxtree_tpu/models/helmholtz3d.py:43-572``.  Kernel ``G(t, s) =
 exp(ik|t-s|) / |t-s|``, real k.  Basis: spherical wave functions in the
 angular basis ``A_n^m(u) = R_n^m(u)`` (the regular solid harmonics on the
 unit sphere):
@@ -14,7 +14,8 @@ and ``Y_n^m = D_nm A_n^m`` (orthonormal Y).  P2M is ``M_nm += q w_nm
 conj(HR_nm(y - c))``, evaluation ``phi = sum M_nm HS_nm(x - c)``; P2L/L2P
 mirror them with h and j swapped.  Every particle stage runs a kernel of
 :mod:`boxtree_torch.ops.helmholtz3d` (P2M K31, P2P K9, M2P K10, P2L K11,
-L2P K32).  Coefficients are rscaled as the reference's are (``M~_n = M_n
+L2P K32; their ``_f64`` entry points K50, K47, K48, K49 and K51 on the
+pair wrangler).  Coefficients are rscaled as the reference's are (``M~_n = M_n
 s^-n``, ``L~_n = L_n s^n`` for the level's rscale s,
 ``helmholtz3d.py:188-196``).
 
@@ -32,6 +33,11 @@ vectorised call, and the q-sum as one complex matrix product per ``s = m -
 mu`` (the Gaunt tensor times the per-q power, against the Y table times the
 radial table), on the wrangler's device.  The 316 M2L classes have the
 same directions at every level, so their Y table is built once.
+
+:class:`Helmholtz3DPairsExpansionWrangler` (``helmholtz3d.py:373-523``) is
+the same FMM with no complex value on the card: real charges, ``[re | im]``
+coefficient rows, each operator stack the complex one expanded to ``[[Re,
+-Im], [Im, Re]]`` on the card, and ``[re, im]`` potential lanes.
 """
 
 from __future__ import annotations
@@ -255,11 +261,13 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
         self.order = tree_indep.order
         self.k = tree_indep.k
         if kwargs.get("dtype") is not None and \
-                as_torch_dtype(kwargs["dtype"]) != torch.complex128:
+                as_torch_dtype(kwargs["dtype"]) != type(self).dtype:
             raise NotImplementedError(
-                "the Helmholtz wrangler is ported in complex128 only")
+                f"{type(self).__name__} is ported in {type(self).dtype} "
+                "only")
         super().__init__(tree_indep, traversal, **kwargs)
         ti = tree_indep
+        #: the ``(K,)`` weight the P2M and P2L kernels take
         self._w_nm = torch.as_tensor(4 * np.pi * 1j * ti.k * ti.D ** 2,
                                      device=self.device)
 
@@ -335,8 +343,60 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
         return hops.p2l_helmholtz3d(
             self._sources, q.contiguous(), tree.box_source_starts,
             tree.box_source_counts_nonchild, rows, starts, lists,
-            self.centers, self.box_scale, self._w_nm, self.k, self.order,
-            out)
+            self.centers, self.box_scale, self._w_nm, self.k,
+            self.order, out)
+
+    # }}}
+
+
+class Helmholtz3DPairsExpansionWrangler(Helmholtz3DExpansionWrangler):
+    """3D Helmholtz FMM wrangler with no complex value on the card: real
+    float64 charges, ``[re | im]`` real-pair coefficients of 2 (p+1)^2
+    values, operators pair-expanded from the complex wrangler's stacks on
+    the card, and potentials as ``(ntargets, 2)`` float64 ``[re, im]``
+    lanes; the counterpart of ``boxtree_tpu``'s wrangler of the same name
+    (``helmholtz3d.py:373-523``).  Real *helmholtz_k* only."""
+
+    dtype = torch.float64
+    _pot_extra_dims = (2,)
+
+    def __init__(self, tree_indep, traversal, **kwargs):
+        if complex(tree_indep.k).imag != 0:
+            raise NotImplementedError(
+                "the real-pair Helmholtz wrangler needs a real helmholtz_k")
+        super().__init__(tree_indep, traversal, **kwargs)
+        ti = tree_indep
+        # w_nm = i w_c, so the pair kernels take the real w_c
+        self._w_nm = torch.as_tensor(4 * np.pi * ti.k * ti.D ** 2,
+                                     device=self.device)
+
+    def reorder_sources(self, source_array):
+        if torch.as_tensor(source_array).is_complex():
+            raise TypeError(
+                "the real-pair wrangler takes REAL source weights; complex "
+                "weights are linear: drive the real and imaginary parts "
+                "separately and combine")
+        return super().reorder_sources(source_array)
+
+    def _ncoeff(self):
+        return 2 * sh.ncoeffs(self.order)
+
+    def _coeff_orders(self):
+        return np.tile(self.tree_indep.nm_n, 2)
+
+    # {{{ operators: the complex stacks, pair-expanded on the card
+
+    def _m2m_matrices(self, ts, r_child, r_parent):
+        return sh.pair_tensor(super()._m2m_matrices(ts, r_child, r_parent),
+                              self.device)
+
+    def _l2l_matrices(self, ts, r_parent, r_child):
+        return sh.pair_tensor(super()._l2l_matrices(ts, r_parent, r_child),
+                              self.device)
+
+    def _m2l_matrices(self, classes, size, r):
+        return sh.pair_tensor(super()._m2l_matrices(classes, size, r),
+                              self.device)
 
     # }}}
 
@@ -344,20 +404,29 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
 def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
                             **kwargs):
     """Helmholtz wrangler for *traversal*, 2D or 3D by its tree
-    (``boxtree_tpu/models/helmholtz3d.py:526-572``).  The port covers the
-    complex wranglers (``pairs=None`` or ``False``) with a real
-    *helmholtz_k*: :class:`~boxtree_torch.models.helmholtz.
-    Helmholtz2DExpansionWrangler` in 2D, :class:`Helmholtz3DExpansionWrangler`
-    in 3D; ``pairs=True``, ``dipole_vec``, ``level_to_order``, a complex
-    *helmholtz_k* and dtypes other than complex128 raise
+    (``boxtree_tpu/models/helmholtz3d.py:526-572``), with a real
+    *helmholtz_k*.
+
+    :arg pairs: the ``[re | im]`` real-pair wrangler
+        (:class:`~boxtree_torch.models.helmholtz.
+        Helmholtz2DPairsExpansionWrangler` in 2D,
+        :class:`Helmholtz3DPairsExpansionWrangler` in 3D; potentials come
+        back as ``(ntargets, 2)`` float64 lanes), else the complex one
+        (:class:`~boxtree_torch.models.helmholtz.
+        Helmholtz2DExpansionWrangler`,
+        :class:`Helmholtz3DExpansionWrangler`).  *None* follows the
+        reference's rule, keyed on the tree's device as
+        :func:`~boxtree_torch.models.make_laplace_wrangler` keys it: pairs
+        on CUDA unless a complex ``dtype=`` is given, complex on the CPU.
+        The pairs take a complex ``dtype=`` as its real counterpart.
+
+    ``dipole_vec``, ``level_to_order``, a complex *helmholtz_k*, dtypes
+    other than complex128 (complex) and float64 (pairs) raise
     :class:`NotImplementedError`.  Other keyword arguments (``rscale``,
     ``dtype``) go to the wrangler."""
     dim = traversal.tree.dimensions
     if dim not in (2, 3):
         raise NotImplementedError(f"no Helmholtz wrangler for dim={dim}")
-    if pairs:
-        raise NotImplementedError("the real-pair Helmholtz wrangler is not "
-                                  "ported yet; use pairs=False")
     if kwargs.pop("dipole_vec", None) is not None:
         raise NotImplementedError("dipole sources are not ported yet")
     if kwargs.pop("level_to_order", None) is not None:
@@ -367,13 +436,25 @@ def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
             # the reference's own limit (helmholtz3d.py:198-200)
             raise NotImplementedError("rscale with complex helmholtz_k")
         raise NotImplementedError("complex helmholtz_k is not ported yet")
+    dt = kwargs.get("dtype")
+    complex_dt = dt is not None and as_torch_dtype(dt).is_complex
+    if pairs is None:
+        pairs = (traversal.tree.box_levels.device.type != "cpu"
+                 and not complex_dt)
+    if pairs and complex_dt:
+        kwargs["dtype"] = as_torch_dtype(dt).to_real()
     if dim == 2:
         from boxtree_torch.models.helmholtz import (
             Helmholtz2DExpansionWrangler,
+            Helmholtz2DPairsExpansionWrangler,
             HelmholtzTreeIndependentDataForWrangler,
         )
         ti = HelmholtzTreeIndependentDataForWrangler(
             2, complex(helmholtz_k).real, order)
-        return Helmholtz2DExpansionWrangler(ti, traversal, **kwargs)
+        cls = (Helmholtz2DPairsExpansionWrangler if pairs
+               else Helmholtz2DExpansionWrangler)
+        return cls(ti, traversal, **kwargs)
     ti = Helmholtz3DTreeIndependentDataForWrangler(helmholtz_k, order)
-    return Helmholtz3DExpansionWrangler(ti, traversal, **kwargs)
+    cls = (Helmholtz3DPairsExpansionWrangler if pairs
+           else Helmholtz3DExpansionWrangler)
+    return cls(ti, traversal, **kwargs)

@@ -1,7 +1,18 @@
 """The particle stages of the 2D Helmholtz FMM: P2M, P2P (List 1), M2P
 (List 3), P2L (List 4) and L2P, each as a kernel wrapper and its plain
-twin, in complex128 (coordinates float64), over the expansion basis they
-share.
+twin, over the expansion basis they share, on two layouts (coordinates
+float64):
+
+- complex128: complex charges, ``(nboxes, 2p+1)`` complex coefficients
+  and complex potentials (the complex wrangler);
+- float64 pairs: real charges, ``(nboxes, 2 (2p+1))`` ``[re | im]``
+  coefficient rows and ``(n, 2)`` ``[re, im]`` potentials (the real-pair
+  wrangler, ``boxtree_tpu/models/helmholtz.py:296-418``).  Its twins work
+  on real lanes only (``*_pairs``: the real ``(J, Y)`` recurrences and the
+  phase as (cos, sin) lanes, ``helmholtz.py:342-418``); its kernels are
+  the ``_f64`` entry points of the same kernels (K52-K56).
+
+The layout follows the dtype of the charges or the expansions handed in.
 
 Kernel ``G(t, s) = (i/4) H_0^(1)(k |t - s|)`` for a real wavenumber k.
 Expansions about a box centre ``c``, with ``(r, th)`` the polar form of
@@ -20,17 +31,20 @@ list stages) or the rows alone, the boxes that own particles (P2M, L2P).
 On CPU tensors it runs the plain PyTorch twin; on CUDA tensors it launches
 the hand-written kernel of ``csrc/helmholtz2d.cu`` or raises.
 
-- P2M (K33): ``a_n(b) = sum (i/4) q_s J_n(k r) e^{-i n th} s^-|n|`` over
-  the sources box ``b`` owns, the one-hot ``J_n(0) = [n == 0]`` at ``r =
-  0`` (``helmholtz.py:267-269``).
-- L2P (K34): ``phi(t) = sum_n b_n(b) J_n(k r) e^{i n th} s^-|n|``,
-  ``b_0(b)`` at ``r = 0`` (``helmholtz.py:271-273``).
-- P2P: ``phi(t) = sum q_s (i/4) H_0(k r)``, ``r = 0`` skipped
-  (``helmholtz.py:284-294``).
-- M2P: ``phi(t) += sum_n a_n(b) H_n(k r) e^{i n th} s^|n|`` with ``r e^{i
-  th} = ((t - c_b) / s) s``, 0 at ``r = 0`` (``helmholtz.py:275-277``).
-- P2L: ``b_n(b) += (i/4) q H_n(k r) e^{-i n th} s^|n|`` with ``r e^{i th}
-  = ((x_s - c_b) / s) s`` (``helmholtz.py:279-282``).
+- P2M (K33, pairs K55): ``a_n(b) = sum (i/4) q_s J_n(k r) e^{-i n th}
+  s^-|n|`` over the sources box ``b`` owns, the one-hot ``J_n(0) = [n ==
+  0]`` at ``r = 0`` (``helmholtz.py:267-269``; pairs ``:378``).
+- L2P (K34, pairs K56): ``phi(t) = sum_n b_n(b) J_n(k r) e^{i n th}
+  s^-|n|``, ``b_0(b)`` at ``r = 0`` (``helmholtz.py:271-273``; pairs
+  ``:384``).
+- P2P (K16, pairs K52): ``phi(t) = sum q_s (i/4) H_0(k r)``, ``r = 0``
+  skipped (``helmholtz.py:284-294``; pairs ``:407``).
+- M2P (K17, pairs K53): ``phi(t) += sum_n a_n(b) H_n(k r) e^{i n th}
+  s^|n|`` with ``r e^{i th} = ((t - c_b) / s) s``, 0 at ``r = 0``
+  (``helmholtz.py:275-277``; pairs ``:391``).
+- P2L (K18, pairs K54): ``b_n(b) += (i/4) q H_n(k r) e^{-i n th} s^|n|``
+  with ``r e^{i th} = ((x_s - c_b) / s) s`` (``helmholtz.py:279-282``;
+  pairs ``:400``).
 
 ``s`` is the box's rscale (the source box's for M2P, the target box's for
 P2L, the particle's own box's for P2M and L2P); the hooks of the reference
@@ -51,6 +65,7 @@ import torch
 
 from boxtree_torch.ops import kernels
 from boxtree_torch.ops.cylinder_bessel import cylindrical_jy, even_start
+from boxtree_torch.ops.helmholtz3d import _is_pairs, _pot_zeros
 from boxtree_torch.ops.laplace3d import (
     _blocks,
     _edges,
@@ -95,27 +110,8 @@ def basis(rel, kind, conj_phase, scale, k, order, nstart):
     *scale*, and ``r > 0`` (``helmholtz.py:232-265``).  Negative orders
     come from ``F_{-n} = (-1)^n F_n``; at ``r = 0`` the J kind takes its
     exact limit ``J_n(0) = [n == 0]`` (the H-kind callers mask by *ok*)."""
-    pw = dpow(scale, -1 if kind == "J" else +1, order)
-    rel = rel * scale
-    r = torch.sqrt(rel[0] ** 2 + rel[1] ** 2)
-    ok = r > 0
-    th = torch.atan2(rel[1], rel[0])
-    j, y = cylindrical_jy(k * torch.where(ok, r, torch.ones_like(r)), order,
-                          nstart=nstart)
-    base = j if kind == "J" else torch.complex(j, y)          # (..., p+1)
-    signs = (-1.0) ** torch.arange(1, order + 1, device=rel.device,
-                                   dtype=rel.dtype)
-    full = torch.cat([(base[..., 1:] * signs).flip(-1), base], dim=-1)
-    ns = coeff_orders(order, rel.device).to(rel.dtype)
-    angle = conj_phase * ns * th[..., None]
-    out = full.to(torch.complex128) * torch.polar(torch.ones_like(angle),
-                                                  angle) * pw
-    if kind == "J":
-        one_hot = torch.zeros(2 * order + 1, dtype=out.dtype,
-                              device=out.device)
-        one_hot[order] = 1.0
-        out = torch.where(ok[..., None], out, one_hot)
-    return out, ok
+    vr, vi, ok = basis_pairs(rel, kind, conj_phase, scale, k, order, nstart)
+    return torch.complex(vr, vi), ok
 
 
 def m2p_eval(rel, mp, scale, k, order, nstart):
@@ -146,6 +142,90 @@ def l2p_eval(rel, loc, scale, k, order, nstart):
     return (loc * vals).sum(-1)
 
 # }}}
+
+
+# {{{ the same on real pair lanes (helmholtz.py:342-418)
+
+def basis_pairs(rel, kind, conj_phase, scale, k, order, nstart):
+    """``(v_re, v_im, ok)``: :func:`basis` as two real ``(..., 2p+1)``
+    lanes, from the real ``(J, Y)`` recurrences, with the phase as (cos,
+    ``conj_phase`` sin) lanes (``helmholtz.py:342-376``)."""
+    pw = dpow(scale, -1 if kind == "J" else +1, order)
+    rel = rel * scale
+    r = torch.sqrt(rel[0] ** 2 + rel[1] ** 2)
+    ok = r > 0
+    th = torch.atan2(rel[1], rel[0])
+    j, y = cylindrical_jy(k * torch.where(ok, r, torch.ones_like(r)), order,
+                          nstart=nstart)
+    signs = (-1.0) ** torch.arange(1, order + 1, device=rel.device,
+                                   dtype=rel.dtype)
+
+    def full(base):
+        return torch.cat([(base[..., 1:] * signs).flip(-1), base], dim=-1)
+
+    ang = coeff_orders(order, rel.device).to(rel.dtype) * th[..., None]
+    c, sn = torch.cos(ang), conj_phase * torch.sin(ang)
+    fj = full(j)
+    if kind == "J":
+        vr, vi = fj * c, fj * sn
+    else:
+        fy = full(y)
+        vr, vi = fj * c - fy * sn, fj * sn + fy * c
+    vr, vi = vr * pw, vi * pw
+    if kind == "J":
+        # the exact r = 0 limit: J_n(0) = [n == 0]
+        one_hot = torch.zeros(2 * order + 1, dtype=vr.dtype,
+                              device=vr.device)
+        one_hot[order] = 1.0
+        vr = torch.where(ok[..., None], vr, one_hot)
+        vi = torch.where(ok[..., None], vi, 0)
+    return vr, vi, ok
+
+
+def p2m_terms_pairs(rel, q, scale, k, order, nstart):
+    """``[re | im]`` multipole coefficients of real charges *q*: ``0.25 i q
+    v`` as ``(-0.25 q v_i, 0.25 q v_r)`` (``helmholtz.py:378-382``)."""
+    vr, vi, _ = basis_pairs(rel, "J", -1, scale, k, order, nstart)
+    qq = 0.25 * q[..., None]
+    return torch.cat([-qq * vi, qq * vr], dim=-1)
+
+
+def l2p_eval_pairs(rel, loc, scale, k, order, nstart):
+    """``(..., 2)`` potentials of ``[re | im]`` locals *loc*
+    (``helmholtz.py:384-389``)."""
+    vr, vi, _ = basis_pairs(rel, "J", +1, scale, k, order, nstart)
+    nc = 2 * order + 1
+    lr, li = loc[..., :nc], loc[..., nc:]
+    return torch.stack([(lr * vr - li * vi).sum(-1),
+                        (lr * vi + li * vr).sum(-1)], dim=-1)
+
+
+def m2p_eval_pairs(rel, mp, scale, k, order, nstart):
+    """``(..., 2)`` potentials of ``[re | im]`` multipoles *mp*; 0 at ``r =
+    0`` (``helmholtz.py:391-398``)."""
+    vr, vi, ok = basis_pairs(rel, "H", +1, scale, k, order, nstart)
+    nc = 2 * order + 1
+    mr, mi = mp[..., :nc], mp[..., nc:]
+    return torch.stack([torch.where(ok, (mr * vr - mi * vi).sum(-1), 0),
+                        torch.where(ok, (mr * vi + mi * vr).sum(-1), 0)],
+                       dim=-1)
+
+
+def p2l_terms_pairs(rel, q, scale, k, order, nstart):
+    """``[re | im]`` local coefficients of real charges *q*; 0 at ``r = 0``
+    (``helmholtz.py:400-405``)."""
+    vr, vi, ok = basis_pairs(rel, "H", -1, scale, k, order, nstart)
+    qq = 0.25 * q[..., None]
+    okc = ok[..., None]
+    return torch.cat([torch.where(okc, -qq * vi, 0),
+                      torch.where(okc, qq * vr, 0)], dim=-1)
+
+# }}}
+
+
+def _width(order, dtype):
+    """Values of *dtype* in one coefficient row."""
+    return (2 * order + 1) * (2 if _is_pairs(dtype) else 1)
 
 
 def smem_bytes(name, order):
@@ -189,8 +269,9 @@ def _launch_scratch(device, nrows, order, nstart):
 
 
 def _check_args(k, dtype, order=None):
-    if dtype != torch.complex128:
-        raise TypeError(f"the Helmholtz kernels take complex128, not {dtype}")
+    if dtype not in (torch.float64, torch.complex128):
+        raise TypeError("the Helmholtz kernels take complex128 or float64 "
+                        f"pairs, not {dtype}")
     if not isinstance(k, float):
         raise TypeError("the Helmholtz kernels take a real wavenumber")
     if order is not None:
@@ -209,7 +290,7 @@ def p2p_helmholtz2d_plain(targets, sources, charges, box_target_starts,
                           box_source_counts_nonchild, target_boxes, starts,
                           lists, k, nstart):
     """Plain twin of :func:`p2p_helmholtz2d`."""
-    out = charges.new_zeros(targets.shape[1])
+    out = _pot_zeros(targets.shape[1], charges.dtype, charges.device)
     tbox, sbox = _edges(starts, lists, target_boxes)
     if tbox.numel() == 0:
         return out
@@ -228,8 +309,16 @@ def p2p_helmholtz2d_plain(targets, sources, charges, box_target_starts,
         ok = (r > 0) & smask[:, None, :]
         j, y = cylindrical_jy(k * torch.where(ok, r, torch.ones_like(r)), 0,
                               nstart=nstart)
-        g = torch.where(ok, 0.25j * torch.complex(j[..., 0], y[..., 0]), 0)
-        vals = (g * q[:, None, :]).sum(-1)               # (E, pt)
+        if _is_pairs(charges.dtype):
+            # 0.25 i (J_0 + i Y_0) = (-0.25 Y_0, 0.25 J_0)
+            gr = torch.where(ok, -0.25 * y[..., 0], 0)
+            gi = torch.where(ok, 0.25 * j[..., 0], 0)
+            vals = torch.stack([(gr * q[:, None, :]).sum(-1),
+                                (gi * q[:, None, :]).sum(-1)], -1)
+        else:
+            g = torch.where(ok, 0.25j * torch.complex(j[..., 0], y[..., 0]),
+                            0)
+            vals = (g * q[:, None, :]).sum(-1)           # (E, pt)
         out.index_add_(0, tidx[tmask], vals[tmask])
     return out
 
@@ -238,25 +327,26 @@ def p2p_helmholtz2d(targets, sources, charges, box_target_starts,
                     box_target_counts_nonchild, box_source_starts,
                     box_source_counts_nonchild, target_boxes, starts, lists,
                     k, nstart):
-    """List-1 potentials (tree-order targets) of ``(i/4) H_0(k |t - s|)``;
-    the K16 kernel on CUDA tensors.  The kernel evaluates ``H_0`` with
-    CUDA's double ``j0``/``y0``, the twin with the J recurrence from
-    *nstart* (as the reference)."""
+    """List-1 potentials (tree-order targets) of ``(i/4) H_0(k |t - s|)``:
+    complex128 for complex128 charges, ``(n, 2)`` float64 for real float64
+    charges.  The K16 kernel (pairs: K52) on CUDA tensors.  The kernel
+    evaluates ``H_0`` with CUDA's double ``j0``/``y0``, the twin with the J
+    recurrence from *nstart* (as the reference)."""
     args = (targets, sources, charges, box_target_starts,
             box_target_counts_nonchild, box_source_starts,
             box_source_counts_nonchild, target_boxes, starts, lists)
     if targets.device.type == "cpu":
         return p2p_helmholtz2d_plain(*args, k, nstart)
-    _check_args(k, charges.dtype)
+    dt = charges.dtype
+    _check_args(k, dt)
     kernels.check_tensors(targets, sources, dtype=torch.float64)
-    kernels.check_tensors(charges, dtype=torch.complex128)
+    kernels.check_tensors(charges, dtype=dt)
     kernels.check_tensors(*args[3:], dtype=torch.int32)
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "p2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
+        "p2p_helmholtz2d", dt, targets, targets.shape[1],
         sources, sources.shape[1], charges, box_target_starts,
         box_target_counts_nonchild, box_source_starts,
         box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
@@ -272,7 +362,8 @@ def m2p_helmholtz2d_plain(targets, box_target_starts,
                           box_target_counts_nonchild, rows, starts, lists,
                           mpoles, centers, box_scale, k, order, nstart):
     """Plain twin of :func:`m2p_helmholtz2d`."""
-    out = mpoles.new_zeros(targets.shape[1])
+    out = _pot_zeros(targets.shape[1], mpoles.dtype, mpoles.device)
+    evaluate = m2p_eval_pairs if _is_pairs(mpoles.dtype) else m2p_eval
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
@@ -284,7 +375,7 @@ def m2p_helmholtz2d_plain(targets, box_target_starts,
                               tb, pt)
         s = box_scale[sb_][:, None]                      # (E, 1)
         rel = (targets[:, tidx] - centers[:, sb_][..., None]) / s
-        val = m2p_eval(rel, mpoles[sb_][:, None, :], s.expand(rel.shape[1:]),
+        val = evaluate(rel, mpoles[sb_][:, None, :], s.expand(rel.shape[1:]),
                        k, order, nstart)
         out.index_add_(0, tidx[tmask], val[tmask])
     return out
@@ -294,26 +385,28 @@ def m2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
                     rows, starts, lists, mpoles, centers, box_scale, k,
                     order, nstart):
     """List-3 potentials (tree-order targets) from the multipoles of the
-    listed source boxes; rows name target boxes.  The K17 kernel on CUDA
-    tensors."""
+    listed source boxes, complex128 or ``[re | im]`` float64 rows (then
+    ``(n, 2)`` potentials); rows name target boxes.  The K17 kernel
+    (pairs: K53) on CUDA tensors."""
     args = (targets, box_target_starts, box_target_counts_nonchild, rows,
             starts, lists, mpoles, centers, box_scale)
     if targets.device.type == "cpu":
         return m2p_helmholtz2d_plain(*args, k, order, nstart)
-    _check_args(k, mpoles.dtype, order)
+    dt = mpoles.dtype
+    _check_args(k, dt, order)
     kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(mpoles, dtype=torch.complex128)
+    kernels.check_tensors(mpoles, dtype=dt)
     kernels.check_tensors(*args[1:6], dtype=torch.int32)
-    if mpoles.shape != (centers.shape[1], 2 * order + 1):
-        raise ValueError("mpoles must be (nboxes, 2 * order + 1)")
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    if mpoles.shape != (centers.shape[1], _width(order, dt)):
+        raise ValueError("mpoles must be (nboxes, 2 * order + 1), twice that "
+                         "in pairs")
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
     if lists.numel() == 0:
         return out
     grid, scratch, counter = _launch_scratch(targets.device, rows.shape[0],
                                              order, nstart)
     kernels.launch(
-        "m2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
+        "m2p_helmholtz2d", dt, targets, targets.shape[1],
         box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
         starts, lists, mpoles, centers, centers.shape[1], box_scale, k,
         order, even_start(nstart, order), grid, scratch, counter, out)
@@ -331,6 +424,7 @@ def p2l_helmholtz2d_plain(sources, charges, box_source_starts,
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
+    term_fn = p2l_terms_pairs if _is_pairs(out.dtype) else p2l_terms
     ps = _max_count(box_source_counts_nonchild, sbox)
     chunk = _plain_chunk(ps * (2 * order + 1), order, nstart)
     for c0 in range(0, tbox.shape[0], chunk):
@@ -340,7 +434,7 @@ def p2l_helmholtz2d_plain(sources, charges, box_source_starts,
         s = box_scale[tb][:, None]                       # (E, 1)
         rel = (sources[:, sidx] - centers[:, tb][..., None]) / s
         q = torch.where(smask, charges[sidx], 0)
-        terms = p2l_terms(rel, q, s.expand(rel.shape[1:]), k, order, nstart)
+        terms = term_fn(rel, q, s.expand(rel.shape[1:]), k, order, nstart)
         terms = torch.where(smask[..., None], terms, 0)
         out.index_add_(0, tb, terms.sum(1))
     return out
@@ -351,25 +445,28 @@ def p2l_helmholtz2d(sources, charges, box_source_starts,
                     box_scale, k, order, nstart, out):
     """Add the List-4 local-expansion contributions of the listed source
     boxes into ``out[rows]`` (``out`` is ``(nboxes, 2 order + 1)``
-    complex128); rows name target-or-target-parent boxes, each at most
-    once.  The K18 kernel on CUDA tensors.  Returns *out*."""
+    complex128, or ``(nboxes, 2 (2 order + 1))`` ``[re | im]`` float64 with
+    real charges); rows name target-or-target-parent boxes, each at most
+    once.  The K18 kernel (pairs: K54) on CUDA tensors.  Returns *out*."""
     args = (sources, charges, box_source_starts,
             box_source_counts_nonchild, rows, starts, lists, centers,
             box_scale)
     if sources.device.type == "cpu":
         return p2l_helmholtz2d_plain(*args, k, order, nstart, out)
-    _check_args(k, out.dtype, order)
+    dt = out.dtype
+    _check_args(k, dt, order)
     kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(charges, out, dtype=torch.complex128)
+    kernels.check_tensors(charges, out, dtype=dt)
     kernels.check_tensors(*args[2:7], dtype=torch.int32)
-    if out.shape != (centers.shape[1], 2 * order + 1):
-        raise ValueError("out must be (nboxes, 2 * order + 1)")
+    if out.shape != (centers.shape[1], _width(order, dt)):
+        raise ValueError("out must be (nboxes, 2 * order + 1), twice that "
+                         "in pairs")
     if lists.numel() == 0:
         return out
     grid, scratch, counter = _launch_scratch(sources.device, rows.shape[0],
                                              order, nstart)
     kernels.launch(
-        "p2l_helmholtz2d", torch.complex128, sources, sources.shape[1],
+        "p2l_helmholtz2d", dt, sources, sources.shape[1],
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
         k, order, even_start(nstart, order), grid, scratch, counter, out)
@@ -384,8 +481,9 @@ def p2m_helmholtz2d_plain(sources, charges, box_source_starts,
                           box_source_counts_nonchild, rows, centers,
                           box_scale, k, order, nstart):
     """Plain twin of :func:`p2m_helmholtz2d`."""
-    nc = 2 * order + 1
+    nc = _width(order, charges.dtype)
     out = charges.new_zeros((centers.shape[1], nc))
+    term_fn = p2m_terms_pairs if _is_pairs(charges.dtype) else p2m_terms
     idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
                               rows)
     chunk = _plain_chunk(nc, order, nstart)
@@ -393,35 +491,36 @@ def p2m_helmholtz2d_plain(sources, charges, box_source_starts,
         i, b = idx[c0:c0 + chunk], box[c0:c0 + chunk]
         s = box_scale[b]
         rel = (sources[:, i] - centers[:, b]) / s
-        out.index_add_(0, b, p2m_terms(rel, charges[i], s, k, order,
-                                       nstart))
+        out.index_add_(0, b, term_fn(rel, charges[i], s, k, order, nstart))
     return out
 
 
 def p2m_helmholtz2d(sources, charges, box_source_starts,
                     box_source_counts_nonchild, rows, centers, box_scale, k,
                     order, nstart):
-    """Multipoles ``(nboxes, 2 order + 1)`` complex128 of the tree-order
-    sources that the boxes *rows* own (their nonchild ranges, each box at
-    most once); the other boxes' rows are zero.  The K33 kernel on CUDA
-    tensors."""
+    """Multipoles of the tree-order sources that the boxes *rows* own
+    (their nonchild ranges, each box at most once): ``(nboxes, 2 order +
+    1)`` complex128 for complex128 charges, ``(nboxes, 2 (2 order + 1))``
+    ``[re | im]`` float64 for real float64 ones; the other boxes' rows are
+    zero.  The K33 kernel (pairs: K55) on CUDA tensors."""
     args = (sources, charges, box_source_starts,
             box_source_counts_nonchild, rows, centers, box_scale)
     if sources.device.type == "cpu":
         return p2m_helmholtz2d_plain(*args, k, order, nstart)
-    _check_args(k, charges.dtype, order)
+    dt = charges.dtype
+    _check_args(k, dt, order)
     kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(charges, dtype=torch.complex128)
+    kernels.check_tensors(charges, dtype=dt)
     kernels.check_tensors(box_source_starts, box_source_counts_nonchild,
                           rows, dtype=torch.int32)
-    out = torch.zeros((centers.shape[1], 2 * order + 1),
-                      dtype=torch.complex128, device=sources.device)
+    out = torch.zeros((centers.shape[1], _width(order, dt)), dtype=dt,
+                      device=sources.device)
     if rows.numel() == 0:
         return out
     grid, scratch, counter = _launch_scratch(sources.device, rows.shape[0],
                                              order, nstart)
     kernels.launch(
-        "p2m_helmholtz2d", torch.complex128, sources, sources.shape[1],
+        "p2m_helmholtz2d", dt, sources, sources.shape[1],
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], centers, centers.shape[1], box_scale, k, order,
         even_start(nstart, order), grid, scratch, counter, out)
@@ -432,7 +531,8 @@ def l2p_helmholtz2d_plain(targets, box_target_starts,
                           box_target_counts_nonchild, rows, local_exps,
                           centers, box_scale, k, order, nstart):
     """Plain twin of :func:`l2p_helmholtz2d`."""
-    out = local_exps.new_zeros(targets.shape[1])
+    out = _pot_zeros(targets.shape[1], local_exps.dtype, local_exps.device)
+    evaluate = l2p_eval_pairs if _is_pairs(local_exps.dtype) else l2p_eval
     idx, box = _row_particles(box_target_starts, box_target_counts_nonchild,
                               rows)
     chunk = _plain_chunk(local_exps.shape[1], order, nstart)
@@ -440,35 +540,37 @@ def l2p_helmholtz2d_plain(targets, box_target_starts,
         i, b = idx[c0:c0 + chunk], box[c0:c0 + chunk]
         s = box_scale[b]
         rel = (targets[:, i] - centers[:, b]) / s
-        out[i] = l2p_eval(rel, local_exps[b], s, k, order, nstart)
+        out[i] = evaluate(rel, local_exps[b], s, k, order, nstart)
     return out
 
 
 def l2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
                     rows, local_exps, centers, box_scale, k, order, nstart):
-    """Potentials (tree-order targets) of the complex128 local expansions
-    *local_exps* at the targets that the boxes *rows* own (their nonchild
-    ranges, each box at most once); the other targets' are zero.  The K34
-    kernel on CUDA tensors."""
+    """Potentials (tree-order targets) of the local expansions
+    *local_exps* (complex128, or ``[re | im]`` float64 rows, then ``(n,
+    2)`` potentials) at the targets that the boxes *rows* own (their
+    nonchild ranges, each box at most once); the other targets' are zero.
+    The K34 kernel (pairs: K56) on CUDA tensors."""
     args = (targets, box_target_starts, box_target_counts_nonchild, rows,
             local_exps, centers, box_scale)
     if targets.device.type == "cpu":
         return l2p_helmholtz2d_plain(*args, k, order, nstart)
-    _check_args(k, local_exps.dtype, order)
+    dt = local_exps.dtype
+    _check_args(k, dt, order)
     kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(local_exps, dtype=torch.complex128)
+    kernels.check_tensors(local_exps, dtype=dt)
     kernels.check_tensors(box_target_starts, box_target_counts_nonchild,
                           rows, dtype=torch.int32)
-    if local_exps.shape != (centers.shape[1], 2 * order + 1):
-        raise ValueError("local_exps must be (nboxes, 2 * order + 1)")
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    if local_exps.shape != (centers.shape[1], _width(order, dt)):
+        raise ValueError("local_exps must be (nboxes, 2 * order + 1), twice "
+                         "that in pairs")
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
     if rows.numel() == 0:
         return out
     grid, scratch, counter = _launch_scratch(targets.device, rows.shape[0],
                                              order, nstart)
     kernels.launch(
-        "l2p_helmholtz2d", torch.complex128, targets, targets.shape[1],
+        "l2p_helmholtz2d", dt, targets, targets.shape[1],
         box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
         local_exps, centers, centers.shape[1], box_scale, k, order,
         even_start(nstart, order), grid, scratch, counter, out)

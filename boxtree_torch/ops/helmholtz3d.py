@@ -1,6 +1,16 @@
 """The particle stages of the 3D Helmholtz FMM: P2M, P2P (List 1), M2P
 (List 3), P2L (List 4) and L2P, each as a kernel wrapper and its plain
-twin, in complex128 (coordinates float64).
+twin, on two layouts (coordinates float64):
+
+- complex128: complex charges, ``(nboxes, (p+1)^2)`` complex coefficients
+  and complex potentials (the complex wrangler);
+- float64 pairs: real charges, ``(nboxes, 2 (p+1)^2)`` ``[re | im]``
+  coefficient rows and ``(n, 2)`` ``[re, im]`` potentials (the real-pair
+  wrangler, ``boxtree_tpu/models/helmholtz3d.py:373-521``).  Its twins
+  work on real lanes only (``*_pairs``, the reference's pair hooks); its
+  kernels are the ``_f64`` entry points of the same kernels.
+
+The layout follows the dtype of the charges or the expansions handed in.
 
 Kernel ``G(t, s) = exp(ik|t - s|) / |t - s|`` for a real wavenumber k; the
 basis is that of :mod:`boxtree_torch.models.helmholtz3d`: ``h_n(k r)
@@ -12,22 +22,27 @@ boxes that own particles (P2M, L2P).  On CPU tensors it runs the plain
 PyTorch twin; on CUDA tensors it launches the hand-written kernel of
 ``csrc/helmholtz3d.cu`` or raises.
 
-- P2M (K31): ``M_nm(b) = sum q_s w_nm j_n(k r) s^-n conj(A_n^m(u))`` over
-  the sources box ``b`` owns, ``q w_00`` at ``n = 0`` alone for ``r = 0``
-  (``helmholtz3d.py:316-328``).
-- L2P (K32): ``phi(t) = sum L_nm(b) j_n(k r) s^-n A_n^m(u)``, ``L_00(b)``
-  at ``r = 0`` (``helmholtz3d.py:330-339``).
-- P2P: ``phi(t) = sum q_s exp(ik r)/r``, ``r = 0`` skipped
-  (``boxtree_tpu/models/helmholtz3d.py:362-368``).
-- M2P: ``phi(t) += sum M_nm(b) h_n(k r) s^n A_n^m(u)`` with ``r u = ((t -
-  c_b) / s) s``, 0 at ``r = 0`` (``helmholtz3d.py:341-349``).
-- P2L: ``L_nm(b) += sum q_s w_nm h_n(k r) s^n conj(A_n^m(u))`` with ``r u
-  = ((x_s - c_b) / s) s`` (``helmholtz3d.py:351-360``).
+- P2M (K31, pairs K50): ``M_nm(b) = sum q_s w_nm j_n(k r) s^-n
+  conj(A_n^m(u))`` over the sources box ``b`` owns, ``q w_00`` at ``n =
+  0`` alone for ``r = 0`` (``helmholtz3d.py:316-328``; pairs ``:442``,
+  the term in the imaginary lane).
+- L2P (K32, pairs K51): ``phi(t) = sum L_nm(b) j_n(k r) s^-n
+  A_n^m(u)``, ``L_00(b)`` at ``r = 0`` (``helmholtz3d.py:330-339``;
+  pairs ``:461``, ``(loc[0], loc[K])``).
+- P2P (K9, pairs K47): ``phi(t) = sum q_s exp(ik r)/r``, ``r = 0``
+  skipped (``boxtree_tpu/models/helmholtz3d.py:362-368``; pairs ``:513``).
+- M2P (K10, pairs K48): ``phi(t) += sum M_nm(b) h_n(k r) s^n A_n^m(u)``
+  with ``r u = ((t - c_b) / s) s``, 0 at ``r = 0``
+  (``helmholtz3d.py:341-349``; pairs ``:478``).
+- P2L (K11, pairs K49): ``L_nm(b) += sum q_s w_nm h_n(k r) s^n
+  conj(A_n^m(u))`` with ``r u = ((x_s - c_b) / s) s``
+  (``helmholtz3d.py:351-360``; pairs ``:494``).
 
 ``s`` is the box's rscale (the source box's for M2P, the target box's for
 P2L, the particle's own box's for P2M and L2P); the hooks of the reference
 receive ``rel`` divided by it and work on ``rel * s``, which the twins and
-the kernels repeat.
+the kernels repeat.  ``w_nm = 4 pi i k D_nm^2``; the pair layout takes
+its real ``w_c = 4 pi k D_nm^2`` (``w_nm = i w_c``).
 """
 
 from __future__ import annotations
@@ -57,14 +72,8 @@ def angular(rel, order):
     """``(r, ok, A)`` of (3, ...) offsets: the length, ``r > 0``, and the
     regular harmonics of the unit direction, complex ``(..., (p+1)^2)``;
     ``r = 0`` takes the direction (0, 0, 1) (``helmholtz3d.py:285-293``)."""
-    r2 = (rel * rel).sum(0)
-    ok = r2 > 0
-    r = torch.sqrt(torch.where(ok, r2, torch.ones_like(r2)))
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=rel.dtype, device=rel.device)
-    u = torch.where(ok, rel, up.reshape((3,) + (1,) * (rel.ndim - 1))) / r
-    a = sh.regular_pairs(u, order)
-    k = sh.ncoeffs(order)
-    return r, ok, torch.complex(a[..., :k], a[..., k:])
+    r, ok, ar, ai = angular_pairs(rel, order)
+    return r, ok, torch.complex(ar, ai)
 
 
 def nm_orders(order, device):
@@ -132,9 +141,116 @@ def p2l_terms(rel, q, scale, w_nm, k, order):
 # }}}
 
 
+# {{{ the same on real pair lanes (helmholtz3d.py:432-521)
+
+def angular_pairs(rel, order):
+    """``(r, ok, A_re, A_im)``: :func:`angular` with the harmonics as two
+    real ``(..., (p+1)^2)`` lanes (``helmholtz3d.py:432-440``); ``r = 0``
+    takes the direction (0, 0, 1)."""
+    r2 = (rel * rel).sum(0)
+    ok = r2 > 0
+    r = torch.sqrt(torch.where(ok, r2, torch.ones_like(r2)))
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=rel.dtype, device=rel.device)
+    u = torch.where(ok, rel, up.reshape((3,) + (1,) * (rel.ndim - 1))) / r
+    a = sh.regular_pairs(u, order)
+    k = sh.ncoeffs(order)
+    return r, ok, a[..., :k], a[..., k:]
+
+
+def radial_y(r, k, order):
+    """``y_n(k r)`` over the coefficient axis (``helmholtz3d.py:509``)."""
+    return sb.spherical_yn(k * r, order)[..., nm_orders(order, r.device)]
+
+
+def p2m_terms_pairs(rel, q, scale, w_c, k, order):
+    """``[re | im]`` multipole coefficients of real charges *q*: ``q i w_c
+    j_n conj(A)`` as ``(-q w_c b_i, q w_c b_r)``, and at ``r = 0`` ``q
+    w_c`` in the imaginary lane of coefficient 0 alone
+    (``helmholtz3d.py:442-459``)."""
+    pw = dpow(scale, -1, order)
+    r, ok, ar, ai = angular_pairs(rel * scale, order)
+    j = radial_j(r, k, order)
+    br, bi = j * ar * pw, -j * ai * pw
+    qc = q[..., None] * w_c
+    lim = torch.zeros_like(qc)
+    lim[..., 0] = qc[..., 0]
+    okc = ok[..., None]
+    return torch.cat([torch.where(okc, -qc * bi, 0),
+                      torch.where(okc, qc * br, lim)], dim=-1)
+
+
+def l2p_eval_pairs(rel, loc, scale, k, order):
+    """``(..., 2)`` potentials of ``[re | im]`` locals *loc*; ``(loc[0],
+    loc[K])`` where ``r = 0`` (``helmholtz3d.py:461-476``)."""
+    pw = dpow(scale, -1, order)
+    r, ok, ar, ai = angular_pairs(rel * scale, order)
+    j = radial_j(r, k, order)
+    br, bi = j * ar * pw, j * ai * pw
+    kc = sh.ncoeffs(order)
+    lr, li = loc[..., :kc], loc[..., kc:]
+    v_re = torch.where(ok, (lr * br - li * bi).sum(-1), lr[..., 0])
+    v_im = torch.where(ok, (lr * bi + li * br).sum(-1), li[..., 0])
+    return torch.stack([v_re, v_im], dim=-1)
+
+
+def m2p_eval_pairs(rel, mp, scale, k, order):
+    """``(..., 2)`` potentials of ``[re | im]`` multipoles *mp*, with ``h
+    A = (j a_r - y a_i, j a_i + y a_r)``; 0 at ``r = 0``
+    (``helmholtz3d.py:478-492``)."""
+    pw = dpow(scale, +1, order)
+    r, ok, ar, ai = angular_pairs(rel * scale, order)
+    j, y = radial_j(r, k, order), radial_y(r, k, order)
+    br, bi = (j * ar - y * ai) * pw, (j * ai + y * ar) * pw
+    kc = sh.ncoeffs(order)
+    mr, mi = mp[..., :kc], mp[..., kc:]
+    return torch.stack([torch.where(ok, (mr * br - mi * bi).sum(-1), 0),
+                        torch.where(ok, (mr * bi + mi * br).sum(-1), 0)],
+                       dim=-1)
+
+
+def p2l_terms_pairs(rel, q, scale, w_c, k, order):
+    """``[re | im]`` local coefficients of real charges *q*, with ``h
+    conj(A) = (j a_r + y a_i, y a_r - j a_i)``; 0 at ``r = 0``
+    (``helmholtz3d.py:494-507``)."""
+    pw = dpow(scale, +1, order)
+    r, ok, ar, ai = angular_pairs(rel * scale, order)
+    j, y = radial_j(r, k, order), radial_y(r, k, order)
+    br, bi = (j * ar + y * ai) * pw, (y * ar - j * ai) * pw
+    qc = q[..., None] * w_c
+    okc = ok[..., None]
+    return torch.cat([torch.where(okc, -qc * bi, 0),
+                      torch.where(okc, qc * br, 0)], dim=-1)
+
+# }}}
+
+
+# {{{ the two layouts
+
+def _is_pairs(dtype):
+    """Whether *dtype* is the pair layout (float64) rather than the complex
+    one (complex128)."""
+    return dtype == torch.float64
+
+
+def _width(order, dtype):
+    """Values of *dtype* in one coefficient row."""
+    return sh.ncoeffs(order) * (2 if _is_pairs(dtype) else 1)
+
+
+def _pot_zeros(n, dtype, device):
+    """Zero potentials of *n* targets: ``(n, 2)`` float64 for the pairs,
+    ``(n,)`` complex128 otherwise."""
+    if _is_pairs(dtype):
+        return torch.zeros((n, 2), dtype=torch.float64, device=device)
+    return torch.zeros(n, dtype=torch.complex128, device=device)
+
+# }}}
+
+
 def _check_args(k, order, dtype):
-    if dtype != torch.complex128:
-        raise TypeError(f"the Helmholtz kernels take complex128, not {dtype}")
+    if dtype not in (torch.float64, torch.complex128):
+        raise TypeError("the Helmholtz kernels take complex128 or float64 "
+                        f"pairs, not {dtype}")
     if not isinstance(k, float):
         raise TypeError("the Helmholtz kernels take a real wavenumber")
     smem = (sh.ncoeffs(order) + (order + 1) * _KERNEL_THREADS) * 16 + 32
@@ -150,7 +266,7 @@ def p2p_helmholtz3d_plain(targets, sources, charges, box_target_starts,
                           box_source_counts_nonchild, target_boxes, starts,
                           lists, k):
     """Plain twin of :func:`p2p_helmholtz3d`."""
-    out = charges.new_zeros(targets.shape[1])
+    out = _pot_zeros(targets.shape[1], charges.dtype, charges.device)
     tbox, sbox = _edges(starts, lists, target_boxes)
     if tbox.numel() == 0:
         return out
@@ -169,9 +285,15 @@ def p2p_helmholtz3d_plain(targets, sources, charges, box_target_starts,
         ok = r2 > 0
         r = torch.sqrt(torch.where(ok, r2, torch.ones_like(r2)))
         kr = k * r
-        g = torch.where(ok, torch.complex(torch.cos(kr), torch.sin(kr)) / r,
-                        0)
-        vals = (g * q[:, None, :]).sum(-1)               # (E, pt)
+        if _is_pairs(charges.dtype):
+            inv = torch.where(ok, 1.0 / r, 0)
+            vals = torch.stack([((torch.cos(kr) * inv) * q[:, None, :])
+                                .sum(-1), ((torch.sin(kr) * inv)
+                                           * q[:, None, :]).sum(-1)], -1)
+        else:
+            g = torch.where(
+                ok, torch.complex(torch.cos(kr), torch.sin(kr)) / r, 0)
+            vals = (g * q[:, None, :]).sum(-1)           # (E, pt)
         out.index_add_(0, tidx[tmask], vals[tmask])
     return out
 
@@ -181,22 +303,23 @@ def p2p_helmholtz3d(targets, sources, charges, box_target_starts,
                     box_source_counts_nonchild, target_boxes, starts, lists,
                     k):
     """List-1 potentials (tree-order targets) of ``exp(ik|t - s|)/|t -
-    s|``; the K9 kernel on CUDA tensors."""
+    s|``: complex128 for complex128 charges, ``(n, 2)`` float64 for real
+    float64 charges.  The K9 kernel (pairs: K47) on CUDA tensors."""
     args = (targets, sources, charges, box_target_starts,
             box_target_counts_nonchild, box_source_starts,
             box_source_counts_nonchild, target_boxes, starts, lists)
     if targets.device.type == "cpu":
         return p2p_helmholtz3d_plain(*args, k)
-    _check_args(k, 0, charges.dtype)
+    dt = charges.dtype
+    _check_args(k, 0, dt)
     kernels.check_tensors(targets, sources, dtype=torch.float64)
-    kernels.check_tensors(charges, dtype=torch.complex128)
+    kernels.check_tensors(charges, dtype=dt)
     kernels.check_tensors(*args[3:], dtype=torch.int32)
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "p2p_helmholtz3d", torch.complex128, targets, targets.shape[1],
+        "p2p_helmholtz3d", dt, targets, targets.shape[1],
         sources, sources.shape[1], charges, box_target_starts,
         box_target_counts_nonchild, box_source_starts,
         box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
@@ -212,7 +335,8 @@ def m2p_helmholtz3d_plain(targets, box_target_starts,
                           box_target_counts_nonchild, rows, starts, lists,
                           mpoles, centers, box_scale, k, order):
     """Plain twin of :func:`m2p_helmholtz3d`."""
-    out = mpoles.new_zeros(targets.shape[1])
+    out = _pot_zeros(targets.shape[1], mpoles.dtype, mpoles.device)
+    evaluate = m2p_eval_pairs if _is_pairs(mpoles.dtype) else m2p_eval
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
@@ -225,7 +349,7 @@ def m2p_helmholtz3d_plain(targets, box_target_starts,
                               tb, pt)
         s = box_scale[sb_][:, None]                      # (E, 1)
         rel = (targets[:, tidx] - centers[:, sb_][..., None]) / s
-        val = m2p_eval(rel, mpoles[sb_][:, None, :], s.expand(rel.shape[1:]),
+        val = evaluate(rel, mpoles[sb_][:, None, :], s.expand(rel.shape[1:]),
                        k, order)
         out.index_add_(0, tidx[tmask], val[tmask])
     return out
@@ -235,24 +359,26 @@ def m2p_helmholtz3d(targets, box_target_starts, box_target_counts_nonchild,
                     rows, starts, lists, mpoles, centers, box_scale, k,
                     order):
     """List-3 potentials (tree-order targets) from the multipoles of the
-    listed source boxes; rows name target boxes.  The K10 kernel on CUDA
-    tensors."""
+    listed source boxes, complex128 or ``[re | im]`` float64 rows (then
+    ``(n, 2)`` potentials); rows name target boxes.  The K10 kernel
+    (pairs: K48) on CUDA tensors."""
     args = (targets, box_target_starts, box_target_counts_nonchild, rows,
             starts, lists, mpoles, centers, box_scale)
     if targets.device.type == "cpu":
         return m2p_helmholtz3d_plain(*args, k, order)
-    _check_args(k, order, mpoles.dtype)
+    dt = mpoles.dtype
+    _check_args(k, order, dt)
     kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(mpoles, dtype=torch.complex128)
+    kernels.check_tensors(mpoles, dtype=dt)
     kernels.check_tensors(*args[1:6], dtype=torch.int32)
-    if mpoles.shape != (centers.shape[1], sh.ncoeffs(order)):
-        raise ValueError("mpoles must be (nboxes, (order + 1)**2)")
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    if mpoles.shape != (centers.shape[1], _width(order, dt)):
+        raise ValueError("mpoles must be (nboxes, (order + 1)**2), twice "
+                         "that in pairs")
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "m2p_helmholtz3d", torch.complex128, targets, targets.shape[1],
+        "m2p_helmholtz3d", dt, targets, targets.shape[1],
         box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
         starts, lists, mpoles, centers, centers.shape[1], box_scale, k,
         order, out)
@@ -270,7 +396,8 @@ def p2l_helmholtz3d_plain(sources, charges, box_source_starts,
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
-    kc = sh.ncoeffs(order)
+    kc = _width(order, out.dtype)
+    term_fn = p2l_terms_pairs if _is_pairs(out.dtype) else p2l_terms
     ps = _max_count(box_source_counts_nonchild, sbox)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (ps * kc))
     for c0 in range(0, tbox.shape[0], chunk):
@@ -280,7 +407,7 @@ def p2l_helmholtz3d_plain(sources, charges, box_source_starts,
         s = box_scale[tb][:, None]                       # (E, 1)
         rel = (sources[:, sidx] - centers[:, tb][..., None]) / s
         q = torch.where(smask, charges[sidx], 0)
-        terms = p2l_terms(rel, q, s.expand(rel.shape[1:]), w_nm, k, order)
+        terms = term_fn(rel, q, s.expand(rel.shape[1:]), w_nm, k, order)
         terms = torch.where(smask[..., None], terms, 0)
         out.index_add_(0, tb, terms.sum(1))
     return out
@@ -291,26 +418,29 @@ def p2l_helmholtz3d(sources, charges, box_source_starts,
                     box_scale, w_nm, k, order, out):
     """Add the List-4 local-expansion contributions of the listed source
     boxes into ``out[rows]`` (``out`` is ``(nboxes, (order+1)^2)``
-    complex128); rows name target-or-target-parent boxes, each at most
-    once.  *w_nm* is the ``(order+1)^2`` complex weight ``4 pi i k D^2``.
-    The K11 kernel on CUDA tensors.  Returns *out*."""
+    complex128, or ``(nboxes, 2 (order+1)^2)`` ``[re | im]`` float64 with
+    real charges); rows name target-or-target-parent boxes, each at most
+    once.  *w_nm* is the ``(order+1)^2`` complex weight ``4 pi i k D^2``
+    (pairs: its real ``4 pi k D^2``).  The K11 kernel (pairs: K49) on CUDA
+    tensors.  Returns *out*."""
     args = (sources, charges, box_source_starts,
             box_source_counts_nonchild, rows, starts, lists, centers,
             box_scale, w_nm)
     if sources.device.type == "cpu":
         return p2l_helmholtz3d_plain(*args, k, order, out)
-    _check_args(k, order, out.dtype)
+    dt = out.dtype
+    _check_args(k, order, dt)
     kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(charges, w_nm, out, dtype=torch.complex128)
+    kernels.check_tensors(charges, w_nm, out, dtype=dt)
     kernels.check_tensors(*args[2:7], dtype=torch.int32)
-    if out.shape != (centers.shape[1], sh.ncoeffs(order)) \
+    if out.shape != (centers.shape[1], _width(order, dt)) \
             or w_nm.shape != (sh.ncoeffs(order),):
-        raise ValueError("out must be (nboxes, (order + 1)**2) and w_nm "
-                         "((order + 1)**2,)")
+        raise ValueError("out must be (nboxes, (order + 1)**2), twice that "
+                         "in pairs, and w_nm ((order + 1)**2,)")
     if lists.numel() == 0:
         return out
     kernels.launch(
-        "p2l_helmholtz3d", torch.complex128, sources, sources.shape[1],
+        "p2l_helmholtz3d", dt, sources, sources.shape[1],
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
         w_nm, k, order, out)
@@ -325,44 +455,47 @@ def p2m_helmholtz3d_plain(sources, charges, box_source_starts,
                           box_source_counts_nonchild, rows, centers,
                           box_scale, w_nm, k, order):
     """Plain twin of :func:`p2m_helmholtz3d`."""
-    kc = sh.ncoeffs(order)
+    kc = _width(order, charges.dtype)
     out = charges.new_zeros((centers.shape[1], kc))
+    term_fn = p2m_terms_pairs if _is_pairs(charges.dtype) else p2m_terms
     idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
                               rows)
     for c in _row_chunks(idx.shape[0], kc):
         i, b = idx[c], box[c]
         s = box_scale[b]
         rel = (sources[:, i] - centers[:, b]) / s
-        out.index_add_(0, b, p2m_terms(rel, charges[i], s, w_nm, k, order))
+        out.index_add_(0, b, term_fn(rel, charges[i], s, w_nm, k, order))
     return out
 
 
 def p2m_helmholtz3d(sources, charges, box_source_starts,
                     box_source_counts_nonchild, rows, centers, box_scale,
                     w_nm, k, order):
-    """Multipoles ``(nboxes, (order+1)^2)`` complex128 of the tree-order
-    sources that the boxes *rows* own (their nonchild ranges, each box at
-    most once); the other boxes' rows are zero.  *w_nm* is the
-    ``(order+1)^2`` complex weight ``4 pi i k D^2``.  The K31 kernel on
-    CUDA tensors."""
+    """Multipoles of the tree-order sources that the boxes *rows* own
+    (their nonchild ranges, each box at most once): ``(nboxes,
+    (order+1)^2)`` complex128 for complex128 charges, ``(nboxes, 2
+    (order+1)^2)`` ``[re | im]`` float64 for real float64 ones; the other
+    boxes' rows are zero.  *w_nm* is the ``(order+1)^2`` complex weight
+    ``4 pi i k D^2`` (pairs: its real ``4 pi k D^2``).  The K31 kernel
+    (pairs: K50) on CUDA tensors."""
     args = (sources, charges, box_source_starts,
             box_source_counts_nonchild, rows, centers, box_scale, w_nm)
     if sources.device.type == "cpu":
         return p2m_helmholtz3d_plain(*args, k, order)
-    _check_args(k, order, charges.dtype)
+    dt = charges.dtype
+    _check_args(k, order, dt)
     kernels.check_tensors(sources, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(charges, w_nm, dtype=torch.complex128)
+    kernels.check_tensors(charges, w_nm, dtype=dt)
     kernels.check_tensors(box_source_starts, box_source_counts_nonchild,
                           rows, dtype=torch.int32)
-    kc = sh.ncoeffs(order)
-    if w_nm.shape != (kc,):
+    if w_nm.shape != (sh.ncoeffs(order),):
         raise ValueError("w_nm must be ((order + 1)**2,)")
-    out = torch.zeros((centers.shape[1], kc), dtype=torch.complex128,
+    out = torch.zeros((centers.shape[1], _width(order, dt)), dtype=dt,
                       device=sources.device)
     if rows.numel() == 0:
         return out
     kernels.launch(
-        "p2m_helmholtz3d", torch.complex128, sources, sources.shape[1],
+        "p2m_helmholtz3d", dt, sources, sources.shape[1],
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], centers, centers.shape[1], box_scale, w_nm, k, order,
         out)
@@ -373,40 +506,43 @@ def l2p_helmholtz3d_plain(targets, box_target_starts,
                           box_target_counts_nonchild, rows, local_exps,
                           centers, box_scale, k, order):
     """Plain twin of :func:`l2p_helmholtz3d`."""
-    out = local_exps.new_zeros(targets.shape[1])
+    out = _pot_zeros(targets.shape[1], local_exps.dtype, local_exps.device)
+    evaluate = l2p_eval_pairs if _is_pairs(local_exps.dtype) else l2p_eval
     idx, box = _row_particles(box_target_starts, box_target_counts_nonchild,
                               rows)
     for c in _row_chunks(idx.shape[0], local_exps.shape[1]):
         i, b = idx[c], box[c]
         s = box_scale[b]
         rel = (targets[:, i] - centers[:, b]) / s
-        out[i] = l2p_eval(rel, local_exps[b], s, k, order)
+        out[i] = evaluate(rel, local_exps[b], s, k, order)
     return out
 
 
 def l2p_helmholtz3d(targets, box_target_starts, box_target_counts_nonchild,
                     rows, local_exps, centers, box_scale, k, order):
-    """Potentials (tree-order targets) of the complex128 local expansions
-    *local_exps* at the targets that the boxes *rows* own (their nonchild
-    ranges, each box at most once); the other targets' are zero.  The K32
-    kernel on CUDA tensors."""
+    """Potentials (tree-order targets) of the local expansions
+    *local_exps* (complex128, or ``[re | im]`` float64 rows, then ``(n,
+    2)`` potentials) at the targets that the boxes *rows* own (their
+    nonchild ranges, each box at most once); the other targets' are zero.
+    The K32 kernel (pairs: K51) on CUDA tensors."""
     args = (targets, box_target_starts, box_target_counts_nonchild, rows,
             local_exps, centers, box_scale)
     if targets.device.type == "cpu":
         return l2p_helmholtz3d_plain(*args, k, order)
-    _check_args(k, order, local_exps.dtype)
+    dt = local_exps.dtype
+    _check_args(k, order, dt)
     kernels.check_tensors(targets, centers, box_scale, dtype=torch.float64)
-    kernels.check_tensors(local_exps, dtype=torch.complex128)
+    kernels.check_tensors(local_exps, dtype=dt)
     kernels.check_tensors(box_target_starts, box_target_counts_nonchild,
                           rows, dtype=torch.int32)
-    if local_exps.shape != (centers.shape[1], sh.ncoeffs(order)):
-        raise ValueError("local_exps must be (nboxes, (order + 1)**2)")
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    if local_exps.shape != (centers.shape[1], _width(order, dt)):
+        raise ValueError("local_exps must be (nboxes, (order + 1)**2), "
+                         "twice that in pairs")
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
     if rows.numel() == 0:
         return out
     kernels.launch(
-        "l2p_helmholtz3d", torch.complex128, targets, targets.shape[1],
+        "l2p_helmholtz3d", dt, targets, targets.shape[1],
         box_target_starts, box_target_counts_nonchild, rows, rows.shape[0],
         local_exps, centers, centers.shape[1], box_scale, k, order, out)
     return out

@@ -13,8 +13,8 @@ Every C entry point takes its pointers and the CUDA stream as ``void*``,
 its sizes as ``long long`` and its real parameters as ``double``, launches
 on PyTorch's current stream, and returns ``cudaGetLastError()``;
 :func:`launch` checks the arguments before it builds anything, raises if
-the entry point returns non-zero, and otherwise adds one to the kernel's
-launch count.
+the entry point returns non-zero, and otherwise adds one to the entry
+point's launch count.
 """
 
 from __future__ import annotations
@@ -94,6 +94,9 @@ SIGNATURES = {
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.complex128: "c128"}
 _FLOATS = (torch.float32, torch.float64)
+#: the Helmholtz particle kernels: float64 is the real-pair layout (real
+#: charges, ``[re | im]`` coefficient rows, ``(n, 2)`` potentials)
+_HELMHOLTZ = (torch.float64, torch.complex128)
 
 #: kernel name -> the dtypes it has an entry point ``<name>_<suffix>``
 #: for; an empty tuple marks a kernel on integer data only, with one entry
@@ -107,16 +110,16 @@ DTYPES = {
     "area_query_sweep": _FLOATS,
     "space_invader_sweep": _FLOATS,
     "peer_lists": (),
-    "p2p_helmholtz3d": (torch.complex128,),
-    "m2p_helmholtz3d": (torch.complex128,),
-    "p2l_helmholtz3d": (torch.complex128,),
+    "p2p_helmholtz3d": _HELMHOLTZ,
+    "m2p_helmholtz3d": _HELMHOLTZ,
+    "p2l_helmholtz3d": _HELMHOLTZ,
     "stick_levels": _FLOATS,
     "box_extents": _FLOATS,
     "list4_ext": _FLOATS,
     "list3_ext": _FLOATS,
-    "p2p_helmholtz2d": (torch.complex128,),
-    "m2p_helmholtz2d": (torch.complex128,),
-    "p2l_helmholtz2d": (torch.complex128,),
+    "p2p_helmholtz2d": _HELMHOLTZ,
+    "m2p_helmholtz2d": _HELMHOLTZ,
+    "p2l_helmholtz2d": _HELMHOLTZ,
     "p2p_laplace2d": (*_FLOATS, torch.complex128),
     "m2p_laplace2d": (*_FLOATS, torch.complex128),
     "p2l_laplace2d": (*_FLOATS, torch.complex128),
@@ -129,10 +132,10 @@ DTYPES = {
     "p2m_laplace3d": (*_FLOATS, torch.complex128),
     "p2m_laplace3d_dipole": (*_FLOATS, torch.complex128),
     "l2p_laplace3d": (*_FLOATS, torch.complex128),
-    "p2m_helmholtz3d": (torch.complex128,),
-    "l2p_helmholtz3d": (torch.complex128,),
-    "p2m_helmholtz2d": (torch.complex128,),
-    "l2p_helmholtz2d": (torch.complex128,),
+    "p2m_helmholtz3d": _HELMHOLTZ,
+    "l2p_helmholtz3d": _HELMHOLTZ,
+    "p2m_helmholtz2d": _HELMHOLTZ,
+    "l2p_helmholtz2d": _HELMHOLTZ,
     "m2l_translate": (*_FLOATS, torch.complex128),
     "m2m_translate": (*_FLOATS, torch.complex128),
     "l2l_translate": (*_FLOATS, torch.complex128),
@@ -182,7 +185,10 @@ class KernelLibrary:
     def __init__(self):
         self._lib = None
         self._lock = threading.Lock()
-        self.launches = dict.fromkeys(SIGNATURES, 0)
+        #: launches by C entry point (``<name>_<suffix>``), which tell a
+        #: kernel's layouts apart; :func:`launch_counts` sums them by kernel
+        self.launches = {entry: 0 for name in SIGNATURES
+                         for entry in _entry_names(name)}
         self.build_seconds = None
         self.build_log = ""
         self.path = None
@@ -286,7 +292,7 @@ class KernelLibrary:
         if err != 0:
             msg = lib.boxtree_torch_error_string(err).decode()
             raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-        self.launches[name] += 1
+        self.launches[entry] += 1
 
 
 _LIBRARY = KernelLibrary()
@@ -303,12 +309,21 @@ def launch(name, dtype, *args):
 
 
 def launch_counts():
+    """Launches by kernel, over all its entry points."""
+    return {name: sum(_LIBRARY.launches[entry]
+                      for entry in _entry_names(name))
+            for name in SIGNATURES}
+
+
+def entry_launch_counts():
+    """Launches by C entry point: ``p2m_helmholtz3d_f64`` apart from
+    ``p2m_helmholtz3d_c128``."""
     return dict(_LIBRARY.launches)
 
 
 def reset_launch_counts():
-    for name in _LIBRARY.launches:
-        _LIBRARY.launches[name] = 0
+    for entry in _LIBRARY.launches:
+        _LIBRARY.launches[entry] = 0
 
 
 def check_tensors(*tensors, dtype):

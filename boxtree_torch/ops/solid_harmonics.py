@@ -198,3 +198,10 @@ def pair_matrix(mat):
     operator on ``[re | im]`` vectors: ``[[Re M, -Im M], [Im M, Re M]]``
     (numpy)."""
     return pair_blocks(np.real(mat), np.imag(mat))
+
+
+def pair_tensor(mats, device):
+    """:func:`pair_matrix` of a complex (..., K, K) operator stack (a tensor
+    or numpy) as a tensor, built on *device*."""
+    mats = torch.as_tensor(mats, device=device)
+    return pair_blocks(mats.real, mats.imag)

@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives eight
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives ten
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -21,6 +21,16 @@ paths of the port on the card, each with the kernels' launch counts set to
 - the 3D Helmholtz FMM (complex128, order 12, k = 2, ``rscale="auto"``) at
   1e6 uniform points in float64, checked against a complex128 direct sum
   at 2,000 sampled targets (K1, K9-K11, K31 P2M, K32 L2P);
+- the real-pair 3D Helmholtz FMM (``helmholtz_pairs_fmm``): the wrangler
+  that ``pairs=None`` gives on the card (float64 ``[re | im]``
+  coefficients, ``(n, 2)`` potentials), on the 3D Helmholtz path's tree
+  and traversal with the real parts of its charges, against the complex
+  wrangler's FMM on the same traversal and charges at every target (rel
+  l-inf <= 1e-12) and the complex128 direct sum at 2,000 targets (< 1e-5),
+  with no host read in M2L (K47-K51, the float64 entry points of K9-K11,
+  K31 and K32, and K35-K37 in float64), K47-K51 against their twins at
+  the path's own inputs; then K47-K51 against their twins at 1e5 points
+  (``kernels_helmholtz_pairs``);
 - the QBX extent tree: Config B's 1e6 sphere points as sources and 1e5
   QBX-like centres with radii as targets (stick-out factor 0.25), the
   traversal with its close lists, the counting FMM exact with the close
@@ -36,6 +46,12 @@ paths of the port on the card, each with the kernels' launch counts set to
   (a J recurrence from 954, past the 227 KiB a CTA that K17 / K18 once
   needed): its FMM, finite, and K17, K18, K33 and K34 against their twins
   at its inputs;
+- the real-pair 2D Helmholtz FMM (``helmholtz2d_pairs_fmm``) likewise on
+  the 2D Helmholtz path's tree (K52-K56, the float64 entry points of
+  K16-K18, K33 and K34), K52-K56 against their twins at its inputs and
+  at 1e5 points, and
+  the pair wrangler at order 16, k = 200 on the 2e4 points above: its FMM
+  through K52-K56 and K53-K56 against their twins;
 - the 2D Laplace FMM (order 20, ``rscale="auto"``), complex128 and float64
   pairs on one tree, at 1e6 float64 points in the unit square, 24 % of
   them in [0.45, 0.55]^2, with real charges: the real parts against a
@@ -117,7 +133,8 @@ twins.
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
 1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
-on every entry point there),
+on every entry point there; K47-K56 at 1e5 points only, timed alone at
+their 1e6 path's inputs),
 and timed beside it (median of 5 synchronised calls; 3 for the slow
 Helmholtz twins at 1e6) and beside its bound, the least time the card
 could take for the same work.  Each phase prints one JSON line; then come
@@ -300,6 +317,36 @@ HELMHOLTZ_FMM_RTOL = 1e-5
 #: (K33, K34, the twin's step for step), the warp sums in another order
 HELMHOLTZ_P2M_L2P_RTOL = 1e-12
 
+#: K47-K56: the float64 entry points of the ten Helmholtz particle kernels,
+#: the real-pair wranglers' layout (real charges, ``[re | im]`` rows), by
+#: kernel: their number and the reference's pair hook they replace
+PAIR_KERNELS = {
+    "p2p_helmholtz3d": ("K47", "boxtree_tpu/models/helmholtz3d.py:513"),
+    "m2p_helmholtz3d": ("K48", "boxtree_tpu/models/helmholtz3d.py:478"),
+    "p2l_helmholtz3d": ("K49", "boxtree_tpu/models/helmholtz3d.py:494"),
+    "p2m_helmholtz3d": ("K50", "boxtree_tpu/models/helmholtz3d.py:442"),
+    "l2p_helmholtz3d": ("K51", "boxtree_tpu/models/helmholtz3d.py:461"),
+    "p2p_helmholtz2d": ("K52", "boxtree_tpu/models/helmholtz.py:407"),
+    "m2p_helmholtz2d": ("K53", "boxtree_tpu/models/helmholtz.py:391"),
+    "p2l_helmholtz2d": ("K54", "boxtree_tpu/models/helmholtz.py:400"),
+    "p2m_helmholtz2d": ("K55", "boxtree_tpu/models/helmholtz.py:378"),
+    "l2p_helmholtz2d": ("K56", "boxtree_tpu/models/helmholtz.py:384"),
+}
+#: rel l-inf tolerance of K47-K56 against their twins, per coefficient
+#: column and per potential lane: the math of K9-K11, K16-K18 and K31-K34
+#: on another layout, rounded as theirs (1.1e-15 to 5.9e-15 measured on
+#: the card at 2e4 points, 700 W)
+HELMHOLTZ_PAIR_KERNEL_RTOL = 1e-12
+#: rel l-inf bound of ``pot[:, 0] + 1j pot[:, 1]`` of a pair FMM against
+#: the complex wrangler's potential on the same traversal and charges
+#: (``tests/test_helmholtz3d.py:170``, ``tests/test_helmholtz.py:183``)
+HELMHOLTZ_PAIRS_RTOL = 1e-12
+#: with real charges some coefficient lanes are zero but for rounding (the
+#: real lane of the 3D m = 0 and the 2D n = 0 multipoles): a lane whose
+#: largest value is below this fraction of the array's is held to the
+#: array's largest value
+ZERO_LANE = 1e-12
+
 #: rel l-inf tolerance of K16-K18 against their twins: float64; K16's H_0
 #: comes from CUDA's j0/y0 (a few ulp), K17/K18 repeat the twin's
 #: recurrence with FMA contraction, and the sums run in another order
@@ -414,6 +461,18 @@ def rel_linf_per_coefficient(got, ref):
     err = (got - ref).abs()
     scale = ref.abs().amax(0)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return err.max().item(), (err.amax(0) / scale).max().item()
+
+
+def rel_linf_per_lane(got, ref):
+    """``(max_abs_err, rel)`` of ``(n, 2)`` potentials or ``[re | im]``
+    expansions, each column held to its own largest ``|ref|``, a lane below
+    ``ZERO_LANE`` of the array's largest to that largest."""
+    import torch
+    err = (got - ref).abs()
+    scale = ref.abs().amax(0)
+    top = scale.max()
+    scale = torch.where(scale >= ZERO_LANE * top, scale, top)
     return err.max().item(), (err.amax(0) / scale).max().item()
 
 
@@ -1284,7 +1343,8 @@ def helmholtz_work(inputs):
 
     - K9: per List-1 particle pair, 20 (difference 3, squared norm 5,
       complex kernel times charge and add 12; the square root, divide and
-      sincos are not counted).
+      sincos are not counted); K47, its pair entry point, 12 (the kernel
+      times a real charge and added 4).
     - K10: per (target particle, List-3 source box) pair, with ``nc = (p +
       1)^2`` coefficients: 8 per coefficient (the complex multiply-add of
       multipole and harmonic into the sum over ``m``), 8 per order ``n``
@@ -1296,8 +1356,13 @@ def helmholtz_work(inputs):
       coefficient (the complex multiply-add of ``q h_n s^n`` and the
       conjugate harmonic into the box's sum over sources; ``w_nm`` is
       applied once per box, after that sum), 6 per order ``n`` (``q`` times
-      the radial factor), and the same recurrences; then 6 per coefficient
-      of each target box (the ``w_nm`` product).
+      the radial factor; 2 for K49's real charge), and the same
+      recurrences; then 6 per coefficient of each target box (the ``w_nm``
+      product; 2 for K49's ``i w_c``).
+
+    Charges are 16 bytes (complex128) or 8 (K47-K49's real ones); a
+    potential is 16 bytes and a coefficient 16 (complex128, or a ``[re |
+    im]`` pair) in both layouts.
     """
     import torch
 
@@ -1310,13 +1375,14 @@ def helmholtz_work(inputs):
     out = {}
     (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _) = \
         inputs["p2p_helmholtz3d"][2]
+    real_q = not q.is_complex()
     tcn64, scn64 = tcn.to(torch.int64), scn.to(torch.int64)
     pairs = int((tcn64[tb.to(torch.int64)[row_of(st, ls)]]
                  * scn64[ls.to(torch.int64)]).sum())
     out["p2p_helmholtz3d"] = dict(
-        type="float64", particle_pairs=pairs, flops=20 * pairs,
-        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
-                        q.element_size()))
+        type="float64", particle_pairs=pairs,
+        flops=(12 if real_q else 20) * pairs,
+        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, 16))
 
     (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order) = \
         inputs["m2p_helmholtz3d"][2]
@@ -1328,17 +1394,18 @@ def helmholtz_work(inputs):
         type="float64", target_box_pairs=pairs, coefficients=nc,
         flops=(8 * nc + 8 * (order + 1) + common) * pairs,
         bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
-                        mp.element_size()))
+                        16))
 
     (src, q, sst, scn, rows, st, ls, centers, scale, w_nm, _, order) = \
         inputs["p2l_helmholtz3d"][2]
+    per_q, per_w = (2, 2) if real_q else (6, 6)
     pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
     out["p2l_helmholtz3d"] = dict(
         type="float64", source_box_pairs=pairs, coefficients=nc,
-        flops=((8 * nc + 6 * (order + 1) + common) * pairs
-               + 6 * nc * rows.shape[0]),
+        flops=((8 * nc + per_q * (order + 1) + common) * pairs
+               + per_w * nc * rows.shape[0]),
         bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
-                        nc * q.element_size()) + nbytes(w_nm))
+                        nc * 16) + nbytes(w_nm))
     return out
 
 
@@ -1378,17 +1445,19 @@ def helmholtz_p2m_l2p_work(inputs):
       25`` down, 1 per step of ``p`` up), the harmonics (10 per ``(n, m >=
       0)``), 10 per coefficient (K31: ``j_n`` times the conjugate harmonic
       2, times ``q`` 6, summed 2; K32: ``j_n s^-n`` times the harmonic 2,
-      times the local coefficient and added 8) and K32's 1 per order (the
-      ``s^-n`` scaling); K31 then 8 per coefficient of each row (``s^-n``
-      and ``w_nm``);
+      times the local coefficient and added 8; K50 with a real ``q`` 6) and
+      K32's 1 per order (the ``s^-n`` scaling); K31 then 8 per coefficient
+      of each row (``s^-n`` and ``w_nm``; K50 4, by ``i w_c``);
     - 2D (``nc = 2p + 1``, ``ns`` the even start): the offset and its
       norm 9, the J recurrence (4 per step down, 1 per product, 2 per even
       order for the Neumann sum, 1 per order ``J_n``); per order ``m``, for
       ``+m`` and for ``-m`` each, 10 (K33: ``J`` times the phase and
-      ``s^-m`` 4, times ``(i/4) q`` 6) or 12 (K34: 4, then the complex
-      multiply-add 8).
+      ``s^-m`` 4, times ``(i/4) q`` 6; K55 with a real ``q`` 6) or 12
+      (K34: 4, then the complex multiply-add 8).
 
-    ``log``, ``sincos``, ``pow`` and ``atan2`` are not counted."""
+    ``log``, ``sincos``, ``pow`` and ``atan2`` are not counted.  A P2M
+    reads each charge's 16 bytes (complex128) or 8 (K50, K55), and K50 a
+    real ``w_c`` of 8 bytes a coefficient."""
     import torch
 
     from boxtree_torch.ops.cylinder_bessel import even_start
@@ -1398,6 +1467,7 @@ def helmholtz_p2m_l2p_work(inputs):
         pts = args[0]
         dim = pts.shape[0]
         p2m = name.startswith("p2m_")
+        real_q = p2m and not args[1].is_complex()
         starts, counts, rows = args[2:5] if p2m else args[1:4]
         centers = args[5]
         order = args[-1] if dim == 3 else args[-2]
@@ -1405,22 +1475,23 @@ def helmholtz_p2m_l2p_work(inputs):
         nrows = int(rows.numel())
         per_row = (starts.element_size() + counts.element_size()
                    + dim * centers.element_size() + 8)
-        per_part = dim * pts.element_size() + 16
+        per_part = dim * pts.element_size() + (8 if real_q else 16)
         if dim == 3:
             nc = (order + 1) ** 2
             flops = (3 * (order + 25) + order
-                     + 10 * (order + 1) * (order + 2) // 2 + 10 * nc)
-            flops = flops * npart + (8 * nc * nrows if p2m
+                     + 10 * (order + 1) * (order + 2) // 2
+                     + (6 if real_q else 10) * nc)
+            flops = flops * npart + ((4 if real_q else 8) * nc * nrows if p2m
                                      else (order + 1) * npart)
         else:
             nc = 2 * order + 1
             ns = even_start(args[-1], order)
-            per_order = 10 if p2m else 12
+            per_order = (6 if real_q else 10) if p2m else 12
             flops = (9 + 5 * ns + 2 * (ns // 2) + (order + 1)
                      + per_order * (2 * order + 1)) * npart
         if p2m:
-            written = centers.shape[1] * nc * 16 + (nc * 16 if dim == 3
-                                                     else 0)
+            written = centers.shape[1] * nc * 16 + (
+                nbytes(args[7]) if dim == 3 else 0)
         else:
             written = 0
             per_row += nc * 16
@@ -1459,12 +1530,13 @@ def check_p2m_l2p_helmholtz_launches(launches, path, names):
 
 
 def check_list_kernels(inputs, device, plain_reps,
-                       rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None):
+                       rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None, rel_fn=None):
     """Run list kernels (K2-K4, K9-K11, K16-K23, K41, K42) or K28-K34,
     K38-K40 and their twins on the same inputs; raise on a rel l-inf above
     *rtol* (a P2L's local coefficients and a Helmholtz or 2D Laplace P2M's
     multipoles each held to their own column's scale, a 3D Laplace P2M's
-    multipoles box by box to their row's).  Returns ``{name: {max_abs_err,
+    multipoles box by box to their row's; every output by *rel_fn* when it
+    is given).  Returns ``{name: {max_abs_err,
     rel_err, ms, plain_ms, plain_reps}}``: the kernel's median of 5, the
     twin's median of *plain_reps*, or its first call alone when that took
     more than *slow_s* seconds."""
@@ -1472,7 +1544,8 @@ def check_list_kernels(inputs, device, plain_reps,
     for name, (kernel, plain, args) in inputs.items():
         got = kernel(*args)
         ref, t_plain = timed(lambda: plain(*args), device)
-        err, rel = (rel_linf_per_coefficient
+        err, rel = (rel_fn if rel_fn is not None
+                    else rel_linf_per_coefficient
                     if name.startswith(("p2l_", "p2m_helmholtz",
                                         "p2m_laplace2d"))
                     else rel_linf_per_row if name.startswith("p2m_")
@@ -1506,6 +1579,187 @@ def direct_sum_helmholtz(sources, charges, targets, k, chunk=1 << 15):
     return out
 
 
+# {{{ the real-pair Helmholtz wranglers (K47-K56)
+
+def helmholtz_pair_inputs(w, q_tree):
+    """K47-K51 (a 3D pair wrangler *w*) or K52-K56 (2D): wrappers, plain
+    twins and arguments at the shapes the FMM of *w* gives them, on real
+    tree-order charges *q_tree* (L2P at this FMM's locals)."""
+    inputs = (helmholtz_inputs if w.dim == 3 else helmholtz2d_inputs)(
+        w.traversal, w, q_tree)
+    inputs.update(helmholtz_p2m_l2p_inputs(w, q_tree))
+    return inputs
+
+
+def helmholtz_pair_work(inputs, dim):
+    """The bytes and float64 operations of K47-K51 (*dim* 3) or K52-K56 at
+    *inputs*: :func:`helmholtz_work` or :func:`helmholtz2d_work` and
+    :func:`helmholtz_p2m_l2p_work`, which count the real charges' 8
+    bytes and their cheaper products."""
+    work = (helmholtz_work if dim == 3 else helmholtz2d_work)(inputs)
+    work.update(helmholtz_p2m_l2p_work(
+        {n: v for n, v in inputs.items() if n.startswith(("p2m_", "l2p_"))}))
+    return work
+
+
+def pair_entry(name, launches, res, work, small):
+    """The summary entry of the float64 entry point of kernel *name*
+    (K47-K56): its launches on the 1e6 pair path and its numbers against
+    its twin there (*res*, *work*), with those at 1e5 points (*small*)."""
+    number, replaces = PAIR_KERNELS[name]
+    e = summary_entry(name, launches, res, work)
+    e.update(name=f"{name}_f64", kernel=number, replaces=replaces,
+             entry_points=[f"{name}_f64"], at_1e5=small)
+    return e
+
+
+def check_pair_kernels(card, device, dim, pts, q, k, order, launches):
+    """K47-K51 (*dim* 3) or K52-K56 against their twins on the pair
+    wrangler of *pts* (order *order*, wavenumber *k*, ``rscale="auto"``)
+    with real user-order charges *q*, each result per coefficient column
+    or potential lane; emits a ``kernels_helmholtz_pairs`` line with
+    *launches*, the pair path's, and returns the results."""
+    from boxtree_torch import build_tree
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.traversal import build_traversal
+
+    tree = build_tree(pts, max_particles_in_box=30)
+    w = make_helmholtz_wrangler(build_traversal(tree), k, order,
+                                rscale="auto", pairs=True)
+    if w._l3_csr is None or not w._l4_csr[2].numel():
+        raise AssertionError(f"Lists 3 and 4 empty at {pts.shape[1]} "
+                             "points")
+    inputs = helmholtz_pair_inputs(w, w.reorder_sources(q))
+    work = helmholtz_pair_work(inputs, dim)
+    res = check_list_kernels(inputs, device, plain_reps=3,
+                             rtol=HELMHOLTZ_PAIR_KERNEL_RTOL, slow_s=1.0,
+                             rel_fn=rel_linf_per_lane)
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(work[name])
+        r["launches"] = launches[f"{name}_f64"]
+    emit({"phase": "kernels_helmholtz_pairs", "card": card, "dim": dim,
+          "points": pts.shape[1], "nboxes": tree.nboxes,
+          "nlevels": tree.nlevels, "order": order, "k": k,
+          "tolerance_rel_linf": HELMHOLTZ_PAIR_KERNEL_RTOL,
+          "rel": "per coefficient column and per potential lane",
+          "launches_from": f"the 1e6 pair FMM ({dim}D)",
+          "kernels": {PAIR_KERNELS[n][0]: {"entry_point": f"{n}_f64", **r}
+                      for n, r in res.items()},
+          "work": work})
+    return res
+
+
+def run_helmholtz_pairs(device, card, translation, trav, pts, q, k, order,
+                        direct_sum, nsample=2000):
+    """The real-pair wrangler on the traversal *trav* of a complex
+    Helmholtz path (its 1e6 points *pts*), real charges *q*: the complex
+    wrangler's FMM on the same traversal and charges first (the
+    reference), then the pair wrangler that ``pairs=None`` gives on the
+    card, its setup and FMM timed, every kernel counted by entry point,
+    its potentials against the complex ones at every target and against
+    *direct_sum* at *nsample* targets, its host reads, its peak memory
+    and the M2L tables' bytes; then K47-K56 against their twins at its
+    inputs (every coefficient column and potential lane to
+    ``HELMHOLTZ_PAIR_KERNEL_RTOL``; a twin that takes more than a second
+    is timed once), with their bounds, and K35-K37 on the pair layout
+    (``kernels_translation``).  Emits a ``helmholtz_pairs_fmm`` or
+    ``helmholtz2d_pairs_fmm`` line and returns ``(launches by entry
+    point, {name: numbers at the path's inputs}, {name: work})``."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.ops import kernels
+
+    dim = trav.tree.dimensions
+    phase = "helmholtz_pairs_fmm" if dim == 3 else "helmholtz2d_pairs_fmm"
+    n = pts.shape[1]
+    wc = make_helmholtz_wrangler(trav, k, order, rscale="auto", pairs=False)
+    ref_c = drive_fmm(wc, [q.to(torch.complex128)])
+    c128_table = wc._m2l_plan.nbytes
+    del wc
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    w, t_setup = timed(lambda: make_helmholtz_wrangler(
+        trav, k, order, rscale="auto"), device)
+    pot, t_fmm = timed(lambda: drive_fmm(w, [q]), device)
+    entries = kernels.entry_launch_counts()
+    launches = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+    stages = {}
+    _, t_fmm_warm = timed(lambda: drive_fmm(w, [q], timing_data=stages),
+                          device)
+    got = torch.complex(pot[:, 0], pot[:, 1])
+    _, rel_c = rel_linf(got, ref_c)
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n, nsample, replace=False), device=device)
+    abs_d, rel_d = rel_linf(got[sample], direct_sum(
+        pts, q.to(torch.complex128), pts[:, sample], k))
+    reads = fmm_host_reads(w, q)
+    if device.type == "cuda":
+        reads["multipole_to_local_sync_debug"] = m2l_syncs(w, q)
+    finite = bool(torch.isfinite(pot).all())
+    inputs = helmholtz_pair_inputs(w, w.reorder_sources(q))
+    work = helmholtz_pair_work(inputs, dim)
+    path = check_list_kernels(inputs, device, plain_reps=3,
+                              rtol=HELMHOLTZ_PAIR_KERNEL_RTOL, slow_s=1.0,
+                              rel_fn=rel_linf_per_lane)
+    for name, r in path.items():
+        r["bound_ms"], r["bound_by"] = bound(work[name])
+    del inputs
+    emit({"phase": phase, "card": card, "points": n, "k": k,
+          "order": order, "rscale": "auto", "dtype": "float64 pairs",
+          "wrangler": type(w).__name__, "pairs_rule": "pairs=None on CUDA",
+          "nboxes": trav.tree.nboxes, "nlevels": trav.tree.nlevels,
+          "coefficients": w.ncoeff, "wrangler_setup_s": t_setup,
+          "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "stage_s": stages,
+          "host_reads_per_fmm": reads, "peak_mem_gb": peak,
+          "m2l_table_bytes": w._m2l_plan.nbytes,
+          "m2l_table_bytes_c128": c128_table,
+          "m2l_used_keys": len(w._m2l_plan.used),
+          "rel_linf_vs_c128_wrangler": rel_c,
+          "bar_vs_c128": HELMHOLTZ_PAIRS_RTOL,
+          "sampled_targets": nsample, "rel_linf_vs_c128_direct": rel_d,
+          "abs_linf": abs_d, "bar_vs_direct": HELMHOLTZ_FMM_RTOL,
+          "finite": finite,
+          "entry_launches": {e: c for e, c in entries.items()
+                             if c and "helmholtz" in e},
+          "kernels_at_path": {PAIR_KERNELS[nm][0]: r
+                              for nm, r in path.items()},
+          "work_at_path": work})
+    if type(w).__name__ != f"Helmholtz{dim}DPairsExpansionWrangler":
+        raise AssertionError(f"{phase}: pairs=None on the card gave "
+                             f"{type(w).__name__}")
+    if not finite or tuple(pot.shape) != (n, 2) \
+            or pot.dtype != torch.float64:
+        raise AssertionError(f"{phase}: non-finite or misshapen output")
+    if not rel_c <= HELMHOLTZ_PAIRS_RTOL:
+        raise AssertionError(f"{phase}: rel l-inf {rel_c:.3e} against the "
+                             f"complex wrangler > {HELMHOLTZ_PAIRS_RTOL}")
+    if not rel_d < HELMHOLTZ_FMM_RTOL:
+        raise AssertionError(f"{phase}: rel l-inf {rel_d:.3e} against the "
+                             f"direct sum >= {HELMHOLTZ_FMM_RTOL}")
+    if device.type == "cuda" and (reads["fmm"] != 0 or reads[
+            "multipole_to_local"] not in (0, None)):
+        raise AssertionError(f"{phase}: host reads {reads}")
+    names = [nm for nm in PAIR_KERNELS if nm.endswith(f"{dim}d")]
+    bad = {e: entries[e] for nm in names for e in (f"{nm}_f64",
+                                                   f"{nm}_c128")
+           if (entries[e] == 0) == e.endswith("_f64")}
+    once = {nm: entries[f"{nm}_f64"] for nm in names
+            if nm.startswith(("p2m_", "l2p_"))}
+    if device.type == "cuda" and (bad or set(once.values()) != {1} or any(
+            launches[nm] <= 0 for nm in FMM_TRANSLATE)):
+        raise AssertionError(f"{phase}: launches by entry point {bad}, "
+                             f"P2M / L2P {once}")
+    check_translation(card, device, f"helmholtz{dim}d", [("f64", w, q)],
+                      translation)
+    return entries, path, work
+
+
 def run_helmholtz(device, card, translation, n_kernels=100_000,
                   n_main=1_000_000, k=2.0,
                   order=12, nsample=2000):
@@ -1532,7 +1786,7 @@ def run_helmholtz(device, card, translation, n_kernels=100_000,
     q = complex_charges(rng, n_kernels)
     tree = build_tree(pts, max_particles_in_box=30)
     trav = build_traversal(tree)
-    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto", pairs=False)
     if wr._l3_csr is None or not wr._l4_csr[2].numel():
         raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} points")
     small = check_list_kernels(
@@ -1609,10 +1863,11 @@ def run_helmholtz(device, card, translation, n_kernels=100_000,
     # }}}
 
     # the kernels against their twins at the path's own shapes (the twins
-    # of K10 and K11 take seconds a call here: their times are medians of 3)
+    # of K10 and K11 take seconds a call here: a twin slower than a second
+    # is timed once, the others by a median of 3)
     inputs = helmholtz_inputs(trav, wr, wr.reorder_sources(q))
     work = helmholtz_work(inputs)
-    res = check_list_kernels(inputs, device, plain_reps=3)
+    res = check_list_kernels(inputs, device, plain_reps=3, slow_s=1.0)
     emit({"phase": "kernels_helmholtz", "card": card, "points": n_main,
           "order": order, "k": k,
           "tolerance_rel_linf": HELMHOLTZ_KERNEL_RTOL,
@@ -1624,8 +1879,22 @@ def run_helmholtz(device, card, translation, n_kernels=100_000,
                       translation)
     res.update(pres)
     work.update(pwork)
-    return [summary_entry(name, launches[name], res[name], work[name])
-            for name in res]
+    out = [summary_entry(name, launches[name], res[name], work[name])
+           for name in res]
+    del inputs, wr
+
+    # the real-pair wrangler on the same traversal with the charges' real
+    # parts, then K47-K51 against their twins on the 1e5 points above
+    entries, path, pwork = run_helmholtz_pairs(
+        device, card, translation, trav, pts, q.real.contiguous(), k, order,
+        direct_sum_helmholtz, nsample)
+    del tree, trav
+    rng = np.random.default_rng(21)
+    pts = torch.as_tensor(rng.random((3, n_kernels)), device=device)
+    q = torch.as_tensor(rng.standard_normal(n_kernels), device=device)
+    small = check_pair_kernels(card, device, 3, pts, q, k, order, entries)
+    return out + [pair_entry(name, entries[f"{name}_f64"], path[name],
+                             pwork[name], small[name]) for name in path]
 
 # }}}
 
@@ -2016,8 +2285,9 @@ def helmholtz2d_work(inputs):
 
     - K16: per List-1 particle pair with ``r > 0`` (the pairs of each
       target with itself are not evaluated), 16: difference 2, squared
-      norm 3, ``k r`` 1, ``(i/4) H_0`` 2, times the charge and added 8.  The
-      square root and CUDA's ``j0``/``y0`` are not counted.
+      norm 3, ``k r`` 1, ``(i/4) H_0`` 2, times the charge and added 8 (4
+      for K52's real charge).  The square root and CUDA's ``j0``/``y0`` are
+      not counted.
     - K17, per (target particle, List-3 source box) pair, and K18, per
       (List-4 source particle, target box) pair: the offset and its norm 9;
       the J recurrence from ``ns`` (the even start order): 4 per step down
@@ -2027,8 +2297,11 @@ def helmholtz2d_work(inputs):
       are not counted); per order ``m = 0..p``, K17 16 (``H_m`` times the
       phase 6, times ``s^m`` 2, times the multipole and added 8) and 18 more
       for ``-m`` (the sign 2); K18 14 (phase 6, ``s^m`` 2, times ``(i/4)
-      q`` 6), 16 more for ``-m`` and 2 per coefficient for the sum over
-      sources, then 2 per coefficient of each target box.
+      q`` 6; K54's real charge 2 in place of 6), 16 more for ``-m`` (12 for
+      K54) and 2 per coefficient for the sum over sources, then 2 per
+      coefficient of each target box.
+
+    Bytes as in :func:`helmholtz_work`: K52-K54's real charges 8 bytes.
     """
     import torch
 
@@ -2041,11 +2314,12 @@ def helmholtz2d_work(inputs):
     out = {}
     (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _, _) = \
         inputs["p2p_helmholtz2d"][2]
+    real_q = not q.is_complex()
     pairs = list1_pairs(tcn, scn, tb, st, ls)
     out["p2p_helmholtz2d"] = dict(
-        type="float64", particle_pairs=pairs, flops=16 * pairs,
-        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls,
-                        q.element_size()))
+        type="float64", particle_pairs=pairs,
+        flops=(12 if real_q else 16) * pairs,
+        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, 16))
 
     (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order, nstart) = \
         inputs["m2p_helmholtz2d"][2]
@@ -2059,7 +2333,7 @@ def helmholtz2d_work(inputs):
         coefficients=nc,
         flops=(common + 16 * (order + 1) + 18 * order) * pairs,
         bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
-                        mp.element_size()))
+                        16))
 
     (src, q, sst, scn, rows, st, ls, centers, scale, _, order, nstart) = \
         inputs["p2l_helmholtz2d"][2]
@@ -2067,10 +2341,11 @@ def helmholtz2d_work(inputs):
     out["p2l_helmholtz2d"] = dict(
         type="float64", source_box_pairs=pairs, recurrence_start=ns,
         coefficients=nc,
-        flops=((common + 14 * (order + 1) + 16 * order + 2 * nc) * pairs
+        flops=((common + (10 if real_q else 14) * (order + 1)
+                + (12 if real_q else 16) * order + 2 * nc) * pairs
                + 2 * nc * rows.shape[0]),
         bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
-                        nc * q.element_size()))
+                        nc * 16))
     return out
 
 
@@ -2145,7 +2420,7 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
     pts, q = on_card(*clustered_square_points(n_kernels, seed + 1))
     tree = build_tree(pts, max_particles_in_box=30)
     trav = build_traversal(tree)
-    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto", pairs=False)
     if wr._l3_csr is None or not wr._l4_csr[2].numel():
         raise AssertionError(f"Lists 3 and 4 empty at {n_kernels} points")
     small = check_list_kernels(
@@ -2173,7 +2448,8 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
                          device)
     trav, t_trav = timed(lambda: build_traversal(tree), device)
     wr, t_setup = timed(lambda: make_helmholtz_wrangler(
-        trav, helmholtz_k=k, order=order, rscale="auto"), device)
+        trav, helmholtz_k=k, order=order, rscale="auto", pairs=False),
+        device)
     pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
     t_total = time.perf_counter() - t_start
     launches = kernels.launch_counts()
@@ -2236,11 +2512,12 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
 
     # }}}
 
-    # the kernels against their twins at the path's own shapes (the twins
-    # take seconds a call here: their times are medians of 3)
+    # the kernels against their twins at the path's own shapes (K16's
+    # twin takes seconds a call here: a twin slower than a second is timed
+    # once, the others by a median of 3)
     inputs = helmholtz2d_inputs(trav, wr, wr.reorder_sources(q))
     work = helmholtz2d_work(inputs)
-    res = check_list_kernels(inputs, device, plain_reps=3,
+    res = check_list_kernels(inputs, device, plain_reps=3, slow_s=1.0,
                              rtol=HELMHOLTZ2D_KERNEL_RTOL)
     grid = helmholtz2d.launch_grid(device, tree.nboxes)
     emit({"phase": "kernels_helmholtz2d", "card": card, "points": n_main,
@@ -2257,12 +2534,25 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
                       translation)
     res.update(pres)
     work.update(pwork)
-    del tree, trav, wr, inputs
+    out = [summary_entry(name, launches[name], res[name], work[name])
+           for name in res]
+    del wr, inputs
+
+    # the real-pair wrangler on the same traversal with the charges' real
+    # parts, then K52-K56 against their twins on the 1e5 points above
+    entries, path, pwork = run_helmholtz_pairs(
+        device, card, translation, trav, pts, q.real.contiguous(), k, order,
+        direct_sum_helmholtz2d, nsample)
+    del tree, trav
+    pts, q = on_card(*clustered_square_points(n_kernels, seed + 1))
+    small = check_pair_kernels(card, device, 2, pts, q.real.contiguous(),
+                               k, order, entries)
+    out += [pair_entry(name, entries[f"{name}_f64"], path[name],
+                       pwork[name], small[name]) for name in path]
     large_k_kernels(device, card, seed + 3)
     emit({"phase": "helmholtz2d_phases", "card": card,
           "helmholtz2d_phases_s": time.perf_counter() - t_phases})
-    return [summary_entry(name, launches[name], res[name], work[name])
-            for name in res]
+    return out
 
 
 def large_k_kernels(device, card, seed, n=20_000, k=200.0, order=16):
@@ -2284,7 +2574,7 @@ def large_k_kernels(device, card, seed, n=20_000, k=200.0, order=16):
     pts = torch.as_tensor(pts_np, device=device)
     q = torch.as_tensor(q_np, device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto", pairs=False)
     kernels.reset_launch_counts()
     pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
     launches = kernels.launch_counts()
@@ -2313,6 +2603,40 @@ def large_k_kernels(device, card, seed, n=20_000, k=200.0, order=16):
           "rel": "per coefficient (P2L, P2M), potentials (M2P, L2P)",
           "kernels": res,
           "launches": {name: launches[name] for name in res}})
+
+    # the pair wrangler there: its FMM through K52-K56, then K53-K56
+    # against their twins
+    del wr, inputs
+    q = q.real.contiguous()
+    wr = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    kernels.reset_launch_counts()
+    pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
+    entries = kernels.entry_launch_counts()
+    names = [nm for nm in PAIR_KERNELS if nm.endswith("2d")]
+    launched = {f"{nm}_f64": entries[f"{nm}_f64"] for nm in names}
+    finite = bool(torch.isfinite(pot).all())
+    if not finite or tuple(pot.shape) != (n, 2):
+        raise AssertionError("2D pair FMM at large k: non-finite or "
+                             "misshapen output")
+    if device.type == "cuda" and (
+            launched["p2m_helmholtz2d_f64"] != 1
+            or launched["l2p_helmholtz2d_f64"] != 1
+            or not all(launched.values())
+            or any(entries[f"{nm}_c128"] for nm in names)):
+        raise AssertionError(f"2D pair FMM at large k: launches {launched}")
+    tq = wr.reorder_sources(q)
+    inputs = {name: v for name, v in helmholtz_pair_inputs(wr, tq).items()
+              if name != "p2p_helmholtz2d"}
+    res = check_list_kernels(inputs, device, plain_reps=1,
+                             rtol=HELMHOLTZ_PAIR_KERNEL_RTOL, slow_s=1.0,
+                             rel_fn=rel_linf_per_lane)
+    emit({"phase": "kernels_helmholtz2d_pairs_large_k", "card": card,
+          "points": n, "order": order, "k": k,
+          "wrangler": type(wr).__name__, "fmm_s": t_fmm, "finite": finite,
+          "tolerance_rel_linf": HELMHOLTZ_PAIR_KERNEL_RTOL,
+          "rel": "per coefficient column and per potential lane",
+          "kernels": {PAIR_KERNELS[nm][0]: r for nm, r in res.items()},
+          "launches": launched})
 
 # }}}
 
@@ -3834,6 +4158,31 @@ def fmm_host_reads(w, q):
                 trav.target_or_target_parent_boxes,
                 trav.from_sep_siblings_starts, trav.from_sep_siblings_lists,
                 mp))}
+
+
+def m2l_syncs(w, q):
+    """0 when the M2L stage of wrangler *w* (user-order charges *q*) runs
+    with PyTorch's CUDA sync debug mode set to raise, so that no host read
+    or other synchronising call happens in it; raises otherwise.  A second
+    witness beside :func:`fmm_host_reads`, whose trace of M2L alone came
+    back without device events on the 1e6 3D Helmholtz tree (a 0.3 s
+    kernel)."""
+    import torch
+
+    trav = w.traversal
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [w.reorder_sources(q)]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w.multipole_to_local(
+            trav.level_start_target_or_target_parent_box_nrs,
+            trav.target_or_target_parent_boxes,
+            trav.from_sep_siblings_starts, trav.from_sep_siblings_lists, mp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return 0
 
 
 def translation_rel(got, ref):

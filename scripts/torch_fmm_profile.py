@@ -249,7 +249,8 @@ def main():
         pts = torch.as_tensor(pts, device=device)
         q = torch.as_tensor(q, device=device)
         trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-        w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+        w = make_helmholtz_wrangler(trav, k, order, rscale="auto",
+                                    pairs=False)
         return (dict(points=args.points, k=k, order=order,
                      dtype="complex128", nboxes=trav.tree.nboxes),
                 lambda: drive_fmm(_StagedWrangler(w), [q]))

@@ -65,7 +65,7 @@ def path_times(dim, device):
     pts = torch.as_tensor(pts, device=device)
     q = torch.as_tensor(q, device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    w = make_helmholtz_wrangler(trav, k, order, rscale="auto", pairs=False)
     tq = w.reorder_sources(q)
     loc = fmm_locals(w, tq)
     drive_fmm(w, [q])

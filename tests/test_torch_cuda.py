@@ -61,6 +61,13 @@ clustered, restricted, extent, non-adaptive, weighted and given-bbox
 trees (and K43 on coincident points and at 1D's full depth); a tree built
 on the card must equal the CPU build field by field, launching K43 once,
 K44 once a level and, restricted, K45 once a level a round and K46 once.
+K47-K56 (the real-pair Helmholtz layout's float64 entry points of K9-K11,
+K31, K32, K16-K18, K33 and K34) agree with their twins to 1e-12 per
+coefficient column and per potential lane (a lane that is zero but for
+rounding held to the array's largest value), also at r = 0 and, in 2D, at
+k = 200; ``pairs=None`` on the card gives the pair wranglers, whose FMM
+launches only the float64 entry points and matches the complex FMM to
+1e-12.
 """
 
 import dataclasses
@@ -342,7 +349,8 @@ def helmholtz(device):
     q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
                         device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto")
+    w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto",
+                                pairs=False)
     return trav, w, w.reorder_sources(q), pts, q
 
 
@@ -399,7 +407,8 @@ def test_helmholtz_fmm_on_card_matches_cpu(helmholtz):
     assert counts["p2m_helmholtz3d"] == counts["l2p_helmholtz3d"] == 1
     trav_cpu = build_traversal(build_tree(pts.cpu(),
                                           max_particles_in_box=30))
-    w_cpu = make_helmholtz_wrangler(trav_cpu, 2.0, 12, rscale="auto")
+    w_cpu = make_helmholtz_wrangler(trav_cpu, 2.0, 12, rscale="auto",
+                                    pairs=False)
     ref = drive_fmm(w_cpu, [q.cpu()])
     assert got.dtype == torch.complex128
     assert _rel(got.cpu(), ref) <= HELM_RTOL
@@ -561,7 +570,8 @@ def helmholtz2d_setup(device):
     q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
                         device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto")
+    w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto",
+                                pairs=False)
     return trav, w, w.reorder_sources(q), pts, q
 
 
@@ -660,7 +670,8 @@ def test_helmholtz2d_kernel_large_smem(device, order, k):
     q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
                         device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    w = make_helmholtz_wrangler(trav, k, order, rscale="auto",
+                                pairs=False)
     assert max(helmholtz2d.smem_bytes(name, order)
                for name in ("m2p", "p2l")) < 48 * 1024
     tq = w.reorder_sources(q)
@@ -680,7 +691,8 @@ def test_helmholtz2d_wrangler_past_old_smem_limit(device):
     q = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
                         device=device)
     trav = build_traversal(build_tree(pts, max_particles_in_box=30))
-    w = make_helmholtz_wrangler(trav, 200.0, 16, rscale="auto")
+    w = make_helmholtz_wrangler(trav, 200.0, 16, rscale="auto",
+                                pairs=False)
     from boxtree_torch.ops.cylinder_bessel import even_start
     assert even_start(w._nstart, 16) == 954
     tq = w.reorder_sources(q)
@@ -703,7 +715,8 @@ def test_helmholtz2d_fmm_on_card_matches_cpu(helmholtz2d_setup):
     assert counts["p2m_helmholtz2d"] == counts["l2p_helmholtz2d"] == 1
     trav_cpu = build_traversal(build_tree(pts.cpu(),
                                           max_particles_in_box=30))
-    w_cpu = make_helmholtz_wrangler(trav_cpu, 3.0, 16, rscale="auto")
+    w_cpu = make_helmholtz_wrangler(trav_cpu, 3.0, 16, rscale="auto",
+                                    pairs=False)
     ref = drive_fmm(w_cpu, [q.cpu()])
     assert got.dtype == torch.complex128
     assert _rel(got.cpu(), ref) <= HELM_RTOL
@@ -1789,6 +1802,204 @@ def test_helmholtz_p2m_l2p_wrappers_refuse_dtypes(helm_p2m_l2p):
 # }}}
 
 
+# {{{ K47-K56: the real-pair Helmholtz kernels and wranglers
+
+HELM_PAIR_KERNELS = [(dim, which) for dim in (3, 2)
+                     for which in ("p2p", "m2p", "p2l", "p2m", "l2p")]
+#: K47-K56 against their twins, per potential lane and per coefficient
+#: column: the math of K9-K11, K31, K32 (3D) and K16-K18, K33, K34 (2D) on
+#: the pair layout, rounded as on theirs
+HELM_PAIRS_RTOL = {3: 1e-12, 2: H2D_RTOL}
+#: the pair FMM against the complex one on the card
+#: (``tests/test_helmholtz3d.py:170``, ``tests/test_helmholtz.py:183``)
+HELM_PAIRS_FMM_RTOL = 1e-12
+#: a lane whose largest value is below this fraction of the array's is
+#: rounding noise around 0 (with real charges the real lane of the 3D m = 0
+#: and the 2D n = 0 multipoles), held to the array's largest value
+ZERO_LANE = 1e-12
+
+
+def _lanes_rel(got, ref):
+    """Worst column of potentials ``(n, 2)`` or ``[re | im]`` expansions,
+    each held to its own largest ``|ref|`` (noise lanes to the array's
+    largest)."""
+    scale = ref.abs().amax(0)
+    top = scale.max()
+    scale = torch.where(scale >= ZERO_LANE * top, scale, top)
+    return ((got - ref).abs().amax(0) / scale).max().item()
+
+
+@pytest.fixture(scope="module")
+def helm_pairs(helmholtz, helmholtz2d_setup):
+    """Per dimension, on the FMM fixtures' traversals: the pair wrangler
+    (order 12, k = 2 in 3D; order 16, k = 3 in 2D; rscale "auto"), the
+    real parts of the fixtures' charges (user order) and in tree order."""
+    out = {}
+    for dim, fix in ((3, helmholtz), (2, helmholtz2d_setup)):
+        trav, _, _, _, q = fix
+        k, order = (2.0, 12) if dim == 3 else (3.0, 16)
+        w = make_helmholtz_wrangler(trav, k, order, rscale="auto",
+                                    pairs=True)
+        qr = q.real.contiguous()
+        out[dim] = (trav, w, qr, w.reorder_sources(qr))
+    return out
+
+
+def _helm_pair_args(w, q, which):
+    """The arguments of the pair kernel *which* of pair wrangler *w* on
+    the tree-order real charges *q*, the multipoles or locals from its own
+    P2M / a numpy draw."""
+    trav, tree = w.traversal, w.tree
+    tail = (w.k, w.order) if w.dim == 3 else (w.k, w.order, w._nstart)
+    weight = (w._w_nm,) if w.dim == 3 else ()
+    if which == "p2p":
+        return (w._targets, w._sources, q, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, *tail[:1], *tail[2:])
+    if which == "m2p":
+        mp = w.coarsen_multipoles(None, None,
+                                  w.form_multipoles(None, None, [q]))
+        return (w._targets, tree.box_target_starts,
+                tree.box_target_counts_nonchild, *w._l3_csr, mp, w.centers,
+                w.box_scale, *tail)
+    if which == "p2l":
+        return (w._sources, q, tree.box_source_starts,
+                tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
+                w.box_scale, *weight, *tail)
+    if which == "l2p":
+        return (w._targets, tree.box_target_starts,
+                tree.box_target_counts_nonchild, w._target_rows,
+                _random_locals(w), w.centers, w.box_scale, *tail)
+    return (w._sources, q, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, w.centers,
+            w.box_scale, *weight, *tail)
+
+
+def _helm_pair_compare(w, which, args):
+    """The pair kernel *which* against its twin on *args*: one launch of
+    its ``_f64`` entry point, none of its ``_c128`` one."""
+    mod = helmholtz3d if w.dim == 3 else helmholtz2d
+    name = f"{which}_helmholtz{w.dim}d"
+    extra = (w.local_expansion_zeros(),) if which == "p2l" else ()
+    kernels.reset_launch_counts()
+    got = getattr(mod, name)(*args, *extra)
+    counts = kernels.entry_launch_counts()
+    assert counts[f"{name}_f64"] == 1 and counts[f"{name}_c128"] == 0
+    torch.cuda.synchronize()
+    extra = (w.local_expansion_zeros(),) if which == "p2l" else ()
+    ref = getattr(mod, f"{name}_plain")(*args, *extra)
+    assert got.dtype == ref.dtype == torch.float64
+    assert got.shape == ref.shape
+    assert got.shape[1] == (2 if which in ("p2p", "m2p", "l2p")
+                            else w.ncoeff)
+    return _lanes_rel(got, ref)
+
+
+@pytest.mark.parametrize("dim,which", HELM_PAIR_KERNELS)
+def test_helmholtz_pair_kernel(helm_pairs, dim, which):
+    """K47-K51 (3D: P2P, M2P, P2L, P2M, L2P) and K52-K56 (2D) against
+    their twins at the FMM fixtures' shapes."""
+    w, q = helm_pairs[dim][1], helm_pairs[dim][3]
+    assert w._l3_csr[0].numel() > 0 and w._l4_csr[0].numel() > 0
+    args = _helm_pair_args(w, q, which)
+    assert _helm_pair_compare(w, which, args) <= HELM_PAIRS_RTOL[dim]
+
+
+@pytest.mark.parametrize("dim,which", HELM_P2M_L2P)
+def test_helmholtz_pair_p2m_l2p_at_r0(helm_pairs, dim, which):
+    """r = 0 on the pair layout: the first row's box centre moved onto its
+    first particle, which adds ``q w_c`` (3D) or ``q / 4`` (2D) to the
+    imaginary lane of the ``n = 0`` coefficient alone, or reads ``(L[0],
+    L[K])``."""
+    w, q = helm_pairs[dim][1], helm_pairs[dim][3]
+    tree = w.tree
+    rows = w._target_rows if which == "l2p" else w._source_rows
+    box = int(rows[0])
+    first = int((tree.box_target_starts if which == "l2p"
+                 else tree.box_source_starts)[box])
+    args = list(_helm_pair_args(w, q, which))
+    centers = w.centers.clone()
+    centers[:, box] = args[0][:, first]
+    args[5] = centers
+    assert _helm_pair_compare(w, which, args) <= HELM_PAIRS_RTOL[dim]
+    got = getattr(helmholtz3d if dim == 3 else helmholtz2d,
+                  f"{which}_helmholtz{dim}d")(*args)
+    kc = w.ncoeff // 2
+    n0 = 0 if dim == 3 else w.order
+    if which == "l2p" and dim == 3:
+        loc = args[4]
+        assert (got[first] == loc[box, [n0, kc + n0]]).all()
+    assert torch.isfinite(got).all()
+
+
+def test_helmholtz_pair_wrangler_past_old_smem_limit(device):
+    """The 2D pair wrangler at order 16 and k = 200 (a recurrence from 954)
+    on 3,000 clustered points: K53-K56 against their twins."""
+    n = 3000
+    pts = torch.as_tensor(_clustered_2d(n, seed=8), device=device)
+    q = torch.as_tensor(np.random.default_rng(9).standard_normal(n),
+                        device=device)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    w = make_helmholtz_wrangler(trav, 200.0, 16, rscale="auto")
+    assert type(w).__name__ == "Helmholtz2DPairsExpansionWrangler"
+    tq = w.reorder_sources(q)
+    for which in ("m2p", "p2l", "p2m", "l2p"):
+        args = _helm_pair_args(w, tq, which)
+        assert _helm_pair_compare(w, which, args) <= H2D_RTOL, which
+
+
+@pytest.mark.parametrize("dim", [3, 2])
+def test_helmholtz_pair_fmm_matches_complex(device, dim):
+    """At 1e4 points (the sphere in 3D, order 12, k = 2; the clustered
+    square in 2D, order 16, k = 3): ``pairs=None`` on the card gives the
+    pair wrangler, whose FMM launches K50 / K51 (K55 / K56) once and K47-K49
+    (K52-K54) and no complex entry point, and matches the complex FMM on
+    the same traversal."""
+    n = 10000
+    pts = _sphere(n, 3) if dim == 3 else _clustered_2d(n, seed=4)
+    trav = build_traversal(build_tree(torch.as_tensor(pts, device=device),
+                                      max_particles_in_box=30))
+    q = torch.as_tensor(np.random.default_rng(10).standard_normal(n),
+                        device=device)
+    k, order = (2.0, 12) if dim == 3 else (3.0, 16)
+    w = make_helmholtz_wrangler(trav, k, order, rscale="auto")
+    assert w.dtype == torch.float64 and w._pot_extra_dims == (2,)
+    kernels.reset_launch_counts()
+    pot = drive_fmm(w, [q])
+    counts = kernels.entry_launch_counts()
+    sfx = f"helmholtz{dim}d"
+    assert counts[f"p2m_{sfx}_f64"] == counts[f"l2p_{sfx}_f64"] == 1
+    assert all(counts[f"{which}_{sfx}_f64"] > 0
+               for which in ("p2p", "m2p", "p2l")), counts
+    assert not any(counts[f"{which}_{sfx}_c128"]
+                   for which in ("p2p", "m2p", "p2l", "p2m", "l2p"))
+    ref = drive_fmm(make_helmholtz_wrangler(trav, k, order, rscale="auto",
+                                            pairs=False), [q])
+    assert pot.shape == (n, 2) and pot.dtype == torch.float64
+    assert _rel(torch.complex(pot[:, 0], pot[:, 1]), ref) \
+        <= HELM_PAIRS_FMM_RTOL
+
+
+def test_helmholtz_pair_kernels_refuse_dtypes(helm_pairs):
+    """float32 charges or expansions raise before any launch."""
+    for dim, which in HELM_PAIR_KERNELS:
+        w, q = helm_pairs[dim][1], helm_pairs[dim][3]
+        args = list(_helm_pair_args(w, q, which))
+        i = {"p2p": 2, "m2p": 6, "l2p": 4}.get(which, 1)
+        args[i] = args[i].to(torch.float32)
+        extra = (w.local_expansion_zeros(),) if which == "p2l" else ()
+        name = f"{which}_helmholtz{dim}d"
+        kernels.reset_launch_counts()
+        with pytest.raises(TypeError):
+            getattr(helmholtz3d if dim == 3 else helmholtz2d, name)(
+                *args, *extra)
+        assert kernels.launch_counts()[name] == 0
+
+# }}}
+
+
 # {{{ K24-K27: the traversal
 
 TRAVERSAL_TREES = ["3d_uniform", "2d_clustered", "3d_restricted",
@@ -1986,11 +2197,13 @@ def translate_case(request, device, line_tree):
     elif case == "h3d":
         trav = build_traversal(build_tree(torch.as_tensor(
             _sphere(20000), device=device), max_particles_in_box=30))
-        w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto")
+        w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto",
+                                    pairs=False)
     elif case == "h2d":
         trav = build_traversal(build_tree(torch.as_tensor(
             _clustered_2d(20000), device=device), max_particles_in_box=30))
-        w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto")
+        w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto",
+                                    pairs=False)
     elif case.startswith("l2d"):
         trav = build_traversal(build_tree(torch.as_tensor(
             _clustered_laplace(20000), device=device),

@@ -265,7 +265,7 @@ def test_factory_dispatch(points):
 
 
 @pytest.mark.parametrize("k,kwargs", [
-    (K, dict(pairs=True)),
+    (K, dict(pairs=True, dtype=np.float32)),
     (K, dict(dipole_vec=np.zeros((2, N)))),
     (K, dict(level_to_order=lambda lev: 4)),
     (3.0 + 0.5j, dict(rscale="auto")),
@@ -308,17 +308,20 @@ def test_bridge_round_trip_2d(points):
 
 
 def test_kernel_entry_points_2d():
-    """K16-K18 and K33-K34 exist in complex128 only; their shared memory
-    holds tables of 2p + 1 and p + 1 values a lane, whatever the
-    recurrence's start: a start of 2000 (k r about 1,700) is accepted, its
-    ratios going to a global scratch buffer of nstart values a thread of
-    the launch's grid, and only a dtype other than complex128 raises."""
+    """K16-K18 and K33-K34 exist in complex128 and, as K52-K56, in float64
+    pairs; their shared memory holds tables of 2p + 1 and p + 1 values a
+    lane, whatever the recurrence's start: a start of 2000 (k r about
+    1,700) is accepted, its ratios going to a global scratch buffer of
+    nstart values a thread of the launch's grid, and only a dtype other
+    than complex128 and float64 raises."""
     names = ("p2p_helmholtz2d", "m2p_helmholtz2d", "p2l_helmholtz2d",
              "p2m_helmholtz2d", "l2p_helmholtz2d")
     for name in names:
-        assert kernels._entry_names(name) == [f"{name}_c128"]
+        assert kernels._entry_names(name) == [f"{name}_f64",
+                                              f"{name}_c128"]
     for order, nstart in ((16, 56), (24, 70), (16, 338), (16, 2000)):
         h2._check_args(K, torch.complex128, order)
+        h2._check_args(K, torch.float64, order)
         assert max(h2.smem_bytes(name, order) for name in
                    ("m2p", "p2l", "p2m", "l2p")) < 48 * 1024
         assert h2.scratch_bytes(1056, order, nstart) == \

@@ -513,7 +513,7 @@ def test_order12_against_direct_sum(points, tree_indep):
 
 
 @pytest.mark.parametrize("k,kwargs", [
-    (K, dict(pairs=True)),
+    (K, dict(pairs=True, dtype=np.float32)),
     (K, dict(dipole_vec=np.zeros((3, N)))),
     (K, dict(level_to_order=lambda lev: 4)),
     (2.0 + 0.5j, dict(rscale="auto")),
@@ -540,7 +540,8 @@ def test_2d_raises():
     trav = build_traversal(build_tree(pts, max_particles_in_box=20,
                                       device="cpu"))
     with pytest.raises(NotImplementedError):
-        make_helmholtz_wrangler(trav, K, 4, pairs=True)
+        make_helmholtz_wrangler(trav, K, 4, pairs=True,
+                                level_to_order=lambda lev: 4)
 
 # }}}
 
@@ -560,18 +561,20 @@ def test_to_numpy_complex():
 
 
 def test_kernel_entry_points():
-    """K9-K11 exist in complex128 only; K2-K4 and the dipole kernels K22 and
-    K23 in float32, float64 and complex128."""
+    """K9-K11 exist in complex128 and, as K47-K49, in float64 pairs; K2-K4
+    and the dipole kernels K22 and K23 in float32, float64 and
+    complex128."""
     assert set(kernels.DTYPES) == set(kernels.SIGNATURES)
     for name in ("p2p_helmholtz3d", "m2p_helmholtz3d", "p2l_helmholtz3d"):
-        assert kernels._entry_names(name) == [f"{name}_c128"]
+        assert kernels._entry_names(name) == [f"{name}_f64",
+                                              f"{name}_c128"]
     for name in ("p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
                  "p2p_laplace3d_dipole", "p2l_laplace3d_dipole"):
         assert kernels._entry_names(name) == [
             f"{name}_f32", f"{name}_f64", f"{name}_c128"]
     assert kernels._entry_names("peer_lists") == ["peer_lists"]
     with pytest.raises(TypeError, match="unsupported dtype"):
-        kernels.launch("p2p_helmholtz3d", torch.float64)
+        kernels.launch("p2p_helmholtz3d", torch.float32)
     with pytest.raises(TypeError, match="unsupported dtype"):
         kernels.launch("p2p_laplace3d", torch.complex64)
 

@@ -32,8 +32,7 @@ NOT_PORTED = {
     ".tree": set(),
     ".traversal": set(),
     ".fmm": {"jit_drive_fmm", "staged_drive_fmm"},
-    ".models": {"Helmholtz2DPairsExpansionWrangler",
-                "Helmholtz3DPairsExpansionWrangler"},
+    ".models": set(),
     ".geometry": set(),
 }
 #: per subpackage, names the port exports that the reference's ``__all__``
