@@ -14,9 +14,22 @@
 //        y_1 = (-cos(x)/x - sin(x))/x; not valid at x = 0 (callers guard).
 // Values go to out[n * stride], so a caller can lay them out in shared
 // memory one thread per column.
+//
+// T is double, or Dual<double> (dual.cuh) for the dipole kernels K57-K62,
+// which take the recurrences' tangents as JAX's jvp takes them: a branch
+// tests the value and takes the tangent of the side it picks (the series
+// x^n / (2n+1)!! below 1e-6, its tangent n x^(n-1) / (2n+1)!! dx by the
+// product rule); a floored denominator and y_n's x = 0 guard are constants
+// with zero tangent.  One tangent differs from JAX's: j_0's is -j_1 dx =
+// -j_0 r_1 dx, where the tangent of sin(x) / x, cos x / x - sin x / x^2,
+// cancels to eps / x^2 of itself (2e-12 at the k r = 0.007 of a 9-level
+// tree's leaves, the dipole P2M's n = 0 column).  The double
+// instantiations run the operations of the functions before they were
+// templates, in the same order.
 #pragma once
 
 #include "common.cuh"
+#include "dual.cuh"
 
 namespace boxtree_torch {
 
@@ -24,49 +37,51 @@ constexpr int kJnExtra = 25;
 constexpr double kJnSmallX = 1e-6;
 constexpr double kJnDenomFloor = 1e-300;
 
-__device__ __forceinline__ void spherical_jn(double x, int p, double* out,
-                                             int stride) {
-  if (fabs(x) < kJnSmallX) {
-    double xn = 1.0, dfact = 1.0;
+template <typename T>
+__device__ __forceinline__ void spherical_jn(T x, int p, T* out, int stride) {
+  if (fabs(value_of(x)) < kJnSmallX) {
+    T xn = T(1);
+    double dfact = 1.0;
     for (int n = 0; n <= p; ++n) {
       if (n > 0) {
-        xn *= x;
+        xn = xn * x;
         dfact *= double(2 * n + 1);
       }
       out[n * stride] = xn / dfact;
     }
     return;
   }
-  const double xinv = 1.0 / x;
+  const T xinv = T(1) / x;
   const int nstart = p + kJnExtra;
-  double r = x / double(2 * nstart + 3);
+  T r = x / double(2 * nstart + 3);
   for (int n = nstart; n > 0; --n) {
-    double denom = double(2 * n + 1) * xinv - r;
-    if (fabs(denom) < kJnDenomFloor) denom = kJnDenomFloor;
-    r = 1.0 / denom;
+    T denom = double(2 * n + 1) * xinv - r;
+    if (fabs(value_of(denom)) < kJnDenomFloor) denom = T(kJnDenomFloor);
+    r = T(1) / denom;
     if (n <= p) out[n * stride] = r;
   }
-  double j = sin(x) * xinv;
+  T j = sin_t(x) * xinv;
+  j = with_tangent(j, -(value_of(j) * value_of(r)), x);  // r holds r_1
   out[0] = j;
   for (int n = 1; n <= p; ++n) {
-    j *= out[n * stride];
+    j = j * out[n * stride];
     out[n * stride] = j;
   }
 }
 
-__device__ __forceinline__ void spherical_yn(double x, int p, double* out,
-                                             int stride) {
-  const double xs = x == 0.0 ? 1.0 : x;
-  const double xinv = 1.0 / xs;
-  double sn, cs;
-  sincos(xs, &sn, &cs);
-  double y0 = -cs * xinv;
+template <typename T>
+__device__ __forceinline__ void spherical_yn(T x, int p, T* out, int stride) {
+  const T xs = value_of(x) == 0.0 ? T(1) : x;
+  const T xinv = T(1) / xs;
+  T sn, cs;
+  sincos_t(xs, &sn, &cs);
+  T y0 = -cs * xinv;
   out[0] = y0;
   if (p < 1) return;
-  double y1 = (-cs * xinv - sn) * xinv;
+  T y1 = (-cs * xinv - sn) * xinv;
   out[stride] = y1;
   for (int n = 1; n < p; ++n) {
-    const double y2 = double(2 * n + 1) * xinv * y1 - y0;
+    const T y2 = double(2 * n + 1) * xinv * y1 - y0;
     out[(n + 1) * stride] = y2;
     y0 = y1;
     y1 = y2;
@@ -74,18 +89,20 @@ __device__ __forceinline__ void spherical_yn(double x, int p, double* out,
 }
 
 // h^(1)_n(x) s^n = (j_n(x) + i y_n(x)) s^n for n = 0..p into out[n * stride]
-// (the radial factor of the rscaled outgoing basis).
-__device__ __forceinline__ void spherical_hn1_scaled(double x, double s,
-                                                     int p, double2* out,
-                                                     int stride) {
-  double* re = reinterpret_cast<double*>(out);
+// (the radial factor of the rscaled outgoing basis): C is a (re, im) pair
+// of T, double2 for T = double, Cx<Dual<double>> for the dipole kernels.
+template <typename T, typename C>
+__device__ __forceinline__ void spherical_hn1_scaled(T x, double s, int p,
+                                                     C* out, int stride) {
+  static_assert(sizeof(C) == 2 * sizeof(T), "C is a (re, im) pair of T");
+  T* re = reinterpret_cast<T*>(out);
   spherical_jn(x, p, re, 2 * stride);
   spherical_yn(x, p, re + 1, 2 * stride);
   double pw = 1.0;
   for (int n = 1; n <= p; ++n) {
     pw *= s;
-    out[n * stride].x *= pw;
-    out[n * stride].y *= pw;
+    re[2 * n * stride] = re[2 * n * stride] * pw;
+    re[2 * n * stride + 1] = re[2 * n * stride + 1] * pw;
   }
 }
 

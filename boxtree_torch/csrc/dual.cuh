@@ -1,20 +1,25 @@
 // Dual numbers: forward-mode derivatives inside the dipole kernels.
 //
-// Dual<T> carries a value and a tangent through + - * /, sqrt_t, log_t
-// and atan2_t: run on it, a recurrence computes its own directional
-// derivative, the JVP the reference takes of its hooks
-// (boxtree_tpu/models/expansion_base.py:664-673, :1314-1324, :1688-1694).
-// Each operation's tangent is the one JAX's JVP rule takes: d(a / b) =
-// (da - (a / b) db) / b, d log a = da / a, d atan2(y, x) = (x dy - y dx) /
-// (x^2 + y^2).
+// Dual<T> carries a value and a tangent through + - * /, products and
+// quotients by a constant, sqrt_t, log_t, atan2_t and sincos_t: run on it,
+// a recurrence computes its own directional derivative, the JVP the
+// reference takes of its hooks (boxtree_tpu/models/expansion_base.py:
+// 664-673, :1314-1324, :1688-1694).  Each operation's tangent is the one
+// JAX's JVP rule takes: d(a / b) = (da - (a / b) db) / b, d log a = da / a,
+// d atan2(y, x) = (x dy - y dx) / (x^2 + y^2), d sin a = cos a da, d cos a
+// = -sin a da.  value_of(x) is the value a branch tests (x itself for a
+// float): a branch on it takes the tangent of the side it picks, as
+// jnp.where does.  with_tangent(a, slope, t) replaces a's tangent by
+// slope dt, where a formula's own tangent loses digits (bessel.cuh's j_0).
 //
 // Cx<S> is a complex number over a scalar S (T or Dual<T>) with the
 // products the 2D kernels take: mul, inv (1 / z), and log_c (log |z|, arg
 // z).  On Cx<Dual<T>> the tangent of inv is -dz / z^2 and that of log_c is
 // dz / z, JAX's rules for 1 / z and log z.
 //
-// Users: the 3D Laplace dipole kernels K22, K23, K29 (laplace3d.cuh) and
-// the 2D ones K39, K41, K42 (laplace2d.cu).
+// Users: the 3D Laplace dipole kernels K22, K23, K29 (laplace3d.cuh), the
+// 2D ones K39, K41, K42 (laplace2d.cu) and the 3D Helmholtz ones K57-K62
+// (helmholtz3d.cu, through bessel.cuh's recurrences).
 #pragma once
 
 #include "common.cuh"
@@ -29,6 +34,18 @@ __device__ __forceinline__ float atan2_t(float y, float x) {
 __device__ __forceinline__ double atan2_t(double y, double x) {
   return ::atan2(y, x);
 }
+__device__ __forceinline__ double sin_t(double x) { return ::sin(x); }
+__device__ __forceinline__ void sincos_t(double x, double* s, double* c) {
+  ::sincos(x, s, c);
+}
+__device__ __forceinline__ float value_of(float x) { return x; }
+__device__ __forceinline__ double value_of(double x) { return x; }
+// a with its tangent set to slope dt (a itself for a float): for a value
+// whose own formula's tangent cancels, where the caller knows the
+// derivative in another form
+__device__ __forceinline__ double with_tangent(double a, double, double) {
+  return a;
+}
 
 template <typename T>
 struct Dual {
@@ -38,7 +55,19 @@ struct Dual {
       : v(value), d(tangent) {}
   // a constant of the recurrences, T(2 * m - 1) and the like
   __device__ __forceinline__ explicit Dual(int c) : v(T(c)), d(T(0)) {}
+  __device__ __forceinline__ explicit Dual(T c) : v(c), d(T(0)) {}
 };
+
+template <typename T>
+__device__ __forceinline__ T value_of(Dual<T> a) {
+  return a.v;
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> with_tangent(Dual<T> a, T slope,
+                                                Dual<T> t) {
+  return Dual<T>(a.v, slope * t.d);
+}
 
 template <typename T>
 __device__ __forceinline__ Dual<T> operator+(Dual<T> a, Dual<T> b) {
@@ -61,6 +90,19 @@ __device__ __forceinline__ Dual<T> operator/(Dual<T> a, Dual<T> b) {
   const T q = a.v / b.v;
   return Dual<T>(q, (a.d - q * b.d) / b.v);
 }
+// products and quotients by a constant c: d(c a) = c da, d(a / c) = da / c
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(T c, Dual<T> a) {
+  return Dual<T>(c * a.v, c * a.d);
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(Dual<T> a, T c) {
+  return Dual<T>(a.v * c, a.d * c);
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, T c) {
+  return Dual<T>(a.v / c, a.d / c);
+}
 template <typename T>
 __device__ __forceinline__ Dual<T> sqrt_t(Dual<T> a) {
   const T s = sqrt_t(a.v);
@@ -74,6 +116,19 @@ template <typename T>
 __device__ __forceinline__ Dual<T> atan2_t(Dual<T> y, Dual<T> x) {
   return Dual<T>(atan2_t(y.v, x.v),
                  (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v));
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> sin_t(Dual<T> a) {
+  return Dual<T>(sin_t(a.v), cos(a.v) * a.d);
+}
+template <typename T>
+__device__ __forceinline__ void sincos_t(Dual<T> a, Dual<T>* s,
+                                         Dual<T>* c) {
+  T sv, cv;
+  sincos_t(a.v, &sv, &cv);
+  *s = Dual<T>(sv, cv * a.d);
+  *c = Dual<T>(cv, -(sv * a.d));
 }
 
 template <typename S>

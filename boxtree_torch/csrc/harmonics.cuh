@@ -3,7 +3,9 @@
 // kernels, and the regular R_n^m, the angular basis of the Helmholtz M2P
 // (K10) and P2L (K11) kernels.  T is a float type, or a number type with
 // the same arithmetic and a sqrt_t found by argument-dependent lookup (K23
-// runs the irregular recurrence on dual numbers, laplace3d.cuh).
+// runs the irregular recurrence on dual numbers, laplace3d.cuh; the 3D
+// Helmholtz dipole kernels K57-K62 the regular one, on the unit direction
+// rel / r, so the tangent flows through u = rel / r, helmholtz3d.cu).
 //
 // The recurrences of boxtree_tpu/ops/solid_harmonics.py:161-192
 // (_harmonics_pairs, kind="irregular"), in the same operation order:

@@ -68,6 +68,34 @@
 // the row is stored once (times w_nm s^-n), so there are no atomics; K32
 // stages the box's row in shared memory and each lane folds its target's
 // basis into it.
+//
+// The dipole kernels: sources of weight q and dipole d, the potential q (d .
+// grad_y) G(x, y).  Each is the JVP in the source positions along d of a
+// charge kernel above, its loop written once on dual.cuh's Dual<double>
+// (bessel.cuh's recurrences and harmonics.cuh's regular harmonics run on
+// duals; only the tangents are summed), on both layouts: K57-K59 the _c128
+// entry points, K60-K62 the _f64 ones (real charges, [re | im] rows).
+// K57 / K60 p2m_helmholtz3d_dipole: K31 on duals; replaces the jax.jvp of
+//     helmholtz3d.py:316 _p2m_terms (pairs :442) at
+//     expansion_base.py:664-673.  The tangent of the offset is d / s times
+//     s, as the reference hands the hook d / s.  A source at its box's
+//     centre adds the limit of that tangent as r -> 0, (k / 3) q conj(
+//     R_1^m(d)) at n = 1 (times w_1m s^-1), where the reference's r = 0
+//     guard gives 0.  j_0's tangent is -j_1 (bessel.cuh), where the
+//     reference's quotient rule left its n = 0 column 2e-12 apart from
+//     the twin's at the 1e6 sphere's k r.
+// K58 / K61 p2p_helmholtz3d_dipole: K9 on duals, the dipole as three more
+//     shared lanes; replaces the jax.jvp of helmholtz3d.py:362 _p2p (pairs
+//     :513) at expansion_base.py:1314-1324 and :1350-1360; r = 0 skipped.
+// K59 / K62 p2l_helmholtz3d_dipole: K11 on duals, its h_n s^n column a
+//     Cx<Dual<double>> (32 bytes a value); replaces the jax.jvp of
+//     helmholtz3d.py:351 _p2l_terms (pairs :494) at expansion_base.py:
+//     1688-1694 and :1747-1764; 0 at r = 0, as the reference's guard.
+// Bound: float64 arithmetic, as their charge kernels, each operation
+// carrying a tangent (roughly twice the flops a pair; K59's table twice
+// the shared memory, so fewer CTAs an SM).  The design keeps their
+// charge kernels' own: one warp a row, CSR particle ranges, no atomics,
+// nothing stored per (particle, coefficient).
 #include "bessel.cuh"
 #include "harmonics.cuh"
 #include "helmholtz_layout.cuh"
@@ -488,6 +516,280 @@ l2p_helmholtz3d_kernel(const double* __restrict__ targets,
 
 // }}}
 
+// {{{ K57-K62: the dipole kernels
+
+using D = Dual<double>;
+
+template <typename L>
+__global__ void __launch_bounds__(kHelmThreads)
+p2p_helmholtz3d_dipole_kernel(
+    const double* __restrict__ targets, long long ntargets,
+    const double* __restrict__ sources, long long nsources,
+    const typename L::Charge* __restrict__ charges,
+    const double* __restrict__ dipoles,
+    const int* __restrict__ box_target_starts,
+    const int* __restrict__ box_target_counts,
+    const int* __restrict__ box_source_starts,
+    const int* __restrict__ box_source_counts,
+    const int* __restrict__ target_boxes, const int* __restrict__ starts,
+    const int* __restrict__ lists, double k, double2* __restrict__ out) {
+  __shared__ double sx[kHelmThreads], sy[kHelmThreads], sz[kHelmThreads];
+  __shared__ double sdx[kHelmThreads], sdy[kHelmThreads], sdz[kHelmThreads];
+  __shared__ double2 sq[kHelmThreads];
+  const int row = blockIdx.x;
+  const int tbox = target_boxes[row];
+  const long long t0 = box_target_starts[tbox];
+  const int nt = box_target_counts[tbox];
+  const int e0 = starts[row], e1 = starts[row + 1];
+
+  for (int tb = 0; tb < nt; tb += kHelmThreads) {
+    const int ti = tb + threadIdx.x;
+    const bool active = ti < nt;
+    double tx = 0.0, ty = 0.0, tz = 0.0;
+    if (active) {
+      tx = targets[t0 + ti];
+      ty = targets[ntargets + t0 + ti];
+      tz = targets[2 * ntargets + t0 + ti];
+    }
+    double ar = 0.0, ai = 0.0;
+    for (int e = e0; e < e1; ++e) {
+      const int sbox = lists[e];
+      const long long s0 = box_source_starts[sbox];
+      const int ns = box_source_counts[sbox];
+      for (int sb = 0; sb < ns; sb += kHelmThreads) {
+        const int cnt = min(kHelmThreads, ns - sb);
+        __syncthreads();
+        if (threadIdx.x < cnt) {
+          const long long s = s0 + sb + threadIdx.x;
+          sx[threadIdx.x] = sources[s];
+          sy[threadIdx.x] = sources[nsources + s];
+          sz[threadIdx.x] = sources[2 * nsources + s];
+          sdx[threadIdx.x] = dipoles[s];
+          sdy[threadIdx.x] = dipoles[nsources + s];
+          sdz[threadIdx.x] = dipoles[2 * nsources + s];
+          sq[threadIdx.x] = L::charge(charges, s);
+        }
+        __syncthreads();
+        for (int j = 0; j < cnt; ++j) {
+          const double dx = tx - sx[j], dy = ty - sy[j], dz = tz - sz[j];
+          const double r2 = dx * dx + dy * dy + dz * dz;
+          if (r2 > 0.0) {
+            // t - s moves by -d as the source moves by d
+            const D x(dx, -sdx[j]), y(dy, -sdy[j]), z(dz, -sdz[j]);
+            const D r = sqrt_t(x * x + y * y + z * z);
+            D sn, cs;
+            sincos_t(k * r, &sn, &cs);
+            // the tangent of exp(ik r) / r
+            const double2 v =
+                cmul(make_double2((cs / r).d, (sn / r).d), sq[j]);
+            ar += v.x;
+            ai += v.y;
+          }
+        }
+      }
+    }
+    if (active) out[t0 + ti] = make_double2(ar, ai);
+  }
+}
+
+template <typename L>
+__global__ void __launch_bounds__(kHelmThreads)
+p2l_helmholtz3d_dipole_kernel(
+    const double* __restrict__ sources, long long nsources,
+    const typename L::Charge* __restrict__ charges,
+    const double* __restrict__ dipoles,
+    const int* __restrict__ box_source_starts,
+    const int* __restrict__ box_source_counts, const int* __restrict__ rows,
+    const int* __restrict__ starts, const int* __restrict__ lists,
+    const double* __restrict__ centers, long long nboxes,
+    const double* __restrict__ box_scale,
+    const typename L::Weight* __restrict__ w_nm, double k, int p,
+    double* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (p + 1) * (p + 1);
+  double2* acc = reinterpret_cast<double2*>(smem_raw);       // nc
+  Cx<D>* rad = reinterpret_cast<Cx<D>*>(acc + nc);           // (p+1) x warp
+  const int lane = threadIdx.x;
+  const long long tbox = rows[blockIdx.x];
+  const int e0 = starts[blockIdx.x], e1 = starts[blockIdx.x + 1];
+  for (int i = lane; i < nc; i += kHelmThreads) acc[i] = make_double2(0, 0);
+  const double cx = centers[tbox], cy = centers[nboxes + tbox],
+               cz = centers[2 * nboxes + tbox];
+  const double s = box_scale[tbox];
+  __syncwarp();
+
+  for (int e = e0; e < e1; ++e) {
+    const int sbox = lists[e];
+    const long long s0 = box_source_starts[sbox];
+    const int ns = box_source_counts[sbox];
+    for (int sb = 0; sb < ns; sb += kHelmThreads) {
+      const int j = sb + lane;
+      // idle lanes and r = 0 evaluate at direction (0, 0, 1), k r = 1, with
+      // zero tangents and zero weight (the reference's guard gives 0)
+      D ux(0.0), uy(0.0), uz(1.0), kr(1.0);
+      double2 q = make_double2(0.0, 0.0);
+      if (j < ns) {
+        const long long i = s0 + j;
+        // the hook receives (x_s - c) / s and d / s, and works on them
+        // times s
+        const double x = (sources[i] - cx) / s * s;
+        const double y = (sources[nsources + i] - cy) / s * s;
+        const double z = (sources[2 * nsources + i] - cz) / s * s;
+        if (x * x + y * y + z * z > 0.0) {
+          const D X(x, dipoles[i] / s * s),
+              Y(y, dipoles[nsources + i] / s * s),
+              Z(z, dipoles[2 * nsources + i] / s * s);
+          const D r = sqrt_t(X * X + Y * Y + Z * Z);
+          ux = X / r;
+          uy = Y / r;
+          uz = Z / r;
+          kr = k * r;
+          q = L::charge(charges, i);
+        }
+      }
+      spherical_hn1_scaled(kr, s, p, rad + lane, kHelmThreads);
+      regular_pairs_foreach(ux, uy, uz, p, [&](int n, int m, D a_r, D a_i) {
+        const Cx<D> h = rad[n * kHelmThreads + lane];
+        // q times the tangent of h conj(A_n^m), summed over the warp
+        const Cx<D> b = mul(h, Cx<D>{a_r, -a_i});
+        const double2 t = cmul(q, make_double2(b.re.d, b.im.d));
+        const double2 v = make_double2(warp_sum(t.x), warp_sum(t.y));
+        double2 v2 = make_double2(0.0, 0.0);
+        if (m > 0) {
+          // conj(A_n^{-m}) = (-1)^m A_n^m
+          const Cx<D> b2 = (m & 1) ? mul(h, Cx<D>{-a_r, -a_i})
+                                   : mul(h, Cx<D>{a_r, a_i});
+          const double2 t2 = cmul(q, make_double2(b2.re.d, b2.im.d));
+          v2 = make_double2(warp_sum(t2.x), warp_sum(t2.y));
+        }
+        if (lane == 0) {
+          const int i = n * n + n + m;
+          const double2 wv = cmul(L::weight(w_nm, i), v);
+          acc[i].x += wv.x;
+          acc[i].y += wv.y;
+          if (m > 0) {
+            const int i2 = n * n + n - m;
+            const double2 wv2 = cmul(L::weight(w_nm, i2), v2);
+            acc[i2].x += wv2.x;
+            acc[i2].y += wv2.y;
+          }
+        }
+      });
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < nc; i += kHelmThreads)
+    L::add(out, tbox, nc, i, acc[i]);
+}
+
+template <typename L>
+__global__ void __launch_bounds__(kHelmThreads)
+p2m_helmholtz3d_dipole_kernel(
+    const double* __restrict__ sources, long long nsources,
+    const typename L::Charge* __restrict__ charges,
+    const double* __restrict__ dipoles,
+    const int* __restrict__ box_source_starts,
+    const int* __restrict__ box_source_counts, const int* __restrict__ rows,
+    const double* __restrict__ centers, long long nboxes,
+    const double* __restrict__ box_scale,
+    const typename L::Weight* __restrict__ w_nm, double k, int p,
+    double* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (p + 1) * (p + 1);
+  double2* acc = reinterpret_cast<double2*>(smem_raw);        // nc
+  D* jt = reinterpret_cast<D*>(acc + nc);                      // (p+1) x warp
+  const int lane = threadIdx.x;
+  const long long box = rows[blockIdx.x];
+  const long long s0 = box_source_starts[box];
+  const int ns = box_source_counts[box];
+  for (int i = lane; i < nc; i += kHelmThreads) acc[i] = make_double2(0, 0);
+  const double cx = centers[box], cy = centers[nboxes + box],
+               cz = centers[2 * nboxes + box];
+  const double s = box_scale[box];
+  __syncwarp();
+
+  for (int sb = 0; sb < ns; sb += kHelmThreads) {
+    const int j = sb + lane;
+    // idle lanes and r = 0 run the loop at direction (0, 0, 1), k r = 0,
+    // with zero tangents and zero weight; a source at the centre adds the
+    // limit of the tangent as r -> 0 instead, (k / 3) q conj(R_1^m(d)) at
+    // n = 1 alone (j_1(k r) A_1^m(u) -> (k / 3) R_1^m(x), R_1^0 = z,
+    // R_1^1 = (x + iy) / 2, R_1^{-1} = -(x - iy) / 2)
+    D ux(0.0), uy(0.0), uz(1.0), kr(0.0);
+    double2 q = make_double2(0.0, 0.0);
+    double2 lim0 = q, limp = q, limm = q;
+    if (j < ns) {
+      const long long i = s0 + j;
+      const double x = (sources[i] - cx) / s * s;
+      const double y = (sources[nsources + i] - cy) / s * s;
+      const double z = (sources[2 * nsources + i] - cz) / s * s;
+      const double dx = dipoles[i] / s * s;
+      const double dy = dipoles[nsources + i] / s * s;
+      const double dz = dipoles[2 * nsources + i] / s * s;
+      const double2 qi = L::charge(charges, i);
+      if (x * x + y * y + z * z > 0.0) {
+        const D X(x, dx), Y(y, dy), Z(z, dz);
+        const D r = sqrt_t(X * X + Y * Y + Z * Z);
+        ux = X / r;
+        uy = Y / r;
+        uz = Z / r;
+        kr = k * r;
+        q = qi;
+      } else {
+        const double f = k / 3.0;
+        lim0 = cmul(qi, make_double2(f * dz, 0.0));
+        limp = cmul(qi, make_double2(0.5 * f * dx, -(0.5 * f * dy)));
+        limm = cmul(qi, make_double2(-(0.5 * f * dx), -(0.5 * f * dy)));
+      }
+    }
+    spherical_jn(kr, p, jt + lane, kHelmThreads);
+    regular_pairs_foreach(ux, uy, uz, p, [&](int n, int m, D a_r, D a_i) {
+      const D jn = jt[n * kHelmThreads + lane];
+      // q times the tangent of j_n conj(A_n^m), summed over the warp
+      double2 t = cmul(q, make_double2((jn * a_r).d, -(jn * a_i).d));
+      if (n == 1) {
+        const double2 l = m == 0 ? lim0 : limp;
+        t.x += l.x;
+        t.y += l.y;
+      }
+      const double vr = warp_sum(t.x), vi = warp_sum(t.y);
+      double ur = 0.0, ui = 0.0;
+      if (m > 0) {
+        // conj(A_n^{-m}) = (-1)^m A_n^m
+        const D sj = (m & 1) ? -jn : jn;
+        double2 t2 = cmul(q, make_double2((sj * a_r).d, (sj * a_i).d));
+        if (n == 1) {
+          t2.x += limm.x;
+          t2.y += limm.y;
+        }
+        ur = warp_sum(t2.x);
+        ui = warp_sum(t2.y);
+      }
+      if (lane == 0) {
+        const int i = n * n + n + m;
+        acc[i].x += vr;
+        acc[i].y += vi;
+        if (m > 0) {
+          acc[i - 2 * m].x += ur;
+          acc[i - 2 * m].y += ui;
+        }
+      }
+    });
+  }
+  __syncwarp();
+  for (int i = lane; i < nc; i += kHelmThreads) {
+    int n = (int)sqrt((double)i);
+    while (n * n > i) --n;
+    while ((n + 1) * (n + 1) <= i) ++n;
+    const double pw = pow(s, -double(n));
+    L::store(out, box, nc, i,
+             cmul(L::weight(w_nm, i),
+                  make_double2(acc[i].x * pw, acc[i].y * pw)));
+  }
+}
+
+// }}}
+
 size_t helmholtz_smem(long long order) {
   return ((order + 1) * (order + 1) + (order + 1) * kHelmThreads) *
              sizeof(double2) +
@@ -498,6 +800,17 @@ size_t helmholtz_smem(long long order) {
 size_t p2m_l2p_smem(long long order) {
   return (order + 1) * (order + 1) * sizeof(double2) +
          (order + 1) * kHelmThreads * sizeof(double);
+}
+
+// K62 / K59 (the dipole P2L): the box's row and an h_n s^n dual table a
+// lane; K57 / K60 (the dipole P2M): the row and a j_n dual table a lane
+size_t p2l_dipole_smem(long long order) {
+  return (order + 1) * (order + 1) * sizeof(double2) +
+         (order + 1) * kHelmThreads * sizeof(Cx<D>);
+}
+size_t p2m_dipole_smem(long long order) {
+  return (order + 1) * (order + 1) * sizeof(double2) +
+         (order + 1) * kHelmThreads * sizeof(D);
 }
 
 // {{{ launches, one per kernel and layout
@@ -599,13 +912,81 @@ int l2p_launch(const void* targets, long long ntargets, const void* bts,
   return (int)cudaGetLastError();
 }
 
+template <typename L>
+int p2p_dipole_launch(const void* targets, long long ntargets,
+                      const void* sources, long long nsources,
+                      const void* charges, const void* dipoles,
+                      const void* bts, const void* btc, const void* bss,
+                      const void* bsc, const void* target_boxes,
+                      long long nrows, const void* starts, const void* lists,
+                      double k, void* out, void* stream) {
+  if (nrows > 0) {
+    p2p_helmholtz3d_dipole_kernel<L><<<(unsigned)nrows, kHelmThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const double*)targets, ntargets, (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const double*)dipoles,
+        (const int*)bts, (const int*)btc, (const int*)bss, (const int*)bsc,
+        (const int*)target_boxes, (const int*)starts, (const int*)lists, k,
+        (double2*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename L>
+int p2l_dipole_launch(const void* sources, long long nsources,
+                      const void* charges, const void* dipoles,
+                      const void* bss, const void* bsc, const void* rows,
+                      long long nrows, const void* starts, const void* lists,
+                      const void* centers, long long nboxes,
+                      const void* box_scale, const void* w_nm, double k,
+                      long long order, void* out, void* stream) {
+  if (nrows > 0) {
+    const size_t smem = p2l_dipole_smem(order);
+    const cudaError_t err =
+        allow_smem(p2l_helmholtz3d_dipole_kernel<L>, smem);
+    if (err != cudaSuccess) return (int)err;
+    p2l_helmholtz3d_dipole_kernel<L><<<(unsigned)nrows, kHelmThreads, smem,
+                                       (cudaStream_t)stream>>>(
+        (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const double*)dipoles,
+        (const int*)bss, (const int*)bsc, (const int*)rows,
+        (const int*)starts, (const int*)lists, (const double*)centers,
+        nboxes, (const double*)box_scale, (const typename L::Weight*)w_nm, k,
+        (int)order, (double*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename L>
+int p2m_dipole_launch(const void* sources, long long nsources,
+                      const void* charges, const void* dipoles,
+                      const void* bss, const void* bsc, const void* rows,
+                      long long nrows, const void* centers, long long nboxes,
+                      const void* box_scale, const void* w_nm, double k,
+                      long long order, void* out, void* stream) {
+  if (nrows > 0) {
+    const size_t smem = p2m_dipole_smem(order);
+    const cudaError_t err =
+        allow_smem(p2m_helmholtz3d_dipole_kernel<L>, smem);
+    if (err != cudaSuccess) return (int)err;
+    p2m_helmholtz3d_dipole_kernel<L><<<(unsigned)nrows, kHelmThreads, smem,
+                                       (cudaStream_t)stream>>>(
+        (const double*)sources, nsources,
+        (const typename L::Charge*)charges, (const double*)dipoles,
+        (const int*)bss, (const int*)bsc, (const int*)rows,
+        (const double*)centers, nboxes, (const double*)box_scale,
+        (const typename L::Weight*)w_nm, k, (int)order, (double*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 // }}}
 
 }  // namespace
 }  // namespace boxtree_torch
 
-// The C entry points: <name>_c128 on C128Layout (K9-K11, K31, K32),
-// <name>_f64 on PairLayout (K47-K51).
+// The C entry points: <name>_c128 on C128Layout (K9-K11, K31, K32, and
+// the dipole kernels K57-K59), <name>_f64 on PairLayout (K47-K51, K60-K62).
 #define BOXTREE_TORCH_HELMHOLTZ3D_ENTRIES(suffix, L)                         \
   extern "C" int p2p_helmholtz3d_##suffix(                                   \
       const void* targets, long long ntargets, const void* sources,          \
@@ -655,6 +1036,37 @@ int l2p_launch(const void* targets, long long ntargets, const void* bts,
     return boxtree_torch::l2p_launch<boxtree_torch::L>(                      \
         targets, ntargets, bts, btc, rows, nrows, locs, centers, nboxes,     \
         box_scale, k, order, out, stream);                                   \
+  }                                                                          \
+  extern "C" int p2p_helmholtz3d_dipole_##suffix(                            \
+      const void* targets, long long ntargets, const void* sources,          \
+      long long nsources, const void* charges, const void* dipoles,          \
+      const void* bts, const void* btc, const void* bss, const void* bsc,    \
+      const void* target_boxes, long long nrows, const void* starts,         \
+      const void* lists, double k, void* out, void* stream) {                \
+    return boxtree_torch::p2p_dipole_launch<boxtree_torch::L>(               \
+        targets, ntargets, sources, nsources, charges, dipoles, bts, btc,    \
+        bss, bsc, target_boxes, nrows, starts, lists, k, out, stream);       \
+  }                                                                          \
+  extern "C" int p2l_helmholtz3d_dipole_##suffix(                            \
+      const void* sources, long long nsources, const void* charges,          \
+      const void* dipoles, const void* bss, const void* bsc,                 \
+      const void* rows, long long nrows, const void* starts,                 \
+      const void* lists, const void* centers, long long nboxes,              \
+      const void* box_scale, const void* w_nm, double k, long long order,    \
+      void* out, void* stream) {                                             \
+    return boxtree_torch::p2l_dipole_launch<boxtree_torch::L>(               \
+        sources, nsources, charges, dipoles, bss, bsc, rows, nrows, starts,  \
+        lists, centers, nboxes, box_scale, w_nm, k, order, out, stream);     \
+  }                                                                          \
+  extern "C" int p2m_helmholtz3d_dipole_##suffix(                            \
+      const void* sources, long long nsources, const void* charges,          \
+      const void* dipoles, const void* bss, const void* bsc,                 \
+      const void* rows, long long nrows, const void* centers,                \
+      long long nboxes, const void* box_scale, const void* w_nm, double k,   \
+      long long order, void* out, void* stream) {                            \
+    return boxtree_torch::p2m_dipole_launch<boxtree_torch::L>(               \
+        sources, nsources, charges, dipoles, bss, bsc, rows, nrows, centers, \
+        nboxes, box_scale, w_nm, k, order, out, stream);                     \
   }
 
 BOXTREE_TORCH_HELMHOLTZ3D_ENTRIES(c128, C128Layout)

@@ -100,6 +100,9 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
     _supports_rscale = False
     #: whether the list-stage hooks have dipole kernels
     _supports_dipoles = False
+    #: the particle stages' kernel wrappers, ``{stage: wrapper}``, the
+    #: dipole forms under ``"<stage>_dipole"``
+    _kernels = None
 
     def __init__(self, tree_indep, traversal, rscale=None, dtype=None,
                  dipole_vec=None, dipoles_already_reordered=False,
@@ -317,6 +320,14 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         (``expansion_base.py:591-600``)."""
         return torch.zeros((self.tree.ntargets, *self._pot_extra_dims),
                            dtype=self.dtype, device=self.device)
+
+    def _with_dipoles(self, stage, lead, q, *rest):
+        """Stage *stage*'s kernel on ``(*lead, q, *rest)``, or with
+        ``dipole_vec`` set its dipole kernel, the dipoles after *q*."""
+        if self.dipole_vec is None:
+            return self._kernels[stage](*lead, q.contiguous(), *rest)
+        return self._kernels[f"{stage}_dipole"](
+            *lead, q.contiguous(), self.dipole_vec, *rest)
 
     def reorder_sources(self, source_array):
         return torch.as_tensor(source_array, device=self.device)[

@@ -15,9 +15,12 @@ conj(HR_nm(y - c))``, evaluation ``phi = sum M_nm HS_nm(x - c)``; P2L/L2P
 mirror them with h and j swapped.  Every particle stage runs a kernel of
 :mod:`boxtree_torch.ops.helmholtz3d` (P2M K31, P2P K9, M2P K10, P2L K11,
 L2P K32; their ``_f64`` entry points K50, K47, K48, K49 and K51 on the
-pair wrangler).  Coefficients are rscaled as the reference's are (``M~_n = M_n
-s^-n``, ``L~_n = L_n s^n`` for the level's rscale s,
-``helmholtz3d.py:188-196``).
+pair wrangler).  Both wranglers take dipole sources (``dipole_vec``, the
+potential ``q (d . grad_y) G``): P2M, P2P and P2L then run the dipole
+kernels K57, K58 and K59 (pairs K60, K61, K62), the JVPs of the charge
+stages in the source positions.  Coefficients are rscaled as the
+reference's are (``M~_n = M_n s^-n``, ``L~_n = L_n s^n`` for the level's
+rscale s, ``helmholtz3d.py:188-196``).
 
 Translations use the reference's exact Gaunt-series addition theorem
 (``helmholtz3d.py:23-33``)::
@@ -256,6 +259,14 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
 
     dtype = torch.complex128
     _supports_rscale = True
+    _supports_dipoles = True
+    _kernels = {
+        "p2m": hops.p2m_helmholtz3d,
+        "p2m_dipole": hops.p2m_helmholtz3d_dipole,
+        "p2p": hops.p2p_helmholtz3d,
+        "p2p_dipole": hops.p2p_helmholtz3d_dipole,
+        "p2l": hops.p2l_helmholtz3d,
+        "p2l_dipole": hops.p2l_helmholtz3d_dipole}
 
     def __init__(self, tree_indep, traversal, **kwargs):
         self.order = tree_indep.order
@@ -300,15 +311,17 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ P2M / L2P hooks (helmholtz3d.py:316-339): K31 and K32, over the
-    # boxes that own particles
+    # {{{ particle hooks (helmholtz3d.py:316-362): P2M and L2P over the
+    # boxes that own particles, P2P, M2P and P2L over the lists; with
+    # dipole_vec set, P2M, P2P and P2L run the dipole kernels
 
     def _p2m(self, q):
         tree = self.tree
-        return hops.p2m_helmholtz3d(
-            self._sources, q.contiguous(), tree.box_source_starts,
-            tree.box_source_counts_nonchild, self._source_rows, self.centers,
-            self.box_scale, self._w_nm, self.k, self.order)
+        return self._with_dipoles(
+            "p2m", (self._sources,), q,
+            tree.box_source_starts, tree.box_source_counts_nonchild,
+            self._source_rows, self.centers, self.box_scale, self._w_nm,
+            self.k, self.order)
 
     def _l2p(self, local_exps):
         tree = self.tree
@@ -318,14 +331,10 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
             local_exps.contiguous(), self.centers, self.box_scale, self.k,
             self.order)
 
-    # }}}
-
-    # {{{ list-stage hooks: the K9-K11 kernels
-
     def _p2p(self, target_boxes, starts, lists, q):
         tree = self.tree
-        return hops.p2p_helmholtz3d(
-            self._targets, self._sources, q.contiguous(),
+        return self._with_dipoles(
+            "p2p", (self._targets, self._sources), q,
             tree.box_target_starts, tree.box_target_counts_nonchild,
             tree.box_source_starts, tree.box_source_counts_nonchild,
             target_boxes, starts, lists, self.k)
@@ -340,10 +349,10 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
 
     def _p2l(self, rows, starts, lists, q, out):
         tree = self.tree
-        return hops.p2l_helmholtz3d(
-            self._sources, q.contiguous(), tree.box_source_starts,
-            tree.box_source_counts_nonchild, rows, starts, lists,
-            self.centers, self.box_scale, self._w_nm, self.k,
+        return self._with_dipoles(
+            "p2l", (self._sources,), q,
+            tree.box_source_starts, tree.box_source_counts_nonchild, rows,
+            starts, lists, self.centers, self.box_scale, self._w_nm, self.k,
             self.order, out)
 
     # }}}
@@ -420,15 +429,14 @@ def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
         on CUDA unless a complex ``dtype=`` is given, complex on the CPU.
         The pairs take a complex ``dtype=`` as its real counterpart.
 
-    ``dipole_vec``, ``level_to_order``, a complex *helmholtz_k*, dtypes
-    other than complex128 (complex) and float64 (pairs) raise
-    :class:`NotImplementedError`.  Other keyword arguments (``rscale``,
-    ``dtype``) go to the wrangler."""
+    ``level_to_order``, a complex *helmholtz_k*, dtypes other than
+    complex128 (complex) and float64 (pairs), and ``dipole_vec`` in 2D
+    raise :class:`NotImplementedError`.  Other keyword arguments
+    (``rscale``, ``dtype``, and in 3D ``dipole_vec`` and
+    ``dipoles_already_reordered``) go to the wrangler."""
     dim = traversal.tree.dimensions
     if dim not in (2, 3):
         raise NotImplementedError(f"no Helmholtz wrangler for dim={dim}")
-    if kwargs.pop("dipole_vec", None) is not None:
-        raise NotImplementedError("dipole sources are not ported yet")
     if kwargs.pop("level_to_order", None) is not None:
         raise NotImplementedError("level_to_order is not ported yet")
     if complex(helmholtz_k).imag != 0:

@@ -92,15 +92,7 @@ class _LaplaceParticleStages:
     of ``_kernels`` (``{stage: wrapper}``, the dipole forms under
     ``"<stage>_dipole"``): P2M and L2P over the boxes that own particles,
     P2P, M2P and P2L over the lists; with ``dipole_vec`` set, P2M, P2P and
-    P2L run their dipole kernels."""
-
-    _kernels = None
-
-    def _with_dipoles(self, stage, lead, q, *rest):
-        if self.dipole_vec is None:
-            return self._kernels[stage](*lead, q.contiguous(), *rest)
-        return self._kernels[f"{stage}_dipole"](
-            *lead, q.contiguous(), self.dipole_vec, *rest)
+    P2L run their dipole kernels (``_with_dipoles``)."""
 
     def _p2m(self, q):
         tree = self.tree

@@ -43,6 +43,20 @@ P2L, the particle's own box's for P2M and L2P); the hooks of the reference
 receive ``rel`` divided by it and work on ``rel * s``, which the twins and
 the kernels repeat.  ``w_nm = 4 pi i k D_nm^2``; the pair layout takes
 its real ``w_c = 4 pi k D_nm^2`` (``w_nm = i w_c``).
+
+Dipole sources (a ``(3, nsources)`` tree-order ``dipole_vec`` *d*, the
+potential ``q (d . grad_y) G(x, y)``): P2M, P2P and P2L each have a dipole
+form, the JVP of the charge form in the source positions along *d*
+(``boxtree_tpu/models/expansion_base.py:664-673``, ``:1314-1324``,
+``:1688-1694``), whose twin is ``torch.func.jvp`` of the charge twin's
+terms and whose kernel is the charge kernel on dual numbers (K57-K59,
+pairs K60-K62).  P2M and P2L hand the terms the offset's tangent ``d /
+s``, as the reference does.  At ``r = 0`` the dipole P2M takes the limit
+of the tangent, ``(k / 3) q w_1m conj(R_1^m(d)) s^-1`` at ``n = 1``, where
+the reference's guard gives 0 (it drops the dipole moment of a source on
+its box's centre); the dipole P2L gives 0 there, as the reference.  The
+tangent of ``j_0`` is ``-j_1`` (``spherical_bessel.spherical_jn``), not
+the reference's quotient rule, which cancels at small ``k r``.
 """
 
 from __future__ import annotations
@@ -224,6 +238,68 @@ def p2l_terms_pairs(rel, q, scale, w_c, k, order):
 # }}}
 
 
+# {{{ the dipole terms: JVPs of the terms in the offsets
+
+def _p2m_limit(rel, dip, scale, k):
+    """``(ok, lim)``: ``r > 0`` at offsets *rel* pre-divided by *scale*,
+    and where ``r = 0`` the limit of the tangent of ``j_n(k r) conj(A_n^m)
+    s^-n`` along the offset tangent *dip* (pre-divided too) as ``r -> 0``:
+    ``(k / 3) conj(R_1^m(dip s)) s^-1`` for ``m = -1, 0, 1``, complex
+    ``(..., 3)``, since ``j_1(k r) A_1^m(u) = (k r / 3) R_1^m(u) + O(r^3)
+    = (k / 3) R_1^m(x) + O(r^3)`` and the other orders' tangents vanish."""
+    ok = ((rel * scale) ** 2).sum(0) > 0
+    r1 = sh.regular(dip * scale, 1)[..., 1:4]
+    return ok, (k / 3) * r1.conj() / scale[..., None]
+
+
+def p2m_dipole_terms(rel, dip, q, scale, w_nm, k, order):
+    """Multipole terms of dipole sources: the JVP of :func:`p2m_terms` in
+    *rel* along *dip* (both pre-divided by *scale*), and at ``r = 0`` the
+    limit of that tangent (:func:`_p2m_limit`), where the reference's
+    guard gives 0."""
+    t = torch.func.jvp(lambda r: p2m_terms(r, q, scale, w_nm, k, order),
+                       (rel,), (dip,))[1]
+    if order >= 1:
+        ok, lim = _p2m_limit(rel, dip, scale, k)
+        t[..., 1:4] = torch.where(ok[..., None], t[..., 1:4],
+                                  q[..., None] * w_nm[1:4] * lim)
+    return t
+
+
+def p2m_dipole_terms_pairs(rel, dip, q, scale, w_c, k, order):
+    """:func:`p2m_dipole_terms` on pair lanes: the JVP of
+    :func:`p2m_terms_pairs`, the limit at ``r = 0`` as ``q i w_c lim``."""
+    t = torch.func.jvp(
+        lambda r: p2m_terms_pairs(r, q, scale, w_c, k, order), (rel,),
+        (dip,))[1]
+    if order < 1:
+        return t
+    ok, lim = _p2m_limit(rel, dip, scale, k)
+    qc = q[..., None] * w_c[1:4]
+    kc = sh.ncoeffs(order)
+    okc = ok[..., None]
+    t[..., 1:4] = torch.where(okc, t[..., 1:4], -qc * lim.imag)
+    t[..., kc + 1:kc + 4] = torch.where(okc, t[..., kc + 1:kc + 4],
+                                        qc * lim.real)
+    return t
+
+
+def p2l_dipole_terms(rel, dip, q, scale, w_nm, k, order):
+    """Local terms of dipole sources: the JVP of :func:`p2l_terms` in
+    *rel* along *dip* (both pre-divided by *scale*); 0 at ``r = 0``."""
+    return torch.func.jvp(lambda r: p2l_terms(r, q, scale, w_nm, k, order),
+                          (rel,), (dip,))[1]
+
+
+def p2l_dipole_terms_pairs(rel, dip, q, scale, w_c, k, order):
+    """:func:`p2l_dipole_terms` on pair lanes (:func:`p2l_terms_pairs`)."""
+    return torch.func.jvp(
+        lambda r: p2l_terms_pairs(r, q, scale, w_c, k, order), (rel,),
+        (dip,))[1]
+
+# }}}
+
+
 # {{{ the two layouts
 
 def _is_pairs(dtype):
@@ -247,16 +323,33 @@ def _pot_zeros(n, dtype, device):
 # }}}
 
 
-def _check_args(k, order, dtype):
+def _check_args(k, order, dtype, smem=None, smem_max=48 * 1024):
+    """The kernels' dtypes and wavenumber, and their shared memory a CTA:
+    *smem* bytes (default: K10 / K11's row and ``h_n s^n`` column a lane,
+    the most of K9-K11, K31, K32) against *smem_max*."""
     if dtype not in (torch.float64, torch.complex128):
         raise TypeError("the Helmholtz kernels take complex128 or float64 "
                         f"pairs, not {dtype}")
     if not isinstance(k, float):
         raise TypeError("the Helmholtz kernels take a real wavenumber")
-    smem = (sh.ncoeffs(order) + (order + 1) * _KERNEL_THREADS) * 16 + 32
-    if smem > 48 * 1024:
+    if smem is None:
+        smem = (sh.ncoeffs(order) + (order + 1) * _KERNEL_THREADS) * 16 + 32
+    if smem > smem_max:
         raise ValueError(f"order {order} needs {smem} bytes of shared "
-                         f"memory per CTA; the kernels take up to 48 KiB")
+                         f"memory per CTA; the kernels take up to "
+                         f"{smem_max // 1024} KiB")
+
+
+def _check_dipole_args(k, order, dtype, stage):
+    """:func:`_check_args` for the dipole P2M (*stage* ``"p2m"``, K57 /
+    K60) or P2L (``"p2l"``, K59 / K62), whose CTA holds the box's row and
+    a dual ``j_n`` (16 bytes) or dual complex ``h_n s^n`` (32 bytes)
+    column a lane, as ``csrc/helmholtz3d.cu`` sizes it, in up to 227
+    KiB."""
+    per_value = {"p2m": 16, "p2l": 32}[stage]
+    smem = (sh.ncoeffs(order) * 16
+            + (order + 1) * _KERNEL_THREADS * per_value)
+    _check_args(k, order, dtype, smem, kernels.SMEM_MAX)
 
 
 # {{{ P2P
@@ -326,6 +419,49 @@ def p2p_helmholtz3d(targets, sources, charges, box_target_starts,
         starts, lists, k, out)
     return out
 
+
+def p2p_helmholtz3d_dipole_plain(targets, sources, charges, dipole_vec,
+                                 *args):
+    """Plain twin of :func:`p2p_helmholtz3d_dipole`: the JVP of
+    :func:`p2p_helmholtz3d_plain` in the source positions along
+    *dipole_vec*."""
+    return torch.func.jvp(
+        lambda s: p2p_helmholtz3d_plain(targets, s, charges, *args),
+        (sources,), (dipole_vec,))[1]
+
+
+def p2p_helmholtz3d_dipole(targets, sources, charges, dipole_vec,
+                           box_target_starts, box_target_counts_nonchild,
+                           box_source_starts, box_source_counts_nonchild,
+                           target_boxes, starts, lists, k):
+    """List-1 potentials of dipole sources, ``sum q_s (d_s . grad_s)
+    exp(ik|t - s|) / |t - s|`` (*dipole_vec* ``(3, nsources)`` in tree
+    order), in :func:`p2p_helmholtz3d`'s layouts.  The K58 kernel (pairs:
+    K61) on CUDA tensors."""
+    args = (box_target_starts, box_target_counts_nonchild,
+            box_source_starts, box_source_counts_nonchild, target_boxes,
+            starts, lists)
+    if targets.device.type == "cpu":
+        return p2p_helmholtz3d_dipole_plain(targets, sources, charges,
+                                            dipole_vec, *args, k)
+    dt = charges.dtype
+    _check_args(k, 0, dt)
+    kernels.check_tensors(targets, sources, dipole_vec, dtype=torch.float64)
+    kernels.check_tensors(charges, dtype=dt)
+    kernels.check_tensors(*args, dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_helmholtz3d_dipole", dt, targets, targets.shape[1], sources,
+        sources.shape[1], charges, dipole_vec, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, k, out)
+    return out
+
 # }}}
 
 
@@ -389,15 +525,15 @@ def m2p_helmholtz3d(targets, box_target_starts, box_target_counts_nonchild,
 
 # {{{ P2L
 
-def p2l_helmholtz3d_plain(sources, charges, box_source_starts,
-                          box_source_counts_nonchild, rows, starts, lists,
-                          centers, box_scale, w_nm, k, order, out):
-    """Plain twin of :func:`p2l_helmholtz3d`."""
+def _p2l_plain(sources, charges, dipole_vec, box_source_starts,
+               box_source_counts_nonchild, rows, starts, lists, centers,
+               box_scale, w_nm, k, order, out):
+    """The plain P2L of charges (*dipole_vec* None) or dipoles."""
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
+    pairs = _is_pairs(out.dtype)
     kc = _width(order, out.dtype)
-    term_fn = p2l_terms_pairs if _is_pairs(out.dtype) else p2l_terms
     ps = _max_count(box_source_counts_nonchild, sbox)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (ps * kc))
     for c0 in range(0, tbox.shape[0], chunk):
@@ -407,10 +543,21 @@ def p2l_helmholtz3d_plain(sources, charges, box_source_starts,
         s = box_scale[tb][:, None]                       # (E, 1)
         rel = (sources[:, sidx] - centers[:, tb][..., None]) / s
         q = torch.where(smask, charges[sidx], 0)
-        terms = term_fn(rel, q, s.expand(rel.shape[1:]), w_nm, k, order)
+        scale = s.expand(rel.shape[1:])
+        if dipole_vec is None:
+            terms = (p2l_terms_pairs if pairs else p2l_terms)(
+                rel, q, scale, w_nm, k, order)
+        else:
+            terms = (p2l_dipole_terms_pairs if pairs else p2l_dipole_terms)(
+                rel, dipole_vec[:, sidx] / s, q, scale, w_nm, k, order)
         terms = torch.where(smask[..., None], terms, 0)
         out.index_add_(0, tb, terms.sum(1))
     return out
+
+
+def p2l_helmholtz3d_plain(sources, charges, *args):
+    """Plain twin of :func:`p2l_helmholtz3d`."""
+    return _p2l_plain(sources, charges, None, *args)
 
 
 def p2l_helmholtz3d(sources, charges, box_source_starts,
@@ -446,26 +593,78 @@ def p2l_helmholtz3d(sources, charges, box_source_starts,
         w_nm, k, order, out)
     return out
 
+
+def p2l_helmholtz3d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2l_helmholtz3d_dipole`: per (source, target
+    box) the JVP of the twin's terms in the source position along
+    *dipole_vec* (:func:`p2l_dipole_terms`), added into *out* (the last of
+    *args*)."""
+    return _p2l_plain(sources, charges, dipole_vec, *args)
+
+
+def p2l_helmholtz3d_dipole(sources, charges, dipole_vec, box_source_starts,
+                           box_source_counts_nonchild, rows, starts, lists,
+                           centers, box_scale, w_nm, k, order, out):
+    """:func:`p2l_helmholtz3d` for dipole sources (*dipole_vec* ``(3,
+    nsources)`` in tree order).  The K59 kernel (pairs: K62) on CUDA
+    tensors.  Returns *out*."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, starts,
+            lists, centers, box_scale, w_nm)
+    if sources.device.type == "cpu":
+        return p2l_helmholtz3d_dipole_plain(sources, charges, dipole_vec,
+                                            *args, k, order, out)
+    dt = out.dtype
+    _check_dipole_args(k, order, dt, "p2l")
+    kernels.check_tensors(sources, dipole_vec, centers, box_scale,
+                          dtype=torch.float64)
+    kernels.check_tensors(charges, w_nm, out, dtype=dt)
+    kernels.check_tensors(*args[:5], dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    if out.shape != (centers.shape[1], _width(order, dt)) \
+            or w_nm.shape != (sh.ncoeffs(order),):
+        raise ValueError("out must be (nboxes, (order + 1)**2), twice that "
+                         "in pairs, and w_nm ((order + 1)**2,)")
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2l_helmholtz3d_dipole", dt, sources, sources.shape[1], charges,
+        dipole_vec, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
+        w_nm, k, order, out)
+    return out
+
 # }}}
 
 
 # {{{ P2M / L2P
 
-def p2m_helmholtz3d_plain(sources, charges, box_source_starts,
-                          box_source_counts_nonchild, rows, centers,
-                          box_scale, w_nm, k, order):
-    """Plain twin of :func:`p2m_helmholtz3d`."""
+def _p2m_plain(sources, charges, dipole_vec, box_source_starts,
+               box_source_counts_nonchild, rows, centers, box_scale, w_nm,
+               k, order):
+    """The plain P2M of charges (*dipole_vec* None) or dipoles."""
+    pairs = _is_pairs(charges.dtype)
     kc = _width(order, charges.dtype)
     out = charges.new_zeros((centers.shape[1], kc))
-    term_fn = p2m_terms_pairs if _is_pairs(charges.dtype) else p2m_terms
     idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
                               rows)
     for c in _row_chunks(idx.shape[0], kc):
         i, b = idx[c], box[c]
         s = box_scale[b]
         rel = (sources[:, i] - centers[:, b]) / s
-        out.index_add_(0, b, term_fn(rel, charges[i], s, w_nm, k, order))
+        if dipole_vec is None:
+            terms = (p2m_terms_pairs if pairs else p2m_terms)(
+                rel, charges[i], s, w_nm, k, order)
+        else:
+            terms = (p2m_dipole_terms_pairs if pairs else p2m_dipole_terms)(
+                rel, dipole_vec[:, i] / s, charges[i], s, w_nm, k, order)
+        out.index_add_(0, b, terms)
     return out
+
+
+def p2m_helmholtz3d_plain(sources, charges, *args):
+    """Plain twin of :func:`p2m_helmholtz3d`."""
+    return _p2m_plain(sources, charges, None, *args)
 
 
 def p2m_helmholtz3d(sources, charges, box_source_starts,
@@ -497,6 +696,48 @@ def p2m_helmholtz3d(sources, charges, box_source_starts,
     kernels.launch(
         "p2m_helmholtz3d", dt, sources, sources.shape[1],
         charges, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], centers, centers.shape[1], box_scale, w_nm, k, order,
+        out)
+    return out
+
+
+def p2m_helmholtz3d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2m_helmholtz3d_dipole`: per source the JVP of
+    the twin's terms in its position along *dipole_vec*, and the limit of
+    that tangent for a source at its box's centre
+    (:func:`p2m_dipole_terms`)."""
+    return _p2m_plain(sources, charges, dipole_vec, *args)
+
+
+def p2m_helmholtz3d_dipole(sources, charges, dipole_vec, box_source_starts,
+                           box_source_counts_nonchild, rows, centers,
+                           box_scale, w_nm, k, order):
+    """:func:`p2m_helmholtz3d` for dipole sources (*dipole_vec* ``(3,
+    nsources)`` in tree order); a source at its box's centre adds the
+    limit of its tangent (see the module doc).  The K57 kernel (pairs:
+    K60) on CUDA tensors."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, centers,
+            box_scale, w_nm)
+    if sources.device.type == "cpu":
+        return p2m_helmholtz3d_dipole_plain(sources, charges, dipole_vec,
+                                            *args, k, order)
+    dt = charges.dtype
+    _check_dipole_args(k, order, dt, "p2m")
+    kernels.check_tensors(sources, dipole_vec, centers, box_scale,
+                          dtype=torch.float64)
+    kernels.check_tensors(charges, w_nm, dtype=dt)
+    kernels.check_tensors(*args[:3], dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    if w_nm.shape != (sh.ncoeffs(order),):
+        raise ValueError("w_nm must be ((order + 1)**2,)")
+    out = torch.zeros((centers.shape[1], _width(order, dt)), dtype=dt,
+                      device=sources.device)
+    if rows.numel() == 0:
+        return out
+    kernels.launch(
+        "p2m_helmholtz3d_dipole", dt, sources, sources.shape[1], charges,
+        dipole_vec, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], centers, centers.shape[1], box_scale, w_nm, k, order,
         out)
     return out

@@ -89,6 +89,9 @@ SIGNATURES = {
     "tree_level_boxes": "pippppp" + "iiiiii" + "p" * 14,
     "restrict_sweep": "pipipp",
     "level_box_counts": "pipiiipp",
+    "p2m_helmholtz3d_dipole": "pipppppipippdipp",
+    "p2p_helmholtz3d_dipole": "pipipppppppippdpp",
+    "p2l_helmholtz3d_dipole": "pipppppipppippdipp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -148,6 +151,9 @@ DTYPES = {
     "tree_level_boxes": _FLOATS,
     "restrict_sweep": (),
     "level_box_counts": (),
+    "p2m_helmholtz3d_dipole": _HELMHOLTZ,
+    "p2p_helmholtz3d_dipole": _HELMHOLTZ,
+    "p2l_helmholtz3d_dipole": _HELMHOLTZ,
 }
 
 

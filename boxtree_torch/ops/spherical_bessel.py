@@ -9,7 +9,9 @@ to rounding:
   - r_{n+1})`` from ``nstart = p + 25`` (denominators below ``1e-300``
   clamped to ``1e-300``), then ``j_n = j_0 r_1 ... r_n`` with ``j_0 =
   sin(x)/x``; below ``|x| < 1e-6`` the leading series term
-  ``x^n / (2n+1)!!``.
+  ``x^n / (2n+1)!!``.  Under ``torch.func.jvp`` the tangent of ``j_0`` is
+  ``-j_1 = -j_0 r_1``, not the reference's (that of ``sin(x)/x``, which
+  cancels at small ``x``): ``csrc/bessel.cuh`` takes the same.
 - ``y_n``: upward recurrence ``y_{n+1} = (2n+1)/x y_n - y_{n-1}`` (stable:
   y grows with n); not valid at ``x = 0``, which callers guard.
 """
@@ -48,7 +50,11 @@ def spherical_jn(x, p, *, extra=JN_EXTRA):
         if n <= p:
             ratios[n] = r
 
-    vals = [torch.sin(xs) * xinv]
+    # j_0's tangent (under torch.func.jvp) is -j_1 = -j_0 r_1 (r holds
+    # r_1 here), not that of the quotient, cos x / x - sin x / x^2, which
+    # cancels to eps / x^2 of itself; the value is sin(x) / x unchanged
+    j0 = torch.sin(xs) * xinv
+    vals = [j0.detach() - (j0 * r).detach() * (xs - xs.detach())]
     for n in range(1, p + 1):
         vals.append(vals[n - 1] * ratios[n])
     out = torch.stack(vals, dim=-1)

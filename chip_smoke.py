@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives ten
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives eleven
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -75,7 +75,22 @@ paths of the port on the card, each with the kernels' launch counts set to
   real parts against float64 direct sums at 2,000 sampled targets, the
   pairs against the complex real part (K1, K2-K4 complex128, K22 dipole
   P2P, K23 dipole P2L, K28 P2M and K30 L2P, K29 dipole P2M); each of its
-  four FMMs must launch K28 (or K29, with dipoles) and K30 once.
+  four FMMs must launch K28 (or K29, with dipoles) and K30 once;
+- the 3D Helmholtz dipoles (``helmholtz3d_dipole_fmm``, order 12, k = 2,
+  ``rscale="auto"``): the 3D double layer's 1e6 sphere sources with their
+  normals as dipoles and real weights and its 2e5 targets, the complex128
+  wrangler and the pairs that ``pairs=None`` gives on the card on one
+  traversal: the complex potentials against a complex128 direct sum of
+  ``w (d . grad_y) exp(ik r)/r`` at 2,000 sampled targets (< 1e-5), the
+  pairs against the complex wrangler at every target (<= 1e-12), each FMM
+  launching its layout's dipole P2M, P2P and P2L once (K57-K59, pairs
+  K60-K62) and no charge P2M / P2P / P2L, with no host read; K57-K62
+  against their twins at 1e5 sphere sources first
+  (``kernels_helmholtz3d_dipole_small``: rscale ``"auto"`` with the
+  normals and None with standard-normal dipoles, a source on its box's
+  centre) and timed at the 1e6 inputs beside the charge kernels K31, K9,
+  K11 (pairs K50, K47, K49) on the same inputs
+  (``kernels_helmholtz3d_dipole``).
 
 Every path builds its tree with K43 (phase A: leaf levels and box
 counts, one launch and one host read per depth tried) and K44 (phase B,
@@ -134,7 +149,8 @@ Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
 1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
 on every entry point there; K47-K56 at 1e5 points only, timed alone at
-their 1e6 path's inputs),
+their 1e6 path's inputs; K57-K62 at 1e5 points, and at 1e6 where their
+1e5 time predicts a twin under a second),
 and timed beside it (median of 5 synchronised calls; 3 for the slow
 Helmholtz twins at 1e6) and beside its bound, the least time the card
 could take for the same work.  Each phase prints one JSON line; then come
@@ -246,6 +262,9 @@ SOURCES = {
     "tree_level_boxes": "boxtree_torch/csrc/tree.cu",
     "restrict_sweep": "boxtree_torch/csrc/restrict.cu",
     "level_box_counts": "boxtree_torch/csrc/tree.cu",
+    "p2m_helmholtz3d_dipole": "boxtree_torch/csrc/helmholtz3d.cu",
+    "p2p_helmholtz3d_dipole": "boxtree_torch/csrc/helmholtz3d.cu",
+    "p2l_helmholtz3d_dipole": "boxtree_torch/csrc/helmholtz3d.cu",
 }
 #: K43 and K44, launched by every tree build (K45 and K46 by a restricted
 #: one)
@@ -1362,7 +1381,9 @@ def helmholtz_work(inputs):
 
     Charges are 16 bytes (complex128) or 8 (K47-K49's real ones); a
     potential is 16 bytes and a coefficient 16 (complex128, or a ``[re |
-    im]`` pair) in both layouts.
+    im]`` pair) in both layouts.  Each of the three in *inputs* is
+    counted; K11's per-box products are also given alone, as
+    ``row_flops``.
     """
     import torch
 
@@ -1373,39 +1394,45 @@ def helmholtz_work(inputs):
         return csr_rows(starts, lists.shape[0])
 
     out = {}
-    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _) = \
-        inputs["p2p_helmholtz3d"][2]
-    real_q = not q.is_complex()
-    tcn64, scn64 = tcn.to(torch.int64), scn.to(torch.int64)
-    pairs = int((tcn64[tb.to(torch.int64)[row_of(st, ls)]]
-                 * scn64[ls.to(torch.int64)]).sum())
-    out["p2p_helmholtz3d"] = dict(
-        type="float64", particle_pairs=pairs,
-        flops=(12 if real_q else 20) * pairs,
-        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, 16))
+    if "p2p_helmholtz3d" in inputs:
+        (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _) = \
+            inputs["p2p_helmholtz3d"][2]
+        tcn64, scn64 = tcn.to(torch.int64), scn.to(torch.int64)
+        pairs = int((tcn64[tb.to(torch.int64)[row_of(st, ls)]]
+                     * scn64[ls.to(torch.int64)]).sum())
+        out["p2p_helmholtz3d"] = dict(
+            type="float64", particle_pairs=pairs,
+            flops=(20 if q.is_complex() else 12) * pairs,
+            bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, 16))
 
-    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order) = \
-        inputs["m2p_helmholtz3d"][2]
-    nc = ncoeffs(order)
-    common = 10 * (order + 1) * (order + 2) // 2 + 3 * (3 * order + 25)
-    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
-        row_of(st, ls)]].sum())
-    out["m2p_helmholtz3d"] = dict(
-        type="float64", target_box_pairs=pairs, coefficients=nc,
-        flops=(8 * nc + 8 * (order + 1) + common) * pairs,
-        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
-                        16))
+    def common(order):
+        return 10 * (order + 1) * (order + 2) // 2 + 3 * (3 * order + 25)
 
-    (src, q, sst, scn, rows, st, ls, centers, scale, w_nm, _, order) = \
-        inputs["p2l_helmholtz3d"][2]
-    per_q, per_w = (2, 2) if real_q else (6, 6)
-    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
-    out["p2l_helmholtz3d"] = dict(
-        type="float64", source_box_pairs=pairs, coefficients=nc,
-        flops=((8 * nc + per_q * (order + 1) + common) * pairs
-               + per_w * nc * rows.shape[0]),
-        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
-                        nc * 16) + nbytes(w_nm))
+    if "m2p_helmholtz3d" in inputs:
+        (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order) = \
+            inputs["m2p_helmholtz3d"][2]
+        nc = ncoeffs(order)
+        pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+            row_of(st, ls)]].sum())
+        out["m2p_helmholtz3d"] = dict(
+            type="float64", target_box_pairs=pairs, coefficients=nc,
+            flops=(8 * nc + 8 * (order + 1) + common(order)) * pairs,
+            bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
+                            16))
+
+    if "p2l_helmholtz3d" in inputs:
+        (src, q, sst, scn, rows, st, ls, centers, scale, w_nm, _, order) = \
+            inputs["p2l_helmholtz3d"][2]
+        nc = ncoeffs(order)
+        per_q, per_w = (6, 6) if q.is_complex() else (2, 2)
+        pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+        out["p2l_helmholtz3d"] = dict(
+            type="float64", source_box_pairs=pairs, coefficients=nc,
+            flops=((8 * nc + per_q * (order + 1) + common(order)) * pairs
+                   + per_w * nc * rows.shape[0]),
+            row_flops=per_w * nc * rows.shape[0],
+            bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                            nc * 16) + nbytes(w_nm))
     return out
 
 
@@ -1457,7 +1484,8 @@ def helmholtz_p2m_l2p_work(inputs):
 
     ``log``, ``sincos``, ``pow`` and ``atan2`` are not counted.  A P2M
     reads each charge's 16 bytes (complex128) or 8 (K50, K55), and K50 a
-    real ``w_c`` of 8 bytes a coefficient."""
+    real ``w_c`` of 8 bytes a coefficient.  The per-row products of a 3D
+    P2M are also given alone, as ``row_flops``."""
     import torch
 
     from boxtree_torch.ops.cylinder_bessel import even_start
@@ -1481,10 +1509,12 @@ def helmholtz_p2m_l2p_work(inputs):
             flops = (3 * (order + 25) + order
                      + 10 * (order + 1) * (order + 2) // 2
                      + (6 if real_q else 10) * nc)
-            flops = flops * npart + ((4 if real_q else 8) * nc * nrows if p2m
+            row_flops = (4 if real_q else 8) * nc * nrows if p2m else 0
+            flops = flops * npart + (row_flops if p2m
                                      else (order + 1) * npart)
         else:
             nc = 2 * order + 1
+            row_flops = 0
             ns = even_start(args[-1], order)
             per_order = (6 if real_q else 10) if p2m else 12
             flops = (9 + 5 * ns + 2 * (ns // 2) + (order + 1)
@@ -1497,7 +1527,7 @@ def helmholtz_p2m_l2p_work(inputs):
             per_row += nc * 16
         out[name] = dict(
             type="float64", particles=npart, rows=nrows, coefficients=nc,
-            flops=flops,
+            flops=flops, row_flops=row_flops,
             bytes=npart * per_part + nrows * per_row + nbytes(rows)
             + written)
     return out
@@ -1530,7 +1560,8 @@ def check_p2m_l2p_helmholtz_launches(launches, path, names):
 
 
 def check_list_kernels(inputs, device, plain_reps,
-                       rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None, rel_fn=None):
+                       rtol=HELMHOLTZ_KERNEL_RTOL, slow_s=None, rel_fn=None,
+                       detail=None):
     """Run list kernels (K2-K4, K9-K11, K16-K23, K41, K42) or K28-K34,
     K38-K40 and their twins on the same inputs; raise on a rel l-inf above
     *rtol* (a P2L's local coefficients and a Helmholtz or 2D Laplace P2M's
@@ -1539,7 +1570,8 @@ def check_list_kernels(inputs, device, plain_reps,
     is given).  Returns ``{name: {max_abs_err,
     rel_err, ms, plain_ms, plain_reps}}``: the kernel's median of 5, the
     twin's median of *plain_reps*, or its first call alone when that took
-    more than *slow_s* seconds."""
+    more than *slow_s* seconds; and what *detail* (``(got, ref) -> dict``)
+    makes of the outputs, when given."""
     results = {}
     for name, (kernel, plain, args) in inputs.items():
         got = kernel(*args)
@@ -1550,8 +1582,10 @@ def check_list_kernels(inputs, device, plain_reps,
                                         "p2m_laplace2d"))
                     else rel_linf_per_row if name.startswith("p2m_")
                     else rel_linf)(got, ref)
+        more = {} if detail is None else detail(got, ref)
         if not rel <= rtol:
-            raise AssertionError(f"{name}: rel l-inf {rel:.3e} > {rtol}")
+            raise AssertionError(f"{name}: rel l-inf {rel:.3e} > {rtol} "
+                                 f"{more}")
         del got, ref
         reps = 1 if slow_s is not None and t_plain > slow_s else plain_reps
         results[name] = dict(
@@ -1559,7 +1593,7 @@ def check_list_kernels(inputs, device, plain_reps,
             ms=median_ms(lambda: kernel(*args), device),
             plain_ms=t_plain * 1e3 if reps == 1 else median_ms(
                 lambda: plain(*args), device, reps=reps),
-            plain_reps=reps)
+            plain_reps=reps, **more)
     return results
 
 
@@ -1895,6 +1929,457 @@ def run_helmholtz(device, card, translation, n_kernels=100_000,
     small = check_pair_kernels(card, device, 3, pts, q, k, order, entries)
     return out + [pair_entry(name, entries[f"{name}_f64"], path[name],
                              pwork[name], small[name]) for name in path]
+
+# }}}
+
+
+# {{{ the 3D Helmholtz dipoles (K57-K62)
+
+#: K57-K62: the dipole kernels' entry points, by kernel and layout: their
+#: number and the reference's program they replace (the jax.jvp of a hook
+#: in expansion_base.py; on the pair layout of the pair class's hook)
+DIPOLE_KERNELS = {
+    "p2m_helmholtz3d_dipole": {
+        "c128": ("K57", "boxtree_tpu/models/expansion_base.py:664"),
+        "f64": ("K60", "boxtree_tpu/models/helmholtz3d.py:442")},
+    "p2p_helmholtz3d_dipole": {
+        "c128": ("K58", "boxtree_tpu/models/expansion_base.py:1314"),
+        "f64": ("K61", "boxtree_tpu/models/helmholtz3d.py:513")},
+    "p2l_helmholtz3d_dipole": {
+        "c128": ("K59", "boxtree_tpu/models/expansion_base.py:1688"),
+        "f64": ("K62", "boxtree_tpu/models/helmholtz3d.py:494")},
+}
+#: the charge kernels a dipole FMM must not launch (K31 / K9 / K11, pairs
+#: K50 / K47 / K49)
+DIPOLE_REPLACED = ("p2m_helmholtz3d", "p2p_helmholtz3d", "p2l_helmholtz3d")
+#: rel l-inf tolerance of K57-K62 against their twins, per coefficient
+#: column and potential lane: no looser than their charge kernels' (K9 /
+#: K11 ``HELMHOLTZ_KERNEL_RTOL``, K31 ``HELMHOLTZ_P2M_L2P_RTOL``, K47-K51
+#: ``HELMHOLTZ_PAIR_KERNEL_RTOL``)
+DIPOLE_KERNEL_RTOL = {
+    ("c128", "p2m_helmholtz3d_dipole"): HELMHOLTZ_P2M_L2P_RTOL,
+    ("c128", "p2p_helmholtz3d_dipole"): HELMHOLTZ_KERNEL_RTOL,
+    ("c128", "p2l_helmholtz3d_dipole"): HELMHOLTZ_KERNEL_RTOL,
+    ("f64", "p2m_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
+    ("f64", "p2p_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
+    ("f64", "p2l_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL}
+
+
+def helmholtz_dipole_inputs(w, q_tree, sources=None):
+    """K57-K59 (a complex wrangler *w* with dipoles) or K60-K62 (pairs):
+    wrappers, plain twins and arguments at the shapes the FMM of *w* gives
+    them on tree-order charges *q_tree*, the tree-order sources replaced
+    by *sources* if given; P2L into zero locals."""
+    from boxtree_torch.ops import helmholtz3d
+
+    tree, trav = w.tree, w.traversal
+    src = w._sources if sources is None else sources
+    args = {
+        "p2m_helmholtz3d_dipole": (
+            src, q_tree, w.dipole_vec, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, w.centers,
+            w.box_scale, w._w_nm, w.k, w.order),
+        "p2p_helmholtz3d_dipole": (
+            w._targets, src, q_tree, w.dipole_vec, tree.box_target_starts,
+            tree.box_target_counts_nonchild, tree.box_source_starts,
+            tree.box_source_counts_nonchild, trav.target_boxes,
+            trav.neighbor_source_boxes_starts,
+            trav.neighbor_source_boxes_lists, w.k),
+        "p2l_helmholtz3d_dipole": (
+            src, q_tree, w.dipole_vec, tree.box_source_starts,
+            tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
+            w.box_scale, w._w_nm, w.k, w.order)}
+    out = {}
+    for name, a in args.items():
+        kernel = getattr(helmholtz3d, name)
+        plain = getattr(helmholtz3d, f"{name}_plain")
+        if name.startswith("p2l_"):
+            out[name] = (
+                lambda *x, k=kernel: k(*x, w.local_expansion_zeros()),
+                lambda *x, k=plain: k(*x, w.local_expansion_zeros()), a)
+        else:
+            out[name] = (kernel, plain, a)
+    return out
+
+
+def less_dipoles(name, args):
+    """The arguments of dipole kernel *name* (K57-K62) without the dipoles:
+    those of the charge kernel it differentiates (K31, K9, K11 or K50,
+    K47, K49)."""
+    i = 3 if name.startswith("p2p_") else 2
+    return args[:i] + args[i + 1:]
+
+
+def helmholtz_dipole_work(inputs):
+    """Bytes K57-K62 must move and the float64 operations they must do at
+    *inputs*: those of their charge kernels on the same arguments less the
+    dipoles (:func:`helmholtz_work` for K58 / K59, K61 / K62,
+    :func:`helmholtz_p2m_l2p_work` for K57 / K60), each per-pair or
+    per-particle operation done twice (on a value and on its tangent; the
+    per-row ``w_nm`` products once), and 24 bytes of dipole read for each
+    source."""
+    import torch
+
+    charge = {name.removesuffix("_dipole"): (None, None,
+                                             less_dipoles(name, args))
+              for name, (_, _, args) in inputs.items()}
+    work = helmholtz_work({n: v for n, v in charge.items()
+                           if not n.startswith("p2m_")})
+    work.update(helmholtz_p2m_l2p_work({n: v for n, v in charge.items()
+                                        if n.startswith("p2m_")}))
+    out = {}
+    for name, (_, _, args) in inputs.items():
+        w = dict(work[name.removesuffix("_dipole")])
+        w["flops"] = 2 * w["flops"] - w.pop("row_flops", 0)
+        if name.startswith("p2m_"):
+            nsrc = w["particles"]
+        else:
+            scn, ls = (args[7], args[10]) if name.startswith("p2p_") \
+                else (args[4], args[7])
+            nsrc = int(scn.to(torch.int64)[_boxes(ls)].sum())
+        w["bytes"] += 24 * nsrc
+        out[name] = w
+    return out
+
+
+def charge_kernel_ms(w, inputs, device):
+    """The times of the charge kernels that K57-K62 differentiate (K31, K9,
+    K11 or K50, K47, K49) on the dipole kernels' *inputs* less the
+    dipoles (median of 5): the yardstick of a dipole kernel's cost."""
+    from boxtree_torch.ops import helmholtz3d
+
+    out = {}
+    for name, (_, _, args) in inputs.items():
+        charge = getattr(helmholtz3d, name.removesuffix("_dipole"))
+        a = less_dipoles(name, args)
+        if name.startswith("p2l_"):
+            out[name] = median_ms(
+                lambda: charge(*a, w.local_expansion_zeros()), device)
+        else:
+            out[name] = median_ms(lambda: charge(*a), device)
+    return out
+
+
+def worst_columns(got, ref, top=3):
+    """The *top* coefficient columns ``(n, m)`` of (boxes, coefficients)
+    expansions by rel l-inf error against *ref* (the pairs' ``[re | im]``
+    lanes taken as one complex column), each with that error, its
+    absolute error, its scale (the column's largest ``|ref|``) over the
+    array's largest, and the box of its largest error: where a dipole
+    P2M's gap from its twin lies."""
+    import torch
+    if not ref.is_complex():
+        h = ref.shape[1] // 2
+        got = torch.complex(got[:, :h], got[:, h:])
+        ref = torch.complex(ref[:, :h], ref[:, h:])
+    err = (got - ref).abs()
+    col_err, box = err.max(0)
+    scale = ref.abs().amax(0)
+    rel = col_err / torch.where(scale > 0, scale, torch.ones_like(scale))
+    out = []
+    for i in rel.argsort(descending=True)[:top].tolist():
+        n = int(i ** 0.5)
+        out.append({"n": n, "m": i - n * n - n, "rel_err": rel[i].item(),
+                    "abs_err": col_err[i].item(),
+                    "scale_over_largest": (scale[i] / scale.max()).item(),
+                    "box": int(box[i])})
+    return out
+
+
+def check_dipole_kernels(inputs, device, layout, plain_reps=1, slow_s=None):
+    """K57-K59 (*layout* ``"c128"``) or K60-K62 (``"f64"``) against their
+    twins on *inputs* (:func:`check_list_kernels`, each at its own bar:
+    the complex expansions per coefficient column, the pairs per lane;
+    the P2M's :func:`worst_columns` beside).  Returns ``{name: numbers}``."""
+    res = {}
+    for name, inp in inputs.items():
+        res.update(check_list_kernels(
+            {name: inp}, device, plain_reps=plain_reps,
+            rtol=DIPOLE_KERNEL_RTOL[layout, name], slow_s=slow_s,
+            rel_fn=rel_linf_per_lane if layout == "f64" else None,
+            detail=(lambda got, ref: {"worst_columns": worst_columns(
+                got, ref)}) if name.startswith("p2m_") else None))
+    return res
+
+
+def centre_source(w):
+    """The tree-order sources of wrangler *w* with the first source of its
+    first P2M row moved exactly onto that box's centre (r = 0: the dipole
+    P2M's limit)."""
+    box = int(w._source_rows[0])
+    src = w._sources.clone()
+    src[:, int(w.tree.box_source_starts[box])] = w.centers[:, box]
+    return src
+
+
+def direct_sum_helmholtz_dipole(sources, dipoles, charges, targets, k,
+                                chunk=1 << 14):
+    """sum_s q_s (d_s . grad_s) exp(ik|t - s|) / |t - s| over all sources,
+    r = 0 skipped, in complex128: ``G'(r) d . (s - t) / r`` with ``G' =
+    (ik - 1/r) G``."""
+    import torch
+    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
+                      device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = sources[:, None, c0:c0 + chunk] - targets[:, :, None]
+        r2 = (d * d).sum(0)
+        ok = r2 > 0
+        r = torch.sqrt(torch.where(ok, r2, 1.0))
+        g = torch.polar(1.0 / r, k * r) * (1j * k - 1.0 / r)
+        cos = (dipoles[:, None, c0:c0 + chunk] * d).sum(0) / r
+        out += torch.where(ok, g * cos, 0) @ charges[c0:c0 + chunk]
+    return out
+
+
+def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
+                            n_main=1_000_000, n_targets=200_000, k=2.0,
+                            order=12, nsample=2000, seed=15):
+    """K57-K62 against their twins at 1e5 sphere sources and 2e4 targets
+    (``kernels_helmholtz3d_dipole_small``: every entry point, rscale
+    ``"auto"`` with the normals and None with standard-normal dipoles, one
+    source on its box's centre); then the 3D Helmholtz dipole FMM at 1e6 sphere
+    sources (the 3D double layer's points, normals as dipoles, real
+    weights) and 2e5 targets (``helmholtz3d_dipole_fmm``), the complex
+    wrangler and the pairs that ``pairs=None`` gives on the card on one
+    traversal: the complex FMM against a complex128 direct sum at
+    *nsample* targets, the pairs against it at every target, each FMM
+    launching its layout's three dipole entry points once and no charge
+    P2M / P2P / P2L, their host reads (by trace, and by a run under sync
+    debug mode); then K57-K62 against their twins at its inputs, beside
+    their bounds and their charge kernels (``kernels_helmholtz3d_dipole``).
+    Returns the summary entries of K57-K62."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    t_phases = time.perf_counter()
+
+    # {{{ kernels vs twins at 1e5 sources
+
+    src_np, tgt_np, w_np = laplace3d_points(n_kernels, n_kernels // 5,
+                                            seed + 20)
+    src = torch.as_tensor(src_np, device=device)
+    rng = np.random.default_rng(seed + 21)
+    qc = torch.as_tensor(w_np + 1j * rng.standard_normal(n_kernels),
+                         device=device)
+    dipoles = {"normals": src, "standard_normal": torch.as_tensor(
+        rng.standard_normal((3, n_kernels)), device=device)}
+    tree = build_tree(src, targets=torch.as_tensor(tgt_np, device=device),
+                      max_particles_in_box=30)
+    trav = build_traversal(tree)
+    small, small_work = {}, {}
+    for layout in ("c128", "f64"):
+        # each rscale and each kind of dipole once a layout: the twin of
+        # the dipole P2L takes 3-6 s a call here
+        for rscale, kind in (("auto", "normals"),
+                             (None, "standard_normal")):
+            dip = dipoles[kind]
+            w = make_helmholtz_wrangler(trav, k, order, rscale=rscale,
+                                        pairs=layout == "f64",
+                                        dipole_vec=dip)
+            if w._l3_csr is None or not w._l4_csr[2].numel():
+                raise AssertionError("Lists 3 and 4 empty at "
+                                     f"{n_kernels} sources")
+            q = w.reorder_sources(qc if layout == "c128" else qc.real)
+            inputs = helmholtz_dipole_inputs(w, q, centre_source(w))
+            key = f"{layout}-{rscale}-{kind}"
+            small[key] = check_dipole_kernels(inputs, device, layout)
+            if (rscale, kind) == ("auto", "normals"):
+                small_work[layout] = helmholtz_dipole_work(inputs)
+                for name, r in small[key].items():
+                    r["bound_ms"], r["bound_by"] = bound(
+                        small_work[layout][name])
+    emit({"phase": "kernels_helmholtz3d_dipole_small", "card": card,
+          "sources": n_kernels, "targets": n_kernels // 5,
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels, "order": order,
+          "k": k, "charges": "complex normal (c128), their real part (f64)",
+          "source_on_centre": "the first source of the first P2M row",
+          "tolerance_rel_linf": {f"{lay}/{nm}": v for (lay, nm), v
+                                 in DIPOLE_KERNEL_RTOL.items()},
+          "rel": "per coefficient column (c128 P2M / P2L), per lane (f64)",
+          "kernels": small, "work": small_work,
+          "phase_s": time.perf_counter() - t_phases})
+    del tree, trav, w, inputs
+
+    # }}}
+
+    # {{{ the path: the dipole FMM at 1e6, both layouts on one traversal
+
+    src_np, tgt_np, w_np = laplace3d_points(n_main, n_targets, seed)
+    src = torch.as_tensor(src_np, device=device)
+    tgt = torch.as_tensor(tgt_np, device=device)
+    q = torch.as_tensor(w_np, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    t_start = time.perf_counter()
+    tree, t_tree = timed(lambda: build_tree(src, targets=tgt,
+                                            max_particles_in_box=30),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    ws, pots, t_setup, t_fmm, per_fmm = {}, {}, {}, {}, {}
+    for layout, pairs in (("c128", False), ("f64", None)):
+        ws[layout], t_setup[layout] = timed(lambda: make_helmholtz_wrangler(
+            trav, k, order, rscale="auto", pairs=pairs, dipole_vec=src),
+            device)
+        qq = q.to(torch.complex128) if layout == "c128" else q
+        before = kernels.entry_launch_counts()
+        pots[layout], t_fmm[layout] = timed(
+            lambda: drive_fmm(ws[layout], [qq]), device)
+        per_fmm[layout] = {e: c - before[e] for e, c in
+                           kernels.entry_launch_counts().items()}
+    t_total = time.perf_counter() - t_start
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+    launches = kernels.launch_counts()
+    stages, t_warm, reads = {}, {}, {}
+    for layout, w in ws.items():
+        qq = q.to(torch.complex128) if layout == "c128" else q
+        stages[layout] = {}
+        _, t_warm[layout] = timed(lambda: drive_fmm(
+            w, [qq], timing_data=stages[layout]), device)
+        reads[layout] = fmm_host_reads(w, qq)
+        if device.type == "cuda":
+            # the second witness: the traces of these FMMs have come back
+            # without device events
+            reads[layout]["fmm_sync_debug"] = sync_free(
+                lambda: drive_fmm(w, [qq]))
+            reads[layout]["multipole_to_local_sync_debug"] = m2l_syncs(w, qq)
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        n_targets, nsample, replace=False), device=device)
+    ref = direct_sum_helmholtz_dipole(src, src, q.to(torch.complex128),
+                                      tgt[:, sample], k)
+    pc, pp = pots["c128"], pots["f64"]
+    abs_err, rel = rel_linf(pc[sample], ref)
+    pp_c = torch.complex(pp[:, 0], pp[:, 1])
+    _, rel_pairs = rel_linf(pp_c, pc)
+    _, rel_pairs_direct = rel_linf(pp_c[sample], ref)
+    finite = bool(torch.isfinite(pc).all() and torch.isfinite(pp).all())
+    once = {layout: {name: per_fmm[layout][f"{name}_{layout}"]
+                     for name in DIPOLE_KERNELS} for layout in ws}
+    charge = {layout: {f"{old}_{lay}": per_fmm[layout][f"{old}_{lay}"]
+                       for old in DIPOLE_REPLACED
+                       for lay in ("c128", "f64")} for layout in ws}
+    emit({"phase": "helmholtz3d_dipole_fmm", "card": card,
+          "sources": n_main, "targets": n_targets,
+          "distribution": "sources on the unit sphere, targets uniform in "
+                          "[-1, 1]^3", "seed": seed,
+          "weights": "real normal (c128: as complex)",
+          "dipoles": "outward unit normals", "k": k, "order": order,
+          "rscale": "auto", "max_particles_in_box": 30,
+          "wranglers": {lay: type(w).__name__ for lay, w in ws.items()},
+          "pairs_rule": "pairs=None on CUDA",
+          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "build_s": t_tree, "traversal_s": t_trav, "setup_s": t_setup,
+          "fmm_s": t_fmm, "fmm_warm_s": t_warm, "total_s": t_total,
+          "stage_s": stages, "host_reads_per_fmm": reads,
+          "peak_mem_gb": peak,
+          "list_edges": {
+              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+              "l1_particle_pairs": l1_pairs(
+                  tree.box_target_counts_nonchild,
+                  tree.box_source_counts_nonchild, trav.target_boxes,
+                  trav.neighbor_source_boxes_starts,
+                  trav.neighbor_source_boxes_lists),
+              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "sampled_targets": nsample, "rel_linf_vs_c128_direct": rel,
+          "abs_linf": abs_err, "bar_vs_direct": HELMHOLTZ_FMM_RTOL,
+          "pairs_rel_linf_vs_c128_wrangler": rel_pairs,
+          "pairs_rel_linf_vs_c128_direct": rel_pairs_direct,
+          "bar_pairs_vs_c128": HELMHOLTZ_PAIRS_RTOL,
+          "dipole_launches_per_fmm": once,
+          "charge_launches_per_fmm": charge, "finite": finite,
+          "phases_s_so_far": time.perf_counter() - t_phases})
+    if type(ws["f64"]).__name__ != "Helmholtz3DPairsExpansionWrangler":
+        raise AssertionError("helmholtz3d_dipole_fmm: pairs=None on the "
+                             f"card gave {type(ws['f64']).__name__}")
+    if not finite or tuple(pc.shape) != (n_targets,) \
+            or tuple(pp.shape) != (n_targets, 2):
+        raise AssertionError("helmholtz3d_dipole_fmm: non-finite or "
+                             "misshapen output")
+    if not rel < HELMHOLTZ_FMM_RTOL:
+        raise AssertionError(f"helmholtz3d_dipole_fmm: rel l-inf {rel:.3e} "
+                             f">= {HELMHOLTZ_FMM_RTOL} against the direct "
+                             "sum")
+    if not rel_pairs <= HELMHOLTZ_PAIRS_RTOL:
+        raise AssertionError(f"helmholtz3d_dipole_fmm: pairs rel l-inf "
+                             f"{rel_pairs:.3e} > {HELMHOLTZ_PAIRS_RTOL}")
+    for layout in ws:
+        check_once_per_fmm(once[layout], f"dipole FMM {layout}",
+                           list(DIPOLE_KERNELS))
+        if any(charge[layout].values()):
+            raise AssertionError(f"dipole FMM {layout}: charge kernels "
+                                 f"launched {charge[layout]}")
+        r = reads[layout]
+        # a trace without device events (None) measured nothing: then the
+        # run under sync debug mode decides, as it does for M2L
+        if device.type == "cuda" and not (
+                (r["fmm"] == 0 or r["fmm"] is None
+                 and r["fmm_sync_debug"] == 0)
+                and (r["multipole_to_local"] == 0
+                     or r["multipole_to_local"] is None
+                     and r["multipole_to_local_sync_debug"] == 0)):
+            raise AssertionError(f"dipole FMM {layout}: host reads {r}")
+    missing = [e for e in ("morton_encode", *TREE_KERNELS,
+                           *TRAVERSAL_KERNELS, "m2p_helmholtz3d",
+                           "l2p_helmholtz3d", *FMM_TRANSLATE)
+               if launches[e] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the dipole path: "
+                             f"{missing}")
+
+    # }}}
+
+    # K57-K62 against their twins at the path's inputs, beside their bounds
+    # and their charge kernels on the same inputs (a twin slower than a
+    # second is timed once: the P2M and P2L ones take 3-18 s a call here)
+    at_path, path_work = {}, {}
+    t_twins = time.perf_counter()
+    for layout, w in ws.items():
+        inputs = helmholtz_dipole_inputs(w, w.reorder_sources(q.to(
+            w.dtype)))
+        path_work[layout] = helmholtz_dipole_work(inputs)
+        at_path[layout] = check_dipole_kernels(inputs, device, layout,
+                                               plain_reps=3, slow_s=1.0)
+        charge_ms = charge_kernel_ms(w, inputs, device)
+        for name, r in at_path[layout].items():
+            r["bound_ms"], r["bound_by"] = bound(path_work[layout][name])
+            r["charge_kernel_ms"] = charge_ms[name]
+            r["launches"] = per_fmm[layout][f"{name}_{layout}"]
+        del inputs
+    emit({"phase": "kernels_helmholtz3d_dipole", "card": card,
+          "sources": n_main, "targets": n_targets, "order": order, "k": k,
+          "tolerance_rel_linf": {f"{lay}/{nm}": v for (lay, nm), v
+                                 in DIPOLE_KERNEL_RTOL.items()},
+          "kernels": at_path, "work": path_work,
+          "twins_s": time.perf_counter() - t_twins,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None),
+          "helmholtz3d_dipole_phases_s": time.perf_counter() - t_phases})
+    del ws, tree, trav
+
+    out = []
+    for name, by_layout in DIPOLE_KERNELS.items():
+        for layout, (number, replaces) in by_layout.items():
+            r = at_path[layout][name]
+            out.append({
+                "name": name if layout == "c128" else f"{name}_f64",
+                "kernel": number, "route": "cuda", "source": SOURCES[name],
+                "replaces": replaces, "launches": r["launches"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "charge_kernel_ms": r["charge_kernel_ms"],
+                "entry_points": [f"{name}_{layout}"],
+                "at_1e5": small[f"{layout}-auto-normals"][name]})
+    return out
 
 # }}}
 
@@ -4160,29 +4645,34 @@ def fmm_host_reads(w, q):
                 mp))}
 
 
-def m2l_syncs(w, q):
-    """0 when the M2L stage of wrangler *w* (user-order charges *q*) runs
-    with PyTorch's CUDA sync debug mode set to raise, so that no host read
-    or other synchronising call happens in it; raises otherwise.  A second
-    witness beside :func:`fmm_host_reads`, whose trace of M2L alone came
-    back without device events on the 1e6 3D Helmholtz tree (a 0.3 s
-    kernel)."""
+def sync_free(fn):
+    """0 when *fn* runs with PyTorch's CUDA sync debug mode set to raise,
+    so that no host read or other synchronising call happens in it; raises
+    otherwise.  A second witness beside :func:`host_reads`, whose traces
+    came back without device events on the 1e6 3D Helmholtz trees (of M2L
+    alone, a 0.3 s kernel, and of the whole dipole FMM)."""
     import torch
 
-    trav = w.traversal
-    mp = w.coarsen_multipoles(None, None, w.form_multipoles(
-        None, None, [w.reorder_sources(q)]))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        w.multipole_to_local(
-            trav.level_start_target_or_target_parent_box_nrs,
-            trav.target_or_target_parent_boxes,
-            trav.from_sep_siblings_starts, trav.from_sep_siblings_lists, mp)
+        fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return 0
+
+
+def m2l_syncs(w, q):
+    """:func:`sync_free` of the M2L stage of wrangler *w* (user-order
+    charges *q*)."""
+    trav = w.traversal
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+        None, None, [w.reorder_sources(q)]))
+    return sync_free(lambda: w.multipole_to_local(
+        trav.level_start_target_or_target_parent_box_nrs,
+        trav.target_or_target_parent_boxes,
+        trav.from_sep_siblings_starts, trav.from_sep_siblings_lists, mp))
 
 
 def translation_rel(got, ref):
@@ -4605,6 +5095,7 @@ def main():
     l2d_entries = [l2d[name] for name in LAPLACE2D_DIPOLE_ONLY]
     l3 = run_laplace3d(device, card, translation)
     run_laplace3d_stability(device, card, translation)
+    hd_entries = run_helmholtz3d_dipoles(device, card)
     # K2-K4 keep the main path's float32 numbers, with those of their
     # complex128 entry points beside them; K22 and K23 stand by their
     # complex128 entry points, the float64 pairs' beside them.
@@ -4639,7 +5130,7 @@ def main():
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
           + h2_entries + l2_entries + l2d_entries + l3_entries
-          + translation_entries(translation)})
+          + translation_entries(translation) + hd_entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -67,7 +67,13 @@ coefficient column and per potential lane (a lane that is zero but for
 rounding held to the array's largest value), also at r = 0 and, in 2D, at
 k = 200; ``pairs=None`` on the card gives the pair wranglers, whose FMM
 launches only the float64 entry points and matches the complex FMM to
-1e-12.
+1e-12.  K57-K62 (the 3D Helmholtz dipole P2M, P2P and P2L, complex128 and
+pairs) agree with their twins no looser than their charge kernels' bars
+(1e-10 for the complex P2P / P2L, 1e-12 for the rest), per coefficient
+column and potential lane: normal and random dipoles, rscale on and off,
+at r = 0 and k r < 1e-6, on empty rows, at orders 0 and 15; each dipole
+FMM on the card launches the dipole entry points of its layout once and
+no charge P2M / P2P / P2L, and matches the CPU port to 1e-10.
 """
 
 import dataclasses
@@ -1996,6 +2002,330 @@ def test_helmholtz_pair_kernels_refuse_dtypes(helm_pairs):
             getattr(helmholtz3d if dim == 3 else helmholtz2d, name)(
                 *args, *extra)
         assert kernels.launch_counts()[name] == 0
+
+# }}}
+
+
+# {{{ K57-K62: the 3D Helmholtz dipole kernels
+
+HELM_DIPOLE_KERNELS = ["p2m", "p2p", "p2l"]
+#: K57-K62 against their twins, per coefficient column and potential lane:
+#: no looser than their charge kernels' bars (K9 / K11 1e-10, K31 1e-12;
+#: on the pair layout K47-K51 1e-12)
+HELM_DIPOLE_RTOL = {("c128", "p2m"): 1e-12, ("c128", "p2p"): HELM_RTOL,
+                    ("c128", "p2l"): HELM_RTOL, ("f64", "p2m"): 1e-12,
+                    ("f64", "p2p"): 1e-12, ("f64", "p2l"): 1e-12}
+
+
+@pytest.fixture(scope="module")
+def helm_dipoles(helmholtz):
+    """On the 3D Helmholtz fixture's traversal (2e4 sphere points, order
+    12, k = 2): per layout and rscale the wrangler with the normals as
+    dipoles, and its tree-order charges (complex, or their real parts)."""
+    trav, _, _, pts, q = helmholtz
+    out = {}
+    for layout in ("c128", "f64"):
+        for rscale in ("auto", None):
+            w = make_helmholtz_wrangler(trav, 2.0, 12, rscale=rscale,
+                                        pairs=layout == "f64",
+                                        dipole_vec=pts)
+            qq = q if layout == "c128" else q.real.contiguous()
+            out[layout, rscale] = (w, w.reorder_sources(qq), qq)
+    return out
+
+
+def _helm_dipole_args(w, q, which, sources=None, centers=None):
+    """The arguments of the dipole kernel *which* of wrangler *w* on its
+    tree-order charges *q* (P2L's without its ``out``), the sources or the
+    box centres replaced if given."""
+    trav, tree = w.traversal, w.tree
+    src = w._sources if sources is None else sources
+    centers = w.centers if centers is None else centers
+    if which == "p2p":
+        return (w._targets, src, q, w.dipole_vec, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, w.k)
+    if which == "p2l":
+        return (src, q, w.dipole_vec, tree.box_source_starts,
+                tree.box_source_counts_nonchild, *w._l4_csr, centers,
+                w.box_scale, w._w_nm, w.k, w.order)
+    return (src, q, w.dipole_vec, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, centers,
+            w.box_scale, w._w_nm, w.k, w.order)
+
+
+def _helm_dipole_compare(which, args, out=None):
+    """The dipole kernel *which* against its twin on *args* (P2L into
+    copies of *out*): one launch of the entry point of the charges' layout
+    and none of the other's; per coefficient column or potential lane."""
+    name = f"{which}_helmholtz3d_dipole"
+    dt = args[2].dtype if which == "p2p" else args[1].dtype
+    layout = "c128" if dt == torch.complex128 else "f64"
+    other = "f64" if layout == "c128" else "c128"
+    extra = (out.clone(),) if which == "p2l" else ()
+    kernels.reset_launch_counts()
+    got = getattr(helmholtz3d, name)(*args, *extra)
+    counts = kernels.entry_launch_counts()
+    assert counts[f"{name}_{layout}"] == 1 and counts[f"{name}_{other}"] == 0
+    torch.cuda.synchronize()
+    extra = (out.clone(),) if which == "p2l" else ()
+    ref = getattr(helmholtz3d, f"{name}_plain")(*args, *extra)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    if got.is_complex():
+        return _cols_rel(got, ref) if got.ndim == 2 else _rel(got, ref)
+    return _lanes_rel(got, ref)
+
+
+def _p2l_out(w, seed=4):
+    """Standard-normal local coefficients to add the dipole P2L into."""
+    return _random_locals(w, seed)
+
+
+@pytest.mark.parametrize("rscale", ["auto", None])
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_kernel(helm_dipoles, layout, which, rscale):
+    """K57-K59 (complex charges) and K60-K62 (real charges) against their
+    twins at the fixture's shapes, the normals as dipoles."""
+    w, q, _ = helm_dipoles[layout, rscale]
+    assert w._l4_csr[0].numel() > 0
+    args = _helm_dipole_args(w, q, which)
+    assert _helm_dipole_compare(which, args, _p2l_out(w)) \
+        <= HELM_DIPOLE_RTOL[layout, which]
+
+
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_kernel_random_dipoles(helm_dipoles, layout,
+                                                  which):
+    """Standard-normal dipoles instead of the normals."""
+    w, q, _ = helm_dipoles[layout, "auto"]
+    args = list(_helm_dipole_args(w, q, which))
+    dip = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        tuple(w.dipole_vec.shape)), device=w.device)
+    args[3 if which == "p2p" else 2] = dip
+    assert _helm_dipole_compare(which, args, _p2l_out(w)) \
+        <= HELM_DIPOLE_RTOL[layout, which]
+
+
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_kernel_at_r0(helm_dipoles, layout, which):
+    """r = 0 and k r < 1e-6: a box (P2M: its own; P2L: a List-4 row's
+    target box; P2P: a List-1 target box) with its centre moved onto its
+    first source, whose P2M terms are then the limit of the tangent (n = 1
+    alone) and whose P2L terms 0, and a second source of that box placed
+    1e-7 (k r = 2e-7) from that centre, which takes the j_n series."""
+    w, q, _ = helm_dipoles[layout, "auto"]
+    tree = w.tree
+    counts = tree.box_source_counts_nonchild
+    if which == "p2l":
+        rows, starts, lists = w._l4_csr
+        box = int(rows[0])
+        sbox = int(lists[int(starts[0])])
+    else:
+        rows = w._source_rows if which == "p2m" else w.traversal.target_boxes
+        good = torch.nonzero(counts[rows.to(torch.int64)] >= 2)[0, 0]
+        box = sbox = int(rows[good])
+    first = int(tree.box_source_starts[sbox])
+    src = w._sources.clone()
+    centers = w.centers.clone()
+    centers[:, box] = src[:, first]
+    if int(counts[sbox]) >= 2:
+        src[:, first + 1] = src[:, first] + 1e-7 / np.sqrt(3.0)
+    args = _helm_dipole_args(w, q, which, src, centers)
+    if which == "p2p":
+        # P2P takes no centre: the second source lands 1e-7 from the first
+        # target (the first source, r = 0, is skipped)
+        args = (src.clone(),) + args[1:]
+    assert _helm_dipole_compare(which, args, _p2l_out(w)) \
+        <= HELM_DIPOLE_RTOL[layout, which]
+
+
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_kernel_empty_rows(helm_dipoles, layout, which):
+    """Rows without particles or list entries: P2M over every box (parents
+    own none), P2P and P2L with an empty row appended to their lists, and
+    no row at all (no launch)."""
+    w, q, _ = helm_dipoles[layout, "auto"]
+    tree = w.tree
+    args = list(_helm_dipole_args(w, q, which))
+    if which == "p2m":
+        args[5] = torch.arange(tree.nboxes, dtype=torch.int32,
+                               device=w.device)
+    else:
+        # a box that no row names (rows name each box at most once)
+        i = 8 if which == "p2p" else 5
+        rows, starts = args[i], args[i + 1]
+        named = torch.zeros(tree.nboxes, dtype=torch.bool, device=w.device)
+        named[rows.to(torch.int64)] = True
+        spare = torch.nonzero(~named)[:1, 0].to(torch.int32)
+        assert spare.numel() == 1
+        args[i] = torch.cat([rows, spare])
+        args[i + 1] = torch.cat([starts, starts[-1:]])
+    assert _helm_dipole_compare(which, args, _p2l_out(w)) \
+        <= HELM_DIPOLE_RTOL[layout, which]
+    # no rows: nothing launched
+    none = list(_helm_dipole_args(w, q, which))
+    z = torch.zeros(0, dtype=torch.int32, device=w.device)
+    if which == "p2m":
+        none[5] = z
+    else:
+        i = 8 if which == "p2p" else 5
+        none[i], none[i + 1], none[i + 2] = z, z[:0].new_zeros(1), z
+    kernels.reset_launch_counts()
+    extra = (_p2l_out(w),) if which == "p2l" else ()
+    got = getattr(helmholtz3d, f"{which}_helmholtz3d_dipole")(*none, *extra)
+    assert kernels.launch_counts()[f"{which}_helmholtz3d_dipole"] == 0
+    if which == "p2l":
+        assert torch.equal(got, _p2l_out(w))
+    else:
+        assert not got.any()
+
+
+def _helm_dipole_direct_args(which, order, layout, device, seed=47):
+    """The dipole kernel *which*'s arguments on a tree of 3,000 sphere
+    sources (the normals as dipoles) and 500 separate targets, without a
+    wrangler: box scale min(k 2^-level, 1), the weights w_nm, charges and
+    P2L's out from numpy, the lists from ``build_traversal``."""
+    from boxtree_torch.models.expansion_base import (
+        nonempty_rows,
+        rows_with_particles,
+    )
+    rng = np.random.default_rng(seed)
+    k = 2.0
+    src = torch.as_tensor(_sphere(3000, 43), device=device)
+    tgt = torch.as_tensor(rng.random((3, 500)) * 2 - 1, device=device)
+    tree = build_tree(src, targets=tgt, max_particles_in_box=30)
+    trav = build_traversal(tree)
+    nc = (order + 1) ** 2
+    cplx = layout == "c128"
+    q = rng.standard_normal(tree.nsources)
+    w_nm = rng.standard_normal(nc)
+    if cplx:
+        q = q + 1j * rng.standard_normal(tree.nsources)
+        w_nm = w_nm + 1j * rng.standard_normal(nc)
+    q, w_nm = (torch.as_tensor(x, device=device) for x in (q, w_nm))
+    scale = torch.clamp(k * float(tree.root_extent)
+                        * 0.5 ** tree.box_levels.to(torch.float64), max=1.0)
+    centers = tree.box_centers.contiguous()
+    sources = tree.sources.contiguous()
+    dip = sources.clone()
+    if which == "p2p":
+        return (tree.targets.contiguous(), sources, q, dip,
+                tree.box_target_starts, tree.box_target_counts_nonchild,
+                tree.box_source_starts, tree.box_source_counts_nonchild,
+                trav.target_boxes, trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, k), None
+    if which == "p2l":
+        l4 = nonempty_rows(trav.target_or_target_parent_boxes,
+                           trav.from_sep_bigger_starts,
+                           trav.from_sep_bigger_lists)
+        assert l4[0].numel() > 0
+        out = rng.standard_normal((tree.nboxes, nc * (1 if cplx else 2)))
+        if cplx:
+            out = out + 1j * rng.standard_normal(out.shape)
+        return (sources, q, dip, tree.box_source_starts,
+                tree.box_source_counts_nonchild, *l4, centers, scale, w_nm,
+                k, order), torch.as_tensor(out, device=device)
+    rows = rows_with_particles(tree.box_source_counts_nonchild)[0]
+    return (sources, q, dip, tree.box_source_starts,
+            tree.box_source_counts_nonchild, rows, centers, scale, w_nm, k,
+            order), None
+
+
+@pytest.mark.parametrize("order", [0, 15])
+@pytest.mark.parametrize("which", ["p2m", "p2l"])
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_kernel_orders(device, layout, which, order):
+    """Orders 0 and 15 (``tests/test_stability.py:78``'s highest) with
+    separate targets: K59 / K62 take 20 KiB of shared memory a CTA at
+    order 15."""
+    args, out = _helm_dipole_direct_args(which, order, layout, device)
+    assert _helm_dipole_compare(which, args, out) \
+        <= HELM_DIPOLE_RTOL[layout, which]
+
+
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_p2m_small_kr(device, layout):
+    """K57 / K60 at k = 0.02 (k r from 1e-4 to 1e-2), order 12: there the
+    quotient rule's tangent of j_0 = sin(x) / x keeps eps / x^2 of itself,
+    so kernel and twin take -j_1 dx; each coefficient column, n = 0's
+    included, agrees to the bar (with the quotient rule the n = 0 column
+    was 2e-12 apart at the 1e6 sphere's k r = 0.007)."""
+    args, _ = _helm_dipole_direct_args("p2m", 12, layout, device)
+    args = args[:-2] + (0.02,) + args[-1:]
+    assert _helm_dipole_compare("p2m", args) \
+        <= HELM_DIPOLE_RTOL[layout, "p2m"]
+
+
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_p2p_separate_targets(device, layout):
+    args, _ = _helm_dipole_direct_args("p2p", 0, layout, device)
+    assert _helm_dipole_compare("p2p", args) \
+        <= HELM_DIPOLE_RTOL[layout, "p2p"]
+
+
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz3d_dipole_fmm_on_card_matches_cpu(helmholtz, layout):
+    """The dipole FMM on the card (normals as dipoles, order 12, k = 2,
+    rscale "auto") launches its dipole P2M, P2P and P2L entry points once
+    each and not the charge ones (K31 / K9 / K11, pairs K50 / K47 / K49),
+    and matches the CPU port to 1e-10."""
+    trav, _, _, pts, q = helmholtz
+    pairs = layout == "f64"
+    qq = q.real.contiguous() if pairs else q
+    w = make_helmholtz_wrangler(trav, 2.0, 12, rscale="auto", pairs=pairs,
+                                dipole_vec=pts)
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [qq])
+    counts = kernels.entry_launch_counts()
+    for which in HELM_DIPOLE_KERNELS:
+        assert counts[f"{which}_helmholtz3d_dipole_{layout}"] == 1, counts
+        assert counts[f"{which}_helmholtz3d_{layout}"] == 0, counts
+    assert counts[f"l2p_helmholtz3d_{layout}"] == 1
+    assert counts[f"m2p_helmholtz3d_{layout}"] == 1
+    assert not any(c for e, c in counts.items()
+                   if "helmholtz3d" in e and not e.endswith(layout))
+    trav_cpu = build_traversal(build_tree(pts.cpu(),
+                                          max_particles_in_box=30))
+    w_cpu = make_helmholtz_wrangler(trav_cpu, 2.0, 12, rscale="auto",
+                                    pairs=pairs, dipole_vec=pts.cpu())
+    ref = drive_fmm(w_cpu, [qq.cpu()])
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if pairs:
+        got, ref = (torch.complex(x[:, 0], x[:, 1]) for x in (got, ref))
+    assert _rel(got.cpu(), ref) <= HELM_RTOL
+
+
+def test_helmholtz3d_dipole_wrappers_refuse(helm_dipoles):
+    """float32 dipoles, a 2D dipole array and an order past 227 KiB of
+    shared memory raise before any launch."""
+    w, q, _ = helm_dipoles["c128", "auto"]
+    kernels.reset_launch_counts()
+    for which in HELM_DIPOLE_KERNELS:
+        args = list(_helm_dipole_args(w, q, which))
+        extra = (_p2l_out(w),) if which == "p2l" else ()
+        i = 3 if which == "p2p" else 2
+        fn = getattr(helmholtz3d, f"{which}_helmholtz3d_dipole")
+        bad = list(args)
+        bad[i] = args[i].to(torch.float32)
+        with pytest.raises(TypeError):
+            fn(*bad, *extra)
+        bad[i] = args[i][:2].contiguous()
+        with pytest.raises(ValueError):
+            fn(*bad, *extra)
+        if which != "p2p":
+            bad = list(args)
+            bad[-1] = 200
+            with pytest.raises(ValueError, match="shared memory"):
+                fn(*bad, *extra)
+    assert not any(kernels.launch_counts()[f"{which}_helmholtz3d_dipole"]
+                   for which in HELM_DIPOLE_KERNELS)
 
 # }}}
 

@@ -26,7 +26,8 @@
   K32 (the boxes that own particles) cover every particle once.
 - The whole slice against ``boxtree_tpu``'s ``drive_fmm`` (1e-11) and, at
   order 12, against the direct sum (< 1e-5).
-- Each option the port does not cover raises NotImplementedError; the
+- Each option the port does not cover raises NotImplementedError (dipole
+  sources are held in ``test_torch_helmholtz3d_dipoles.py``); the
   complex128 plumbing (dtype names, the kernels' entry points and argument
   checks, the numpy bridge) on its own.
 
@@ -514,13 +515,14 @@ def test_order12_against_direct_sum(points, tree_indep):
 
 @pytest.mark.parametrize("k,kwargs", [
     (K, dict(pairs=True, dtype=np.float32)),
-    (K, dict(dipole_vec=np.zeros((3, N)))),
     (K, dict(level_to_order=lambda lev: 4)),
     (2.0 + 0.5j, dict(rscale="auto")),
     (2.0 + 0.5j, dict()),
     (K, dict(dtype=np.complex64)),
     (K, dict(dtype="float64")),
-])
+], ids=[  # as before dipoles were ported (test_torch_helmholtz3d_dipoles.py)
+    "2.0-kwargs0", "2.0-kwargs2", "(2+0.5j)-kwargs3", "(2+0.5j)-kwargs4",
+    "2.0-kwargs5", "2.0-kwargs6"])
 def test_unported_options_raise(points, k, kwargs):
     with pytest.raises(NotImplementedError):
         make_helmholtz_wrangler(points[2], k, 4, **kwargs)
