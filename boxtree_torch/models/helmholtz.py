@@ -31,6 +31,14 @@ broadcasting.
 same FMM with no complex value on the card: real charges, ``[re | im]``
 coefficient rows, the Graf stacks expanded to ``[[Re, -Im], [Im, Re]]`` and
 ``[re, im]`` potential lanes.
+
+Both take dipole sources (``dipole_vec``, the potential ``q (d . grad_y)
+(i/4) H_0(k |x - y|)``): P2M, P2P and P2L then run the dipole kernels
+K63-K65 (pairs K66-K68), the JVPs of the charge stages in the source
+positions (``boxtree_tpu/models/expansion_base.py:664-673``,
+``:1314-1324``, ``:1688-1694``); a dipole on its box's centre adds the
+limit of its P2M tangent, where the reference drops it.  M2P, L2P and the
+translations do not change.
 """
 
 from __future__ import annotations
@@ -67,6 +75,14 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
 
     dtype = torch.complex128
     _supports_rscale = True
+    _supports_dipoles = True
+    _kernels = {
+        "p2m": hops.p2m_helmholtz2d,
+        "p2m_dipole": hops.p2m_helmholtz2d_dipole,
+        "p2p": hops.p2p_helmholtz2d,
+        "p2p_dipole": hops.p2p_helmholtz2d_dipole,
+        "p2l": hops.p2l_helmholtz2d,
+        "p2l_dipole": hops.p2l_helmholtz2d_dipole}
 
     def __init__(self, tree_indep, traversal, **kwargs):
         self.order = p = tree_indep.order
@@ -148,15 +164,18 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
 
     # }}}
 
-    # {{{ P2M / L2P hooks (helmholtz.py:267-274): K33 and K34, over the
-    # boxes that own particles
+    # {{{ particle hooks (helmholtz.py:267-294): P2M (K33) and L2P (K34)
+    # over the boxes that own particles, P2P (K16), M2P (K17) and P2L (K18)
+    # over the lists; with dipole_vec set, P2M, P2P and P2L run the dipole
+    # kernels (K63-K65)
 
     def _p2m(self, q):
         tree = self.tree
-        return hops.p2m_helmholtz2d(
-            self._sources, q.contiguous(), tree.box_source_starts,
-            tree.box_source_counts_nonchild, self._source_rows, self.centers,
-            self.box_scale, self.k, self.order, self._nstart)
+        return self._with_dipoles(
+            "p2m", (self._sources,), q,
+            tree.box_source_starts, tree.box_source_counts_nonchild,
+            self._source_rows, self.centers, self.box_scale, self.k,
+            self.order, self._nstart)
 
     def _l2p(self, local_exps):
         tree = self.tree
@@ -166,14 +185,10 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
             local_exps.contiguous(), self.centers, self.box_scale, self.k,
             self.order, self._nstart)
 
-    # }}}
-
-    # {{{ list-stage hooks: the K16-K18 kernels
-
     def _p2p(self, target_boxes, starts, lists, q):
         tree = self.tree
-        return hops.p2p_helmholtz2d(
-            self._targets, self._sources, q.contiguous(),
+        return self._with_dipoles(
+            "p2p", (self._targets, self._sources), q,
             tree.box_target_starts, tree.box_target_counts_nonchild,
             tree.box_source_starts, tree.box_source_counts_nonchild,
             target_boxes, starts, lists, self.k, self._nstart)
@@ -188,11 +203,11 @@ class Helmholtz2DExpansionWrangler(ExpansionWranglerBase):
 
     def _p2l(self, rows, starts, lists, q, out):
         tree = self.tree
-        return hops.p2l_helmholtz2d(
-            self._sources, q.contiguous(), tree.box_source_starts,
-            tree.box_source_counts_nonchild, rows, starts, lists,
-            self.centers, self.box_scale, self.k, self.order, self._nstart,
-            out)
+        return self._with_dipoles(
+            "p2l", (self._sources,), q,
+            tree.box_source_starts, tree.box_source_counts_nonchild, rows,
+            starts, lists, self.centers, self.box_scale, self.k, self.order,
+            self._nstart, out)
 
     # }}}
 
@@ -203,8 +218,9 @@ class Helmholtz2DPairsExpansionWrangler(Helmholtz2DExpansionWrangler):
     values, the Graf operators pair-expanded on the card, and potentials as
     ``(ntargets, 2)`` float64 ``[re, im]`` lanes; the counterpart of
     ``boxtree_tpu``'s wrangler of the same name (``helmholtz.py:296-418``).
-    The particle stages run the pair kernels K52-K56, whose twins use the
-    real ``(J, Y)`` recurrences and carry the phase as (cos, sin) lanes."""
+    The particle stages run the pair kernels K52-K56 (with dipoles
+    K66-K68 for P2M, P2P and P2L), whose twins use the real ``(J, Y)``
+    recurrences and carry the phase as (cos, sin) lanes."""
 
     dtype = torch.float64
     _pot_extra_dims = (2,)

@@ -429,11 +429,11 @@ def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
         on CUDA unless a complex ``dtype=`` is given, complex on the CPU.
         The pairs take a complex ``dtype=`` as its real counterpart.
 
-    ``level_to_order``, a complex *helmholtz_k*, dtypes other than
-    complex128 (complex) and float64 (pairs), and ``dipole_vec`` in 2D
-    raise :class:`NotImplementedError`.  Other keyword arguments
-    (``rscale``, ``dtype``, and in 3D ``dipole_vec`` and
-    ``dipoles_already_reordered``) go to the wrangler."""
+    ``level_to_order``, a complex *helmholtz_k*, and dtypes other than
+    complex128 (complex) and float64 (pairs) raise
+    :class:`NotImplementedError`.  Other keyword arguments (``rscale``,
+    ``dtype``, ``dipole_vec`` and ``dipoles_already_reordered``, in 2D and
+    3D) go to the wrangler."""
     dim = traversal.tree.dimensions
     if dim not in (2, 3):
         raise NotImplementedError(f"no Helmholtz wrangler for dim={dim}")

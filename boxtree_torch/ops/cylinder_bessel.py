@@ -22,6 +22,13 @@ to rounding:
   The reference evaluates ``Y`` at ``x = 1`` below that switch
   (``boxtree_tpu/ops/cylinder_bessel.py:54-55``), so the two part there;
   the port's tests against it leave that region out.
+
+Under ``torch.func.jvp`` the tangent of ``F_n = J_n, Y_n``
+is the reference's (``boxtree_tpu/models/helmholtz.py:58-111``,
+``_device_JH`` / ``_device_JY``): ``dF_n/dx = (F_{n-1} - F_{n+1}) / 2``
+with ``F_{-1} = -F_1``, the functions evaluated one order up from the same
+*nstart*, not the derivative of the recurrence's steps.  The values are
+those of the recurrence bit for bit.
 """
 
 from __future__ import annotations
@@ -54,7 +61,41 @@ def even_start(nstart, p):
 def cylindrical_jy(x, p, *, nstart):
     """``J_n(x)`` and ``Y_n(x)`` for ``n = 0..p``: two tensors of shape
     ``x.shape + (p+1,)``.  *nstart* is the start order of the downward
-    recurrence (:func:`miller_start` of an upper bound on ``|x|``)."""
+    recurrence (:func:`miller_start` of an upper bound on ``|x|``); the
+    tangent in *x* is the order-up identity of the module doc."""
+    return _CylindricalJY.apply(x, p, nstart)
+
+
+def _order_up_derivative(f, p):
+    """``(F_{n-1} - F_{n+1}) / 2`` for n = 0..p from ``F_0..F_{p+1}``, with
+    ``F_{-1} = -F_1`` (``helmholtz.py:78-82``)."""
+    lower = torch.cat([-f[..., 1:2], f[..., :p]], dim=-1)
+    return 0.5 * (lower - f[..., 1:p + 2])
+
+
+class _CylindricalJY(torch.autograd.Function):
+    """:func:`cylindrical_jy` with the reference's tangent (forward mode
+    only: nothing takes a reverse-mode gradient of it)."""
+
+    @staticmethod
+    def forward(x, p, nstart):
+        return _jy_recurrence(x, p, nstart)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.p, ctx.nstart = inputs
+        ctx.save_for_forward(x)
+
+    @staticmethod
+    def jvp(ctx, x_dot, _p, _nstart):
+        x, = ctx.saved_tensors
+        j, y = _jy_recurrence(x, ctx.p + 1, ctx.nstart)
+        return (_order_up_derivative(j, ctx.p) * x_dot[..., None],
+                _order_up_derivative(y, ctx.p) * x_dot[..., None])
+
+
+def _jy_recurrence(x, p, nstart):
+    """The recurrences of :func:`cylindrical_jy`."""
     small = x.abs() < JN_SMALL_X
     xs = torch.where(small, torch.ones_like(x), x)
     xinv = 1.0 / xs

@@ -57,6 +57,25 @@ take rows from a counter (:func:`launch_grid`, :func:`scratch_bytes`), so
 a large ``k r`` costs memory traffic but is never refused; only their
 tables of ``2p + 1`` or ``p + 1`` values a lane stay in shared memory
 (:func:`smem_bytes`).
+
+Dipole sources (a ``(2, nsources)`` tree-order ``dipole_vec`` *d*, the
+potential ``q (d . grad_y) (i/4) H_0(k |x - y|)``): P2M, P2P and P2L each
+have a dipole form, the JVP of the charge form in the source positions
+along *d* (``boxtree_tpu/models/expansion_base.py:664-673``,
+``:1314-1324``, ``:1688-1694``), whose twin is ``torch.func.jvp`` of the
+charge twin's terms (the Bessel tangents of
+:func:`~boxtree_torch.ops.cylinder_bessel.cylindrical_jy`, one order up)
+and whose kernel takes the ladder identity ``(d . grad)[Z_n(k r) e^{-i n
+th}] = (k/2) [(d_x - i d_y) Z_{n-1} e^{-i (n-1) th} - (d_x + i d_y)
+Z_{n+1} e^{-i (n+1) th}]`` (Z = J or H, orders up to p + 1) and, for P2P,
+``(i/4) q k H_1(k r) d . (t - s) / r``: K63-K65 (complex128), K66-K68
+(pairs).  P2M and P2L hand the terms the offset's tangent ``d / s``, as
+the reference does.  At ``r = 0`` the dipole P2M takes the limit of the
+tangent, ``(i/4) q (k/2) (d_x - i d_y) s^-1`` at ``n = 1`` and ``-(i/4) q
+(k/2) (d_x + i d_y) s^-1`` at ``n = -1`` (*s* the box's rscale: the
+multipole's ``s^-|n|``), where the reference's guard gives 0 (it drops
+the dipole moment of a source on its box's centre); the dipole P2L and
+P2P give 0 there, as the reference.
 """
 
 from __future__ import annotations
@@ -223,24 +242,96 @@ def p2l_terms_pairs(rel, q, scale, k, order, nstart):
 # }}}
 
 
+# {{{ the dipole terms: JVPs of the terms in the offsets
+
+def _p2m_limit(rel, dip, scale, k):
+    """``(ok, lim)``: ``r > 0`` at offsets *rel* pre-divided by *scale*,
+    and where ``r = 0`` the limit of the tangent of ``J_n(k r) e^{-i n th}
+    s^-|n|`` along the offset tangent *dip* (pre-divided too) as ``r ->
+    0``, complex ``(..., 2)`` at ``n = -1, 1``: ``J_{+-1}(k r) e^{-+i th} =
+    +-(k/2) (x -+ i y) + O(r^3)`` and the other orders' tangents vanish."""
+    x = rel * scale
+    ok = x[0] ** 2 + x[1] ** 2 > 0
+    d = dip * scale
+    half_k = (0.5 * k) / scale
+    return ok, torch.stack([-half_k * torch.complex(d[0], d[1]),
+                            half_k * torch.complex(d[0], -d[1])], dim=-1)
+
+
+def p2m_dipole_terms(rel, dip, q, scale, k, order, nstart):
+    """Multipole terms of dipole sources: the JVP of :func:`p2m_terms` in
+    *rel* along *dip* (both pre-divided by *scale*), and at ``r = 0`` the
+    limit of that tangent (:func:`_p2m_limit`), where the reference's
+    guard gives 0."""
+    t = torch.func.jvp(
+        lambda r: p2m_terms(r, q, scale, k, order, nstart), (rel,),
+        (dip,))[1]
+    if order >= 1:
+        ok, lim = _p2m_limit(rel, dip, scale, k)
+        sl = slice(order - 1, order + 2, 2)
+        t[..., sl] = torch.where(ok[..., None], t[..., sl],
+                                 0.25j * q[..., None] * lim)
+    return t
+
+
+def p2m_dipole_terms_pairs(rel, dip, q, scale, k, order, nstart):
+    """:func:`p2m_dipole_terms` on pair lanes: the JVP of
+    :func:`p2m_terms_pairs`, the limit at ``r = 0`` as ``(-0.25 q Im lim,
+    0.25 q Re lim)``."""
+    t = torch.func.jvp(
+        lambda r: p2m_terms_pairs(r, q, scale, k, order, nstart), (rel,),
+        (dip,))[1]
+    if order < 1:
+        return t
+    ok, lim = _p2m_limit(rel, dip, scale, k)
+    qq = 0.25 * q[..., None]
+    okc = ok[..., None]
+    nc = 2 * order + 1
+    re, im = slice(order - 1, order + 2, 2), slice(nc + order - 1,
+                                                   nc + order + 2, 2)
+    t[..., re] = torch.where(okc, t[..., re], -qq * lim.imag)
+    t[..., im] = torch.where(okc, t[..., im], qq * lim.real)
+    return t
+
+
+def p2l_dipole_terms(rel, dip, q, scale, k, order, nstart):
+    """Local terms of dipole sources: the JVP of :func:`p2l_terms` in
+    *rel* along *dip* (both pre-divided by *scale*); 0 at ``r = 0``."""
+    return torch.func.jvp(
+        lambda r: p2l_terms(r, q, scale, k, order, nstart), (rel,),
+        (dip,))[1]
+
+
+def p2l_dipole_terms_pairs(rel, dip, q, scale, k, order, nstart):
+    """:func:`p2l_dipole_terms` on pair lanes (:func:`p2l_terms_pairs`)."""
+    return torch.func.jvp(
+        lambda r: p2l_terms_pairs(r, q, scale, k, order, nstart), (rel,),
+        (dip,))[1]
+
+# }}}
+
+
 def _width(order, dtype):
     """Values of *dtype* in one coefficient row."""
     return (2 * order + 1) * (2 if _is_pairs(dtype) else 1)
 
 
-def smem_bytes(name, order):
+def smem_bytes(name, order, dipole=False):
     """Shared memory of one CTA of K17 (``"m2p"``), K18 (``"p2l"``), K33
     (``"p2m"``) or K34 (``"l2p"``), as ``csrc/helmholtz2d.cu`` sizes it: a
     table of the p + 1 radial values (H: complex; J: real) a thread, and
     the box's expansion and geometry (K17, K34), each thread's terms and
-    their sums (K18), or the box's sums (K33)."""
+    their sums (K18), or the box's sums (K33).  With *dipole*, of the
+    dipole P2L (K65 / K68) or P2M (K63 / K66), whose tables hold p + 2
+    values."""
     nc = 2 * order + 1
+    rows = order + (2 if dipole else 1)
     if name in ("m2p", "p2l"):
-        table = (order + 1) * _KERNEL_THREADS * 16
+        table = rows * _KERNEL_THREADS * 16
         if name == "p2l":
             return table + nc * (_KERNEL_THREADS + 1) * 16
         return table + nc * 16 + 3 * 8
-    table = (order + 1) * _KERNEL_THREADS * 8
+    table = rows * _KERNEL_THREADS * 8
     return table + nc * 16 + (3 * 8 if name == "l2p" else 0)
 
 
@@ -253,7 +344,8 @@ def launch_grid(device, nrows):
 
 def scratch_bytes(grid, order, nstart):
     """Bytes of the ratio scratch of one launch on *grid* CTAs: the
-    recurrence's ``even_start(nstart, order)`` ratios for each thread."""
+    recurrence's ``even_start(nstart, order)`` ratios for each thread (a
+    dipole P2M or P2L runs its recurrence to order p + 1: pass that)."""
     return even_start(nstart, order) * grid * _KERNEL_THREADS * 8
 
 
@@ -268,15 +360,18 @@ def _launch_scratch(device, nrows, order, nstart):
             torch.zeros(1, dtype=torch.int32, device=device))
 
 
-def _check_args(k, dtype, order=None):
+def _check_args(k, dtype, order=None, dipole=False):
+    """The kernels' dtypes and wavenumber, and at *order* their shared
+    memory a CTA: that of K17, K18, K33 and K34, or with *dipole* that of
+    the dipole P2M and P2L, in up to 227 KiB."""
     if dtype not in (torch.float64, torch.complex128):
         raise TypeError("the Helmholtz kernels take complex128 or float64 "
                         f"pairs, not {dtype}")
     if not isinstance(k, float):
         raise TypeError("the Helmholtz kernels take a real wavenumber")
     if order is not None:
-        smem = max(smem_bytes(name, order)
-                   for name in ("m2p", "p2l", "p2m", "l2p"))
+        names = ("p2l", "p2m") if dipole else ("m2p", "p2l", "p2m", "l2p")
+        smem = max(smem_bytes(name, order, dipole) for name in names)
         if smem > kernels.SMEM_MAX:
             raise ValueError(
                 f"order {order} needs {smem} bytes of shared memory per "
@@ -353,6 +448,50 @@ def p2p_helmholtz2d(targets, sources, charges, box_target_starts,
         starts, lists, k, out)
     return out
 
+
+def p2p_helmholtz2d_dipole_plain(targets, sources, charges, dipole_vec,
+                                 *args):
+    """Plain twin of :func:`p2p_helmholtz2d_dipole`: the JVP of
+    :func:`p2p_helmholtz2d_plain` in the source positions along
+    *dipole_vec*."""
+    return torch.func.jvp(
+        lambda s: p2p_helmholtz2d_plain(targets, s, charges, *args),
+        (sources,), (dipole_vec,))[1]
+
+
+def p2p_helmholtz2d_dipole(targets, sources, charges, dipole_vec,
+                           box_target_starts, box_target_counts_nonchild,
+                           box_source_starts, box_source_counts_nonchild,
+                           target_boxes, starts, lists, k, nstart):
+    """List-1 potentials of dipole sources, ``sum q_s (d_s . grad_s) (i/4)
+    H_0(k |t - s|) = sum q_s (i/4) k H_1(k r) d_s . (t - s) / r`` (*dipole_vec*
+    ``(2, nsources)`` in tree order; ``r = 0`` skipped), in
+    :func:`p2p_helmholtz2d`'s layouts.  The K64 kernel (pairs: K67) on CUDA
+    tensors, with CUDA's double ``j1``/``y1``."""
+    args = (box_target_starts, box_target_counts_nonchild,
+            box_source_starts, box_source_counts_nonchild, target_boxes,
+            starts, lists)
+    if targets.device.type == "cpu":
+        return p2p_helmholtz2d_dipole_plain(targets, sources, charges,
+                                            dipole_vec, *args, k, nstart)
+    dt = charges.dtype
+    _check_args(k, dt)
+    kernels.check_tensors(targets, sources, dipole_vec, dtype=torch.float64)
+    kernels.check_tensors(charges, dtype=dt)
+    kernels.check_tensors(*args, dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    out = _pot_zeros(targets.shape[1], dt, targets.device)
+    if lists.numel() == 0:
+        return out
+    kernels.launch(
+        "p2p_helmholtz2d_dipole", dt, targets, targets.shape[1], sources,
+        sources.shape[1], charges, dipole_vec, box_target_starts,
+        box_target_counts_nonchild, box_source_starts,
+        box_source_counts_nonchild, target_boxes, target_boxes.shape[0],
+        starts, lists, k, out)
+    return out
+
 # }}}
 
 
@@ -417,14 +556,14 @@ def m2p_helmholtz2d(targets, box_target_starts, box_target_counts_nonchild,
 
 # {{{ P2L
 
-def p2l_helmholtz2d_plain(sources, charges, box_source_starts,
-                          box_source_counts_nonchild, rows, starts, lists,
-                          centers, box_scale, k, order, nstart, out):
-    """Plain twin of :func:`p2l_helmholtz2d`."""
+def _p2l_plain(sources, charges, dipole_vec, box_source_starts,
+               box_source_counts_nonchild, rows, starts, lists, centers,
+               box_scale, k, order, nstart, out):
+    """The plain P2L of charges (*dipole_vec* None) or dipoles."""
     tbox, sbox = _edges(starts, lists, rows)
     if tbox.numel() == 0:
         return out
-    term_fn = p2l_terms_pairs if _is_pairs(out.dtype) else p2l_terms
+    pairs = _is_pairs(out.dtype)
     ps = _max_count(box_source_counts_nonchild, sbox)
     chunk = _plain_chunk(ps * (2 * order + 1), order, nstart)
     for c0 in range(0, tbox.shape[0], chunk):
@@ -434,10 +573,21 @@ def p2l_helmholtz2d_plain(sources, charges, box_source_starts,
         s = box_scale[tb][:, None]                       # (E, 1)
         rel = (sources[:, sidx] - centers[:, tb][..., None]) / s
         q = torch.where(smask, charges[sidx], 0)
-        terms = term_fn(rel, q, s.expand(rel.shape[1:]), k, order, nstart)
+        scale = s.expand(rel.shape[1:])
+        if dipole_vec is None:
+            terms = (p2l_terms_pairs if pairs else p2l_terms)(
+                rel, q, scale, k, order, nstart)
+        else:
+            terms = (p2l_dipole_terms_pairs if pairs else p2l_dipole_terms)(
+                rel, dipole_vec[:, sidx] / s, q, scale, k, order, nstart)
         terms = torch.where(smask[..., None], terms, 0)
         out.index_add_(0, tb, terms.sum(1))
     return out
+
+
+def p2l_helmholtz2d_plain(sources, charges, *args):
+    """Plain twin of :func:`p2l_helmholtz2d`."""
+    return _p2l_plain(sources, charges, None, *args)
 
 
 def p2l_helmholtz2d(sources, charges, box_source_starts,
@@ -472,18 +622,61 @@ def p2l_helmholtz2d(sources, charges, box_source_starts,
         k, order, even_start(nstart, order), grid, scratch, counter, out)
     return out
 
+
+def p2l_helmholtz2d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2l_helmholtz2d_dipole`: per (source, target
+    box) the JVP of the twin's terms in the source position along
+    *dipole_vec* (:func:`p2l_dipole_terms`), added into *out* (the last of
+    *args*)."""
+    return _p2l_plain(sources, charges, dipole_vec, *args)
+
+
+def p2l_helmholtz2d_dipole(sources, charges, dipole_vec, box_source_starts,
+                           box_source_counts_nonchild, rows, starts, lists,
+                           centers, box_scale, k, order, nstart, out):
+    """:func:`p2l_helmholtz2d` for dipole sources (*dipole_vec* ``(2,
+    nsources)`` in tree order).  The K65 kernel (pairs: K68) on CUDA
+    tensors, its recurrence run to order p + 1.  Returns *out*."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, starts,
+            lists, centers, box_scale)
+    if sources.device.type == "cpu":
+        return p2l_helmholtz2d_dipole_plain(sources, charges, dipole_vec,
+                                            *args, k, order, nstart, out)
+    dt = out.dtype
+    _check_args(k, dt, order, dipole=True)
+    kernels.check_tensors(sources, dipole_vec, centers, box_scale,
+                          dtype=torch.float64)
+    kernels.check_tensors(charges, out, dtype=dt)
+    kernels.check_tensors(*args[:5], dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    if out.shape != (centers.shape[1], _width(order, dt)):
+        raise ValueError("out must be (nboxes, 2 * order + 1), twice that "
+                         "in pairs")
+    if lists.numel() == 0:
+        return out
+    grid, scratch, counter = _launch_scratch(sources.device, rows.shape[0],
+                                             order + 1, nstart)
+    kernels.launch(
+        "p2l_helmholtz2d_dipole", dt, sources, sources.shape[1], charges,
+        dipole_vec, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], starts, lists, centers, centers.shape[1], box_scale,
+        k, order, even_start(nstart, order + 1), grid, scratch, counter,
+        out)
+    return out
+
 # }}}
 
 
 # {{{ P2M / L2P
 
-def p2m_helmholtz2d_plain(sources, charges, box_source_starts,
-                          box_source_counts_nonchild, rows, centers,
-                          box_scale, k, order, nstart):
-    """Plain twin of :func:`p2m_helmholtz2d`."""
+def _p2m_plain(sources, charges, dipole_vec, box_source_starts,
+               box_source_counts_nonchild, rows, centers, box_scale, k,
+               order, nstart):
+    """The plain P2M of charges (*dipole_vec* None) or dipoles."""
+    pairs = _is_pairs(charges.dtype)
     nc = _width(order, charges.dtype)
     out = charges.new_zeros((centers.shape[1], nc))
-    term_fn = p2m_terms_pairs if _is_pairs(charges.dtype) else p2m_terms
     idx, box = _row_particles(box_source_starts, box_source_counts_nonchild,
                               rows)
     chunk = _plain_chunk(nc, order, nstart)
@@ -491,8 +684,19 @@ def p2m_helmholtz2d_plain(sources, charges, box_source_starts,
         i, b = idx[c0:c0 + chunk], box[c0:c0 + chunk]
         s = box_scale[b]
         rel = (sources[:, i] - centers[:, b]) / s
-        out.index_add_(0, b, term_fn(rel, charges[i], s, k, order, nstart))
+        if dipole_vec is None:
+            terms = (p2m_terms_pairs if pairs else p2m_terms)(
+                rel, charges[i], s, k, order, nstart)
+        else:
+            terms = (p2m_dipole_terms_pairs if pairs else p2m_dipole_terms)(
+                rel, dipole_vec[:, i] / s, charges[i], s, k, order, nstart)
+        out.index_add_(0, b, terms)
     return out
+
+
+def p2m_helmholtz2d_plain(sources, charges, *args):
+    """Plain twin of :func:`p2m_helmholtz2d`."""
+    return _p2m_plain(sources, charges, None, *args)
 
 
 def p2m_helmholtz2d(sources, charges, box_source_starts,
@@ -524,6 +728,48 @@ def p2m_helmholtz2d(sources, charges, box_source_starts,
         charges, box_source_starts, box_source_counts_nonchild, rows,
         rows.shape[0], centers, centers.shape[1], box_scale, k, order,
         even_start(nstart, order), grid, scratch, counter, out)
+    return out
+
+
+def p2m_helmholtz2d_dipole_plain(sources, charges, dipole_vec, *args):
+    """Plain twin of :func:`p2m_helmholtz2d_dipole`: per source the JVP of
+    the twin's terms in its position along *dipole_vec*, and the limit of
+    that tangent for a source at its box's centre
+    (:func:`p2m_dipole_terms`)."""
+    return _p2m_plain(sources, charges, dipole_vec, *args)
+
+
+def p2m_helmholtz2d_dipole(sources, charges, dipole_vec, box_source_starts,
+                           box_source_counts_nonchild, rows, centers,
+                           box_scale, k, order, nstart):
+    """:func:`p2m_helmholtz2d` for dipole sources (*dipole_vec* ``(2,
+    nsources)`` in tree order); a source at its box's centre adds the
+    limit of its tangent (see the module doc).  The K63 kernel (pairs:
+    K66) on CUDA tensors, its recurrence run to order p + 1."""
+    args = (box_source_starts, box_source_counts_nonchild, rows, centers,
+            box_scale)
+    if sources.device.type == "cpu":
+        return p2m_helmholtz2d_dipole_plain(sources, charges, dipole_vec,
+                                            *args, k, order, nstart)
+    dt = charges.dtype
+    _check_args(k, dt, order, dipole=True)
+    kernels.check_tensors(sources, dipole_vec, centers, box_scale,
+                          dtype=torch.float64)
+    kernels.check_tensors(charges, dtype=dt)
+    kernels.check_tensors(*args[:3], dtype=torch.int32)
+    if dipole_vec.shape != sources.shape:
+        raise ValueError("dipole_vec must be shaped like the sources")
+    out = torch.zeros((centers.shape[1], _width(order, dt)), dtype=dt,
+                      device=sources.device)
+    if rows.numel() == 0:
+        return out
+    grid, scratch, counter = _launch_scratch(sources.device, rows.shape[0],
+                                             order + 1, nstart)
+    kernels.launch(
+        "p2m_helmholtz2d_dipole", dt, sources, sources.shape[1], charges,
+        dipole_vec, box_source_starts, box_source_counts_nonchild, rows,
+        rows.shape[0], centers, centers.shape[1], box_scale, k, order,
+        even_start(nstart, order + 1), grid, scratch, counter, out)
     return out
 
 

@@ -92,6 +92,9 @@ SIGNATURES = {
     "p2m_helmholtz3d_dipole": "pipppppipippdipp",
     "p2p_helmholtz3d_dipole": "pipipppppppippdpp",
     "p2l_helmholtz3d_dipole": "pipppppipppippdipp",
+    "p2m_helmholtz2d_dipole": "pipppppipipdiiipppp",
+    "p2p_helmholtz2d_dipole": "pipipppppppippdpp",
+    "p2l_helmholtz2d_dipole": "pipppppipppipdiiipppp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -154,6 +157,9 @@ DTYPES = {
     "p2m_helmholtz3d_dipole": _HELMHOLTZ,
     "p2p_helmholtz3d_dipole": _HELMHOLTZ,
     "p2l_helmholtz3d_dipole": _HELMHOLTZ,
+    "p2m_helmholtz2d_dipole": _HELMHOLTZ,
+    "p2p_helmholtz2d_dipole": _HELMHOLTZ,
+    "p2l_helmholtz2d_dipole": _HELMHOLTZ,
 }
 
 

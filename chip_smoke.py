@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives eleven
+It builds the CUDA kernels from ``boxtree_torch/csrc`` and drives twelve
 paths of the port on the card, each with the kernels' launch counts set to
 0 just before it and read just after:
 
@@ -90,7 +90,22 @@ paths of the port on the card, each with the kernels' launch counts set to
   normals and None with standard-normal dipoles, a source on its box's
   centre) and timed at the 1e6 inputs beside the charge kernels K31, K9,
   K11 (pairs K50, K47, K49) on the same inputs
-  (``kernels_helmholtz3d_dipole``).
+  (``kernels_helmholtz3d_dipole``);
+- the 2D Helmholtz dipoles (``helmholtz2d_dipole_fmm``, order 16, k = 3,
+  ``rscale="auto"``): the 2D Helmholtz path's 1e6 clustered points, tree
+  and traversal, standard-normal dipoles, the complex128 wrangler with the
+  path's complex weights and the pairs that ``pairs=None`` gives on the
+  card with their real parts: each against a complex128 direct sum of ``w
+  (i/4) k H_1(k r) d . (x - y) / r`` at 2,000 sampled targets (< 1e-5;
+  ``torch.special``'s ``j1``/``y1``, held to ``scipy.special.hankel1(1,
+  .)`` first), the pairs against the complex wrangler on the same real
+  weights at every target (<= 1e-12), each FMM launching its layout's
+  dipole P2M, P2P and P2L once (K63-K65, pairs K66-K68) and no charge
+  P2M / P2P / P2L, with no host read; K63-K68 against their twins at 1e5
+  clustered points first (``kernels_helmholtz2d_dipole_small``: rscale
+  ``"auto"`` and None, a source on its box's centre) and at the 1e6
+  inputs, timed beside the charge kernels K33, K16, K18 (pairs K55, K52,
+  K54) on the same inputs (``kernels_helmholtz2d_dipole``).
 
 Every path builds its tree with K43 (phase A: leaf levels and box
 counts, one launch and one host read per depth tried) and K44 (phase B,
@@ -149,8 +164,8 @@ Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
 1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
 on every entry point there; K47-K56 at 1e5 points only, timed alone at
-their 1e6 path's inputs; K57-K62 at 1e5 points, and at 1e6 where their
-1e5 time predicts a twin under a second),
+their 1e6 path's inputs; K57-K68 at 1e5 points and at 1e6, a twin
+slower than a second timed once there),
 and timed beside it (median of 5 synchronised calls; 3 for the slow
 Helmholtz twins at 1e6) and beside its bound, the least time the card
 could take for the same work.  Each phase prints one JSON line; then come
@@ -265,6 +280,9 @@ SOURCES = {
     "p2m_helmholtz3d_dipole": "boxtree_torch/csrc/helmholtz3d.cu",
     "p2p_helmholtz3d_dipole": "boxtree_torch/csrc/helmholtz3d.cu",
     "p2l_helmholtz3d_dipole": "boxtree_torch/csrc/helmholtz3d.cu",
+    "p2m_helmholtz2d_dipole": "boxtree_torch/csrc/helmholtz2d.cu",
+    "p2p_helmholtz2d_dipole": "boxtree_torch/csrc/helmholtz2d.cu",
+    "p2l_helmholtz2d_dipole": "boxtree_torch/csrc/helmholtz2d.cu",
 }
 #: K43 and K44, launched by every tree build (K45 and K46 by a restricted
 #: one)
@@ -1933,11 +1951,14 @@ def run_helmholtz(device, card, translation, n_kernels=100_000,
 # }}}
 
 
-# {{{ the 3D Helmholtz dipoles (K57-K62)
+# {{{ the Helmholtz dipoles (K57-K62 in 3D, K63-K68 in 2D)
 
-#: K57-K62: the dipole kernels' entry points, by kernel and layout: their
+#: K57-K68: the dipole kernels' entry points, by kernel and layout: their
 #: number and the reference's program they replace (the jax.jvp of a hook
-#: in expansion_base.py; on the pair layout of the pair class's hook)
+#: in expansion_base.py; on the pair layout of the pair class's hook).  A
+#: dipole FMM must launch no charge kernel of the same name less
+#: ``_dipole`` (K31 / K9 / K11, K33 / K16 / K18 and their pair entry
+#: points)
 DIPOLE_KERNELS = {
     "p2m_helmholtz3d_dipole": {
         "c128": ("K57", "boxtree_tpu/models/expansion_base.py:664"),
@@ -1948,13 +1969,20 @@ DIPOLE_KERNELS = {
     "p2l_helmholtz3d_dipole": {
         "c128": ("K59", "boxtree_tpu/models/expansion_base.py:1688"),
         "f64": ("K62", "boxtree_tpu/models/helmholtz3d.py:494")},
+    "p2m_helmholtz2d_dipole": {
+        "c128": ("K63", "boxtree_tpu/models/expansion_base.py:664"),
+        "f64": ("K66", "boxtree_tpu/models/helmholtz.py:378")},
+    "p2p_helmholtz2d_dipole": {
+        "c128": ("K64", "boxtree_tpu/models/expansion_base.py:1314"),
+        "f64": ("K67", "boxtree_tpu/models/helmholtz.py:407")},
+    "p2l_helmholtz2d_dipole": {
+        "c128": ("K65", "boxtree_tpu/models/expansion_base.py:1688"),
+        "f64": ("K68", "boxtree_tpu/models/helmholtz.py:400")},
 }
-#: the charge kernels a dipole FMM must not launch (K31 / K9 / K11, pairs
-#: K50 / K47 / K49)
-DIPOLE_REPLACED = ("p2m_helmholtz3d", "p2p_helmholtz3d", "p2l_helmholtz3d")
-#: rel l-inf tolerance of K57-K62 against their twins, per coefficient
+#: rel l-inf tolerance of K57-K68 against their twins, per coefficient
 #: column and potential lane: no looser than their charge kernels' (K9 /
-#: K11 ``HELMHOLTZ_KERNEL_RTOL``, K31 ``HELMHOLTZ_P2M_L2P_RTOL``, K47-K51
+#: K11 ``HELMHOLTZ_KERNEL_RTOL``, K31 / K33 ``HELMHOLTZ_P2M_L2P_RTOL``,
+#: K16 / K18 ``HELMHOLTZ2D_KERNEL_RTOL``, K47-K56
 #: ``HELMHOLTZ_PAIR_KERNEL_RTOL``)
 DIPOLE_KERNEL_RTOL = {
     ("c128", "p2m_helmholtz3d_dipole"): HELMHOLTZ_P2M_L2P_RTOL,
@@ -1962,37 +1990,54 @@ DIPOLE_KERNEL_RTOL = {
     ("c128", "p2l_helmholtz3d_dipole"): HELMHOLTZ_KERNEL_RTOL,
     ("f64", "p2m_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
     ("f64", "p2p_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
-    ("f64", "p2l_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL}
+    ("f64", "p2l_helmholtz3d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
+    ("c128", "p2m_helmholtz2d_dipole"): HELMHOLTZ_P2M_L2P_RTOL,
+    ("c128", "p2p_helmholtz2d_dipole"): HELMHOLTZ2D_KERNEL_RTOL,
+    ("c128", "p2l_helmholtz2d_dipole"): HELMHOLTZ2D_KERNEL_RTOL,
+    ("f64", "p2m_helmholtz2d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
+    ("f64", "p2p_helmholtz2d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL,
+    ("f64", "p2l_helmholtz2d_dipole"): HELMHOLTZ_PAIR_KERNEL_RTOL}
+
+
+def _helmholtz_ops(dim):
+    from boxtree_torch.ops import helmholtz2d, helmholtz3d
+    return helmholtz3d if dim == 3 else helmholtz2d
 
 
 def helmholtz_dipole_inputs(w, q_tree, sources=None):
-    """K57-K59 (a complex wrangler *w* with dipoles) or K60-K62 (pairs):
-    wrappers, plain twins and arguments at the shapes the FMM of *w* gives
-    them on tree-order charges *q_tree*, the tree-order sources replaced
-    by *sources* if given; P2L into zero locals."""
-    from boxtree_torch.ops import helmholtz3d
-
+    """K57-K59 (a complex 3D wrangler *w* with dipoles), K60-K62 (3D
+    pairs), K63-K65 (2D) or K66-K68 (2D pairs): wrappers, plain twins and
+    arguments at the shapes the FMM of *w* gives them on tree-order
+    charges *q_tree*, the tree-order sources replaced by *sources* if
+    given; P2L into zero locals."""
     tree, trav = w.tree, w.traversal
     src = w._sources if sources is None else sources
+    # 3D: the weights w_nm, k, order; 2D: k, order, the recurrence's start
+    if w.dim == 3:
+        tail, p2p_tail = (w._w_nm, w.k, w.order), (w.k,)
+    else:
+        tail, p2p_tail = (w.k, w.order, w._nstart), (w.k, w._nstart)
+    d = w.dim
     args = {
-        "p2m_helmholtz3d_dipole": (
+        f"p2m_helmholtz{d}d_dipole": (
             src, q_tree, w.dipole_vec, tree.box_source_starts,
             tree.box_source_counts_nonchild, w._source_rows, w.centers,
-            w.box_scale, w._w_nm, w.k, w.order),
-        "p2p_helmholtz3d_dipole": (
+            w.box_scale, *tail),
+        f"p2p_helmholtz{d}d_dipole": (
             w._targets, src, q_tree, w.dipole_vec, tree.box_target_starts,
             tree.box_target_counts_nonchild, tree.box_source_starts,
             tree.box_source_counts_nonchild, trav.target_boxes,
             trav.neighbor_source_boxes_starts,
-            trav.neighbor_source_boxes_lists, w.k),
-        "p2l_helmholtz3d_dipole": (
+            trav.neighbor_source_boxes_lists, *p2p_tail),
+        f"p2l_helmholtz{d}d_dipole": (
             src, q_tree, w.dipole_vec, tree.box_source_starts,
             tree.box_source_counts_nonchild, *w._l4_csr, w.centers,
-            w.box_scale, w._w_nm, w.k, w.order)}
+            w.box_scale, *tail)}
+    mod = _helmholtz_ops(d)
     out = {}
     for name, a in args.items():
-        kernel = getattr(helmholtz3d, name)
-        plain = getattr(helmholtz3d, f"{name}_plain")
+        kernel = getattr(mod, name)
+        plain = getattr(mod, f"{name}_plain")
         if name.startswith("p2l_"):
             out[name] = (
                 lambda *x, k=kernel: k(*x, w.local_expansion_zeros()),
@@ -2003,54 +2048,101 @@ def helmholtz_dipole_inputs(w, q_tree, sources=None):
 
 
 def less_dipoles(name, args):
-    """The arguments of dipole kernel *name* (K57-K62) without the dipoles:
-    those of the charge kernel it differentiates (K31, K9, K11 or K50,
-    K47, K49)."""
+    """The arguments of dipole kernel *name* (K57-K68) without the dipoles:
+    those of the charge kernel it differentiates (K31, K9, K11, K33, K16,
+    K18 or their pair entry points)."""
     i = 3 if name.startswith("p2p_") else 2
     return args[:i] + args[i + 1:]
 
 
+def helmholtz2d_dipole_flops(name, w, args):
+    """The float64 operations K63-K68 must do at *args*, from *w*, the
+    work of their charge kernel on the same arguments less the dipoles
+    (its pair and particle counts).  Square roots, ``j1``/``y1``,
+    ``atan2``, ``sincos`` and ``pow`` are not counted.
+
+    - K64 / K67, per List-1 particle pair with ``r > 0``: K16's 16 (K52's
+      12), then 7 more: the projection ``k d . (t - s) / r`` 5 and the
+      factor's two products with ``(i/4) H_1`` 2.
+    - K63 / K66 (per particle) and K65 / K68 (per (source particle, target
+      box) pair): the offset and its norm 9, the dipole's ``d / s`` times
+      ``s`` 4; one recurrence to order ``p + 1`` from ``ns =
+      even_start(nstart, p + 1)``: K63 ``J`` only as K33 (5 a step down, 2
+      per even order, 1 per order), K65 ``J`` and ``Y`` as K18 (5 a step
+      down, 7 per pair of orders, 4 per order, 10 for ``Y_0``, ``Y_1``);
+      each ladder basis ``C_m = Z_|m| e^{-+i |m| th}``, ``|m| <= p + 1``,
+      once: K63 the ``p + 2`` real products ``J e^{-i m th}`` 2 each (the
+      ``-m`` ones by sign), K65 all ``2p + 3`` complex products 6 each;
+      then per coefficient ``n = -p..p``: the tangent ``(k/2) [(d_x - i
+      d_y) C_{n-1} - (d_x + i d_y) C_{n+1}]`` 16, times ``(i/4) q`` 6 (2
+      for the pairs' real ``q``), times ``s^-+|n|`` 2 and summed over the
+      sources 2; K65 then 2 per coefficient of each target box."""
+    if name.startswith("p2p_"):
+        return w["flops"] + 7 * w["particle_pairs"]
+    q, order, nstart = args[1], args[-2], args[-1]
+    from boxtree_torch.ops.cylinder_bessel import even_start
+    ns, nc = even_start(nstart, order + 1), 2 * order + 1
+    per_coeff = (26 if q.is_complex() else 22) * nc
+    if name.startswith("p2m_"):
+        per = (13 + 5 * ns + 2 * (ns // 2) + (order + 2)
+               + 2 * (order + 2) + per_coeff)
+        return per * w["particles"]
+    per = (13 + 5 * ns + 7 * (ns // 2) + 4 * (order + 2) + 10
+           + 6 * (2 * order + 3) + per_coeff)
+    return per * w["source_box_pairs"] + w["row_flops"]
+
+
 def helmholtz_dipole_work(inputs):
-    """Bytes K57-K62 must move and the float64 operations they must do at
-    *inputs*: those of their charge kernels on the same arguments less the
-    dipoles (:func:`helmholtz_work` for K58 / K59, K61 / K62,
-    :func:`helmholtz_p2m_l2p_work` for K57 / K60), each per-pair or
-    per-particle operation done twice (on a value and on its tangent; the
-    per-row ``w_nm`` products once), and 24 bytes of dipole read for each
-    source."""
+    """Bytes K57-K68 must move and the float64 operations they must do at
+    *inputs*: the bytes of their charge kernels on the same arguments less
+    the dipoles (:func:`helmholtz_work` for K58 / K59, K61 / K62,
+    :func:`helmholtz2d_work` for K64 / K65, K67 / K68,
+    :func:`helmholtz_p2m_l2p_work` for the P2Ms) and 8 bytes of dipole
+    read a coordinate for each source (24 in 3D, 16 in 2D).  Operations:
+    K57-K62, which run their charge kernels' loops on dual numbers, each
+    per-pair or per-particle operation of the charge kernel twice (on a
+    value and on its tangent; the per-row ``w_nm`` products and P2L sums
+    once); K63-K68, which take the ladder identity, their own
+    (:func:`helmholtz2d_dipole_flops`)."""
     import torch
 
     charge = {name.removesuffix("_dipole"): (None, None,
                                              less_dipoles(name, args))
               for name, (_, _, args) in inputs.items()}
-    work = helmholtz_work({n: v for n, v in charge.items()
-                           if not n.startswith("p2m_")})
+    dim = next(iter(inputs.values()))[2][0].shape[0]
+    work = (helmholtz_work if dim == 3 else helmholtz2d_work)(
+        {n: v for n, v in charge.items() if not n.startswith("p2m_")})
     work.update(helmholtz_p2m_l2p_work({n: v for n, v in charge.items()
                                         if n.startswith("p2m_")}))
     out = {}
     for name, (_, _, args) in inputs.items():
-        w = dict(work[name.removesuffix("_dipole")])
-        w["flops"] = 2 * w["flops"] - w.pop("row_flops", 0)
+        cname = name.removesuffix("_dipole")
+        w = dict(work[cname])
+        if dim == 3:
+            w["flops"] = 2 * w["flops"] - w.pop("row_flops", 0)
+        else:
+            w["flops"] = helmholtz2d_dipole_flops(name, w, charge[cname][2])
+            w.pop("row_flops", None)
         if name.startswith("p2m_"):
             nsrc = w["particles"]
         else:
             scn, ls = (args[7], args[10]) if name.startswith("p2p_") \
                 else (args[4], args[7])
             nsrc = int(scn.to(torch.int64)[_boxes(ls)].sum())
-        w["bytes"] += 24 * nsrc
+        w["bytes"] += 8 * dim * nsrc
         out[name] = w
     return out
 
 
 def charge_kernel_ms(w, inputs, device):
-    """The times of the charge kernels that K57-K62 differentiate (K31, K9,
-    K11 or K50, K47, K49) on the dipole kernels' *inputs* less the
-    dipoles (median of 5): the yardstick of a dipole kernel's cost."""
-    from boxtree_torch.ops import helmholtz3d
-
+    """The times of the charge kernels that K57-K68 differentiate (K31, K9,
+    K11, K33, K16, K18 or their pair entry points) on the dipole kernels'
+    *inputs* less the dipoles (median of 5): the yardstick of a dipole
+    kernel's cost."""
+    mod = _helmholtz_ops(w.dim)
     out = {}
     for name, (_, _, args) in inputs.items():
-        charge = getattr(helmholtz3d, name.removesuffix("_dipole"))
+        charge = getattr(mod, name.removesuffix("_dipole"))
         a = less_dipoles(name, args)
         if name.startswith("p2l_"):
             out[name] = median_ms(
@@ -2060,13 +2152,13 @@ def charge_kernel_ms(w, inputs, device):
     return out
 
 
-def worst_columns(got, ref, top=3):
-    """The *top* coefficient columns ``(n, m)`` of (boxes, coefficients)
-    expansions by rel l-inf error against *ref* (the pairs' ``[re | im]``
-    lanes taken as one complex column), each with that error, its
-    absolute error, its scale (the column's largest ``|ref|``) over the
-    array's largest, and the box of its largest error: where a dipole
-    P2M's gap from its twin lies."""
+def worst_columns(got, ref, top=3, dim=3):
+    """The *top* coefficient columns ``(n, m)`` (*dim* 3) or ``n`` (2) of
+    (boxes, coefficients) expansions by rel l-inf error against *ref* (the
+    pairs' ``[re | im]`` lanes taken as one complex column), each with that
+    error, its absolute error, its scale (the column's largest ``|ref|``)
+    over the array's largest, and the box of its largest error: where a
+    dipole P2M's gap from its twin lies."""
     import torch
     if not ref.is_complex():
         h = ref.shape[1] // 2
@@ -2078,8 +2170,12 @@ def worst_columns(got, ref, top=3):
     rel = col_err / torch.where(scale > 0, scale, torch.ones_like(scale))
     out = []
     for i in rel.argsort(descending=True)[:top].tolist():
-        n = int(i ** 0.5)
-        out.append({"n": n, "m": i - n * n - n, "rel_err": rel[i].item(),
+        if dim == 3:
+            n = int(i ** 0.5)
+            nm = {"n": n, "m": i - n * n - n}
+        else:
+            nm = {"n": i - (ref.shape[1] - 1) // 2}
+        out.append({**nm, "rel_err": rel[i].item(),
                     "abs_err": col_err[i].item(),
                     "scale_over_largest": (scale[i] / scale.max()).item(),
                     "box": int(box[i])})
@@ -2087,18 +2183,20 @@ def worst_columns(got, ref, top=3):
 
 
 def check_dipole_kernels(inputs, device, layout, plain_reps=1, slow_s=None):
-    """K57-K59 (*layout* ``"c128"``) or K60-K62 (``"f64"``) against their
-    twins on *inputs* (:func:`check_list_kernels`, each at its own bar:
-    the complex expansions per coefficient column, the pairs per lane;
-    the P2M's :func:`worst_columns` beside).  Returns ``{name: numbers}``."""
+    """K57-K59 / K63-K65 (*layout* ``"c128"``) or K60-K62 / K66-K68
+    (``"f64"``) against their twins on *inputs* (:func:`check_list_kernels`,
+    each at its own bar: the complex expansions per coefficient column,
+    the pairs per lane; the P2M's :func:`worst_columns` beside).  Returns
+    ``{name: numbers}``."""
     res = {}
     for name, inp in inputs.items():
+        dim = 2 if "2d_" in name else 3
         res.update(check_list_kernels(
             {name: inp}, device, plain_reps=plain_reps,
             rtol=DIPOLE_KERNEL_RTOL[layout, name], slow_s=slow_s,
             rel_fn=rel_linf_per_lane if layout == "f64" else None,
-            detail=(lambda got, ref: {"worst_columns": worst_columns(
-                got, ref)}) if name.startswith("p2m_") else None))
+            detail=(lambda got, ref, dim=dim: {"worst_columns": worst_columns(
+                got, ref, dim=dim)}) if name.startswith("p2m_") else None))
     return res
 
 
@@ -2116,10 +2214,11 @@ def direct_sum_helmholtz_dipole(sources, dipoles, charges, targets, k,
                                 chunk=1 << 14):
     """sum_s q_s (d_s . grad_s) exp(ik|t - s|) / |t - s| over all sources,
     r = 0 skipped, in complex128: ``G'(r) d . (s - t) / r`` with ``G' =
-    (ik - 1/r) G``."""
+    (ik - 1/r) G``; *charges* ``(nsources,)`` give ``(ntargets,)``,
+    ``(nsources, m)`` give ``(ntargets, m)``."""
     import torch
-    out = torch.zeros(targets.shape[1], dtype=torch.complex128,
-                      device=targets.device)
+    out = torch.zeros((targets.shape[1],) + tuple(charges.shape[1:]),
+                      dtype=torch.complex128, device=targets.device)
     for c0 in range(0, sources.shape[1], chunk):
         d = sources[:, None, c0:c0 + chunk] - targets[:, :, None]
         r2 = (d * d).sum(0)
@@ -2131,116 +2230,100 @@ def direct_sum_helmholtz_dipole(sources, dipoles, charges, targets, k,
     return out
 
 
-def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
-                            n_main=1_000_000, n_targets=200_000, k=2.0,
-                            order=12, nsample=2000, seed=15):
-    """K57-K62 against their twins at 1e5 sphere sources and 2e4 targets
-    (``kernels_helmholtz3d_dipole_small``: every entry point, rscale
-    ``"auto"`` with the normals and None with standard-normal dipoles, one
-    source on its box's centre); then the 3D Helmholtz dipole FMM at 1e6 sphere
-    sources (the 3D double layer's points, normals as dipoles, real
-    weights) and 2e5 targets (``helmholtz3d_dipole_fmm``), the complex
-    wrangler and the pairs that ``pairs=None`` gives on the card on one
-    traversal: the complex FMM against a complex128 direct sum at
-    *nsample* targets, the pairs against it at every target, each FMM
-    launching its layout's three dipole entry points once and no charge
-    P2M / P2P / P2L, their host reads (by trace, and by a run under sync
-    debug mode); then K57-K62 against their twins at its inputs, beside
-    their bounds and their charge kernels (``kernels_helmholtz3d_dipole``).
-    Returns the summary entries of K57-K62."""
-    import numpy as np
-    import torch
-
-    from boxtree_torch import build_tree
-    from boxtree_torch.fmm import drive_fmm
+def dipole_kernels_small(device, card, trav, q, k, order, cases, info):
+    """K57-K62 (a 3D traversal *trav*) or K63-K68 (2D) against their twins
+    at *trav*'s sources (``kernels_helmholtz{3,2}d_dipole_small``): per
+    layout, each case ``(rscale, kind, dipoles)`` of *cases* once, with
+    the complex charges *q* (c128) or their real part (f64) and the first
+    source of the first P2M row moved onto its box's centre; the first
+    case's inputs give the bounds.  *info* goes into the emitted line.
+    Returns ``{layout: results}`` of the first case."""
     from boxtree_torch.models import make_helmholtz_wrangler
-    from boxtree_torch.ops import kernels
-    from boxtree_torch.traversal import build_traversal
 
-    t_phases = time.perf_counter()
-
-    # {{{ kernels vs twins at 1e5 sources
-
-    src_np, tgt_np, w_np = laplace3d_points(n_kernels, n_kernels // 5,
-                                            seed + 20)
-    src = torch.as_tensor(src_np, device=device)
-    rng = np.random.default_rng(seed + 21)
-    qc = torch.as_tensor(w_np + 1j * rng.standard_normal(n_kernels),
-                         device=device)
-    dipoles = {"normals": src, "standard_normal": torch.as_tensor(
-        rng.standard_normal((3, n_kernels)), device=device)}
-    tree = build_tree(src, targets=torch.as_tensor(tgt_np, device=device),
-                      max_particles_in_box=30)
-    trav = build_traversal(tree)
-    small, small_work = {}, {}
+    t0 = time.perf_counter()
+    tree = trav.tree
+    dim = tree.dimensions
+    small, small_work, first = {}, {}, {}
     for layout in ("c128", "f64"):
-        # each rscale and each kind of dipole once a layout: the twin of
-        # the dipole P2L takes 3-6 s a call here
-        for rscale, kind in (("auto", "normals"),
-                             (None, "standard_normal")):
-            dip = dipoles[kind]
+        for i, (rscale, kind, dip) in enumerate(cases):
             w = make_helmholtz_wrangler(trav, k, order, rscale=rscale,
                                         pairs=layout == "f64",
                                         dipole_vec=dip)
             if w._l3_csr is None or not w._l4_csr[2].numel():
                 raise AssertionError("Lists 3 and 4 empty at "
-                                     f"{n_kernels} sources")
-            q = w.reorder_sources(qc if layout == "c128" else qc.real)
-            inputs = helmholtz_dipole_inputs(w, q, centre_source(w))
-            key = f"{layout}-{rscale}-{kind}"
-            small[key] = check_dipole_kernels(inputs, device, layout)
-            if (rscale, kind) == ("auto", "normals"):
+                                     f"{tree.nsources} sources")
+            qq = w.reorder_sources(q if layout == "c128"
+                                   else q.real.contiguous())
+            inputs = helmholtz_dipole_inputs(w, qq, centre_source(w))
+            res = check_dipole_kernels(inputs, device, layout)
+            small[f"{layout}-{rscale}-{kind}"] = res
+            if i == 0:
                 small_work[layout] = helmholtz_dipole_work(inputs)
-                for name, r in small[key].items():
+                for name, r in res.items():
                     r["bound_ms"], r["bound_by"] = bound(
                         small_work[layout][name])
-    emit({"phase": "kernels_helmholtz3d_dipole_small", "card": card,
-          "sources": n_kernels, "targets": n_kernels // 5,
-          "nboxes": tree.nboxes, "nlevels": tree.nlevels, "order": order,
-          "k": k, "charges": "complex normal (c128), their real part (f64)",
+                first[layout] = res
+    emit({"phase": f"kernels_helmholtz{dim}d_dipole_small", "card": card,
+          **info, "nboxes": tree.nboxes, "nlevels": tree.nlevels,
+          "order": order, "k": k,
+          **({"recurrence_start": w._nstart} if dim == 2 else {}),
+          "charges": "complex normal (c128), their real part (f64)",
           "source_on_centre": "the first source of the first P2M row",
           "tolerance_rel_linf": {f"{lay}/{nm}": v for (lay, nm), v
-                                 in DIPOLE_KERNEL_RTOL.items()},
+                                 in DIPOLE_KERNEL_RTOL.items()
+                                 if f"{dim}d_" in nm},
           "rel": "per coefficient column (c128 P2M / P2L), per lane (f64)",
           "kernels": small, "work": small_work,
-          "phase_s": time.perf_counter() - t_phases})
-    del tree, trav, w, inputs
+          "phase_s": time.perf_counter() - t0})
+    return first
 
-    # }}}
 
-    # {{{ the path: the dipole FMM at 1e6, both layouts on one traversal
+def dipole_path(device, card, trav, sources, targets, weights, dipoles, k,
+                order, nsample, direct_sum, fmm_rtol, needed, at_1e5, info):
+    """The Helmholtz dipole FMM on traversal *trav* (3D: K57-K62, 2D:
+    K63-K68; ``helmholtz{3,2}d_dipole_fmm``): the complex wrangler and the
+    pairs that ``pairs=None`` gives on the card, ``rscale="auto"``, with
+    *dipoles* and their layout's *weights* (``{"c128": complex, "f64":
+    real}``), one FMM each (the launches of each counted), a second with
+    stage times, their host reads (by trace, and by a run under sync debug
+    mode).  Each is held against *direct_sum* (complex128) at *nsample*
+    of *targets* below *fmm_rtol*, and the pairs against the complex
+    wrangler on the same real weights at every target; each FMM launches
+    its layout's three dipole entry points once and no charge P2M / P2P /
+    P2L, and every kernel of *needed* ran since the caller zeroed the
+    counts.  Then the dipole kernels against their twins at its inputs,
+    beside their bounds and their charge kernels
+    (``kernels_helmholtz{3,2}d_dipole``).  *info* goes into the FMM's
+    line, *at_1e5* (:func:`dipole_kernels_small`) into the summary entries
+    it returns."""
+    import numpy as np
+    import torch
 
-    src_np, tgt_np, w_np = laplace3d_points(n_main, n_targets, seed)
-    src = torch.as_tensor(src_np, device=device)
-    tgt = torch.as_tensor(tgt_np, device=device)
-    q = torch.as_tensor(w_np, device=device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    kernels.reset_launch_counts()
-    sync(device)
-    t_start = time.perf_counter()
-    tree, t_tree = timed(lambda: build_tree(src, targets=tgt,
-                                            max_particles_in_box=30),
-                         device)
-    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_helmholtz_wrangler
+    from boxtree_torch.ops import kernels
+
+    t_path = time.perf_counter()
+    dim = trav.tree.dimensions
+    table = {n: v for n, v in DIPOLE_KERNELS.items() if f"{dim}d_" in n}
+    label = f"{dim}D dipole FMM"
     ws, pots, t_setup, t_fmm, per_fmm = {}, {}, {}, {}, {}
     for layout, pairs in (("c128", False), ("f64", None)):
         ws[layout], t_setup[layout] = timed(lambda: make_helmholtz_wrangler(
-            trav, k, order, rscale="auto", pairs=pairs, dipole_vec=src),
-            device)
-        qq = q.to(torch.complex128) if layout == "c128" else q
+            trav, k, order, rscale="auto", pairs=pairs,
+            dipole_vec=dipoles), device)
         before = kernels.entry_launch_counts()
         pots[layout], t_fmm[layout] = timed(
-            lambda: drive_fmm(ws[layout], [qq]), device)
+            lambda: drive_fmm(ws[layout], [weights[layout]]), device)
         per_fmm[layout] = {e: c - before[e] for e, c in
                            kernels.entry_launch_counts().items()}
-    t_total = time.perf_counter() - t_start
+    t_setup_fmms = time.perf_counter() - t_path
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else None)
     launches = kernels.launch_counts()
     stages, t_warm, reads = {}, {}, {}
     for layout, w in ws.items():
-        qq = q.to(torch.complex128) if layout == "c128" else q
+        qq = weights[layout]
         stages[layout] = {}
         _, t_warm[layout] = timed(lambda: drive_fmm(
             w, [qq], timing_data=stages[layout]), device)
@@ -2251,71 +2334,60 @@ def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
             reads[layout]["fmm_sync_debug"] = sync_free(
                 lambda: drive_fmm(w, [qq]))
             reads[layout]["multipole_to_local_sync_debug"] = m2l_syncs(w, qq)
-    sample = torch.as_tensor(np.random.default_rng(5).choice(
-        n_targets, nsample, replace=False), device=device)
-    ref = direct_sum_helmholtz_dipole(src, src, q.to(torch.complex128),
-                                      tgt[:, sample], k)
     pc, pp = pots["c128"], pots["f64"]
-    abs_err, rel = rel_linf(pc[sample], ref)
+    # the pairs' reference at every target: the complex wrangler on the
+    # same real weights
+    qr = weights["f64"].to(torch.complex128)
+    pc_real = (pc if torch.equal(weights["c128"], qr)
+               else drive_fmm(ws["c128"], [qr]))
+    sample = torch.as_tensor(np.random.default_rng(5).choice(
+        targets.shape[1], nsample, replace=False), device=device)
+    ref = direct_sum(sources, dipoles, torch.stack([weights["c128"], qr], 1),
+                     targets[:, sample], k)
     pp_c = torch.complex(pp[:, 0], pp[:, 1])
-    _, rel_pairs = rel_linf(pp_c, pc)
-    _, rel_pairs_direct = rel_linf(pp_c[sample], ref)
+    abs_err, rel = rel_linf(pc[sample], ref[:, 0])
+    _, rel_pairs_direct = rel_linf(pp_c[sample], ref[:, 1])
+    _, rel_pairs = rel_linf(pp_c, pc_real)
     finite = bool(torch.isfinite(pc).all() and torch.isfinite(pp).all())
     once = {layout: {name: per_fmm[layout][f"{name}_{layout}"]
-                     for name in DIPOLE_KERNELS} for layout in ws}
+                     for name in table} for layout in ws}
     charge = {layout: {f"{old}_{lay}": per_fmm[layout][f"{old}_{lay}"]
-                       for old in DIPOLE_REPLACED
+                       for old in (n.removesuffix("_dipole") for n in table)
                        for lay in ("c128", "f64")} for layout in ws}
-    emit({"phase": "helmholtz3d_dipole_fmm", "card": card,
-          "sources": n_main, "targets": n_targets,
-          "distribution": "sources on the unit sphere, targets uniform in "
-                          "[-1, 1]^3", "seed": seed,
-          "weights": "real normal (c128: as complex)",
-          "dipoles": "outward unit normals", "k": k, "order": order,
-          "rscale": "auto", "max_particles_in_box": 30,
+    emit({"phase": f"helmholtz{dim}d_dipole_fmm", "card": card, **info,
+          "k": k, "order": order, "rscale": "auto",
           "wranglers": {lay: type(w).__name__ for lay, w in ws.items()},
           "pairs_rule": "pairs=None on CUDA",
-          "nboxes": tree.nboxes, "nlevels": tree.nlevels,
-          "build_s": t_tree, "traversal_s": t_trav, "setup_s": t_setup,
-          "fmm_s": t_fmm, "fmm_warm_s": t_warm, "total_s": t_total,
-          "stage_s": stages, "host_reads_per_fmm": reads,
-          "peak_mem_gb": peak,
-          "list_edges": {
-              "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
-              "l1_particle_pairs": l1_pairs(
-                  tree.box_target_counts_nonchild,
-                  tree.box_source_counts_nonchild, trav.target_boxes,
-                  trav.neighbor_source_boxes_starts,
-                  trav.neighbor_source_boxes_lists),
-              "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
-              "l4": int(trav.from_sep_bigger_lists.shape[0])},
+          "nboxes": trav.tree.nboxes, "nlevels": trav.tree.nlevels,
+          "setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
+          "setup_and_fmms_s": t_setup_fmms, "stage_s": stages,
+          "host_reads_per_fmm": reads, "peak_mem_gb": peak,
           "sampled_targets": nsample, "rel_linf_vs_c128_direct": rel,
-          "abs_linf": abs_err, "bar_vs_direct": HELMHOLTZ_FMM_RTOL,
-          "pairs_rel_linf_vs_c128_wrangler": rel_pairs,
+          "abs_linf": abs_err, "bar_vs_direct": fmm_rtol,
           "pairs_rel_linf_vs_c128_direct": rel_pairs_direct,
+          "pairs_rel_linf_vs_c128_wrangler": rel_pairs,
           "bar_pairs_vs_c128": HELMHOLTZ_PAIRS_RTOL,
           "dipole_launches_per_fmm": once,
-          "charge_launches_per_fmm": charge, "finite": finite,
-          "phases_s_so_far": time.perf_counter() - t_phases})
-    if type(ws["f64"]).__name__ != "Helmholtz3DPairsExpansionWrangler":
-        raise AssertionError("helmholtz3d_dipole_fmm: pairs=None on the "
-                             f"card gave {type(ws['f64']).__name__}")
-    if not finite or tuple(pc.shape) != (n_targets,) \
-            or tuple(pp.shape) != (n_targets, 2):
-        raise AssertionError("helmholtz3d_dipole_fmm: non-finite or "
-                             "misshapen output")
-    if not rel < HELMHOLTZ_FMM_RTOL:
-        raise AssertionError(f"helmholtz3d_dipole_fmm: rel l-inf {rel:.3e} "
-                             f">= {HELMHOLTZ_FMM_RTOL} against the direct "
-                             "sum")
+          "charge_launches_per_fmm": charge, "launches": launches,
+          "finite": finite, "phase_s": time.perf_counter() - t_path})
+    pair_class = f"Helmholtz{dim}DPairsExpansionWrangler"
+    if type(ws["f64"]).__name__ != pair_class:
+        raise AssertionError(f"{label}: pairs=None on the card gave "
+                             f"{type(ws['f64']).__name__}")
+    if not finite or tuple(pc.shape) != (targets.shape[1],) \
+            or tuple(pp.shape) != (targets.shape[1], 2):
+        raise AssertionError(f"{label}: non-finite or misshapen output")
+    for kind, err in (("complex", rel), ("pairs", rel_pairs_direct)):
+        if not err < fmm_rtol:
+            raise AssertionError(f"{label}: {kind} rel l-inf {err:.3e} >= "
+                                 f"{fmm_rtol} against the direct sum")
     if not rel_pairs <= HELMHOLTZ_PAIRS_RTOL:
-        raise AssertionError(f"helmholtz3d_dipole_fmm: pairs rel l-inf "
-                             f"{rel_pairs:.3e} > {HELMHOLTZ_PAIRS_RTOL}")
+        raise AssertionError(f"{label}: pairs rel l-inf {rel_pairs:.3e} > "
+                             f"{HELMHOLTZ_PAIRS_RTOL}")
     for layout in ws:
-        check_once_per_fmm(once[layout], f"dipole FMM {layout}",
-                           list(DIPOLE_KERNELS))
+        check_once_per_fmm(once[layout], f"{label} {layout}", list(table))
         if any(charge[layout].values()):
-            raise AssertionError(f"dipole FMM {layout}: charge kernels "
+            raise AssertionError(f"{label} {layout}: charge kernels "
                                  f"launched {charge[layout]}")
         r = reads[layout]
         # a trace without device events (None) measured nothing: then the
@@ -2326,25 +2398,21 @@ def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
                 and (r["multipole_to_local"] == 0
                      or r["multipole_to_local"] is None
                      and r["multipole_to_local_sync_debug"] == 0)):
-            raise AssertionError(f"dipole FMM {layout}: host reads {r}")
-    missing = [e for e in ("morton_encode", *TREE_KERNELS,
-                           *TRAVERSAL_KERNELS, "m2p_helmholtz3d",
-                           "l2p_helmholtz3d", *FMM_TRANSLATE)
-               if launches[e] <= 0]
+            raise AssertionError(f"{label} {layout}: host reads {r}")
+    missing = [e for e in needed if launches[e] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the dipole path: "
+        raise AssertionError(f"kernels not launched on the {label} path: "
                              f"{missing}")
 
-    # }}}
-
-    # K57-K62 against their twins at the path's inputs, beside their bounds
-    # and their charge kernels on the same inputs (a twin slower than a
-    # second is timed once: the P2M and P2L ones take 3-18 s a call here)
+    # the dipole kernels against their twins at the path's inputs, beside
+    # their bounds and their charge kernels on the same inputs (a twin
+    # slower than a second is timed once: the P2M and P2L ones take
+    # seconds a call here)
     at_path, path_work = {}, {}
     t_twins = time.perf_counter()
     for layout, w in ws.items():
-        inputs = helmholtz_dipole_inputs(w, w.reorder_sources(q.to(
-            w.dtype)))
+        inputs = helmholtz_dipole_inputs(w, w.reorder_sources(
+            weights[layout]))
         path_work[layout] = helmholtz_dipole_work(inputs)
         at_path[layout] = check_dipole_kernels(inputs, device, layout,
                                                plain_reps=3, slow_s=1.0)
@@ -2354,19 +2422,21 @@ def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
             r["charge_kernel_ms"] = charge_ms[name]
             r["launches"] = per_fmm[layout][f"{name}_{layout}"]
         del inputs
-    emit({"phase": "kernels_helmholtz3d_dipole", "card": card,
-          "sources": n_main, "targets": n_targets, "order": order, "k": k,
+    emit({"phase": f"kernels_helmholtz{dim}d_dipole", "card": card,
+          "sources": sources.shape[1], "targets": targets.shape[1],
+          "order": order, "k": k,
           "tolerance_rel_linf": {f"{lay}/{nm}": v for (lay, nm), v
-                                 in DIPOLE_KERNEL_RTOL.items()},
+                                 in DIPOLE_KERNEL_RTOL.items()
+                                 if f"{dim}d_" in nm},
           "kernels": at_path, "work": path_work,
           "twins_s": time.perf_counter() - t_twins,
           "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
                           if device.type == "cuda" else None),
-          "helmholtz3d_dipole_phases_s": time.perf_counter() - t_phases})
-    del ws, tree, trav
+          "path_s": time.perf_counter() - t_path})
+    del ws
 
     out = []
-    for name, by_layout in DIPOLE_KERNELS.items():
+    for name, by_layout in table.items():
         for layout, (number, replaces) in by_layout.items():
             r = at_path[layout][name]
             out.append({
@@ -2378,7 +2448,81 @@ def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
                 "bound_by": r["bound_by"], "library_ms": None,
                 "charge_kernel_ms": r["charge_kernel_ms"],
                 "entry_points": [f"{name}_{layout}"],
-                "at_1e5": small[f"{layout}-auto-normals"][name]})
+                "at_1e5": at_1e5[layout][name]})
+    return out
+
+
+def run_helmholtz3d_dipoles(device, card, n_kernels=100_000,
+                            n_main=1_000_000, n_targets=200_000, k=2.0,
+                            order=12, nsample=2000, seed=15):
+    """K57-K62 against their twins at 1e5 sphere sources and 2e4 targets
+    (:func:`dipole_kernels_small`: rscale ``"auto"`` with the normals and
+    None with standard-normal dipoles); then the 3D Helmholtz dipole FMM
+    (:func:`dipole_path`) at 1e6 sphere sources (the 3D double layer's
+    points, normals as dipoles, real weights) and 2e5 targets, its tree
+    and traversal built and counted here.  Returns the summary entries of
+    K57-K62."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    t_phases = time.perf_counter()
+    src_np, tgt_np, w_np = laplace3d_points(n_kernels, n_kernels // 5,
+                                            seed + 20)
+    src = torch.as_tensor(src_np, device=device)
+    rng = np.random.default_rng(seed + 21)
+    qc = torch.as_tensor(w_np + 1j * rng.standard_normal(n_kernels),
+                         device=device)
+    normal = torch.as_tensor(rng.standard_normal((3, n_kernels)),
+                             device=device)
+    tree = build_tree(src, targets=torch.as_tensor(tgt_np, device=device),
+                      max_particles_in_box=30)
+    # each rscale and each kind of dipole once a layout: the twin of the
+    # dipole P2L takes 3-6 s a call here
+    at_1e5 = dipole_kernels_small(
+        device, card, build_traversal(tree), qc, k, order,
+        [("auto", "normals", src), (None, "standard_normal", normal)],
+        {"sources": n_kernels, "targets": n_kernels // 5})
+    del tree
+
+    src_np, tgt_np, w_np = laplace3d_points(n_main, n_targets, seed)
+    src = torch.as_tensor(src_np, device=device)
+    tgt = torch.as_tensor(tgt_np, device=device)
+    q = torch.as_tensor(w_np, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    tree, t_tree = timed(lambda: build_tree(src, targets=tgt,
+                                            max_particles_in_box=30),
+                         device)
+    trav, t_trav = timed(lambda: build_traversal(tree), device)
+    out = dipole_path(
+        device, card, trav, src, tgt, {"c128": q.to(torch.complex128),
+                                       "f64": q}, src, k, order, nsample,
+        direct_sum_helmholtz_dipole, HELMHOLTZ_FMM_RTOL,
+        ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
+         "m2p_helmholtz3d", "l2p_helmholtz3d", *FMM_TRANSLATE), at_1e5,
+        {"sources": n_main, "targets": n_targets,
+         "distribution": "sources on the unit sphere, targets uniform in "
+                         "[-1, 1]^3", "seed": seed,
+         "weights": "real normal (c128: as complex)",
+         "dipoles": "outward unit normals", "max_particles_in_box": 30,
+         "build_s": t_tree, "traversal_s": t_trav,
+         "list_edges": {
+             "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
+             "l1_particle_pairs": l1_pairs(
+                 tree.box_target_counts_nonchild,
+                 tree.box_source_counts_nonchild, trav.target_boxes,
+                 trav.neighbor_source_boxes_starts,
+                 trav.neighbor_source_boxes_lists),
+             "l3": sum(bl.count for bl in trav.from_sep_smaller_by_level),
+             "l4": int(trav.from_sep_bigger_lists.shape[0])}})
+    emit({"phase": "helmholtz3d_dipole_phases", "card": card,
+          "helmholtz3d_dipole_phases_s": time.perf_counter() - t_phases})
     return out
 
 # }}}
@@ -2787,6 +2931,8 @@ def helmholtz2d_work(inputs):
       coefficient of each target box.
 
     Bytes as in :func:`helmholtz_work`: K52-K54's real charges 8 bytes.
+    Each of the three in *inputs* is counted; K18's per-box adds are also
+    given alone, as ``row_flops``.
     """
     import torch
 
@@ -2796,41 +2942,49 @@ def helmholtz2d_work(inputs):
     def row_of(starts, lists):
         return csr_rows(starts, lists.shape[0])
 
+    def common(order, nstart):
+        ns = even_start(nstart, order)
+        return ns, 9 + 5 * ns + 7 * (ns // 2) + 4 * (order + 1) + 10
+
     out = {}
-    (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _, _) = \
-        inputs["p2p_helmholtz2d"][2]
-    real_q = not q.is_complex()
-    pairs = list1_pairs(tcn, scn, tb, st, ls)
-    out["p2p_helmholtz2d"] = dict(
-        type="float64", particle_pairs=pairs,
-        flops=(12 if real_q else 16) * pairs,
-        bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, 16))
+    if "p2p_helmholtz2d" in inputs:
+        (tgt, src, q, tst, tcn, sst, scn, tb, st, ls, _, _) = \
+            inputs["p2p_helmholtz2d"][2]
+        pairs = list1_pairs(tcn, scn, tb, st, ls)
+        out["p2p_helmholtz2d"] = dict(
+            type="float64", particle_pairs=pairs,
+            flops=(16 if q.is_complex() else 12) * pairs,
+            bytes=p2p_bytes(tgt, src, q, tst, tcn, sst, scn, tb, st, ls, 16))
 
-    (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order, nstart) = \
-        inputs["m2p_helmholtz2d"][2]
-    ns = even_start(nstart, order)
-    nc = 2 * order + 1
-    common = 9 + 5 * ns + 7 * (ns // 2) + 4 * (order + 1) + 10
-    pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
-        row_of(st, ls)]].sum())
-    out["m2p_helmholtz2d"] = dict(
-        type="float64", target_box_pairs=pairs, recurrence_start=ns,
-        coefficients=nc,
-        flops=(common + 16 * (order + 1) + 18 * order) * pairs,
-        bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
-                        16))
+    if "m2p_helmholtz2d" in inputs:
+        (tgt, tst, tcn, rows, st, ls, mp, centers, scale, _, order,
+         nstart) = inputs["m2p_helmholtz2d"][2]
+        ns, per_pair = common(order, nstart)
+        pairs = int(tcn.to(torch.int64)[rows.to(torch.int64)[
+            row_of(st, ls)]].sum())
+        out["m2p_helmholtz2d"] = dict(
+            type="float64", target_box_pairs=pairs, recurrence_start=ns,
+            coefficients=2 * order + 1,
+            flops=(per_pair + 16 * (order + 1) + 18 * order) * pairs,
+            bytes=m2p_bytes(tgt, tst, tcn, rows, st, ls, mp, centers, scale,
+                            16))
 
-    (src, q, sst, scn, rows, st, ls, centers, scale, _, order, nstart) = \
-        inputs["p2l_helmholtz2d"][2]
-    pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
-    out["p2l_helmholtz2d"] = dict(
-        type="float64", source_box_pairs=pairs, recurrence_start=ns,
-        coefficients=nc,
-        flops=((common + (10 if real_q else 14) * (order + 1)
-                + (12 if real_q else 16) * order + 2 * nc) * pairs
-               + 2 * nc * rows.shape[0]),
-        bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
-                        nc * 16))
+    if "p2l_helmholtz2d" in inputs:
+        (src, q, sst, scn, rows, st, ls, centers, scale, _, order,
+         nstart) = inputs["p2l_helmholtz2d"][2]
+        real_q = not q.is_complex()
+        ns, per_pair = common(order, nstart)
+        nc = 2 * order + 1
+        pairs = int(scn.to(torch.int64)[ls.to(torch.int64)].sum())
+        out["p2l_helmholtz2d"] = dict(
+            type="float64", source_box_pairs=pairs, recurrence_start=ns,
+            coefficients=nc,
+            flops=((per_pair + (10 if real_q else 14) * (order + 1)
+                    + (12 if real_q else 16) * order + 2 * nc) * pairs
+                   + 2 * nc * rows.shape[0]),
+            row_flops=2 * nc * rows.shape[0],
+            bytes=p2l_bytes(src, q, sst, scn, rows, st, ls, centers, scale,
+                            nc * 16))
     return out
 
 
@@ -2852,12 +3006,12 @@ def direct_sum_helmholtz2d(sources, charges, targets, k, chunk=1 << 15):
     return out
 
 
-def check_h0_against_scipy(pts, k, seed, n=10_000):
-    """``torch.special``'s ``j0 + i y0`` against ``scipy.special.hankel1(0,
-    .)`` at ``k |p_i - p_j|`` for *n* pairs of the points: half random
-    pairs (the direct sum's distances), half neighbours in tree order
-    (short distances).  Returns the worst relative error of the complex
-    value, which never vanishes."""
+def check_hankel_against_scipy(pts, k, seed, n=10_000, nu=0):
+    """``torch.special``'s ``j0 + i y0`` (*nu* 0) or ``j1 + i y1`` (1)
+    against ``scipy.special.hankel1(nu, .)`` at ``k |p_i - p_j|`` for *n*
+    pairs of the points: half random pairs (the direct sum's distances),
+    half neighbours in tree order (short distances).  Returns the worst
+    relative error of the complex value, which never vanishes."""
     import numpy as np
     import torch
     from scipy import special as sp
@@ -2871,9 +3025,10 @@ def check_h0_against_scipy(pts, k, seed, n=10_000):
     d = pts[:, i] - pts[:, j]
     x = k * torch.sqrt((d * d).sum(0))
     x = x[x > 0]
-    got = torch.complex(torch.special.bessel_j0(x),
-                        torch.special.bessel_y0(x)).cpu().numpy()
-    ref = sp.hankel1(0, x.cpu().numpy())
+    j, y = ((torch.special.bessel_j0, torch.special.bessel_y0) if nu == 0
+            else (torch.special.bessel_j1, torch.special.bessel_y1))
+    got = torch.complex(j(x), y(x)).cpu().numpy()
+    ref = sp.hankel1(nu, x.cpu().numpy())
     return float((np.abs(got - ref) / np.abs(ref)).max()), int(x.numel())
 
 
@@ -2882,7 +3037,9 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
                     k=3.0, order=16, nsample=2000, seed=23):
     """K16-K18 against their twins at 1e5 points, then the 2D Helmholtz
     FMM at 1e6 clustered points (K1, K16-K18, K33, K34) and K16-K18, K33
-    and K34 against their twins at its shapes, then
+    and K34 against their twins at its shapes, the real-pair wrangler and
+    the dipoles (:func:`run_helmholtz_pairs`,
+    :func:`run_helmholtz2d_dipoles`) on its traversal, then
     :func:`large_k_kernels`; returns their summary entries."""
     import numpy as np
     import torch
@@ -2942,7 +3099,7 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
     stages = {}
     _, t_fmm_warm = timed(lambda: drive_fmm(wr, [q], timing_data=stages),
                           device)
-    h0_rel, h0_n = check_h0_against_scipy(pts, k, seed + 2)
+    h0_rel, h0_n = check_hankel_against_scipy(pts, k, seed + 2)
     if not h0_rel <= BESSEL_CHECK_RTOL:
         raise AssertionError(f"torch.special j0/y0 vs scipy hankel1: "
                              f"{h0_rel:.3e} > {BESSEL_CHECK_RTOL}")
@@ -3028,6 +3185,9 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
     entries, path, pwork = run_helmholtz_pairs(
         device, card, translation, trav, pts, q.real.contiguous(), k, order,
         direct_sum_helmholtz2d, nsample)
+    out += run_helmholtz2d_dipoles(
+        device, card, trav, pts, q, k, order, n_kernels, nsample, seed,
+        {"build_s": t_tree, "traversal_s": t_trav})
     del tree, trav
     pts, q = on_card(*clustered_square_points(n_kernels, seed + 1))
     small = check_pair_kernels(card, device, 2, pts, q.real.contiguous(),
@@ -3038,6 +3198,99 @@ def run_helmholtz2d(device, card, translation, n_kernels=100_000,
     emit({"phase": "helmholtz2d_phases", "card": card,
           "helmholtz2d_phases_s": time.perf_counter() - t_phases})
     return out
+
+
+# {{{ the 2D Helmholtz dipoles (K63-K68)
+
+def direct_sum_helmholtz2d_dipole(sources, dipoles, charges, targets, k,
+                                  chunk=1 << 14):
+    """sum_s q_s (d_s . grad_s) (i/4) H_0(k |t - s|) = sum_s q_s (i/4) k
+    H_1(k r) d_s . (t - s) / r over all sources, r = 0 skipped, in
+    complex128, with ``torch.special``'s ``bessel_j1``/``bessel_y1``
+    (independent of the port's recurrences and of K64's ``j1``/``y1``);
+    *charges* ``(nsources, m)`` complex128 give ``(ntargets, m)``."""
+    import torch
+    out = torch.zeros((targets.shape[1], charges.shape[1]),
+                      dtype=torch.complex128, device=targets.device)
+    for c0 in range(0, sources.shape[1], chunk):
+        d = targets[:, :, None] - sources[:, None, c0:c0 + chunk]
+        r = torch.sqrt((d * d).sum(0))
+        ok = r > 0
+        rs = torch.where(ok, r, 1.0)
+        kr = k * rs
+        proj = k * (dipoles[:, None, c0:c0 + chunk] * d).sum(0) / rs
+        g = torch.complex(-0.25 * torch.special.bessel_y1(kr) * proj,
+                          0.25 * torch.special.bessel_j1(kr) * proj)
+        out += torch.where(ok, g, 0) @ charges[c0:c0 + chunk]
+    return out
+
+
+def run_helmholtz2d_dipoles(device, card, trav, pts, q, k, order,
+                            n_kernels, nsample, seed, tree_times):
+    """K63-K68 against their twins at *n_kernels* clustered points
+    (:func:`dipole_kernels_small`: rscale ``"auto"`` and None,
+    standard-normal dipoles); then the 2D Helmholtz dipole FMM
+    (:func:`dipole_path`) on the 2D Helmholtz path's traversal *trav* of
+    its 1e6 points *pts*: standard-normal dipoles, the path's complex
+    weights *q* (c128) and their real parts (f64), ``torch.special``'s
+    ``j1``/``y1`` held to scipy first.  *tree_times* are the shared tree's
+    and traversal's.  Returns the summary entries of K63-K68."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.traversal import build_traversal
+
+    t_phases = time.perf_counter()
+    pts_np, q_np = clustered_square_points(n_kernels, seed + 1)
+    pts_s = torch.as_tensor(pts_np, device=device)
+    dip_s = torch.as_tensor(np.random.default_rng(seed + 30).standard_normal(
+        (2, n_kernels)), device=device)
+    at_1e5 = dipole_kernels_small(
+        device, card, build_traversal(build_tree(
+            pts_s, max_particles_in_box=30)),
+        torch.as_tensor(q_np, device=device), k, order,
+        [("auto", "standard_normal", dip_s),
+         (None, "standard_normal", dip_s)], {"points": n_kernels})
+
+    tree = trav.tree
+    n = pts.shape[1]
+    dip = torch.as_tensor(np.random.default_rng(seed + 31).standard_normal(
+        (2, n)), device=device)
+    h1_rel, h1_n = check_hankel_against_scipy(pts, k, seed + 32, nu=1)
+    if not h1_rel <= BESSEL_CHECK_RTOL:
+        raise AssertionError(f"torch.special j1/y1 vs scipy hankel1: "
+                             f"{h1_rel:.3e} > {BESSEL_CHECK_RTOL}")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    sync(device)
+    out = dipole_path(
+        device, card, trav, pts, pts, {"c128": q, "f64": q.real.contiguous()},
+        dip, k, order, nsample, direct_sum_helmholtz2d_dipole,
+        HELMHOLTZ2D_FMM_RTOL,
+        ("m2p_helmholtz2d", "l2p_helmholtz2d", *FMM_TRANSLATE), at_1e5,
+        {"points": n,
+         "distribution": "unit square, 4/15 in [0.4, 0.5]^2 (the 2D "
+                         "Helmholtz path's points, tree and traversal)",
+         "seed": seed, "weights": {"c128": "complex normal",
+                                   "f64": "their real part"},
+         "dipoles": "standard normal", "max_particles_in_box": 30,
+         **tree_times, "tree_and_traversal": "shared with helmholtz2d_fmm",
+         "list_edges": {
+             "l1_particle_pairs": list1_pairs(
+                 tree.box_target_counts_nonchild,
+                 tree.box_source_counts_nonchild, trav.target_boxes,
+                 trav.neighbor_source_boxes_starts,
+                 trav.neighbor_source_boxes_lists),
+             "l4": int(trav.from_sep_bigger_lists.shape[0])},
+         "h1_check": {"pairs": h1_n, "rel_vs_scipy": h1_rel}})
+    emit({"phase": "helmholtz2d_dipole_phases", "card": card,
+          "helmholtz2d_dipole_phases_s": time.perf_counter() - t_phases})
+    return out
+
+# }}}
 
 
 def large_k_kernels(device, card, seed, n=20_000, k=200.0, order=16):
@@ -5038,13 +5291,17 @@ def run_laplace3d_stability(device, card, translation, order=31,
 
 
 def _ptxas_summary(log):
-    """Registers / spills per kernel from ``nvcc -Xptxas -v``."""
-    out, entry = {}, None
+    """Registers / spills per kernel from ``nvcc -Xptxas -v``: its "Used
+    ... registers" line, and the stack frame and spill line before it."""
+    out, entry, frame = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
+            frame = ""
+        elif entry and "spill stores" in line:
+            frame = f"; {line.strip()}"
         elif entry and "Used" in line and "registers" in line:
-            out[entry] = line.split(":", 1)[-1].strip()
+            out[entry] = line.split(":", 1)[-1].strip() + frame
     return out
 
 

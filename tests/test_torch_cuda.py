@@ -2330,6 +2330,251 @@ def test_helmholtz3d_dipole_wrappers_refuse(helm_dipoles):
 # }}}
 
 
+# {{{ K63-K68: the 2D Helmholtz dipole kernels
+
+#: K63-K68 against their twins, per coefficient column and potential lane:
+#: their charge kernels' bars (K16 / K18 1e-12, K33 1e-12; K52-K56 1e-12)
+H2D_DIPOLE_RTOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def h2d_dipoles(helmholtz2d_setup):
+    """On the 2D Helmholtz fixture's traversal (2e4 clustered points,
+    order 16, k = 3): per layout and rscale the wrangler with
+    standard-normal dipoles, and its tree-order charges (complex, or their
+    real parts)."""
+    trav, _, _, pts, q = helmholtz2d_setup
+    dip = torch.as_tensor(np.random.default_rng(31).standard_normal(
+        tuple(pts.shape)), device=pts.device)
+    out = {}
+    for layout in ("c128", "f64"):
+        for rscale in ("auto", None):
+            w = make_helmholtz_wrangler(trav, 3.0, 16, rscale=rscale,
+                                        pairs=layout == "f64",
+                                        dipole_vec=dip)
+            qq = q if layout == "c128" else q.real.contiguous()
+            out[layout, rscale] = (w, w.reorder_sources(qq), qq)
+    return out
+
+
+def _h2d_dipole_args(w, q, which, sources=None, centers=None):
+    """The arguments of the 2D dipole kernel *which* of wrangler *w* on its
+    tree-order charges *q* (P2L's without its ``out``), the sources or the
+    box centres replaced if given."""
+    trav, tree = w.traversal, w.tree
+    src = w._sources if sources is None else sources
+    centers = w.centers if centers is None else centers
+    if which == "p2p":
+        return (w._targets, src, q, w.dipole_vec, tree.box_target_starts,
+                tree.box_target_counts_nonchild, tree.box_source_starts,
+                tree.box_source_counts_nonchild, trav.target_boxes,
+                trav.neighbor_source_boxes_starts,
+                trav.neighbor_source_boxes_lists, w.k, w._nstart)
+    if which == "p2l":
+        return (src, q, w.dipole_vec, tree.box_source_starts,
+                tree.box_source_counts_nonchild, *w._l4_csr, centers,
+                w.box_scale, w.k, w.order, w._nstart)
+    return (src, q, w.dipole_vec, tree.box_source_starts,
+            tree.box_source_counts_nonchild, w._source_rows, centers,
+            w.box_scale, w.k, w.order, w._nstart)
+
+
+def _h2d_dipole_compare(which, args, out=None):
+    """The 2D dipole kernel *which* against its twin on *args* (P2L into
+    copies of *out*): one launch of the entry point of the charges' layout
+    and none of the other's; per coefficient column or potential lane."""
+    name = f"{which}_helmholtz2d_dipole"
+    dt = args[2].dtype if which == "p2p" else args[1].dtype
+    layout = "c128" if dt == torch.complex128 else "f64"
+    other = "f64" if layout == "c128" else "c128"
+    extra = (out.clone(),) if which == "p2l" else ()
+    kernels.reset_launch_counts()
+    got = getattr(helmholtz2d, name)(*args, *extra)
+    counts = kernels.entry_launch_counts()
+    assert counts[f"{name}_{layout}"] == 1 and counts[f"{name}_{other}"] == 0
+    torch.cuda.synchronize()
+    extra = (out.clone(),) if which == "p2l" else ()
+    ref = getattr(helmholtz2d, f"{name}_plain")(*args, *extra)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    if got.is_complex():
+        return _cols_rel(got, ref) if got.ndim == 2 else _rel(got, ref)
+    return _lanes_rel(got, ref)
+
+
+@pytest.mark.parametrize("rscale", ["auto", None])
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz2d_dipole_kernel(h2d_dipoles, layout, which, rscale):
+    """K63-K65 (complex charges) and K66-K68 (real charges) against their
+    twins at the fixture's shapes."""
+    w, q, _ = h2d_dipoles[layout, rscale]
+    assert w._l4_csr[0].numel() > 0
+    args = _h2d_dipole_args(w, q, which)
+    assert _h2d_dipole_compare(which, args, _random_locals(w, 4)) \
+        <= H2D_DIPOLE_RTOL
+
+
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz2d_dipole_kernel_at_r0(h2d_dipoles, layout, which):
+    """r = 0 and k r < 1e-8: a box (P2M: its own; P2L: a List-4 row's
+    target box; P2P: a List-1 target box) with its centre moved onto its
+    first source, whose P2M terms are then the limit of the tangent (n =
+    +-1 alone) and whose P2L terms 0, and a second source of that box
+    placed 1e-10 from that centre (k r = 3e-10, the J series)."""
+    w, q, _ = h2d_dipoles[layout, "auto"]
+    tree = w.tree
+    counts = tree.box_source_counts_nonchild
+    if which == "p2l":
+        rows, starts, lists = w._l4_csr
+        box = int(rows[0])
+        sbox = int(lists[int(starts[0])])
+    else:
+        rows = w._source_rows if which == "p2m" else w.traversal.target_boxes
+        good = torch.nonzero(counts[rows.to(torch.int64)] >= 2)[0, 0]
+        box = sbox = int(rows[good])
+    first = int(tree.box_source_starts[sbox])
+    src = w._sources.clone()
+    centers = w.centers.clone()
+    centers[:, box] = src[:, first]
+    if int(counts[sbox]) >= 2:
+        src[:, first + 1] = src[:, first] + 1e-10 / np.sqrt(2.0)
+    args = _h2d_dipole_args(w, q, which, src, centers)
+    if which == "p2p":
+        # the second source lands 1e-10 from the first target (the first
+        # source, r = 0, is skipped)
+        args = (src.clone(),) + args[1:]
+    assert _h2d_dipole_compare(which, args, _random_locals(w, 4)) \
+        <= H2D_DIPOLE_RTOL
+
+
+@pytest.mark.parametrize("which", HELM_DIPOLE_KERNELS)
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz2d_dipole_kernel_empty_rows(h2d_dipoles, layout, which):
+    """Rows without particles or list entries: P2M over every box (parents
+    own none), P2P and P2L with an empty row appended to their lists, and
+    no row at all (no launch)."""
+    w, q, _ = h2d_dipoles[layout, "auto"]
+    tree = w.tree
+    args = list(_h2d_dipole_args(w, q, which))
+    if which == "p2m":
+        args[5] = torch.arange(tree.nboxes, dtype=torch.int32,
+                               device=w.device)
+    else:
+        i = 8 if which == "p2p" else 5
+        rows, starts = args[i], args[i + 1]
+        named = torch.zeros(tree.nboxes, dtype=torch.bool, device=w.device)
+        named[rows.to(torch.int64)] = True
+        spare = torch.nonzero(~named)[:1, 0].to(torch.int32)
+        assert spare.numel() == 1
+        args[i] = torch.cat([rows, spare])
+        args[i + 1] = torch.cat([starts, starts[-1:]])
+    assert _h2d_dipole_compare(which, args, _random_locals(w, 4)) \
+        <= H2D_DIPOLE_RTOL
+    none = list(_h2d_dipole_args(w, q, which))
+    z = torch.zeros(0, dtype=torch.int32, device=w.device)
+    if which == "p2m":
+        none[5] = z
+    else:
+        i = 8 if which == "p2p" else 5
+        none[i], none[i + 1], none[i + 2] = z, z[:0].new_zeros(1), z
+    kernels.reset_launch_counts()
+    extra = (_random_locals(w, 4),) if which == "p2l" else ()
+    got = getattr(helmholtz2d, f"{which}_helmholtz2d_dipole")(*none, *extra)
+    assert kernels.launch_counts()[f"{which}_helmholtz2d_dipole"] == 0
+    if which == "p2l":
+        assert torch.equal(got, _random_locals(w, 4))
+    else:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("order,k", [(0, 3.0), (24, 3.0), (16, 200.0)])
+@pytest.mark.parametrize("which", ["p2m", "p2l"])
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz2d_dipole_kernel_orders(device, layout, which, order, k):
+    """Orders 0 and 24 at k = 3, and order 16 at k = 200 (a recurrence
+    from 954 to order p + 1: the scratch holds it), on 3,000 clustered
+    points with standard-normal dipoles."""
+    n = 3000
+    pts = torch.as_tensor(_clustered_2d(n, seed=8), device=device)
+    rng = np.random.default_rng(9)
+    qc = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    trav = build_traversal(build_tree(pts, max_particles_in_box=30))
+    w = make_helmholtz_wrangler(
+        trav, k, order, rscale="auto", pairs=layout == "f64",
+        dipole_vec=torch.as_tensor(rng.standard_normal((2, n)),
+                                   device=device))
+    q = w.reorder_sources(torch.as_tensor(
+        qc if layout == "c128" else qc.real, device=device))
+    args = _h2d_dipole_args(w, q, which)
+    assert _h2d_dipole_compare(which, args, _random_locals(w, 4)) \
+        <= H2D_DIPOLE_RTOL
+
+
+@pytest.mark.parametrize("layout", ["c128", "f64"])
+def test_helmholtz2d_dipole_fmm_on_card_matches_cpu(helmholtz2d_setup,
+                                                    layout):
+    """The 2D dipole FMM on the card (standard-normal dipoles, order 16, k
+    = 3, rscale "auto") launches its dipole P2M, P2P and P2L entry points
+    once each and not the charge ones (K33 / K16 / K18, pairs K55 / K52 /
+    K54), and matches the CPU port to 1e-10."""
+    trav, _, _, pts, q = helmholtz2d_setup
+    pairs = layout == "f64"
+    qq = q.real.contiguous() if pairs else q
+    dip = torch.as_tensor(np.random.default_rng(31).standard_normal(
+        tuple(pts.shape)), device=pts.device)
+    w = make_helmholtz_wrangler(trav, 3.0, 16, rscale="auto", pairs=pairs,
+                                dipole_vec=dip)
+    kernels.reset_launch_counts()
+    got = drive_fmm(w, [qq])
+    counts = kernels.entry_launch_counts()
+    for which in HELM_DIPOLE_KERNELS:
+        assert counts[f"{which}_helmholtz2d_dipole_{layout}"] == 1, counts
+        assert counts[f"{which}_helmholtz2d_{layout}"] == 0, counts
+    assert counts[f"l2p_helmholtz2d_{layout}"] == 1
+    assert counts[f"m2p_helmholtz2d_{layout}"] == 1
+    assert not any(c for e, c in counts.items()
+                   if "helmholtz2d" in e and not e.endswith(layout))
+    trav_cpu = build_traversal(build_tree(pts.cpu(),
+                                          max_particles_in_box=30))
+    w_cpu = make_helmholtz_wrangler(trav_cpu, 3.0, 16, rscale="auto",
+                                    pairs=pairs, dipole_vec=dip.cpu())
+    ref = drive_fmm(w_cpu, [qq.cpu()])
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if pairs:
+        got, ref = (torch.complex(x[:, 0], x[:, 1]) for x in (got, ref))
+    assert _rel(got.cpu(), ref) <= HELM_RTOL
+
+
+def test_helmholtz2d_dipole_wrappers_refuse(h2d_dipoles):
+    """float32 dipoles, a 1-row dipole array and an order past 227 KiB of
+    shared memory raise before any launch."""
+    w, q, _ = h2d_dipoles["c128", "auto"]
+    kernels.reset_launch_counts()
+    for which in HELM_DIPOLE_KERNELS:
+        args = list(_h2d_dipole_args(w, q, which))
+        extra = (_random_locals(w, 4),) if which == "p2l" else ()
+        i = 3 if which == "p2p" else 2
+        fn = getattr(helmholtz2d, f"{which}_helmholtz2d_dipole")
+        bad = list(args)
+        bad[i] = args[i].to(torch.float32)
+        with pytest.raises(TypeError):
+            fn(*bad, *extra)
+        bad[i] = args[i][:1].contiguous()
+        with pytest.raises(ValueError):
+            fn(*bad, *extra)
+        if which != "p2p":
+            bad = list(args)
+            bad[-2] = 200
+            with pytest.raises(ValueError, match="shared memory"):
+                fn(*bad, *extra)
+    assert not any(kernels.launch_counts()[f"{which}_helmholtz2d_dipole"]
+                   for which in HELM_DIPOLE_KERNELS)
+
+# }}}
+
+
 # {{{ K24-K27: the traversal
 
 TRAVERSAL_TREES = ["3d_uniform", "2d_clustered", "3d_restricted",

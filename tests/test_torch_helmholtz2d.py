@@ -28,6 +28,11 @@ basis, factory and accuracy.
   particle on its box's centre (``r = 0``) and two within k r < 1e-8 of it
   (the series of J), ``rscale`` off (scale 1) and on (1e-11, expansions per
   coefficient column); the rows of K33 / K34 cover every particle once.
+- With standard-normal dipoles, the dipole P2M, P2P and P2L stages and
+  the slice against one more recorded JAX ``drive_fmm`` (``rscale="auto"``,
+  1e-11), recorded after the charge one on the same traversal, whose
+  compiles it reuses (``test_torch_helmholtz2d_dipoles.py`` holds the rest
+  of the dipole path).
 """
 
 import jax
@@ -266,13 +271,14 @@ def test_factory_dispatch(points):
 
 @pytest.mark.parametrize("k,kwargs", [
     (K, dict(pairs=True, dtype=np.float32)),
-    (K, dict(dipole_vec=np.zeros((2, N)))),
     (K, dict(level_to_order=lambda lev: 4)),
     (3.0 + 0.5j, dict(rscale="auto")),
     (3.0 + 0.5j, dict()),
     (K, dict(dtype=np.complex64)),
     (K, dict(dtype="float64")),
-])
+], ids=[  # as before dipoles were ported (test_torch_helmholtz2d_dipoles.py)
+    "3.0-kwargs0", "3.0-kwargs2", "(3+0.5j)-kwargs3", "(3+0.5j)-kwargs4",
+    "3.0-kwargs5", "3.0-kwargs6"])
 def test_unported_options_raise_2d(points, k, kwargs):
     with pytest.raises(NotImplementedError):
         make_helmholtz_wrangler(points[2], k, 4, **kwargs)
@@ -399,6 +405,24 @@ def recorded(points):
     return get
 
 
+@pytest.fixture(scope="module")
+def recorded_dipoles(points, recorded):
+    """The reference's FMM with standard-normal dipoles (``rscale="auto"``),
+    recorded stage by stage after the charge recording, whose compiles it
+    reuses, and the port's wrangler with the same dipoles."""
+    _, q, trav = points
+    recorded("auto")
+    dip = np.random.default_rng(17).standard_normal((2, N))
+    jw = _Recorder(jax_make_helmholtz_wrangler(
+        _jax_traversal(trav), K, ORDER, pairs=False, rscale="auto",
+        dipole_vec=jnp.asarray(dip)))
+    jpot = np.asarray(jax_drive_fmm(jw, [jnp.asarray(q)]))
+    ref = {name: np.asarray(v) for name, v in jw.outputs.items()}
+    w = make_helmholtz_wrangler(trav, K, ORDER, pairs=False, rscale="auto",
+                                dipole_vec=dip)
+    return ref, jpot, w, dip
+
+
 def test_list_stages_exercised(points):
     trav = points[2]
     assert trav.tree.dimensions == 2 and trav.tree.nlevels >= 5
@@ -487,6 +511,46 @@ def test_slice_matches_reference(points, recorded, rscale):
     _, w, jw, jpot = recorded(rscale)
     assert w._nstart == jw._nstart
     assert t_cb.even_start(w._nstart, w.order) % 2 == 0
+    timing = {}
+    got = drive_fmm(w, [torch.from_numpy(q)], timing_data=timing)
+    assert got.dtype == torch.complex128 and got.shape == (N,)
+    assert set(timing) == set(FMM_STAGES)
+    assert _rel_linf(got.numpy(), jpot) <= RTOL
+
+@pytest.mark.parametrize("stage", ["P2M", "P2P", "P2L"])
+def test_dipole_stages_match_reference(points, recorded_dipoles, stage):
+    """The dipole P2M, P2P and P2L (the twins of K63-K65) against the
+    reference's JVPs of its hooks, on the same traversal."""
+    _, q, trav = points
+    ref, _, w, _ = recorded_dipoles
+    tq = w.reorder_sources(torch.from_numpy(q))
+    if stage == "P2M":
+        got = w.form_multipoles(trav.level_start_source_box_nrs,
+                                trav.source_boxes, [tq])
+        want = ref["form_multipoles"]
+    elif stage == "P2P":
+        got = w.eval_direct(trav.target_boxes,
+                            trav.neighbor_source_boxes_starts,
+                            trav.neighbor_source_boxes_lists, [tq])
+        want = ref["eval_direct"]
+    else:
+        got = w.form_locals(trav.level_start_target_or_target_parent_box_nrs,
+                            trav.target_or_target_parent_boxes,
+                            trav.from_sep_bigger_starts,
+                            trav.from_sep_bigger_lists, [tq])
+        want = ref["form_locals"]
+    got = got.numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = _rows_rel(got.T, want.T) if got.ndim == 2 else _rel_linf(got,
+                                                                   want)
+    assert err <= RTOL
+
+
+def test_dipole_slice_matches_reference(points, recorded_dipoles):
+    q, trav = points[1:]
+    _, jpot, _, dip = recorded_dipoles
+    w = make_helmholtz_wrangler(trav, K, ORDER, rscale="auto",
+                                dipole_vec=dip)
     timing = {}
     got = drive_fmm(w, [torch.from_numpy(q)], timing_data=timing)
     assert got.dtype == torch.complex128 and got.shape == (N,)

@@ -20,9 +20,9 @@ Each wrangler keeps ``[re | im]`` coefficient rows and returns ``(ntargets,
 - the pair FMM against the port's complex FMM on the same traversal,
   ``pot[:, 0] + 1j pot[:, 1]`` to 1e-12 (``tests/test_helmholtz3d.py:170``,
   ``tests/test_helmholtz.py:183``), rscale off and on;
-- complex weights raise ``TypeError``; ``dipole_vec`` in 2D (3D dipoles:
-  ``test_torch_helmholtz3d_dipoles.py``), ``level_to_order``, a complex k
-  and float32 pairs raise ``NotImplementedError``; ``pairs=None``
+- complex weights raise ``TypeError``; ``level_to_order``, a complex k
+  and float32 pairs raise ``NotImplementedError`` (dipoles:
+  ``test_torch_helmholtz{2,3}d_dipoles.py``); ``pairs=None``
   on a CPU tree gives the complex wrangler in both packages.
 """
 
@@ -447,7 +447,6 @@ def test_complex_weights_raise(travs, dim):
 
 
 _PAIR_OPTIONS = [
-    (2.0, dict(dipole_vec="dim")),
     (2.0, dict(level_to_order=lambda lev: 2)),
     (2.0 + 0.5j, dict()),
     (2.0, dict(dtype=np.float32)),
@@ -456,14 +455,12 @@ _PAIR_OPTIONS = [
 
 
 @pytest.mark.parametrize("dim,k,kwargs", [
+    # ids as before dipoles were ported (test_torch_helmholtz{2,3}d_dipoles.py)
     pytest.param(dim, k, kwargs, id=f"{dim}-{k}-kwargs{i}")
-    for dim in (2, 3) for i, (k, kwargs) in enumerate(_PAIR_OPTIONS)
-    # the 3D pair wrangler takes dipoles (test_torch_helmholtz3d_dipoles.py)
-    if not (dim == 3 and "dipole_vec" in kwargs)])
+    for dim in (2, 3)
+    for i, (k, kwargs) in enumerate(_PAIR_OPTIONS, start=1)])
 def test_unported_pair_options_raise(travs, dim, k, kwargs):
     trav = travs(dim)
-    if kwargs.get("dipole_vec") == "dim":
-        kwargs = dict(dipole_vec=np.zeros((dim, N)))
     with pytest.raises(NotImplementedError):
         make_helmholtz_wrangler(trav, k, 2, pairs=True, **kwargs)
 
