@@ -15,14 +15,23 @@ Port of :class:`boxtree_tpu.models.expansion_base.ExpansionWranglerBase`
   built once at setup: M2M and L2L per (level, child digit), one launch a
   level; M2L in the parent-block form (``expansion_base.py:915-1086``),
   one table entry per (level, translation class) that List 2 uses and
-  one launch for all levels, with no host read;
+  one launch for all levels, with no host read; the table comes from the
+  subclass's ``_m2l_table`` (the Laplace wranglers: one kernel launch for
+  all levels, :mod:`boxtree_torch.ops.m2l_ops`);
+- with ``m2l_mode="rotation"`` (``expansion_base.py:361-378``; 3D
+  Laplace only), M2L runs the rotation form instead
+  (:mod:`boxtree_torch.models.rotation_m2l`, K77-K79) over List 2's
+  edges classified by (level, class)
+  (:class:`~boxtree_torch.models.particle_blocks.M2LPlan`), and no dense
+  table is built;
 - P2P, M2P, P2L: the list kernels of each wrangler's module.
 
 Subclasses provide ``_ncoeff``, the particle hooks ``_p2m`` and
 ``_l2p``, the batched operator builders ``_m2m_matrices``,
 ``_l2l_matrices`` and ``_m2l_matrices`` (numpy or a tensor), which
-:meth:`_operator` turns into tensors of the coefficient dtype, and the
-list-stage hooks ``_p2p``, ``_m2p`` and ``_p2l``.  Coefficients and
+:meth:`_operator` turns into tensors of the coefficient dtype (or, for
+M2L, a ``_m2l_table`` of their own), and the list-stage hooks ``_p2p``,
+``_m2p`` and ``_p2l``.  Coefficients and
 potentials are of the wrangler's ``dtype`` (real, or complex); box
 geometry, particles and rscales of its real counterpart, ``real_dtype``.
 
@@ -40,12 +49,14 @@ Two options follow the reference (``expansion_base.py:227-347``):
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from boxtree_torch.config import as_torch_dtype
 from boxtree_torch.fmm.drive import ExpansionWranglerInterface
-from boxtree_torch.ops import morton, translate
+from boxtree_torch.ops import morton, rotation, translate
 from boxtree_torch.traversal.containers import compressed_csr, csr_rows
 from boxtree_torch.traversal.neighbors import _offsets
 
@@ -103,10 +114,12 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
     #: the particle stages' kernel wrappers, ``{stage: wrapper}``, the
     #: dipole forms under ``"<stage>_dipole"``
     _kernels = None
+    #: why ``m2l_mode="rotation"`` is refused, or None where it is taken
+    _rotation_refusal = "rotation M2L is ported for 3D Laplace only"
 
     def __init__(self, tree_indep, traversal, rscale=None, dtype=None,
                  dipole_vec=None, dipoles_already_reordered=False,
-                 level_to_order=None):
+                 level_to_order=None, m2l_mode="dense"):
         """:arg rscale: per-level expansion scaling: ``None`` (off),
             ``"auto"`` (``min(root_extent * 2^-level, 1)``), or an
             ``(nlevels,)`` array (``expansion_base.py:282-304``).
@@ -118,7 +131,21 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         :arg level_to_order: ``level -> order`` (the reference's
             ``fmm_level_to_order``); the wrangler's order must be the
             largest of them.
+        :arg m2l_mode: ``"dense"`` (K35 over the operator table) or
+            ``"rotation"`` (point-and-shoot, 3D Laplace without
+            ``level_to_order``; ``expansion_base.py:361-378``).
         """
+        if m2l_mode not in ("dense", "rotation"):
+            raise ValueError(f"bad m2l_mode: {m2l_mode!r}")
+        if m2l_mode == "rotation":
+            if traversal.tree.dimensions != 3:
+                raise NotImplementedError("rotation M2L is 3D-only")
+            if level_to_order is not None:
+                raise NotImplementedError(
+                    "rotation M2L with level_to_order truncation")
+            if self._rotation_refusal is not None:
+                raise NotImplementedError(self._rotation_refusal)
+        self.m2l_mode = m2l_mode
         super().__init__(tree_indep, traversal)
         if dtype is not None:
             self.dtype = as_torch_dtype(dtype)
@@ -224,7 +251,11 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
         # }}}
 
-        self._build_m2l_parent_plan()
+        self._m2l_rot = None
+        if m2l_mode == "rotation":
+            self._build_m2l_rotation()
+        else:
+            self._build_m2l_parent_plan()
 
         # List 3 merged over source levels, List 4 compressed to its
         # nonempty rows (the kernels' row sets)
@@ -277,6 +308,32 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         """(C, K, K) M2L operators of the translations ``classes * size``
         (``c_tgt - c_src``) at rscale *r*."""
         raise NotImplementedError
+
+    def _m2l_table(self, used, classes):
+        """``(nops, K, K)`` transposed M2L operators, truncated, of the
+        used ``(level, class)`` pairs of *classes*, in the wrangler's dtype:
+        per level one ``_m2l_matrices`` call on its used classes."""
+        mats = []
+        for lev in sorted({lev for lev, _ in used}):
+            used_c = [c for lv, c in used if lv == lev]
+            size = self.root_extent / (1 << lev)
+            mats.append(self._truncate(self._operator(self._m2l_matrices(
+                classes[used_c], size, float(self._rscale_np[lev]))),
+                lev, lev).transpose(1, 2))
+        k = self.ncoeff
+        return (torch.cat(mats).contiguous() if mats else torch.zeros(
+            (0, k, k), dtype=self.dtype, device=self.device))
+
+    def _m2l_table_inputs(self, used, classes):
+        """Per used ``(level, class)``: the translation ``classes[c] *
+        size`` (``c_tgt - c_src``), the level's rscale and the level, as
+        host arrays: what the M2L table builders take."""
+        ts = np.zeros((len(used), self.dim))
+        for i, (lev, c) in enumerate(used):
+            ts[i] = np.asarray(classes[c], np.float64) * (
+                self.root_extent / (1 << lev))
+        levels = np.array([lev for lev, _ in used], np.int64)
+        return ts, np.asarray(self._rscale_np, np.float64)[levels], levels
 
     def _operator(self, mats):
         """An operator stack (numpy or tensor) as a tensor of the
@@ -395,7 +452,8 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
     def _build_m2l_parent_plan(self):
         """Static parent-block M2L setup (``expansion_base.py:349-431`` and
-        ``:915-1014``), in :class:`~boxtree_torch.ops.translate.M2LPlan`.
+        ``:915-1014``), in :class:`~boxtree_torch.ops.translate.
+        ParentBlockPlan`.
 
         List 2 of every child of a parent P is the set of children of P's
         colleagues that are well separated from it, so the (colleague
@@ -407,8 +465,8 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
         the pair count, checked against the traversal's List-2 edge count
         (a mismatch raises), and the (level, class) pairs in use.  The
         operator table holds those pairs only, in the reference's key
-        order (``particle_blocks.py:148`` ``M2LPlan``), each level's built
-        by one ``_m2l_matrices`` call on its used classes.
+        order (``particle_blocks.py:148`` ``M2LPlan``), from
+        :meth:`_m2l_table`.
         """
         trav = self.traversal
         tree = self.tree
@@ -479,20 +537,14 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
 
         # the operator table of the used (level, class) pairs, in key order
         level_opid = np.full((nlevels, nclasses), -1, np.int64)
-        used, mats = [], []
+        used = []
         for lev in range(2, nlevels):
             used_c = np.unique(cls[cnt[lev] > 0])
             if not len(used_c):
                 continue
             level_opid[lev, used_c] = len(used) + np.arange(len(used_c))
             used.extend((lev, int(c)) for c in used_c)
-            size = self.root_extent / (1 << lev)
-            mats.append(self._truncate(self._operator(self._m2l_matrices(
-                classes[used_c], size, float(self._rscale_np[lev]))),
-                lev, lev).transpose(1, 2))
-        k = self.ncoeff
-        ops = (torch.cat(mats).contiguous() if mats else torch.zeros(
-            (0, k, k), dtype=self.dtype, device=dev))
+        ops = self._m2l_table(used, classes)
         opid = np.where(cls[None] >= 0,
                         level_opid[:, np.clip(cls, 0, None)], -1)
 
@@ -526,7 +578,7 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
             device=dev)
 
         self._m2l_opsT = ops
-        self._m2l_plan = translate.M2LPlan(
+        self._m2l_plan = translate.ParentBlockPlan(
             ops=ops, used=used,
             opid=torch.as_tensor(np.ascontiguousarray(opid, np.int32),
                                  device=dev),
@@ -539,12 +591,40 @@ class ExpansionWranglerBase(ExpansionWranglerInterface):
             l2_starts=trav.from_sep_siblings_starts,
             l2_lists=trav.from_sep_siblings_lists)
 
+    def _build_m2l_rotation(self):
+        """The rotation M2L's setup (``expansion_base.py:353-378``): List 2's
+        edges classified by (level, class) in the reference's window
+        (``n = 1``: offsets of ``[-3, 3]^d`` outside ``[-1, 1]^d``), one
+        host read of the operator histogram, and the rotation and axial
+        blocks of the used operators; no dense table."""
+        from boxtree_torch.models.particle_blocks import M2LPlan
+        from boxtree_torch.models.rotation_m2l import RotationM2L
+
+        t0 = time.perf_counter()
+        self.m2l_plan = M2LPlan(self.traversal,
+                                _offsets(self.dim, 3, min_inf_norm=1))
+        #: host seconds of the rotation setup's parts (each ends in a
+        #: host read): the edge plan, the rotation blocks, the axial ones
+        self.rotation_setup_s = {"plan": time.perf_counter() - t0}
+        if self.m2l_plan.nops:
+            self._m2l_rot = RotationM2L(self)
+            self.rotation_setup_s.update(self._m2l_rot.seconds)
+            # the kernel's tiles and blocks, so that M2L copies nothing
+            self.m2l_plan.edges.tiles(rotation.tile_edges(
+                (self.order + 1) ** 2, self.dtype))
+            self._m2l_rot.blocks.flat(self.real_dtype)
+
     def multipole_to_local(self, level_start_target_or_target_parent_box_nrs,
                            target_or_target_parent_boxes, starts, lists,
                            mpole_exps):
         self._check_own_lists(
             target_or_target_parent_boxes=target_or_target_parent_boxes,
             from_sep_siblings_starts=starts, from_sep_siblings_lists=lists)
+        if self.m2l_mode == "rotation":
+            if self._m2l_rot is None:
+                return self.local_expansion_zeros()
+            return self._m2l_rot.apply(mpole_exps.contiguous(),
+                                       self.m2l_plan.edges)
         return translate.m2l_translate(mpole_exps.contiguous(),
                                        self._m2l_plan)
 

@@ -257,6 +257,11 @@ class Helmholtz3DExpansionWrangler(ExpansionWranglerBase):
     doc); the counterpart of ``boxtree_tpu``'s wrangler of the same
     name."""
 
+    _rotation_refusal = (
+        "rotation M2L of the 3D Helmholtz wranglers: the reference's axial "
+        "operators fail its delta-sparsity check (0.84 at order 5, k = 2; "
+        "boxtree_tpu/models/rotation_m2l.py:213-215)")
+
     dtype = torch.complex128
     _supports_rscale = True
     _supports_dipoles = True
@@ -429,11 +434,16 @@ def make_helmholtz_wrangler(traversal, helmholtz_k, order, *, pairs=None,
         on CUDA unless a complex ``dtype=`` is given, complex on the CPU.
         The pairs take a complex ``dtype=`` as its real counterpart.
 
-    ``level_to_order``, a complex *helmholtz_k*, and dtypes other than
-    complex128 (complex) and float64 (pairs) raise
-    :class:`NotImplementedError`.  Other keyword arguments (``rscale``,
-    ``dtype``, ``dipole_vec`` and ``dipoles_already_reordered``, in 2D and
-    3D) go to the wrangler."""
+    ``level_to_order``, a complex *helmholtz_k*, ``m2l_mode="rotation"``
+    (the reference's rotation M2L fails its own delta-sparsity check of
+    the axial operators on the 3D Helmholtz wranglers,
+    ``boxtree_tpu/models/rotation_m2l.py:213-215``, and is 3D-only) and
+    dtypes other than complex128 (complex) and float64 (pairs) raise
+    :class:`NotImplementedError` (the rotation refusal from the wrangler);
+    an ``m2l_mode`` other than ``"dense"`` and ``"rotation"`` raises
+    :class:`ValueError`.  Other keyword arguments (``rscale``, ``dtype``,
+    ``dipole_vec``, ``dipoles_already_reordered`` and ``m2l_mode``, in 2D
+    and 3D) go to the wrangler."""
     dim = traversal.tree.dimensions
     if dim not in (2, 3):
         raise NotImplementedError(f"no Helmholtz wrangler for dim={dim}")

@@ -11,8 +11,9 @@ With rscale on, coefficients are stored as ``a~_k = a_k / r^k`` and ``b~_l
 rscale, with diagonal ``(r_child / r_parent)^k`` corrections, and the M2L
 table's ``b_0`` entry gains ``+ log(r)`` (``laplace.py:129-158``).  M2M and
 L2L come from the host builders (``:92-127``), batched per level; the M2L
-table is built on the wrangler's device in torch from the translation
-classes (``_m2l_ops_device``, ``:160-189`` and ``:271-316``).  Two
+table of every level is built on the wrangler's device in one launch of
+K72-K74 (``_m2l_ops_device``, ``:160-189`` and ``:271-316``;
+:func:`boxtree_torch.ops.m2l_ops.m2l_table_2d`).  Two
 wranglers: :class:`Laplace2DExpansionWrangler` on complex128 coefficients,
 and :class:`Laplace2DPairsExpansionWrangler` on ``[re | im]`` pair lanes
 of float64 or float32 (real potentials).  Every particle stage of both
@@ -33,8 +34,12 @@ translation is a plain spherical convolution:
 
 Coefficients are stored rscaled (``M~_n = M_n / r^n``, ``L~_n = L_n r^n``).
 M2M and L2L are built on the host in complex float64, one solid-harmonic
-evaluation per level over its eight shifts; the M2L table in torch on the
-wrangler's device, in float64, cast to the coefficient dtype at the end.
+evaluation per level over its eight shifts; the M2L table of every level
+on the wrangler's device in one launch of K69-K71, in float64, cast to the
+coefficient dtype at the store (:func:`boxtree_torch.ops.m2l_ops.
+m2l_table_3d`).  With ``m2l_mode="rotation"`` the 3D wranglers build no
+table and run the point-and-shoot M2L instead
+(:mod:`boxtree_torch.models.rotation_m2l`; ``expansion_base.py:361-378``).
 Two wranglers: :class:`Laplace3DExpansionWrangler` on ``(p+1)^2``
 complex128 coefficients, and :class:`Laplace3DPairsExpansionWrangler` on
 ``[re | im]`` pairs of float64 or float32 with real potentials, its
@@ -48,27 +53,15 @@ expansion_base`).
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from boxtree_torch.config import as_torch_dtype
 from boxtree_torch.fmm.drive import TreeIndependentDataForWrangler
 from boxtree_torch.models.expansion_base import ExpansionWranglerBase
-from boxtree_torch.ops import laplace2d, laplace3d
+from boxtree_torch.ops import laplace2d, laplace3d, m2l_ops
 from boxtree_torch.ops import solid_harmonics as sh
-
-
-def _binom_table(p):
-    """``(2p+2, 2p+2)`` binomial coefficients ``C(i, j)``
-    (``laplace.py:42-48``)."""
-    c = np.zeros((2 * p + 2, 2 * p + 2))
-    c[:, 0] = 1
-    for i in range(1, 2 * p + 2):
-        for j in range(1, i + 1):
-            c[i, j] = c[i - 1, j - 1] + c[i - 1, j]
-    return c
+from boxtree_torch.ops.m2l_ops import binom_table as _binom_table
 
 
 class LaplaceTreeIndependentDataForWrangler(TreeIndependentDataForWrangler):
@@ -92,7 +85,17 @@ class _LaplaceParticleStages:
     of ``_kernels`` (``{stage: wrapper}``, the dipole forms under
     ``"<stage>_dipole"``): P2M and L2P over the boxes that own particles,
     P2P, M2P and P2L over the lists; with ``dipole_vec`` set, P2M, P2P and
-    P2L run their dipole kernels (``_with_dipoles``)."""
+    P2L run their dipole kernels (``_with_dipoles``).  Also their M2L
+    table."""
+
+    def _m2l_table(self, used, classes):
+        """The M2L table of every level in one launch (K69-K71 in 3D,
+        K72-K74 in 2D on the card; :func:`boxtree_torch.ops.m2l_ops.
+        m2l_table`); its inputs stay in ``_m2l_table_args``."""
+        self._m2l_table_args = self._m2l_table_inputs(used, classes)
+        return m2l_ops.m2l_table(self.dim, *self._m2l_table_args,
+                                 self.order, self.dtype, self.device,
+                                 self.level_orders)
 
     def _p2m(self, q):
         tree = self.tree
@@ -225,38 +228,10 @@ class Laplace2DExpansionWrangler(_LaplaceParticleStages,
     def _m2l_lanes(self, classes, size, r):
         """Real and imaginary parts, ``(C, p+1, p+1)`` float64 on the
         wrangler's device, of the M2L operators of the translations
-        ``classes * size`` (``c_tgt - c_src``) at rscale *r*: with ``z0 =
-        -t / r``, ``b[l, k] = (-1)^k C(l+k-1, l) z0^-(l+k)`` for ``k >=
-        1``, ``b[l, 0] = -z0^-l / l`` for ``l >= 1``, and ``b[0, 0] =
-        log(-z0) + log(r)`` (``laplace.py:160-189``, ``:271-316``);
-        ``log(-z0)`` takes the argument of ``t`` with its zeros as they
-        are, as both references do."""
-        p, binom = self.order, self.tree_indep.binom
-        ts = torch.as_tensor(np.asarray(classes, np.float64) * size,
-                             device=self.device)
-        tx, ty = ts[:, 0], ts[:, 1]
-        x0, y0 = -tx / r, -ty / r
-        n2 = x0 * x0 + y0 * y0
-        ixr, ixi = x0 / n2, -y0 / n2                         # 1 / z0
-        zpr, zpi = [torch.ones_like(x0)], [torch.zeros_like(x0)]
-        for _ in range(1, 2 * p + 2):
-            pr, pi = zpr[-1], zpi[-1]
-            zpr.append(pr * ixr - pi * ixi)
-            zpi.append(pr * ixi + pi * ixr)
-        zpr, zpi = torch.stack(zpr, dim=1), torch.stack(zpi, dim=1)
-        ell = np.arange(p + 1)
-        coef = np.zeros((p + 1, p + 1))
-        for k in range(1, p + 1):
-            coef[:, k] = ((-1.0) ** k) * binom[ell + k - 1, ell]
-        coef = torch.as_tensor(coef, device=self.device)
-        lk = torch.as_tensor(ell[:, None] + ell[None, :], device=self.device)
-        br, bi = coef * zpr[:, lk], coef * zpi[:, lk]
-        lr = 0.5 * torch.log((tx * tx + ty * ty) / (r * r)) + math.log(r)
-        li = torch.atan2(ty, tx)
-        linv = torch.as_tensor(1.0 / ell[1:], device=self.device)
-        br[:, :, 0] = torch.cat([lr[:, None], -zpr[:, 1:p + 1] * linv], 1)
-        bi[:, :, 0] = torch.cat([li[:, None], -zpi[:, 1:p + 1] * linv], 1)
-        return br, bi
+        ``classes * size`` (``c_tgt - c_src``) at rscale *r*
+        (:func:`boxtree_torch.ops.m2l_ops.m2l_lanes_2d`)."""
+        return m2l_ops.m2l_lanes_2d(np.asarray(classes, np.float64) * size,
+                                    r, self.order, self.device)
 
     def _m2l_matrices(self, classes, size, r):
         return torch.complex(*self._m2l_lanes(classes, size, r))
@@ -311,6 +286,7 @@ class Laplace3DExpansionWrangler(_LaplaceParticleStages,
     dtype = torch.complex128
     _supports_rscale = True
     _supports_dipoles = True
+    _rotation_refusal = None
     #: the coefficient dtypes the class computes in
     _dtypes = (torch.complex128,)
     _kernels = {
@@ -378,21 +354,10 @@ class Laplace3DExpansionWrangler(_LaplaceParticleStages,
         """Real and imaginary parts, ``(C, K, K)`` float64 on the
         wrangler's device, of the M2L operators ``L_a = (-1)^{n_a} sum_b
         S_{a+b}(t / r) M_b / r`` of the translations ``t = classes * size``
-        (``c_tgt - c_src``) at rscale *r*: the order-2p irregular basis at
-        the ``C`` translations, spread by the static ``(n_a + n_b, m_a +
-        m_b)`` index map (``_m2l_ops_device``, ``laplace.py:449-460`` and
-        ``:561-575``)."""
-        ti = self.tree_indep
-        dev = self.device
-        ts = torch.as_tensor(np.asarray(classes, np.float64) * size,
-                             device=dev)
-        sb = sh.irregular_pairs(ts.T / r, 2 * self.order)
-        k2 = sh.ncoeffs(2 * self.order)
-        n_sum = ti.nm_n[:, None] + ti.nm_n[None, :]
-        idx = torch.as_tensor(n_sum * n_sum + n_sum + ti.nm_m[:, None]
-                              + ti.nm_m[None, :], device=dev)
-        sign = torch.as_tensor((-1.0) ** ti.nm_n[:, None] / r, device=dev)
-        return sign * sb[:, idx], sign * sb[:, k2 + idx]
+        (``c_tgt - c_src``) at rscale *r*
+        (:func:`boxtree_torch.ops.m2l_ops.m2l_lanes_3d`)."""
+        return m2l_ops.m2l_lanes_3d(np.asarray(classes, np.float64) * size,
+                                    r, self.order, self.device)
 
     def _m2l_matrices(self, classes, size, r):
         return torch.complex(*self._m2l_lanes(classes, size, r))
@@ -446,10 +411,17 @@ def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
         pairs on CUDA; a complex ``dtype=`` forces the complex wrangler.
         The pairs take a complex ``dtype=`` as its real counterpart.
 
+    :arg m2l_mode: ``"dense"`` (the default: the M2L table and K35) or
+        ``"rotation"``, the point-and-shoot M2L of
+        :mod:`boxtree_torch.models.rotation_m2l` (K77-K79 over the edges
+        that K75 / K76 classify), in 3D without ``level_to_order``; in 2D
+        or with ``level_to_order`` it raises
+        :class:`NotImplementedError`, as the reference does, and another
+        mode :class:`ValueError`.
+
     Other keyword arguments (``rscale``, ``dtype``, ``dipole_vec``,
-    ``dipoles_already_reordered``) go to the wrangler.
-    ``m2l_mode="rotation"``, complex64 and dimensions other than 2 and 3
-    raise :class:`NotImplementedError`.
+    ``dipoles_already_reordered``) go to the wrangler.  Complex64 and
+    dimensions other than 2 and 3 raise :class:`NotImplementedError`.
     """
     if (order is None) == (level_to_order is None):
         raise TypeError("pass exactly one of order / level_to_order")
@@ -460,8 +432,6 @@ def make_laplace_wrangler(traversal, order=None, *, level_to_order=None,
         order = max(int(level_to_order(lev))
                     for lev in range(traversal.tree.nlevels))
         kwargs["level_to_order"] = level_to_order
-    if kwargs.pop("m2l_mode", "dense") != "dense":
-        raise NotImplementedError("rotation M2L is not ported yet")
     # the port's M2L always runs in full precision
     kwargs.pop("m2l_accurate", None)
     dt = kwargs.get("dtype")

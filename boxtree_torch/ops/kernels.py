@@ -95,6 +95,11 @@ SIGNATURES = {
     "p2m_helmholtz2d_dipole": "pipppppipipdiiipppp",
     "p2p_helmholtz2d_dipole": "pipipppppppippdpp",
     "p2l_helmholtz2d_dipole": "pipppppipppipdiiipppp",
+    "m2l_table_3d": "pppiipp",
+    "m2l_table_2d": "pppppiipp",
+    "m2l_classify_keys": "pppppp" + "iiiiiii" + "pp",
+    "m2l_classify_unpack": "ppppiiipppp",
+    "m2l_rotate": "p" * 10 + "iii" + "pp",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -160,6 +165,11 @@ DTYPES = {
     "p2m_helmholtz2d_dipole": _HELMHOLTZ,
     "p2p_helmholtz2d_dipole": _HELMHOLTZ,
     "p2l_helmholtz2d_dipole": _HELMHOLTZ,
+    "m2l_table_3d": (*_FLOATS, torch.complex128),
+    "m2l_table_2d": (*_FLOATS, torch.complex128),
+    "m2l_classify_keys": (),
+    "m2l_classify_unpack": (),
+    "m2l_rotate": (*_FLOATS, torch.complex128),
 }
 
 

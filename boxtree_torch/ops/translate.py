@@ -11,12 +11,13 @@ complex128.  Box tables are int32 with -1 for none: ``child`` ``(nboxes,
 that are target-or-target-parent boxes.
 
 - M2L (``boxtree_tpu/models/expansion_base.py:915-1086``, the parent-block
-  form): :class:`M2LPlan` holds one operator per (level, translation
-  class) that some List-2 pair uses (``particle_blocks.py:148`` ``M2LPlan``
-  order), an ``opid`` ``(nlevels, m, 2^d, 2^d)`` into it per (colleague
-  slot, source digit, target digit), the target parents of every level,
-  padded per level to whole tiles of :data:`ROW_PAD` rows, and their
-  source boxes per (slot, source digit), the colleagues' children.  K35
+  form): :class:`ParentBlockPlan` holds one operator per (level,
+  translation class) that some List-2 pair uses (``particle_blocks.py:148``
+  ``M2LPlan`` order), an ``opid`` ``(nlevels, m, 2^d, 2^d)`` into it per
+  (colleague slot, source digit, target digit), the target parents of
+  every level, padded per level to whole tiles of :data:`ROW_PAD` rows,
+  and their source boxes per (slot, source digit), the colleagues'
+  children.  K35
   runs all levels in one launch and reads nothing back to the host.  Its
   twin is the edge form (``expansion_base.py:1135``
   ``multipole_to_local_edges``): List 2's
@@ -50,8 +51,10 @@ _DTYPES = (torch.float32, torch.float64, torch.complex128)
 
 
 @dataclasses.dataclass
-class M2LPlan:
-    """The M2L tables that K35 and its twin share (see module doc)."""
+class ParentBlockPlan:
+    """The M2L tables that K35 and its twin share (see module doc); the
+    reference's edge plan ``M2LPlan`` is :class:`boxtree_torch.models.
+    particle_blocks.M2LPlan`."""
 
     #: (nops, K, K) operators, transposed, one per used (level, class)
     ops: Any
@@ -136,7 +139,7 @@ def m2l_translate_plain(mpole, plan):
 
 def m2l_translate(mpole, plan):
     """Local expansions ``(nboxes, K)`` of the M2L stage from the
-    multipoles *mpole* over *plan* (an :class:`M2LPlan` of the same
+    multipoles *mpole* over *plan* (a :class:`ParentBlockPlan` of the same
     device and dtype): zero but for the target-or-target-parent boxes with
     a target parent.  The K35 kernel on CUDA tensors, one launch for all
     levels."""

@@ -160,6 +160,27 @@ within the reference's bar (3/4)^32, the M2L table's bytes and used keys,
 K2-K4, K28-K30 and K35-K37 launched at that width and held to their
 twins.
 
+Every Laplace wrangler builds its M2L table in one launch of K69-K71
+(3D) or K72-K74 (2D): on the main path, the QBX extent tree, the 2D
+Laplace path, the 2D and 3D double layers and the order-31 line, an
+``m2l_table`` line gives ``wrangler_setup_s`` beside ``m2l_table_s`` (the
+table kernel, median of 5 synchronised calls with its inputs' upload) and
+its twin's time on the same inputs, the operators, the table's bytes and
+its bound, holds the kernel to its twin per operator (1e-12, float32
+1e-6) and asserts one launch in the setup.  The ``rotation_m2l`` phase
+runs ``m2l_mode="rotation"`` on two trees the script has already built,
+the main path's (float32 pairs, order 8) and the 3D double layer's
+(complex128 and float64 pairs, order 12, normals as dipoles): the
+setup split (the edge plan by K75 / K76, the host's block fits, the
+axial operators by K69), the edges, operators and rotation classes, the
+second FMM's M2L stage (K77-K79) beside the dense K35 stage on the same
+traversal, the potentials against the dense FMM (1e-12; float32 1e-5)
+and the path's direct sum, one launch of K77-K79 and none of K35 an
+FMM, 0 host reads in M2L (sync debug mode) and the peak memory; its
+``kernels_rotation`` lines hold K75 / K76 to their twin exactly and
+K77-K79 to theirs over the locals on every k-th operator group (at most
+64), each entry point timed.
+
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
 1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
@@ -229,6 +250,11 @@ REPLACES = {
     "tree_level_boxes": "boxtree_tpu/tree/build.py:262",
     "restrict_sweep": "boxtree_tpu/tree/level_restrict.py:42",
     "level_box_counts": "boxtree_tpu/tree/level_restrict.py:123",
+    "m2l_table_3d": "boxtree_tpu/models/laplace.py:449",
+    "m2l_table_2d": "boxtree_tpu/models/laplace.py:160",
+    "m2l_classify_keys": "boxtree_tpu/models/particle_blocks.py:214",
+    "m2l_classify_unpack": "boxtree_tpu/models/particle_blocks.py:214",
+    "m2l_rotate": "boxtree_tpu/models/rotation_m2l.py:221",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -283,6 +309,11 @@ SOURCES = {
     "p2m_helmholtz2d_dipole": "boxtree_torch/csrc/helmholtz2d.cu",
     "p2p_helmholtz2d_dipole": "boxtree_torch/csrc/helmholtz2d.cu",
     "p2l_helmholtz2d_dipole": "boxtree_torch/csrc/helmholtz2d.cu",
+    "m2l_table_3d": "boxtree_torch/csrc/m2l_ops.cu",
+    "m2l_table_2d": "boxtree_torch/csrc/m2l_ops.cu",
+    "m2l_classify_keys": "boxtree_torch/csrc/rotation.cu",
+    "m2l_classify_unpack": "boxtree_torch/csrc/rotation.cu",
+    "m2l_rotate": "boxtree_torch/csrc/rotation.cu",
 }
 #: K43 and K44, launched by every tree build (K45 and K46 by a restricted
 #: one)
@@ -299,7 +330,7 @@ P2M_L2P_KERNELS = ("p2m_laplace3d", "l2p_laplace3d")
 FMM_TRANSLATE = ("m2l_translate", "m2m_translate", "l2l_translate")
 MAIN_PATH_KERNELS = ("morton_encode", *TREE_KERNELS, *TRAVERSAL_KERNELS,
                      "p2p_laplace3d", "m2p_laplace3d", "p2l_laplace3d",
-                     *P2M_L2P_KERNELS, *FMM_TRANSLATE)
+                     *P2M_L2P_KERNELS, *FMM_TRANSLATE, "m2l_table_3d")
 CONFIG_B_KERNELS = ("morton_encode", *TREE_KERNELS, "restrict_demand",
                     *RESTRICT_KERNELS, *TRAVERSAL_KERNELS,
                     "area_query_sweep", "space_invader_sweep", "peer_lists")
@@ -822,8 +853,9 @@ def run_main_path(device, card, trav_trees, translation, tree_trees,
     tree, t_tree = timed(lambda: build_tree(pts, max_particles_in_box=30),
                          device)
     trav, t_trav = timed(lambda: build_traversal(tree), device)
-    wr, t_setup = timed(lambda: make_laplace_wrangler(
-        trav, order=order, pairs=True, rscale="auto", dtype=torch.float32),
+    wr, t_setup, table_launches = laplace_setup(
+        lambda: make_laplace_wrangler(trav, order=order, pairs=True,
+                                      rscale="auto", dtype=torch.float32),
         device)
     pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
     t_total = time.perf_counter() - t_start
@@ -846,7 +878,7 @@ def run_main_path(device, card, trav_trees, translation, tree_trees,
           "traversal_s": t_trav, "wrangler_setup_s": t_setup,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "fmm_s": t_fmm, "fmm_warm_s": t_fmm_warm, "total_s": t_total,
-          "stage_s": stages, "host_reads_per_build": build_reads,
+          "stage_s": stages, **build_reads,
           "host_reads_per_fmm": fmm_host_reads(wr, q),
           "list_edges": {
               "l1": int(trav.neighbor_source_boxes_lists.shape[0]),
@@ -883,6 +915,11 @@ def run_main_path(device, card, trav_trees, translation, tree_trees,
         ("f32", wr, wr.reorder_sources(q), P2M_L2P_KERNELS)])
     check_translation(card, device, "main path", [("f32", wr, q)],
                       translation)
+    check_m2l_table(card, device, "main path", "f32", wr, t_setup,
+                    table_launches)
+    run_rotation(device, card, "main path", [
+        ("f32", wr, dict(pairs=True, rscale="auto", dtype=torch.float32), q,
+         sample, ref, FMM_RTOL)])
     tres, twork = check_traversal_kernels(tree, device, card, "main path",
                                           trav_trees)
     kres, kwork = check_tree_kernels(card, device, "main path", pts,
@@ -1187,7 +1224,7 @@ def run_config_b(device, card, trav_trees, tree_trees, n=1_000_000,
           "distribution": "unit sphere", "dtype": "float64",
           "max_particles_in_box": 30, "seed": seed,
           "nboxes": tree.nboxes, "nlevels": tree.nlevels,
-          "build_s": t_build, "host_reads_per_build": build_reads,
+          "build_s": t_build, **build_reads,
           "restriction_rounds": launches["restrict_sweep"] // (
               tree.nlevels - 1), "two_to_one_s": t_2to1,
           "two_to_one_pairs": pairs_2to1, "worst_level_gap": worst,
@@ -1752,6 +1789,7 @@ def run_helmholtz_pairs(device, card, translation, trav, pts, q, k, order,
         pts, q.to(torch.complex128), pts[:, sample], k))
     reads = fmm_host_reads(w, q)
     if device.type == "cuda":
+        reads["fmm_sync_debug"] = sync_free(lambda: drive_fmm(w, [q]))
         reads["multipole_to_local_sync_debug"] = m2l_syncs(w, q)
     finite = bool(torch.isfinite(pot).all())
     inputs = helmholtz_pair_inputs(w, w.reorder_sources(q))
@@ -1794,8 +1832,7 @@ def run_helmholtz_pairs(device, card, translation, trav, pts, q, k, order,
     if not rel_d < HELMHOLTZ_FMM_RTOL:
         raise AssertionError(f"{phase}: rel l-inf {rel_d:.3e} against the "
                              f"direct sum >= {HELMHOLTZ_FMM_RTOL}")
-    if device.type == "cuda" and (reads["fmm"] != 0 or reads[
-            "multipole_to_local"] not in (0, None)):
+    if device.type == "cuda" and not reads_free(reads):
         raise AssertionError(f"{phase}: host reads {reads}")
     names = [nm for nm in PAIR_KERNELS if nm.endswith(f"{dim}d")]
     bad = {e: entries[e] for nm in names for e in (f"{nm}_f64",
@@ -2390,14 +2427,7 @@ def dipole_path(device, card, trav, sources, targets, weights, dipoles, k,
             raise AssertionError(f"{label} {layout}: charge kernels "
                                  f"launched {charge[layout]}")
         r = reads[layout]
-        # a trace without device events (None) measured nothing: then the
-        # run under sync debug mode decides, as it does for M2L
-        if device.type == "cuda" and not (
-                (r["fmm"] == 0 or r["fmm"] is None
-                 and r["fmm_sync_debug"] == 0)
-                and (r["multipole_to_local"] == 0
-                     or r["multipole_to_local"] is None
-                     and r["multipole_to_local_sync_debug"] == 0)):
+        if device.type == "cuda" and not reads_free(r):
             raise AssertionError(f"{label} {layout}: host reads {r}")
     missing = [e for e in needed if launches[e] <= 0]
     if missing:
@@ -2728,8 +2758,9 @@ def run_extents(device, card, trav_trees, translation, tree_trees,
     merged, t_merge = timed(trav.merge_close_lists, device)
     pot2, t_count2 = timed(lambda: drive_fmm(
         ConstantOneExpansionWrangler(None, merged), ones), device)
-    wr, t_setup = timed(lambda: make_laplace_wrangler(
-        trav, order=order, pairs=True, rscale="auto", dtype=torch.float64),
+    wr, t_setup, table_launches = laplace_setup(
+        lambda: make_laplace_wrangler(trav, order=order, pairs=True,
+                                      rscale="auto", dtype=torch.float64),
         device)
     pot, t_fmm = timed(lambda: drive_fmm(wr, [q]), device)
     t_total = time.perf_counter() - t_start
@@ -2763,7 +2794,7 @@ def run_extents(device, card, trav_trees, translation, tree_trees,
               (tree.box_target_counts_nonchild[internal] > 0).sum()),
           "targets_in_internal_boxes": int(
               tree.box_target_counts_nonchild[internal].sum()),
-          "build_s": t_tree, "host_reads_per_build": build_reads,
+          "build_s": t_tree, **build_reads,
           "traversal_s": t_trav,
           "traversal_plain_s": plain_traversal_s(tree, device),
           "counting_fmm_s": t_count, "merge_close_lists_s": t_merge,
@@ -2803,6 +2834,8 @@ def run_extents(device, card, trav_trees, translation, tree_trees,
     check_p2m_l2p_launches(launches, "extent path", 1)
     pres, pwork = check_p2m_l2p(card, device, "extent", [
         ("f64", wr, wr.reorder_sources(q), P2M_L2P_KERNELS)])
+    check_m2l_table(card, device, "qbx extent tree", "f64", wr, t_setup,
+                    table_launches)
     check_translation(card, device, "qbx extent tree", [("f64", wr, q)],
                       translation)
 
@@ -3697,12 +3730,12 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
     tree, t_tree = timed(lambda: build_tree(pts, max_particles_in_box=20),
                          device)
     trav, t_trav = timed(lambda: build_traversal(tree), device)
-    wc, t_setup_c = timed(lambda: make_laplace_wrangler(
+    wc, t_setup_c, table_c = laplace_setup(lambda: make_laplace_wrangler(
         trav, order, pairs=False, rscale="auto"), device)
     before = kernels.launch_counts()
     pot_c, t_fmm_c = timed(lambda: drive_fmm(wc, [q]), device)
     per_fmm = {"complex128": launches_since(before)}
-    wp, t_setup_p = timed(lambda: make_laplace_wrangler(
+    wp, t_setup_p, table_p = laplace_setup(lambda: make_laplace_wrangler(
         trav, order, pairs=True, rscale="auto"), device)
     before = kernels.launch_counts()
     pot_p, t_fmm_p = timed(lambda: drive_fmm(wp, [q]), device)
@@ -3790,6 +3823,10 @@ def run_laplace2d(device, card, trav_trees, translation, n_kernels=100_000,
     for name, counts in per_fmm.items():
         check_once_per_fmm(counts, f"2D Laplace FMM {name}",
                            LAPLACE2D_P2M_L2P)
+    check_m2l_table(card, device, "laplace2d", "c128", wc, t_setup_c,
+                    table_c)
+    check_m2l_table(card, device, "laplace2d", "f64", wp, t_setup_p,
+                    table_p)
     check_translation(card, device, "laplace2d",
                       [("c128", wc, q), ("f64", wp, q)], translation)
 
@@ -3905,9 +3942,11 @@ def run_laplace2d_dipole(device, card, tree_trees, n_main=1_000_000,
                          device)
     trav, t_trav = timed(lambda: build_traversal(tree), device)
     ws, pots, t_setup, t_fmm, per_fmm = {}, {}, {}, {}, {}
+    tables = {}
     for name, kw in runs.items():
-        ws[name], t_setup[name] = timed(lambda: make_laplace_wrangler(
-            trav, order, rscale="auto", dipole_vec=nrm, **kw), device)
+        ws[name], t_setup[name], tables[name] = laplace_setup(
+            lambda: make_laplace_wrangler(trav, order, rscale="auto",
+                                          dipole_vec=nrm, **kw), device)
         before = kernels.launch_counts()
         pots[name], t_fmm[name] = timed(lambda: drive_fmm(ws[name], [q]),
                                         device)
@@ -3940,7 +3979,7 @@ def run_laplace2d_dipole(device, card, tree_trees, n_main=1_000_000,
           "build_s": t_tree, "traversal_s": t_trav,
           "wrangler_setup_s": t_setup, "fmm_s": t_fmm, "fmm_warm_s": t_warm,
           "total_s": t_total, "stage_s": stages,
-          "host_reads_per_build": build_reads,
+          **build_reads,
           "host_reads_per_fmm": {name: fmm_host_reads(w, q)
                                  for name, w in ws.items()},
           "list_edges": {
@@ -3984,6 +4023,9 @@ def run_laplace2d_dipole(device, card, tree_trees, n_main=1_000_000,
     if missing:
         raise AssertionError(f"kernels not launched on the 2D double "
                              f"layer: {missing}")
+    for name, w in ws.items():
+        check_m2l_table(card, device, "laplace2d double layer", name, w,
+                        t_setup[name], tables[name])
     for name, counts in per_fmm.items():
         check_once_per_fmm(counts, f"2D double layer {name}",
                            LAPLACE2D_DIPOLE_FMM)
@@ -4371,9 +4413,10 @@ def run_laplace3d(device, card, translation, n_kernels=100_000,
                          device)
     trav, t_trav = timed(lambda: build_traversal(tree), device)
     ws, pots, t_setup, t_fmm, per_fmm = {}, {}, {}, {}, {}
+    tables = {}
     for name, kw in runs.items():
-        ws[name], t_setup[name] = timed(lambda: make_laplace_wrangler(
-            trav, rscale="auto", **kw), device)
+        ws[name], t_setup[name], tables[name] = laplace_setup(
+            lambda: make_laplace_wrangler(trav, rscale="auto", **kw), device)
         before = kernels.launch_counts()
         pots[name], t_fmm[name] = timed(lambda: drive_fmm(ws[name], [q]),
                                         device)
@@ -4466,6 +4509,14 @@ def run_laplace3d(device, card, translation, n_kernels=100_000,
         ("c128", ws["complex128"], q), ("f64", ws["float64_pairs"], q),
         ("f64_level_to_order", ws["float64_pairs_level_to_order"], q)],
         translation)
+    for name, w in ws.items():
+        check_m2l_table(card, device, "double layer", name, w,
+                        t_setup[name], tables[name])
+    run_rotation(device, card, "double layer", [
+        (label, ws[name], dict(pairs=pairs, rscale="auto", dipole_vec=src),
+         q, sample, ref_dl, LAPLACE3D_FMM_RTOL)
+        for label, name, pairs in (("c128", "complex128", False),
+                                   ("f64", "float64_pairs", True))])
 
     # }}}
 
@@ -4508,6 +4559,408 @@ def run_laplace3d(device, card, translation, n_kernels=100_000,
     return {name: (launches[name], r, c128_work[name], f64.get(name),
                    f64_work.get(name))
             for name, r in c128.items()}
+
+# }}}
+
+
+# {{{ K69-K74: the M2L tables; K75-K79: the rotation M2L
+
+#: K69-K71 (3D) and K72-K74 (2D): one launch a Laplace wrangler setup
+TABLE_KERNELS = ("m2l_table_3d", "m2l_table_2d")
+#: per-operator rel l-inf bar of the tables against their twins: float64
+#: steps in the twins' order (3D: each rounded as the twin rounds it; 2D:
+#: CUDA's log / atan2 in M[0][0]); float32 the cast of those values
+M2L_TABLE_RTOL = {"complex128": 1e-12, "float64": 1e-12, "float32": 1e-6}
+#: the table kernels' numbers by kernel and "path layout" (summary)
+M2L_TABLES = {}
+#: K75 / K76 (List 2 classified) and K77-K79 (the rotation M2L)
+ROTATION_KERNELS = ("m2l_classify_keys", "m2l_classify_unpack",
+                    "m2l_rotate")
+#: rel l-inf bar of K77-K79 against their twin over the locals (atomic
+#: sums in another order)
+ROTATION_RTOL = {"complex128": 1e-12, "float64": 1e-12, "float32": 1e-5}
+#: rel l-inf bar of the rotation FMM against the dense FMM on the same
+#: traversal: float64 / complex128 the reference's own
+#: (tests/test_laplace.py:166-198); float32 set before the first chip run
+#: from scripts/torch_rotation_accuracy.py on the CPU (1e5 main-path
+#: points, order 8, seeds 17-19: at most 3.85e-7, each FMM 3.4e-5 to
+#: 8.3e-5 from the float64 direct sum): 26 times that, for the card's
+#: other summation order (K35's tiles, K77-K79's atomics)
+ROTATION_VS_DENSE_RTOL = {"complex128": 1e-12, "float64": 1e-12,
+                          "float32": 1e-5}
+#: operator groups of the main path's (and the double layer's) rotation
+#: M2L that its twin is held to: every k-th group, at most this many
+ROTATION_TWIN_GROUPS = 64
+#: the rotation kernels' numbers by "path layout" (summary)
+ROTATION = {}
+
+
+def _dt(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+def laplace_setup(make, device):
+    """A Laplace wrangler from *make*, its setup seconds (synchronised)
+    and the launches of K69-K74 in it."""
+    from boxtree_torch.ops import kernels
+
+    before = kernels.launch_counts()
+    w, t = timed(make, device)
+    since = launches_since(before)
+    return w, t, {k: since[k] for k in TABLE_KERNELS}
+
+
+def m2l_table_work(w):
+    """Bytes the table kernel must move (the table written once, its
+    inputs read once) and its float64 operations: in 3D about 10 a value
+    of the order-2p basis and 2 an operator entry (the sign product), in
+    2D 8 a power of 1 / z0 and 2 an entry."""
+    nops, k = w._m2l_opsT.shape[:2]
+    p, es = w.order, w._m2l_opsT.element_size()
+    kc = k if w.dtype.is_complex else k // 2
+    per_op = (10 * (2 * p + 1) ** 2 if w.dim == 3 else 8 * (2 * p + 2))
+    return dict(type="float64", operators=nops,
+                table_bytes=nops * k * k * es,
+                bytes=nops * k * k * es + nops * (w.dim + 2) * 8,
+                flops=nops * (per_op + 2 * kc * kc))
+
+
+def check_m2l_table(card, device, path, label, w, setup_s, launches):
+    """The wrangler's table kernel: launched once in its setup (checked on
+    the card), timed (median of 5, synchronised) as its launch alone on
+    inputs already on the card (``ms``) and as its wrapper, the inputs'
+    preparation and upload included (``wrapper_ms``), beside its twin
+    (median of 3; one call where that takes over 0.2 s) on the wrangler's
+    own table inputs, and held to it per operator.  Emits an
+    ``m2l_table`` line."""
+    import torch
+
+    from boxtree_torch.ops import kernels, m2l_ops
+
+    name = "m2l_table_3d" if w.dim == 3 else "m2l_table_2d"
+    if device.type == "cuda" and launches != {
+            k: int(k == name) for k in TABLE_KERNELS}:
+        raise AssertionError(f"{path} {label}: table launches {launches}, "
+                             f"expected one of {name}")
+    fn = getattr(m2l_ops, name)
+    plain = getattr(m2l_ops, f"{name}_plain")
+    args = (*w._m2l_table_args, w.order, w.dtype, device, w.level_orders)
+    got = fn(*args)
+    ref, t_plain = timed(lambda: plain(*args), device)
+    if not torch.equal(got, w._m2l_opsT):
+        raise AssertionError(f"{path} {label}: the table differs from the "
+                             "wrangler's")
+    gd = torch.view_as_real(got) if got.is_complex() else got.double()
+    rd = torch.view_as_real(ref) if ref.is_complex() else ref.double()
+    err = (gd - rd).abs().flatten(1).amax(1)
+    scale = rd.abs().flatten(1).amax(1)
+    rel = (err / scale.clamp(min=1e-300)).max().item() if len(err) else 0.0
+    tol = M2L_TABLE_RTOL[_dt(w.dtype)]
+    bit_equal = bool(torch.equal(
+        gd.contiguous().view(torch.int64 if gd.dtype == torch.float64
+                             else torch.int32),
+        rd.contiguous().view(torch.int64 if rd.dtype == torch.float64
+                             else torch.int32))) if gd.dtype == rd.dtype \
+        else bool(torch.equal(got, ref))
+    del got, ref, gd, rd
+    work = m2l_table_work(w)
+    largs = m2l_ops.table_launch_args(w.dim, *args)
+    r = dict(launches=launches[name],
+             max_abs_err=err.max().item() if len(err) else 0.0,
+             rel_err=rel, bit_equal=bit_equal,
+             ms=median_ms(lambda: kernels.launch(name, w.dtype, *largs),
+                          device),
+             wrapper_ms=median_ms(lambda: fn(*args), device),
+             plain_ms=(t_plain * 1e3 if t_plain > 0.2 else median_ms(
+                 lambda: plain(*args), device, reps=3)))
+    r["bound_ms"], r["bound_by"] = bound(work)
+    emit({"phase": "m2l_table", "card": card, "path": path,
+          "layout": label, "kernel": name, "wrangler_setup_s": setup_s,
+          "m2l_table_s": r["ms"] / 1e3,
+          "m2l_table_wrapper_s": r["wrapper_ms"] / 1e3,
+          "m2l_table_plain_s": r["plain_ms"] / 1e3,
+          "operators": work["operators"],
+          "table_bytes": work["table_bytes"], "bound_ms": r["bound_ms"],
+          "bound_by": r["bound_by"], "rel_err_per_operator": rel,
+          "tolerance": tol, "bit_equal_to_twin": bit_equal,
+          "launches_in_setup": launches[name]})
+    if not rel <= tol:
+        raise AssertionError(f"{path} {label}: {name} rel {rel:.3e} > {tol}")
+    M2L_TABLES.setdefault(name, {})[f"{path} {label}"] = (r, work)
+    return r
+
+
+def m2l_table_entries():
+    """Summary entries of K69-K74: the main path's (3D) and the 2D Laplace
+    path's (2D) numbers, every other path's beside them."""
+    out = []
+    for name, first in (("m2l_table_3d", "main path f32"),
+                        ("m2l_table_2d", "laplace2d c128")):
+        by_path = M2L_TABLES[name]
+        r, work = by_path[first]
+        e = summary_entry(name, r["launches"], r, work)
+        e["wrapper_ms"] = r["wrapper_ms"]
+        e["paths"] = {k: {f: v[0][f] for f in (
+            "launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms",
+            "bound_ms", "bound_by", "bit_equal")} for k, v in by_path.items()
+            if k != first}
+        out.append(e)
+    return out
+
+
+def classify_inputs(w):
+    """K75 / K76's arguments for the edge plan of wrangler *w*."""
+    import torch
+
+    trav, tree, plan = w.traversal, w.tree, w.m2l_plan
+    args = (tree.box_morton_prefixes, tree.box_levels.to(torch.int32),
+            trav.from_sep_siblings_starts.to(torch.int32),
+            trav.from_sep_siblings_lists.to(torch.int32),
+            trav.target_or_target_parent_boxes.to(torch.int32),
+            torch.as_tensor(plan._table, device=w.device))
+    kw = dict(dim=3, radius=plan._radius, nclasses=plan.nclasses,
+              npossible=tree.nlevels * plan.nclasses)
+    return args, kw
+
+
+def classify_work(args, kw):
+    """Bytes K75 and K76 must move: K75 reads the CSR, the rows' boxes,
+    both boxes' prefixes and levels (each box once) and writes a key an
+    edge; K76 reads the keys and the CSR and writes the two boxes an edge
+    and the histogram."""
+    prefixes, levels, starts, lists, totp, table = args
+    e = lists.shape[0]
+    boxes = nbytes(prefixes, levels)
+    csr = nbytes(starts, lists, totp)
+    return {"m2l_classify_keys": dict(type="float64", edges=e,
+                                      bytes=csr + boxes + nbytes(table)
+                                      + 8 * e),
+            "m2l_classify_unpack": dict(type="float64", edges=e,
+                                        bytes=8 * e + csr + 8 * e
+                                        + 8 * (kw["npossible"] + 1))}
+
+
+def rotation_work(w, edges):
+    """K77-K79's work: a complex multiply-add (8 real operations) per
+    entry of the edge's rotate and unrotate blocks (sum_n (2n+1)^2 each)
+    and axial blocks (sum_m (p+1-|m|)^2), per edge; bytes: the source and
+    target rows once, the edges and the blocks.  Its bound takes K35's
+    rates (``translation_bound``): the tile's rows times one class's
+    blocks are block products of the shape the FP64 tensor cores run."""
+    import torch
+
+    from boxtree_torch.ops import rotation
+
+    p = w.order
+    _, nb = rotation.rotation_offsets(p)
+    _, na = rotation.axial_offsets(p)
+    e = edges.nedges
+    k, es = w.ncoeff, w.multipole_expansion_zeros()[:1].element_size()
+    nrows = (int(torch.unique(edges.src).numel())
+             + int(torch.unique(edges.tgt).numel()))
+    blocks = w._m2l_rot.blocks.flat(w.real_dtype)
+    return dict(type="float32" if w.dtype == torch.float32 else "float64",
+                edges=e, flops=8 * e * (2 * nb + na),
+                bytes=nrows * k * es + 8 * e + nbytes(*blocks))
+
+
+def run_rotation(device, card, path, cases):
+    """The rotation M2L on a path's tree and traversal (no rebuild): per
+    case ``(label, dense wrangler, factory keywords, user-order weights,
+    sampled targets, float64 direct sum there, its bar)``, the rotation
+    wrangler's setup split (plan, block fits, axial operators), its
+    edges, operators and rotation classes, two FMMs (the second's M2L
+    stage beside the dense one's K35 on the same traversal), its
+    potentials against the dense FMM and the direct sum, the launches of
+    one FMM (K77-K79 once, no K35), 0 host reads in M2L (sync debug
+    mode), the peak memory; then K75 / K76 against their twin (exactly)
+    and K77-K79 against theirs on every k-th operator group (at most
+    ROTATION_TWIN_GROUPS), each timed."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_laplace_wrangler
+    from boxtree_torch.ops import kernels, rotation
+
+    t_phase = time.perf_counter()
+    for label, dense, kw, q, sample, ref_direct, direct_bar in cases:
+        trav = dense.traversal
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        before = kernels.launch_counts()
+        w, t_setup = timed(lambda: make_laplace_wrangler(
+            trav, dense.order, m2l_mode="rotation", **kw), device)
+        in_setup = launches_since(before)
+        plan, rot = w.m2l_plan, w._m2l_rot
+        drive_fmm(w, [q])
+        before = kernels.launch_counts()
+        stages = {}
+        pot, t_fmm = timed(lambda: drive_fmm(w, [q], timing_data=stages),
+                           device)
+        per_fmm = launches_since(before)
+        dense_stages = {}
+        pot_dense = drive_fmm(dense, [q], timing_data=dense_stages)
+        _, rel_dense = rel_linf(pot, pot_dense)
+        abs_direct, rel_direct = rel_linf(pot.real[sample], ref_direct)
+        syncs = m2l_syncs(w, q) if device.type == "cuda" else None
+        peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else None)
+        tol_dense = ROTATION_VS_DENSE_RTOL[_dt(w.dtype)]
+        emit({"phase": "rotation_m2l", "card": card, "path": path,
+              "layout": label, "order": w.order,
+              "wrangler_setup_s": t_setup,
+              "setup_split_s": w.rotation_setup_s,
+              "list2_edges": plan.edges.nedges, "operators": plan.nops,
+              "rotation_classes": rot.nrotations,
+              "blocks_bytes": rot.blocks.nbytes,
+              "fmm_s": t_fmm, "stage_s": stages,
+              "m2l_rotation_s": stages["multipole_to_local"],
+              "m2l_dense_k35_s": dense_stages["multipole_to_local"],
+              "launches_in_setup": {k: in_setup[k] for k in (
+                  *TABLE_KERNELS, *ROTATION_KERNELS)},
+              "launches_per_fmm": {k: per_fmm[k] for k in (
+                  *ROTATION_KERNELS, "m2l_translate")},
+              "rel_linf_vs_dense": rel_dense,
+              "tolerance_vs_dense": tol_dense,
+              "rel_linf_vs_f64_direct": rel_direct,
+              "abs_linf_vs_f64_direct": abs_direct, "bar": direct_bar,
+              "m2l_host_syncs": syncs, "peak_mem_gb": peak})
+        if device.type == "cuda":
+            want = {"m2l_classify_keys": 1, "m2l_classify_unpack": 1,
+                    "m2l_table_3d": 1, "m2l_table_2d": 0}
+            got = {k: in_setup[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{path} {label}: setup launches "
+                                     f"{got}, expected {want}")
+            if per_fmm["m2l_rotate"] != 1 or per_fmm["m2l_translate"]:
+                raise AssertionError(f"{path} {label}: FMM launches "
+                                     f"{per_fmm}")
+        if not bool(torch.isfinite(pot).all()) or pot.shape != \
+                pot_dense.shape:
+            raise AssertionError(f"{path} {label}: rotation FMM output")
+        if not rel_dense <= tol_dense:
+            raise AssertionError(f"{path} {label}: rotation vs dense "
+                                 f"{rel_dense:.3e} > {tol_dense}")
+        if not rel_direct < direct_bar:
+            raise AssertionError(f"{path} {label}: rotation vs direct "
+                                 f"{rel_direct:.3e} >= {direct_bar}")
+
+        # K75 / K76 against their twin, exactly
+        args, ckw = classify_inputs(w)
+        got = rotation.classify_edges(*args, **ckw)
+        ref, t_plain = timed(lambda: rotation.classify_edges_plain(
+            *args, **ckw), device)
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        if not equal or not torch.equal(got[0], plan.tgt):
+            raise AssertionError(f"{path} {label}: K75 / K76 differ from "
+                                 "their twin")
+        prefixes, levels, starts, lists, totp, table = args
+        nedges, nrows = lists.shape[0], starts.shape[0] - 1
+        bits = rotation.key_bits(nedges)
+        cwork = classify_work(args, ckw)
+        plain_ms = (t_plain * 1e3 if t_plain > 1.0 else median_ms(
+            lambda: rotation.classify_edges_plain(*args, **ckw), device,
+            reps=3))
+        cres = {name: dict(ms=None) for name in ROTATION_KERNELS[:2]}
+        sort_ms = None
+        if device.type == "cuda":
+            # each entry point alone, and the sort between them
+            keys = torch.empty(nedges, dtype=torch.int64, device=device)
+            outs = [torch.empty(nedges, dtype=torch.int32, device=device)
+                    for _ in range(2)]
+            hist = torch.zeros(ckw["npossible"] + 1, dtype=torch.int64,
+                               device=device)
+
+            def k75():
+                kernels.launch("m2l_classify_keys", None, *args, nedges,
+                               nrows, 3, ckw["radius"], ckw["nclasses"],
+                               ckw["npossible"], bits, keys)
+
+            k75()
+            skeys = torch.sort(keys).values
+
+            def k76():
+                hist.zero_()
+                kernels.launch("m2l_classify_unpack", None, skeys, starts,
+                               lists, totp, nedges, nrows, bits, *outs, hist)
+
+            cres["m2l_classify_keys"]["ms"] = median_ms(k75, device)
+            cres["m2l_classify_unpack"]["ms"] = median_ms(k76, device)
+            sort_ms = median_ms(lambda: torch.sort(keys), device)
+            if not torch.equal(outs[0], plan.tgt):
+                raise AssertionError(f"{path} {label}: K76 alone differs")
+        for name, r in cres.items():
+            r.update(max_abs_err=0.0, plain_ms=plain_ms,
+                     launches=in_setup[name])
+            r["bound_ms"], r["bound_by"] = bound(cwork[name])
+
+        # K77-K79 against their twin on a sample of operator groups
+        mp = w.coarsen_multipoles(None, None, w.form_multipoles(
+            None, None, [w.reorder_sources(q)]))
+        edges, blocks = plan.edges, rot.blocks
+        step = max(1, -(-plan.nops // ROTATION_TWIN_GROUPS))
+        ops = np.arange(0, plan.nops, step)
+        sub = edges.select(ops)
+        got = rotation.m2l_rotation(mp, sub, blocks)
+        ref, t_twin = timed(lambda: rotation.m2l_rotation_plain(
+            mp, sub, blocks), device)
+        err, rel = rel_linf(got, ref)
+        del got, ref
+        tol = ROTATION_RTOL[_dt(w.dtype)]
+        rwork = rotation_work(w, edges)
+        rres = dict(
+            launches=per_fmm["m2l_rotate"], max_abs_err=err, rel_err=rel,
+            ms=median_ms(lambda: rotation.m2l_rotation(mp, edges, blocks),
+                         device),
+            ms_on_sample=median_ms(lambda: rotation.m2l_rotation(
+                mp, sub, blocks), device),
+            plain_ms=(t_twin * 1e3 if t_twin > 1.0 else median_ms(
+                lambda: rotation.m2l_rotation_plain(mp, sub, blocks),
+                device, reps=3)),
+            plain_on=f"{len(ops)} of {plan.nops} operator groups, "
+                     f"{sub.nedges} of {edges.nedges} edges",
+            dense_k35_ms=median_ms(lambda: dense.multipole_to_local(
+                None, trav.target_or_target_parent_boxes,
+                trav.from_sep_siblings_starts, trav.from_sep_siblings_lists,
+                mp), device))
+        rres["bound_ms"], rres["bound_by"], rres["bound_rate"] = \
+            translation_bound(rwork)
+        emit({"phase": "kernels_rotation", "card": card, "path": path,
+              "layout": label, "tolerance_rel_linf": tol,
+              "rel": "over the locals", "classify_equal_to_twin": equal,
+              "classify": cres, "sort_ms": sort_ms,
+              "classify_plain": "the twin's whole classification, sort "
+                                "included, beside each entry point",
+              "rotate": rres, "work": {"classify": cwork,
+                                       "rotate": rwork}})
+        if not rel <= tol:
+            raise AssertionError(f"{path} {label}: K77-K79 rel {rel:.3e} "
+                                 f"> {tol}")
+        ROTATION[f"{path} {label}"] = {
+            **{name: (r, cwork[name]) for name, r in cres.items()},
+            "m2l_rotate": (rres, rwork)}
+        del w, mp, pot, pot_dense
+    emit({"phase": "rotation_m2l_done", "card": card, "path": path,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def rotation_entries():
+    """Summary entries of K75-K79: the main path's numbers, the double
+    layer's beside them."""
+    out = []
+    first = "main path f32"
+    for name in ROTATION_KERNELS:
+        r, work = ROTATION[first][name]
+        e = summary_entry(name, r["launches"], r, work)
+        e["bound_ms"], e["bound_by"] = r["bound_ms"], r["bound_by"]
+        e["paths"] = {k: {f: v[name][0][f] for f in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")} for k, v in ROTATION.items() if k != first}
+        if name == "m2l_rotate":
+            e["plain_on"], e["bound_rate"] = r["plain_on"], r["bound_rate"]
+        out.append(e)
+    return out
 
 # }}}
 
@@ -4630,13 +5083,19 @@ def check_tree_kernels(card, device, label, particles, build_kw, trees):
 
 
 def build_host_reads(build, tree, launches, restricted=False):
-    """The host reads of one more call of *build* (a ``torch.profiler``
-    trace, :func:`host_reads`), held to K43's one packed read (one more a
+    """The host reads of one more call of *build*, counted by
+    :func:`read_count` and held to K43's one packed read (one more a
     restriction round and one for the recount, the rounds from K45's
     launches); the launches of K43-K46 held to one K43 launch and one K44
     launch a level (K45 once a level below the deepest a round, K46
-    once).  Returns the count."""
-    reads = host_reads(build)
+    once).  A ``torch.profiler`` trace of a third call (:func:`host_reads`)
+    is the second witness, for the reads made inside an op: it can lose
+    events (a trace of the restricted build once showed 4 of its 5 reads)
+    but never invent one, so it must not count more device-to-host copies
+    than expected.  Returns ``host_reads_per_build`` and
+    ``host_reads_traced``."""
+    reads = read_count(build)
+    traced = host_reads(build)
     expect = 1
     if launches["tree_leaf_levels"] != 1:
         raise AssertionError(f"K43 launched {launches['tree_leaf_levels']} "
@@ -4656,7 +5115,10 @@ def build_host_reads(build, tree, launches, restricted=False):
     if reads != expect:
         raise AssertionError(f"{reads} host reads in one build, expected "
                              f"{expect}")
-    return reads
+    if traced is not None and traced > expect:
+        raise AssertionError(f"the trace of one build shows {traced} "
+                             f"device-to-host copies, expected {expect}")
+    return {"host_reads_per_build": reads, "host_reads_traced": traced}
 
 
 def check_tree_invariants(tree, particles, *, max_weight, weights=None,
@@ -4798,7 +5260,7 @@ def run_tree_options(device, card, n=1_000_000, order=8, nsample=2000):
                 "nboxes": tree.nboxes, "nlevels": tree.nlevels,
                 "leaf_levels": sorted(set(tree.box_levels[
                     (tree.box_flags & 16) != 0].tolist())),
-                "build_s": t_build, "host_reads_per_build": reads,
+                "build_s": t_build, **reads,
                 "launches": {k: launches[k] for k in TREE_KERNELS},
                 "invariants": checked, "traversal_s": t_trav,
                 "counting_fmm_s": t_count, "counting_exact": nbad == 0}
@@ -4898,6 +5360,39 @@ def fmm_host_reads(w, q):
                 mp))}
 
 
+def read_count(fn):
+    """The host reads during one call of *fn*, counted on the host by a
+    ``TorchDispatchMode``: every aten call that takes a CUDA tensor and
+    gives a Python number (``.item()``, ``bool()``, ``int()``) or a CPU
+    tensor (``.cpu()``, ``.tolist()``, a copy into host memory).  A read
+    that an op makes inside itself (``nonzero``'s count) is not seen
+    here; the trace of :func:`host_reads` sees it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    scalar = torch.ops.aten._local_scalar_dense.default
+
+    class Reads(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in tree_leaves((args, kwargs))) and (
+                    func is scalar or any(
+                        isinstance(t, torch.Tensor) and not t.is_cuda
+                        for t in tree_leaves(out))):
+                self.n += 1
+            return out
+
+    torch.cuda.synchronize()
+    with Reads() as mode:
+        fn()
+    torch.cuda.synchronize()
+    return mode.n
+
+
 def sync_free(fn):
     """0 when *fn* runs with PyTorch's CUDA sync debug mode set to raise,
     so that no host read or other synchronising call happens in it; raises
@@ -4914,6 +5409,16 @@ def sync_free(fn):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return 0
+
+
+def reads_free(reads):
+    """True when :func:`fmm_host_reads`' traces of an FMM and of its M2L
+    show no host read, a trace without device events (None, it measured
+    nothing) counting only when the run under sync debug mode beside it
+    (``fmm_sync_debug``, ``multipole_to_local_sync_debug``) was clean."""
+    return all(reads[k] == 0 or reads[k] is None
+               and reads[f"{k}_sync_debug"] == 0
+               for k in ("fmm", "multipole_to_local"))
 
 
 def m2l_syncs(w, q):
@@ -5233,8 +5738,9 @@ def run_laplace3d_stability(device, card, translation, order=31,
     tree = build_tree(src, targets=torch.as_tensor(tgt_np, device=device),
                       max_particles_in_box=2)
     trav = build_traversal(tree)
-    w, t_setup = timed(lambda: make_laplace_wrangler(
-        trav, order, rscale="auto", pairs=False), device)
+    w, t_setup, table_launches = laplace_setup(
+        lambda: make_laplace_wrangler(trav, order, rscale="auto",
+                                      pairs=False), device)
     q = torch.ones(nsources, dtype=torch.float64, device=device)
     kernels.reset_launch_counts()
     pot, t_fmm = timed(lambda: drive_fmm(w, [q]), device)
@@ -5286,6 +5792,8 @@ def run_laplace3d_stability(device, card, translation, order=31,
     check_translation(card, device, "line tree order 31",
                       [("c128", w, q)], translation, library=False,
                       rtol=LINE_TRANSLATE_RTOL)
+    check_m2l_table(card, device, "line tree order 31", "c128", w, t_setup,
+                    table_launches)
 
 # }}}
 
@@ -5329,6 +5837,7 @@ def main():
           "library": str(lib.path.relative_to(lib.path.parents[3])),
           "ptxas": _ptxas_summary(lib.build_log)})
 
+    t_script = time.perf_counter()
     trav_trees, translation, tree_trees = {}, {}, {}
     entries = run_main_path(device, card, trav_trees, translation,
                             tree_trees)
@@ -5384,10 +5893,13 @@ def main():
                 e["trees"] = {label: res[e["name"]]
                               for label, res in trees.items()
                               if label != own and e["name"] in res}
+    emit({"phase": "done", "card": card,
+          "seconds_after_build": time.perf_counter() - t_script})
     print(card, flush=True)
     emit({"kernels": entries + b_entries + h_entries + e_entries
           + h2_entries + l2_entries + l2d_entries + l3_entries
-          + translation_entries(translation) + hd_entries})
+          + translation_entries(translation) + hd_entries
+          + m2l_table_entries() + rotation_entries()})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

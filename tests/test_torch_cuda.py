@@ -73,7 +73,17 @@ pairs) agree with their twins no looser than their charge kernels' bars
 column and potential lane: normal and random dipoles, rscale on and off,
 at r = 0 and k r < 1e-6, on empty rows, at orders 0 and 15; each dipole
 FMM on the card launches the dipole entry points of its layout once and
-no charge P2M / P2P / P2L, and matches the CPU port to 1e-10.
+no charge P2M / P2P / P2L, and matches the CPU port to 1e-10.  K69-K74
+(the 3D and 2D M2L tables, three layouts each) agree with their twins per
+operator to 1e-12 (1e-6 in float32), with rscale 1 and below 1, with
+``level_to_order`` masks, and in 3D at order 31 (the operators split over
+CTAs); a Laplace wrangler on the card builds its table in one launch.
+K75 / K76 (List 2 classified by (level, class)) equal their twin
+exactly; K77-K79 (the rotation M2L) agree with their twin to 1e-12
+(1e-5 in float32) over the locals at orders 4 and 8, with operator groups
+longer and shorter than a tile, and the rotation FMM on the card launches
+them once and no K35 and matches the dense FMM to 1e-12 (float32 pairs
+1e-5 against complex128).
 """
 
 import dataclasses
@@ -3130,5 +3140,188 @@ def test_tree_wrappers_on_cpu_take_twins():
                max_particles_in_box=10)
     counts = kernels.launch_counts()
     assert not any(counts.values()), counts
+
+# }}}
+
+
+# {{{ K69-K74: the M2L tables; K75-K79: the rotation M2L
+
+from boxtree_torch.ops import m2l_ops  # noqa: E402
+from boxtree_torch.ops import rotation as rot_ops  # noqa: E402
+
+TABLE_RTOL = {torch.complex128: 1e-12, torch.float64: 1e-12,
+              torch.float32: 1e-6}
+ROT_RTOL = {torch.complex128: 1e-12, torch.float64: 1e-12,
+            torch.float32: 1e-5}
+TABLE_DTYPES = [torch.complex128, torch.float64, torch.float32]
+
+
+def _table_inputs(dim, rscale, seed=3, levels=(2, 3, 4, 6)):
+    classes = _offsets(dim, 3, min_inf_norm=1)
+    rng = np.random.default_rng(seed)
+    ts, rs, lv = [], [], []
+    for lev in levels:
+        used = np.sort(rng.choice(len(classes), len(classes) // 3,
+                                  replace=False))
+        size = 1.0001 / (1 << lev)
+        ts.append(classes[used] * size)
+        rs += [min(size, 1.0) if rscale else 1.0] * len(used)
+        lv += [lev] * len(used)
+    return np.concatenate(ts).astype(np.float64), np.array(rs), np.array(lv)
+
+
+def _op_rel_t(got, ref):
+    """Worst operator of max |got - ref| / max |ref| over (n, K, K)."""
+    if not ref.is_complex():
+        got, ref = got.double(), ref.double()
+    err = (got - ref).abs().amax(dim=(1, 2))
+    return (err / ref.abs().amax(dim=(1, 2))).max().item()
+
+
+@pytest.mark.parametrize("truncate", [False, True])
+@pytest.mark.parametrize("rscale", [False, True])
+@pytest.mark.parametrize("dtype", TABLE_DTYPES)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_m2l_table_kernel(device, dim, dtype, rscale, truncate):
+    """K69-K74 against their twins per operator, with rscale 1 and below
+    1 and with a level_to_order mask (masked entries exactly 0).  With
+    rscale 1 the levels stop at 3: deeper, float32 overflows (|t| below
+    1/4 raised to the -2p-1)."""
+    ts, rs, levels = _table_inputs(
+        dim, rscale, levels=(2, 3, 4, 6) if rscale else (2, 3))
+    p = 8 if dim == 3 else 20
+    lo = np.array([p, p, p, p - 1, p - 2, p - 3, p - 4]) if truncate else None
+    fn, plain = ((m2l_ops.m2l_table_3d, m2l_ops.m2l_table_3d_plain)
+                 if dim == 3 else
+                 (m2l_ops.m2l_table_2d, m2l_ops.m2l_table_2d_plain))
+    kernels.reset_launch_counts()
+    got = fn(ts, rs, levels, p, dtype, device, lo)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[f"m2l_table_{dim}d"] == 1
+    ref = plain(ts, rs, levels, p, dtype, device, lo)
+    assert bool(torch.isfinite(ref).all())
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got == 0, ref == 0)
+    assert _op_rel_t(got, ref) <= TABLE_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.float64])
+def test_m2l_table_kernel_order31(device, dtype):
+    """K69 / K70 at the order-31 line's width: the order-62 basis (63.5
+    KB of shared memory), the operators split over CTAs."""
+    ts, rs, levels = _table_inputs(3, True, levels=(2, 9))
+    ts, rs, levels = ts[::40], rs[::40], levels[::40]
+    got = m2l_ops.m2l_table_3d(ts, rs, levels, 31, dtype, device)
+    ref = m2l_ops.m2l_table_3d_plain(ts, rs, levels, 31, dtype, device)
+    assert got.shape == (len(ts),) + (ref.shape[1],) * 2
+    assert _op_rel_t(got, ref) <= 1e-12
+
+
+def test_m2l_table_refuses_large_order(device):
+    ts, rs, levels = _table_inputs(3, False, levels=(2,))
+    with pytest.raises(ValueError, match="shared memory"):
+        m2l_ops.m2l_table_3d(ts, rs, levels, 60, torch.float64, device)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_m2l_table_once_per_setup(device, dim):
+    """A Laplace wrangler on the card builds its table in one launch."""
+    rng = np.random.default_rng(4)
+    trav = build_traversal(build_tree(torch.as_tensor(
+        rng.random((dim, 20000)), device=device), max_particles_in_box=20))
+    for kw in (dict(pairs=True), dict(pairs=False),
+               dict(pairs=True, dtype=torch.float32, rscale="auto")):
+        kernels.reset_launch_counts()
+        w = make_laplace_wrangler(trav, 6, **kw)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts[f"m2l_table_{dim}d"] == 1
+        assert counts[f"m2l_table_{5 - dim}d"] == 0
+        ref = m2l_ops.m2l_table_3d_plain if dim == 3 else \
+            m2l_ops.m2l_table_2d_plain
+        assert _op_rel_t(w._m2l_opsT, ref(*w._m2l_table_args, 6, w.dtype,
+                                          device)) <= TABLE_RTOL[w.dtype]
+
+
+@pytest.fixture(scope="module")
+def rotation_tree(device):
+    """A 3D tree whose operator groups run from a few edges to hundreds
+    (many across tile boundaries), with sources on a sphere and in a
+    cube."""
+    rng = np.random.default_rng(21)
+    pts = np.hstack([rng.random((3, 20000)), 0.5 + 0.3 * _sphere(10000)])
+    return build_traversal(build_tree(torch.as_tensor(pts, device=device),
+                                      max_particles_in_box=20))
+
+
+def test_classify_kernels(rotation_tree):
+    """K75 / K76 against their twin: boxes and histogram exactly equal."""
+    trav = rotation_tree
+    tree = trav.tree
+    offs = _offsets(3, 3, min_inf_norm=1)
+    table = np.full(7 ** 3, -1, np.int64)
+    table[(offs + 3) @ (7 ** np.arange(3))] = np.arange(len(offs))
+    args = (tree.box_morton_prefixes, tree.box_levels.to(torch.int32),
+            trav.from_sep_siblings_starts, trav.from_sep_siblings_lists,
+            trav.target_or_target_parent_boxes,
+            torch.as_tensor(table, device=tree.box_levels.device))
+    kw = dict(dim=3, radius=3, nclasses=len(offs),
+              npossible=tree.nlevels * len(offs))
+    kernels.reset_launch_counts()
+    got = rot_ops.classify_edges(*args, **kw)
+    counts = kernels.launch_counts()
+    assert counts["m2l_classify_keys"] == counts["m2l_classify_unpack"] == 1
+    ref = rot_ops.classify_edges_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert int(got[2][-1]) == 0 and int(got[2].sum()) == got[0].shape[0]
+
+
+@pytest.mark.parametrize("order", [4, 8])
+@pytest.mark.parametrize("dtype", TABLE_DTYPES)
+def test_rotation_kernel(rotation_tree, dtype, order):
+    """K77-K79 against their twin, rel l-inf over the locals, on random
+    multipoles; a tile never spans two operators."""
+    pairs = not dtype.is_complex
+    w = make_laplace_wrangler(rotation_tree, order, pairs=pairs, dtype=dtype,
+                              rscale="auto", m2l_mode="rotation")
+    sizes = w.m2l_plan.edges.sizes
+    tile = rot_ops.tile_edges((order + 1) ** 2, dtype)
+    assert (sizes > tile).any() and ((sizes > 0) & (sizes < tile)).any()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    mp = torch.randn((rotation_tree.tree.nboxes, w.ncoeff), generator=g,
+                     dtype=torch.float64)
+    if dtype.is_complex:
+        mp = torch.complex(mp, torch.randn(mp.shape, generator=g,
+                                           dtype=torch.float64))
+    mp = mp.to(dtype).to(rotation_tree.tree.box_levels.device)
+    kernels.reset_launch_counts()
+    got = rot_ops.m2l_rotation(mp, w.m2l_plan.edges, w._m2l_rot.blocks)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["m2l_rotate"] == 1
+    ref = rot_ops.m2l_rotation_plain(mp, w.m2l_plan.edges, w._m2l_rot.blocks)
+    assert _rel(got, ref) <= ROT_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", TABLE_DTYPES)
+def test_rotation_fmm_on_card(rotation_tree, dtype):
+    """The rotation FMM on the card: K77-K79 once, no K35, against the
+    dense FMM of the same layout on the card (complex128 and float64
+    1e-12; float32 1e-5: on the CPU the two float32 FMMs of this tree
+    agree to 6.5e-8, and each is 1.8e-4 from the complex128 one)."""
+    trav = rotation_tree
+    n = trav.tree.nsources
+    q = torch.as_tensor(np.random.default_rng(6).standard_normal(n),
+                        device=trav.tree.box_levels.device)
+    kw = dict(pairs=not dtype.is_complex, dtype=dtype, rscale="auto")
+    q = q.to(dtype.to_real())
+    ref = drive_fmm(make_laplace_wrangler(trav, 6, **kw), [q])
+    w = make_laplace_wrangler(trav, 6, m2l_mode="rotation", **kw)
+    kernels.reset_launch_counts()
+    pot = drive_fmm(w, [q])
+    counts = kernels.launch_counts()
+    assert counts["m2l_rotate"] == 1 and counts["m2l_translate"] == 0
+    err = _rel(pot, ref)
+    assert err <= (1e-5 if dtype == torch.float32 else 1e-12), err
 
 # }}}

@@ -998,7 +998,10 @@ def test_factory_rules_3d(points):
     (dict(order=4, pairs=False, dtype=np.complex64), NotImplementedError),
     (dict(order=4, dtype=np.complex64), NotImplementedError),
     (dict(order=4, pairs=False, dtype=np.float64), NotImplementedError),
-    (dict(order=4, m2l_mode="rotation"), NotImplementedError),
+    # rotation M2L is ported, but not with level_to_order, as in the
+    # reference (expansion_base.py:370-372)
+    (dict(level_to_order=lambda lev: 4, m2l_mode="rotation"),
+     NotImplementedError),
 ])
 def test_factory_refusals_3d(points, kwargs, exc):
     with pytest.raises(exc):

@@ -8,7 +8,7 @@ import torch
 
 
 def parent_block_m2l(mpole, plan):
-    """K35 over *plan* (a :class:`boxtree_torch.ops.translate.M2LPlan`):
+    """K35 over *plan* (a :class:`boxtree_torch.ops.translate.ParentBlockPlan`):
     per level, per (slot j, source digit qs, target digit qt) with an
     operator, the sources of the plan's (pair, row) table times the
     operator, summed into the target children that are
