@@ -44,6 +44,12 @@ class ExpansionWranglerInterface(ABC):
     def tree(self):
         return self.traversal.tree
 
+    def potential_box_map(self):
+        """Box id owning each output-potential slot: what the distributed
+        runner masks potentials by
+        (``boxtree_tpu/models/expansion_base.py:602-605``)."""
+        return self.tree.box_id_of_target
+
     @abstractmethod
     def reorder_sources(self, source_array):
         pass

@@ -100,6 +100,9 @@ SIGNATURES = {
     "m2l_classify_keys": "pppppp" + "iiiiiii" + "pp",
     "m2l_classify_unpack": "ppppiiipppp",
     "m2l_rotate": "p" * 10 + "iii" + "pp",
+    "pack_rows": "ppiipp",
+    "unpack_rows": "pppiiip",
+    "masked_merge": "ppppiiip",
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -170,6 +173,9 @@ DTYPES = {
     "m2l_classify_keys": (),
     "m2l_classify_unpack": (),
     "m2l_rotate": (*_FLOATS, torch.complex128),
+    "pack_rows": (*_FLOATS, torch.complex128),
+    "unpack_rows": (*_FLOATS, torch.complex128),
+    "masked_merge": (*_FLOATS, torch.complex128),
 }
 
 

@@ -4,11 +4,15 @@
 with the field names of a ``Tree`` / ``FMMTraversalInfo`` (the JAX
 package's containers included: every field goes through ``np.asarray``) and
 return the port's containers on a given device, so a test can feed the
-reference's tree and traversal to the port's wrangler.  :func:`to_numpy`
-goes the other way, for every container of the port (trees, traversals,
-and the geometry results ``AreaQueryResult``, ``LeavesToBallsLookup`` and
-``PeerListLookup``) and for tensors of any dtype, complex included (a
-lazily conjugated tensor is conjugated first).  Nothing here imports JAX.
+reference's tree and traversal to the port's wrangler;
+:func:`rank_partition_from_numpy` and :func:`exchange_stages_from_numpy`
+do the same for the distributed FMM's partition and multipole-exchange
+schedule, so that the two packages' results compare field for field.
+:func:`to_numpy` goes the other way, for every container of the port
+(trees, traversals, and the geometry results ``AreaQueryResult``,
+``LeavesToBallsLookup`` and ``PeerListLookup``) and for tensors of any
+dtype, complex included (a lazily conjugated tensor is conjugated
+first).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +78,28 @@ def traversal_from_numpy(trav, device="cpu", tree=None):
         else:
             values[f.name] = _tensor(v, device)
     return FMMTraversalInfo(**values)
+
+
+def rank_partition_from_numpy(rp, device="cpu"):
+    """A :class:`~boxtree_torch.parallel.partition.RankPartition` on
+    *device* with the fields of *rp* (int64 tensors)."""
+    from boxtree_torch.parallel.partition import RankPartition
+
+    values = {}
+    for f in dataclasses.fields(RankPartition):
+        v = getattr(rp, f.name)
+        values[f.name] = (int(v) if f.name == "nranks" else torch.tensor(
+            np.asarray(v, np.int64), device=device))
+    return RankPartition(**values)
+
+
+def exchange_stages_from_numpy(stages, device="cpu"):
+    """Multipole-exchange stages ``(perm, send_idx, recv_idx, op)`` with
+    the tables as int32 tensors on *device*."""
+    return [(tuple(tuple(int(x) for x in p) for p in perm),
+             torch.tensor(np.asarray(send, np.int32), device=device),
+             torch.tensor(np.asarray(recv, np.int32), device=device), op)
+            for perm, send, recv, op in stages]
 
 
 def to_numpy(obj):

@@ -181,6 +181,22 @@ FMM, 0 host reads in M2L (sync debug mode) and the peak memory; its
 K77-K79 to theirs over the locals on every k-th operator group (at most
 64), each entry point timed.
 
+The ``distributed_fmm`` phase runs ``boxtree_torch.parallel``'s
+``DistributedFMMRunner`` on the main path's traversal and wrangler (f32
+pairs, order 8) with 4 ranks on the hypercube exchange, 4 on the allreduce
+and 3 on the hypercube (fold-in and fold-out stages), all ranks on the
+card: each against the single-device FMM on the same traversal at every
+target (rel l-inf <= 1e-5) and the f64 direct sum (<= 1e-3), with
+``dfmm_s`` beside ``fmm_s``, the setup, peak memory, each rank's List-2
+pairs beside the traversal's (each must be fewer), the exchange's stages,
+rows and bytes, rank 0's P2M / M2M / L2L / L2P (what every rank repeats)
+beside the single FMM's, and K80-K82 launched (the allreduce K82 alone);
+the counting runner exact at 3 and 4 ranks (``distributed_counting``);
+``kernels_distributed`` holds K80 (pack), K81 (unpack, add and set) and
+K82 (the weights' mask, the potentials' merge, the dense sum) to their
+twins bit for bit at those shapes, with the library yardsticks
+(``index_select``, ``index_add_`` / ``index_copy_``, ``torch.where``).
+
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
 1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
@@ -255,6 +271,9 @@ REPLACES = {
     "m2l_classify_keys": "boxtree_tpu/models/particle_blocks.py:214",
     "m2l_classify_unpack": "boxtree_tpu/models/particle_blocks.py:214",
     "m2l_rotate": "boxtree_tpu/models/rotation_m2l.py:221",
+    "pack_rows": "boxtree_tpu/parallel/distributed.py:494",
+    "unpack_rows": "boxtree_tpu/parallel/distributed.py:498",
+    "masked_merge": "boxtree_tpu/parallel/distributed.py:552",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -314,6 +333,9 @@ SOURCES = {
     "m2l_classify_keys": "boxtree_torch/csrc/rotation.cu",
     "m2l_classify_unpack": "boxtree_torch/csrc/rotation.cu",
     "m2l_rotate": "boxtree_torch/csrc/rotation.cu",
+    "pack_rows": "boxtree_torch/csrc/exchange.cu",
+    "unpack_rows": "boxtree_torch/csrc/exchange.cu",
+    "masked_merge": "boxtree_torch/csrc/exchange.cu",
 }
 #: K43 and K44, launched by every tree build (K45 and K46 by a restricted
 #: one)
@@ -925,7 +947,9 @@ def run_main_path(device, card, trav_trees, translation, tree_trees,
     kres, kwork = check_tree_kernels(card, device, "main path", pts,
                                      dict(max_particles_in_box=30),
                                      tree_trees)
-    return [summary_entry(name, launches[name], r, work[name])
+    dist_entries = run_distributed(device, card, trav, wr, pts, q, sample,
+                                   ref, stages, order)
+    return dist_entries + [summary_entry(name, launches[name], r, work[name])
             for name, r in res.items()] + [
         summary_entry(name, launches[name], pres["f32"][name],
                       pwork["f32"][name]) for name in P2M_L2P_KERNELS] + [
@@ -933,6 +957,271 @@ def run_main_path(device, card, trav_trees, translation, tree_trees,
         for name in TRAVERSAL_KERNELS] + [
         summary_entry(name, launches[name], kres[name], kwork[name])
         for name in TREE_KERNELS]
+
+
+# {{{ the distributed FMM (K80-K82)
+
+#: K80-K82, the row moves of the distributed FMM (``csrc/exchange.cu``)
+EXCHANGE_KERNELS = ("pack_rows", "unpack_rows", "masked_merge")
+#: rel l-inf bound of the distributed float32 FMM against the single-device
+#: FMM on the same traversal, every target: the partial multipoles of the
+#: ranks are summed in another order (set before the first chip run)
+DFMM_VS_FMM_RTOL = 1e-5
+#: the runs of the ``distributed_fmm`` phase: (label, ranks, exchange)
+DFMM_RUNS = (("hypercube_4", 4, "hypercube"), ("allreduce_4", 4, "allreduce"),
+             ("hypercube_3", 3, "hypercube"))
+
+
+def exchange_kernel(device, fn, plain, library, args, work, inplace):
+    """One of K80-K82 against its twin at the path's inputs: equal exactly
+    (they move and add values), timed beside the twin and the library
+    yardstick; *inplace* names the argument the call updates (a fresh
+    copy for each comparison)."""
+    import torch
+
+    def call(f):
+        a = list(args)
+        if inplace is not None:
+            a[inplace] = a[inplace].clone()
+        return f(*a)
+
+    got, ref = call(fn), call(plain)
+    sync(device)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{fn.__name__}: kernel != twin")
+    scratch = list(args)
+    if inplace is not None:
+        scratch[inplace] = scratch[inplace].clone()
+    bound_ms, bound_by = bound(work)
+    return {"max_abs_err": 0.0,
+            "ms": median_ms(lambda: fn(*scratch), device),
+            "plain_ms": median_ms(lambda: plain(*scratch), device),
+            "library_ms": median_ms(lambda: library(*scratch), device),
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work}
+
+
+def check_exchange_kernels(card, device, runner, q):
+    """K80-K82 at the main path's distributed shapes: the weights' mask of
+    rank 0 (1e6 sources), its multipoles (nboxes x K) packed and unpacked
+    at the largest hypercube stage's table, the potentials' merge (1e6
+    targets) and the allreduce's dense sum."""
+    import torch
+
+    from boxtree_torch.ops import exchange
+
+    w, v = runner.wranglers[0], runner.rank_traversals[0]
+    resp, bos = runner._resp[0], runner._box_of_source[0]
+    q_tree = w.reorder_sources(q)
+    mine = exchange.masked_merge(torch.zeros_like(q_tree), q_tree, resp, bos)
+    mp = w.coarsen_multipoles(None, None, w.form_multipoles(None, None,
+                                                            [mine]))
+    perm, send_idx, recv_idx, _ = max(
+        runner._stages, key=lambda st: st[1][st[0][0][0]].shape[0])
+    src, dst = perm[0]
+    sidx, ridx = send_idx[src], recv_idx[dst]
+    nvalid = int((sidx >= 0).sum())
+    row = mp.shape[1] * mp.element_size()
+    idx_bytes = sidx.numel() * 4
+    send = exchange.pack_rows(mp, sidx)
+    valid = ridx[ridx >= 0].to(torch.int64)
+    recv_valid = send[:nvalid]
+    pot = torch.zeros(w.tree.ntargets, dtype=w.dtype, device=device)
+    x = torch.randn(pot.shape, generator=torch.Generator(device=device)
+                    .manual_seed(3), device=device, dtype=w.dtype)
+    keep_t, pmap = runner._resp_out[0], runner._pot_box_map
+    pmap64, bos64 = pmap.to(torch.int64), bos.to(torch.int64)
+
+    def merge_bytes(x, keep, box_map):
+        """K82's bytes: the map and the keep flags read, and of the rows
+        kept (this run's count) x read and out read and written; a row
+        not kept is skipped before x or out is touched."""
+        kept = int(keep[box_map.to(torch.int64)].sum())
+        return (nbytes(box_map) + keep.numel() * keep.element_size()
+                + 3 * kept * (nbytes(x) // x.shape[0]))
+    res = {
+        "pack_rows": exchange_kernel(
+            device, exchange.pack_rows, exchange.pack_rows_plain,
+            lambda m, i: m.index_select(0, valid), (mp, sidx),
+            {"bytes": idx_bytes + nvalid * row + sidx.numel() * row},
+            None),
+        "unpack_rows_add": exchange_kernel(
+            device, exchange.unpack_rows, exchange.unpack_rows_plain,
+            lambda m, i, r, op: m.index_add_(0, valid, recv_valid),
+            (mp, ridx, send, "add"),
+            {"bytes": idx_bytes + nvalid * row * 3}, 0),
+        "unpack_rows_set": exchange_kernel(
+            device, exchange.unpack_rows, exchange.unpack_rows_plain,
+            lambda m, i, r, op: m.index_copy_(0, valid, recv_valid),
+            (mp, ridx, send, "set"),
+            {"bytes": idx_bytes + nvalid * row * 2}, 0),
+        "masked_merge": exchange_kernel(
+            device, exchange.masked_merge,
+            exchange.masked_merge_plain,
+            lambda o, xx, k, m: o.add_(torch.where(k[pmap64], xx, 0)),
+            (pot, x, keep_t, pmap),
+            {"bytes": merge_bytes(x, keep_t, pmap)},
+            0),
+        "masked_merge_weights": exchange_kernel(
+            device, exchange.masked_merge,
+            exchange.masked_merge_plain,
+            lambda o, xx, k, m: o.add_(torch.where(k[bos64], xx, 0)),
+            (torch.zeros_like(q_tree), q_tree, resp, bos),
+            {"bytes": merge_bytes(q_tree, resp, bos)}, 0),
+        "masked_merge_dense": exchange_kernel(
+            device, exchange.masked_merge,
+            exchange.masked_merge_plain, lambda o, xx: o.add_(xx),
+            (torch.zeros_like(mp), mp), {"bytes": 3 * nbytes(mp)}, 0),
+    }
+    shapes = {"multipoles": list(mp.shape), "dtype": str(mp.dtype),
+              "stage_rows": sidx.numel(), "stage_rows_valid": nvalid,
+              "targets": w.tree.ntargets, "sources": w.tree.nsources}
+    emit({"phase": "kernels_distributed", "card": card, "shapes": shapes,
+          "tolerance": "bit-exact", "kernels": res})
+    return res
+
+
+def run_distributed(device, card, trav, wr, pts, q, sample, ref, stages,
+                    order):
+    """The distributed FMM on the main path's traversal (f32 pairs, order
+    8): 4 ranks hypercube, 4 allreduce and 3 hypercube, all on the card,
+    against the single-device FMM on the same traversal (every target) and
+    the f64 direct sum; the counting runner exact at 3 and 4 ranks; K80-K82
+    launched on the path and held to their twins (``kernels_distributed``).
+    Returns the K80-K82 summary entries."""
+    import torch
+
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import make_laplace_wrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.parallel import DistributedFMMRunner
+
+    t_phase = time.perf_counter()
+
+    def factory(t):
+        return make_laplace_wrangler(t, order=order, pairs=True,
+                                     rscale="auto", dtype=torch.float32)
+
+    single, fmm_s = timed(lambda: drive_fmm(wr, [q]), device)
+    global_l2 = int(trav.from_sep_siblings_lists.shape[0])
+    kept, launches_4 = None, None
+    for label, nranks, how in DFMM_RUNS:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        runner, setup_s = timed(lambda: DistributedFMMRunner(
+            nranks, trav, wrangler_factory=factory,
+            communicate_mpoles=how), device)
+        kernels.reset_launch_counts()
+        pot, dfmm_s = timed(lambda: runner.drive_dfmm(q), device)
+        launches = kernels.launch_counts()
+        _, dfmm_warm_s = timed(lambda: runner.drive_dfmm(q), device)
+        # what the ranks run twice over: P2M over every source row (the
+        # weights masked), M2M over the whole tree, L2P over every target
+        # row; rank 0's stages timed alone, on zeros
+        w0, v0 = runner.wranglers[0], runner.rank_traversals[0]
+        zq = torch.zeros(trav.tree.nsources, dtype=torch.float32,
+                         device=device)
+        zl = w0.local_expansion_zeros()
+        rank0_s = {
+            "form_multipoles": timed(lambda: w0.form_multipoles(
+                None, None, [zq]), device)[1],
+            "coarsen_multipoles": timed(lambda: w0.coarsen_multipoles(
+                None, None, zl), device)[1],
+            "refine_locals": timed(lambda: w0.refine_locals(
+                None, v0.target_or_target_parent_boxes, zl), device)[1],
+            "eval_locals": timed(lambda: w0.eval_locals(None, None, zl),
+                                 device)[1]}
+        del zl
+        row_bytes = w0.ncoeff * 4
+        if runner._stages:
+            exchange_bytes = sum(len(perm) * send[0].numel() * row_bytes
+                                 for perm, send, _, _ in runner._stages)
+        else:
+            exchange_bytes = nranks * trav.tree.nboxes * row_bytes
+        _, rel_fmm = rel_linf(pot, single)
+        abs_err, rel_direct = rel_linf(pot[sample], ref)
+        finite = bool(torch.isfinite(pot).all())
+        emit({"phase": "distributed_fmm", "card": card, "run": label,
+              "ranks": nranks, "communicate_mpoles": how,
+              "placement": runner.placement, "points": trav.tree.nsources,
+              "order": order, "dtype": "float32", "setup_s": setup_s,
+              "dfmm_s": dfmm_s, "dfmm_warm_s": dfmm_warm_s, "fmm_s": fmm_s,
+              "single_stage_s": stages, "rank0_stage_s": rank0_s,
+              "list2_pairs": runner.list2_pairs,
+              "list2_pairs_global": global_l2,
+              "mpole_comm_stats": runner.mpole_comm_stats,
+              "mpole_rows_sent": runner.mpole_rows_sent,
+              "exchange_bytes": exchange_bytes,
+              "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2**30
+                              if device.type == "cuda" else None),
+              "rel_linf_vs_fmm": rel_fmm, "rel_linf_vs_f64_direct":
+              rel_direct, "abs_linf": abs_err, "finite": finite,
+              "launches": {k: launches[k] for k in (
+                  *EXCHANGE_KERNELS, "p2m_laplace3d", "m2m_translate",
+                  "p2p_laplace3d", "m2l_translate", "m2p_laplace3d",
+                  "p2l_laplace3d", "l2l_translate", "l2p_laplace3d")}})
+        if not finite or tuple(pot.shape) != tuple(single.shape):
+            raise AssertionError(f"distributed FMM {label}: non-finite or "
+                                 "misshapen output")
+        if not rel_fmm <= DFMM_VS_FMM_RTOL:
+            raise AssertionError(f"distributed FMM {label}: rel l-inf "
+                                 f"{rel_fmm:.3e} vs the FMM > "
+                                 f"{DFMM_VS_FMM_RTOL}")
+        if not rel_direct <= FMM_RTOL:
+            raise AssertionError(f"distributed FMM {label}: rel l-inf "
+                                 f"{rel_direct:.3e} vs the direct sum > "
+                                 f"{FMM_RTOL}")
+        if not max(runner.list2_pairs) < global_l2:
+            raise AssertionError(f"distributed FMM {label}: a rank's List 2 "
+                                 f"{runner.list2_pairs} is not below the "
+                                 f"traversal's {global_l2}")
+        want = EXCHANGE_KERNELS if how == "hypercube" else ("masked_merge",)
+        missing = [k for k in want if launches[k] <= 0]
+        if missing or launches["m2l_translate"] != nranks:
+            raise AssertionError(f"distributed FMM {label}: kernels not "
+                                 f"launched: {missing}, K35 "
+                                 f"{launches['m2l_translate']}")
+        if label == "hypercube_4":
+            kept, launches_4 = runner, launches
+        else:
+            del runner
+        del pot
+
+    counting = {}
+    for nranks, how in ((3, "hypercube"), (4, "hypercube"),
+                        (4, "allreduce")):
+        n = trav.tree.nsources
+        runner, setup_s = timed(lambda: DistributedFMMRunner(
+            nranks, trav, communicate_mpoles=how), device)
+        pot, dfmm_s = timed(lambda: runner.drive_dfmm(
+            torch.ones(n, dtype=torch.float64, device=device)), device)
+        nbad = int((pot != n).sum())
+        counting[f"{how}_{nranks}"] = {"setup_s": setup_s, "dfmm_s": dfmm_s,
+                                       "exact": nbad == 0}
+        if nbad:
+            raise AssertionError(f"distributed counting FMM ({nranks} "
+                                 f"ranks, {how}): {nbad} potentials != {n}")
+        del runner, pot
+    emit({"phase": "distributed_counting", "card": card, "runs": counting})
+
+    res = check_exchange_kernels(card, device, kept, q)
+    emit({"phase": "distributed_done", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    entries = []
+    for name, key, beside in (
+            ("pack_rows", "pack_rows", ()),
+            ("unpack_rows", "unpack_rows_add", ("unpack_rows_set",)),
+            ("masked_merge", "masked_merge", ("masked_merge_weights",
+                                              "masked_merge_dense"))):
+        r = res[key]
+        entry = summary_entry(name, launches_4[name], r, r["work"])
+        entry["library_ms"] = r["library_ms"]
+        for other in beside:
+            entry[other] = {k: res[other][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        entries.append(entry)
+    return entries
+
+# }}}
 
 
 def summary_entry(name, launches, res, work):

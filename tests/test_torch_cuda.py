@@ -78,8 +78,14 @@ no charge P2M / P2P / P2L, and matches the CPU port to 1e-10.  K69-K74
 operator to 1e-12 (1e-6 in float32), with rscale 1 and below 1, with
 ``level_to_order`` masks, and in 3D at order 31 (the operators split over
 CTAs); a Laplace wrangler on the card builds its table in one launch.
-K75 / K76 (List 2 classified by (level, class)) equal their twin
-exactly; K77-K79 (the rotation M2L) agree with their twin to 1e-12
+K80-K82 (the distributed FMM's pack, unpack and masked merge) equal
+their twins exactly, every dtype, with -1 entries, both unpack ops, masked
+and unmasked merges; the distributed runner on the card (4 ranks
+hypercube and allreduce, 3 ranks) matches the single-device FMM (1e-12
+float64, 1e-5 float32), launches K80-K82 (the allreduce K82 alone) and
+one K35 a rank, each rank with fewer List-2 edges than the traversal, and
+its counting runner is exact.  K75 / K76 (List 2 classified by (level,
+class)) equal their twin exactly; K77-K79 (the rotation M2L) agree with their twin to 1e-12
 (1e-5 in float32) over the locals at orders 4 and 8, with operator groups
 longer and shorter than a tile, and the rotation FMM on the card launches
 them once and no K35 and matches the dense FMM to 1e-12 (float32 pairs
@@ -3323,5 +3329,121 @@ def test_rotation_fmm_on_card(rotation_tree, dtype):
     assert counts["m2l_rotate"] == 1 and counts["m2l_translate"] == 0
     err = _rel(pot, ref)
     assert err <= (1e-5 if dtype == torch.float32 else 1e-12), err
+
+# }}}
+
+
+# {{{ the distributed FMM: K80-K82 and the runner on the card
+
+EXCHANGE_DTYPES = [torch.float32, torch.float64, torch.complex128]
+
+
+def _exchange_rows(shape, dtype, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    if dtype.is_complex:
+        x = torch.complex(x, torch.randn(shape, generator=g,
+                                         dtype=torch.float64))
+    return x.to(dtype).to(device)
+
+
+def _exchange_index(nboxes, n, seed, device):
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(nboxes)[:n].astype(np.int32)
+    idx[rng.random(n) < 0.25] = -1
+    idx[-5:] = -1
+    return torch.as_tensor(idx, device=device)
+
+
+@pytest.mark.parametrize("trail", [(), (2,), (162,)],
+                         ids=["scalar", "pair", "k162"])
+@pytest.mark.parametrize("dtype", EXCHANGE_DTYPES, ids=str)
+def test_exchange_kernels(device, dtype, trail):
+    """K80-K82 equal their twins exactly (they only move and add values),
+    with -1 entries, both unpack ops, masked and unmasked merges; each
+    wrapper launches its kernel once."""
+    from boxtree_torch.ops import exchange
+    nboxes, n = 5000, 3000
+    mp = _exchange_rows((nboxes, *trail), dtype, 1, device)
+    idx = _exchange_index(nboxes, n, 2, device)
+    kernels.reset_launch_counts()
+    got = exchange.pack_rows(mp, idx)
+    assert torch.equal(got, exchange.pack_rows_plain(mp, idx))
+    recv = _exchange_rows((n, *trail), dtype, 3, device)
+    for op in ("add", "set"):
+        assert torch.equal(
+            exchange.unpack_rows(mp.clone(), idx, recv, op),
+            exchange.unpack_rows_plain(mp.clone(), idx, recv, op))
+    box_map = torch.as_tensor(np.random.default_rng(4).integers(
+        0, 700, nboxes).astype(np.int32), device=device)
+    keep = torch.as_tensor(np.random.default_rng(5).random(700) < 0.4,
+                           device=device)
+    x = _exchange_rows((nboxes, *trail), dtype, 6, device)
+    for args in ((keep, box_map), ()):
+        assert torch.equal(
+            exchange.masked_merge(mp.clone(), x, *args),
+            exchange.masked_merge_plain(mp.clone(), x, *args))
+    counts = kernels.launch_counts()
+    assert (counts["pack_rows"], counts["unpack_rows"],
+            counts["masked_merge"]) == (1, 2, 2)
+
+
+def test_exchange_kernels_empty(device):
+    from boxtree_torch.ops import exchange
+    mp = torch.zeros((4, 3), device=device)
+    idx = torch.zeros(0, dtype=torch.int32, device=device)
+    assert exchange.pack_rows(mp, idx).shape == (0, 3)
+    exchange.unpack_rows(mp, idx, torch.zeros((0, 3), device=device), "add")
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def distributed_case(device):
+    rng = np.random.default_rng(31)
+    pts = rng.random((3, 30000))
+    trav = build_traversal(build_tree(torch.as_tensor(pts, device=device),
+                                      max_particles_in_box=30))
+    return trav, torch.as_tensor(rng.standard_normal(30000), device=device)
+
+
+@pytest.mark.parametrize("nranks,communicate_mpoles", [
+    (4, "hypercube"), (3, "hypercube"), (4, "allreduce")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_distributed_fmm_on_card(distributed_case, dtype, nranks,
+                                 communicate_mpoles):
+    """The runner on the card against the single-device FMM on the same
+    traversal (float64 1e-12, float32 1e-5: the partial multipoles sum in
+    another order), launching K80-K82 (the allreduce K82 alone); every
+    rank's List-2 edges fewer than the traversal's; the counting runner
+    exact."""
+    from boxtree_torch.parallel import DistributedFMMRunner
+    trav, q = distributed_case
+    q = q.to(dtype)
+
+    def factory(t):
+        return make_laplace_wrangler(t, 6, pairs=True, dtype=dtype,
+                                     rscale="auto")
+
+    ref = drive_fmm(factory(trav), [q])
+    runner = DistributedFMMRunner(nranks, trav, wrangler_factory=factory,
+                                  communicate_mpoles=communicate_mpoles)
+    assert runner.placement == {"cuda:0": list(range(nranks))} or \
+        torch.cuda.device_count() > 1
+    kernels.reset_launch_counts()
+    pot = runner.drive_dfmm(q)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    hyper = communicate_mpoles == "hypercube"
+    assert (counts["pack_rows"] > 0) == hyper
+    assert (counts["unpack_rows"] > 0) == hyper
+    assert counts["masked_merge"] >= 2 * nranks
+    assert counts["m2l_translate"] == nranks
+    assert max(runner.list2_pairs) < trav.from_sep_siblings_lists.shape[0]
+    assert _rel(pot, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+    n = trav.tree.nsources
+    count = DistributedFMMRunner(nranks, trav,
+                                 communicate_mpoles=communicate_mpoles
+                                 ).drive_dfmm(torch.ones(n, device=q.device))
+    assert (count == n).all()
 
 # }}}

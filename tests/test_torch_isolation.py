@@ -39,4 +39,7 @@ def test_no_jax_and_no_boxtree_tpu():
     assert "boxtree_torch.models.helmholtz" in out["modules"]
     assert "boxtree_torch.ops.laplace2d" in out["modules"]
     assert "boxtree_torch.models.laplace" in out["modules"]
+    assert "boxtree_torch.parallel.distributed" in out["modules"]
+    assert "boxtree_torch.parallel.mesh" in out["modules"]
+    assert "boxtree_torch.cost.model" in out["modules"]
     assert out["loaded"] == []

@@ -34,6 +34,8 @@ NOT_PORTED = {
     ".fmm": {"jit_drive_fmm", "staged_drive_fmm"},
     ".models": set(),
     ".geometry": set(),
+    ".parallel": set(),
+    ".cost": set(),
 }
 #: per subpackage, names the port exports that the reference's ``__all__``
 #: does not list: ``boxtree_tpu.tree`` declares none, its names are the
