@@ -63,81 +63,13 @@
 #include <climits>
 
 #include "common.cuh"
+#include "levels.cuh"
 #include "morton.cuh"
 
 namespace boxtree_torch {
 namespace {
 
 constexpr int kThreads = 256;
-// levels 0..depth (62 in 1D) and the empty level depth + 1
-constexpr int kMaxLevels = 64;
-
-// first index in [lo, hi) of the ascending keys with keys[i] >= key, else hi
-__device__ __forceinline__ long long lower_bound_in(const int64_t* keys,
-                                                    long long lo,
-                                                    long long hi,
-                                                    int64_t key) {
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (keys[mid] < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// first index in [lo, hi) of the ascending scan with scan[i] > v, else hi
-__device__ __forceinline__ long long upper_bound_in(const int* scan,
-                                                    long long lo,
-                                                    long long hi, int v) {
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (scan[mid] <= v)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// deepest level at which particle i's key shares its prefix with i - 1's
-// (-1 for the first particle), boxtree_tpu/tree/build.py:321-326
-__device__ __forceinline__ int lcp_level(const int64_t* codes, long long i,
-                                         int d, int depth) {
-  if (i == 0) return -1;
-  const int64_t x = codes[i] ^ codes[i - 1];
-  const int bl = x < 0 ? 64 : 64 - __clzll(x);
-  const int lcp = depth - (bl + d - 1) / d;
-  return lcp < -1 ? -1 : lcp;
-}
-
-// the per-block level histogram: counts of ranges (a, b] of levels
-struct LevelHistogram {
-  int* diff;  // kMaxLevels + 1 entries of shared memory
-
-  __device__ void clear() {
-    for (int l = threadIdx.x; l <= kMaxLevels; l += blockDim.x) diff[l] = 0;
-  }
-  __device__ void add_range(int a, int b) {  // levels a + 1 .. b
-    if (b <= a) return;
-    atomicAdd(&diff[a + 1], 1);
-    atomicAdd(&diff[b + 1], -1);
-  }
-  // after a __syncthreads(): this block's counts added to out[0..nlev)
-  __device__ void flush(unsigned long long* out, int nlev) {
-    if (threadIdx.x == 0) {
-      int run = 0;
-      for (int l = 0; l < nlev; ++l) {
-        run += diff[l];
-        diff[l] = run;
-      }
-    }
-    __syncthreads();
-    for (int l = threadIdx.x; l < nlev; l += blockDim.x)
-      if (diff[l]) atomicAdd(&out[l], (unsigned long long)diff[l]);
-  }
-};
 
 // {{{ K43
 

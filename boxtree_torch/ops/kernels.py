@@ -103,6 +103,12 @@ SIGNATURES = {
     "pack_rows": "ppiipp",
     "unpack_rows": "pppiiip",
     "masked_merge": "ppppiiip",
+    "bucket_pack": "pipipiiipppp",
+    "rebalance_place": "piiippp",
+    "permute_serve": "ppipiiippp",
+    "permute_unpack": "piiippipp",
+    "shard_leaf_levels": "pipipiiiiippp",
+    "shard_box_skeleton": "pi" + "p" * 7 + "ip" + "i" * 8 + "p" * 8,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -176,6 +182,12 @@ DTYPES = {
     "pack_rows": (*_FLOATS, torch.complex128),
     "unpack_rows": (*_FLOATS, torch.complex128),
     "masked_merge": (*_FLOATS, torch.complex128),
+    "bucket_pack": (),
+    "rebalance_place": (),
+    "permute_serve": _FLOATS,
+    "permute_unpack": _FLOATS,
+    "shard_leaf_levels": (),
+    "shard_box_skeleton": (),
 }
 
 

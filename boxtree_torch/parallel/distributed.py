@@ -53,8 +53,9 @@ logger = logging.getLogger(__name__)
 #: why ``local_particles=True`` is refused
 LOCAL_PARTICLES_REFUSAL = (
     "local_particles=True (per-rank local particle blocks, the reference's "
-    "_build_step_local) is not ported: per-rank local particle trees come "
-    "with the sharded build (ROADMAP Queue 2, 'Next')")
+    "_build_step_local) is not ported: per-rank local particles come with "
+    "the sharded runner, built by exchange from sharded coordinates "
+    "(ROADMAP Queue 1 #8, 'Next' (3))")
 
 
 def _mpole_exchange_schedule(needed, contrib, nboxes):

@@ -157,6 +157,23 @@ def _extent_order(codes_s, order, leaf_level, *, dimensions, depth):
     return masked[perm], order[perm], leaf_level[perm]
 
 
+def box_flags(has_children, src_cumul, src_nonchild, tgt_cumul,
+              tgt_nonchild):
+    """The int32 box flags (``boxtree_tpu/tree/build.py:488-506``)."""
+    F = box_flags_enum
+
+    def flag(cond, bit):
+        return torch.where(cond, bit, 0).to(torch.int32)
+
+    return (flag(has_children & (src_cumul > src_nonchild),
+                 F.HAS_SOURCE_CHILD_BOXES)
+            | flag(has_children & (tgt_cumul > tgt_nonchild),
+                   F.HAS_TARGET_CHILD_BOXES)
+            | flag(src_nonchild > 0, F.IS_SOURCE_BOX)
+            | flag(tgt_nonchild > 0, F.IS_TARGET_BOX)
+            | flag(~has_children, F.IS_LEAF_BOX))
+
+
 def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
              root_extent, *, dimensions, depth, level_starts, nsources,
              ntargets, sources_are_targets, has_extents=False, plain=False):
@@ -249,25 +266,9 @@ def _phase_b(codes_s, order, leaf_level, merged_coords, bbox_min,
 
     # }}}
 
-    # {{{ box flags (boxtree_tpu/tree/build.py:488-506)
-
-    F = box_flags_enum
-
-    def flag(cond, bit):
-        return torch.where(cond, bit, 0).to(torch.int32)
-
-    flags = (flag(box_has_children
-                  & (box_source_counts_cumul > box_source_counts_nonchild),
-                  F.HAS_SOURCE_CHILD_BOXES)
-             | flag(box_has_children
-                    & (box_target_counts_cumul
-                       > box_target_counts_nonchild),
-                    F.HAS_TARGET_CHILD_BOXES)
-             | flag(box_source_counts_nonchild > 0, F.IS_SOURCE_BOX)
-             | flag(box_target_counts_nonchild > 0, F.IS_TARGET_BOX)
-             | flag(~box_has_children, F.IS_LEAF_BOX))
-
-    # }}}
+    flags = box_flags(box_has_children, box_source_counts_cumul,
+                      box_source_counts_nonchild, box_target_counts_cumul,
+                      box_target_counts_nonchild)
 
     return dict(
         user_target_ids=user_target_ids,

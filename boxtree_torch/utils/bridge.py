@@ -7,7 +7,9 @@ return the port's containers on a given device, so a test can feed the
 reference's tree and traversal to the port's wrangler;
 :func:`rank_partition_from_numpy` and :func:`exchange_stages_from_numpy`
 do the same for the distributed FMM's partition and multipole-exchange
-schedule, so that the two packages' results compare field for field.
+schedule, and :func:`shards_from_numpy` and :func:`skeleton_from_numpy`
+for the sharded build's per-rank arrays and box skeleton, so that the two
+packages' results compare field for field.
 :func:`to_numpy` goes the other way, for every container of the port
 (trees, traversals, and the geometry results ``AreaQueryResult``,
 ``LeavesToBallsLookup`` and ``PeerListLookup``) and for tensors of any
@@ -100,6 +102,24 @@ def exchange_stages_from_numpy(stages, device="cpu"):
              torch.tensor(np.asarray(send, np.int32), device=device),
              torch.tensor(np.asarray(recv, np.int32), device=device), op)
             for perm, send, recv, op in stages]
+
+
+def shards_from_numpy(arr, devices=("cpu",)):
+    """A sharded array of the port (one tensor a rank) from the
+    reference's ``(nranks, ...)`` per-rank array (or a tuple of such,
+    giving a tuple); rank *r* on ``devices[r % len(devices)]``."""
+    if isinstance(arr, tuple):
+        return tuple(shards_from_numpy(a, devices) for a in arr)
+    arr = np.asarray(arr)
+    return [_tensor(arr[r], devices[r % len(devices)])
+            for r in range(arr.shape[0])]
+
+
+def skeleton_from_numpy(skel, devices=("cpu",)):
+    """The reference's per-rank box skeleton dict (``sharded_box_skeleton``)
+    in the port's layout: per-rank lists, ``nboxes`` as 0-d tensors."""
+    return {key: shards_from_numpy(val, devices)
+            for key, val in skel.items()}
 
 
 def to_numpy(obj):

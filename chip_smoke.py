@@ -197,6 +197,22 @@ K82 (the weights' mask, the potentials' merge, the dense sum) to their
 twins bit for bit at those shapes, with the library yardsticks
 (``index_select``, ``index_add_`` / ``index_copy_``, ``torch.where``).
 
+The ``sharded_build`` phase runs ``boxtree_torch.parallel.shard_build``'s
+``sharded_build_tree`` with all ranks on the card: the main path's 1e6
+uniform float32 points at 4 and 8 ranks, 1e6 points half in a cube of
+edge 0.05 at 8 (the capacity retries), and 1e7 uniform points at 8.
+Each tree must equal ``build_tree``'s field for field (centres bit for
+bit), each build read the host 3 times (``read_count``; once more a
+capacity retry of the sort or the permutation) and launch K1 and
+K83-K88 (K87 once a rank, K88 once a rank a level); its line gives
+``sbuild_s`` beside ``build_s`` (medians of 3 warm builds), the split of
+one build, the capacity factors and radius, the bytes between ranks, the
+peak memory and ``nboxes``; the counting FMM on the 4-rank tree must be
+exact.  ``kernels_sharded_build`` holds K83-K88 to their twins bit for
+bit at rank 0's calls of one 1e6 8-rank build (K88 at its level with the
+most boxes), with the library yardsticks ``index_select`` (K85) and
+``index_copy_`` (K86).
+
 Every kernel is also held against its plain PyTorch twin at the shapes of
 its path (K9-K11, K16-K18, K19-K21, K38-K42 and the 3D Laplace kernels at
 1e5 points as well, a shallower tree; K19-K21, K38-K42, K2-K4 and K22-K23
@@ -274,6 +290,12 @@ REPLACES = {
     "pack_rows": "boxtree_tpu/parallel/distributed.py:494",
     "unpack_rows": "boxtree_tpu/parallel/distributed.py:498",
     "masked_merge": "boxtree_tpu/parallel/distributed.py:552",
+    "bucket_pack": "boxtree_tpu/parallel/shard_sort.py:109",
+    "rebalance_place": "boxtree_tpu/parallel/shard_sort.py:211",
+    "permute_serve": "boxtree_tpu/parallel/shard_sort.py:327",
+    "permute_unpack": "boxtree_tpu/parallel/shard_sort.py:342",
+    "shard_leaf_levels": "boxtree_tpu/parallel/shard_build.py:296",
+    "shard_box_skeleton": "boxtree_tpu/parallel/shard_build.py:713",
 }
 SOURCES = {
     "morton_encode": "boxtree_torch/csrc/morton.cu",
@@ -336,6 +358,9 @@ SOURCES = {
     "pack_rows": "boxtree_torch/csrc/exchange.cu",
     "unpack_rows": "boxtree_torch/csrc/exchange.cu",
     "masked_merge": "boxtree_torch/csrc/exchange.cu",
+    **{name: "boxtree_torch/csrc/shard.cu" for name in (
+        "bucket_pack", "rebalance_place", "permute_serve", "permute_unpack",
+        "shard_leaf_levels", "shard_box_skeleton")},
 }
 #: K43 and K44, launched by every tree build (K45 and K46 by a restricted
 #: one)
@@ -949,6 +974,7 @@ def run_main_path(device, card, trav_trees, translation, tree_trees,
                                      tree_trees)
     dist_entries = run_distributed(device, card, trav, wr, pts, q, sample,
                                    ref, stages, order)
+    dist_entries += run_sharded_build(device, card, pts)
     return dist_entries + [summary_entry(name, launches[name], r, work[name])
             for name, r in res.items()] + [
         summary_entry(name, launches[name], pres["f32"][name],
@@ -1218,6 +1244,365 @@ def run_distributed(device, card, trav, wr, pts, q, sample, ref, stages,
         for other in beside:
             entry[other] = {k: res[other][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        entries.append(entry)
+    return entries
+
+# }}}
+
+
+# {{{ the sharded tree build (K83-K88)
+
+#: K83-K88, the per-rank steps of the sharded tree build
+#: (``csrc/shard.cu``)
+SHARD_KERNELS = ("bucket_pack", "rebalance_place", "permute_serve",
+                 "permute_unpack", "shard_leaf_levels", "shard_box_skeleton")
+#: the runs of the ``sharded_build`` phase: (label, points, distribution,
+#: ranks); the 1e6 uniform points are the main path's
+SBUILD_RUNS = (("uniform_4", 1_000_000, "uniform", 4),
+               ("uniform_8", 1_000_000, "uniform", 8),
+               ("clustered_8", 1_000_000, "clustered", 8),
+               ("uniform_1e7_8", 10_000_000, "uniform", 8))
+#: host reads of one sharded build at one depth without a retry: the
+#: sort's counts and flags, the leaf levels' counts, the permutation's
+#: flags; each capacity retry of the sort or the permutation reads its
+#: flags once more
+SBUILD_HOST_READS = 3
+
+
+def capacity_tries(factor):
+    """The tries of a capacity loop that starts at 2 and doubles."""
+    import math
+    return int(math.log2(factor / 2.0)) + 1
+
+
+def cube_cluster_points(n, seed):
+    """``tests/test_shard_build.py:138-143`` at size *n*: half the points
+    in the cube ``[0, 0.05]^3``, half in the unit cube, float32, the
+    cluster first."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.random((3, n // 2), dtype=np.float32) * np.float32(0.05),
+        rng.random((3, n - n // 2), dtype=np.float32)], axis=1)
+
+
+def tree_diff(tree, ref):
+    """The fields in which two trees differ (tensors compared exactly,
+    dtype included)."""
+    import dataclasses
+
+    import torch
+    bad = []
+    for f in dataclasses.fields(ref):
+        a, b = getattr(tree, f.name), getattr(ref, f.name)
+        if isinstance(b, torch.Tensor):
+            if not (isinstance(a, torch.Tensor) and a.dtype == b.dtype
+                    and torch.equal(a, b)):
+                bad.append(f.name)
+        elif a != b:
+            bad.append(f.name)
+    return bad
+
+
+def capture_shard_calls(fn):
+    """Run *fn* with every K83-K88 wrapper of ``ops.shard`` keeping its
+    arguments (K88's rows cloned before the call, which updates them);
+    returns ``{name: [(args, kwargs), ...]}`` in call order."""
+    from boxtree_torch.ops import shard
+
+    calls = {name: [] for name in SHARD_KERNELS}
+    saved = {name: getattr(shard, name) for name in SHARD_KERNELS}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            kept = list(args)
+            if name == "shard_box_skeleton":
+                kept[9] = {k: v.clone() for k, v in args[9].items()}
+            calls[name].append((kept, dict(kwargs)))
+            return saved[name](*args, **kwargs)
+        return call
+    try:
+        for name in SHARD_KERNELS:
+            setattr(shard, name, wrap(name))
+        fn()
+    finally:
+        for name, f in saved.items():
+            setattr(shard, name, f)
+    return calls
+
+
+def check_shard_kernels(card, device, calls, launches):
+    """K83-K88 against their twins at the shapes of one build (rank 0's
+    calls: the sort's pack, its rebalance placement, the permutation's
+    serve and unpack, phase A, and phase B at its level with the most box
+    starts), every output equal; each timed (median of 5) beside its twin
+    (one call), its byte bound (what the call reads and writes in this
+    run) and the library yardstick where one PyTorch call computes the
+    same function.  Returns ``{name: result}``."""
+    import torch
+
+    from boxtree_torch.ops import shard
+
+    def fresh(args, i):
+        a = list(args)
+        a[i] = {k: v.clone() for k, v in a[i].items()}
+        return a
+
+    def outs(x):
+        if isinstance(x, dict):
+            return list(x.values())
+        return list(x) if isinstance(x, (tuple, list)) else [x]
+
+    res, shapes = {}, {}
+    for name in SHARD_KERNELS:
+        if name == "shard_box_skeleton":
+            rank0 = [c for c in calls[name] if c[1]["rank"] == 0]
+            args, kw = max(rank0, key=lambda c: int((
+                (c[0][1] >= c[1]["level"]) & (c[0][2] < c[1]["level"])
+            ).sum()))
+        else:
+            args, kw = calls[name][0]
+        kernel, plain = getattr(shard, name), getattr(shard, f"{name}_plain")
+        if name == "rebalance_place":
+            plain = lambda segs, per, nv, device=None: \
+                shard.rebalance_place_plain(segs, per, nv)   # noqa: E731
+        inplace = 9 if name == "shard_box_skeleton" else None
+
+        def run(f):
+            a = fresh(args, inplace) if inplace is not None else args
+            return f(*a, **kw)
+        got, want = outs(run(kernel)), outs(run(plain))
+        sync(device)
+        if len(got) != len(want) or not all(
+                g.dtype == w.dtype and torch.equal(g, w.to(g.device))
+                for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: kernel != twin at the sharded "
+                                 "build's shapes")
+        work, library = shard_work(name, args, kw, got)
+        # K88 rewrites the same rows on each timed call: one copy for all
+        a = fresh(args, inplace) if inplace is not None else args
+        r = {"max_abs_err": 0.0,
+             "ms": median_ms(lambda: kernel(*a, **kw), device),
+             "plain_ms": timed(lambda: plain(*a, **kw), device)[1] * 1e3,
+             "library_ms": (median_ms(library, device) if library else None),
+             "launches_per_build": launches[name]}
+        r["bound_ms"], r["bound_by"] = bound(work)
+        r["work"] = work
+        res[name] = r
+        shapes[name] = {k: v for k, v in work.items() if k != "bytes"}
+    emit({"phase": "kernels_sharded_build", "card": card,
+          "run": "uniform_8", "tolerance": "bit-exact", "kernels": res,
+          "all_to_all": all_to_all_cost(device, calls)})
+    return res
+
+
+def all_to_all_cost(device, calls):
+    """What one ``all_to_all`` of the sort's key buffers costs with the
+    ranks on one card (``nranks`` stacking copies of ``nranks`` blocks),
+    median of 5, beside its bytes; a build makes two in the sort (keys,
+    payload) and three in the permutation."""
+    import torch
+
+    from boxtree_torch.parallel.mesh import Mesh
+
+    nranks, cap = calls["bucket_pack"][0][0][2].shape[0] - 1, \
+        calls["bucket_pack"][0][0][3]
+    mesh = Mesh([device] * nranks)
+    bufs = [torch.zeros((nranks, cap), dtype=torch.int64, device=device)
+            for _ in range(nranks)]
+    mesh.all_to_all(bufs)
+    mesh.bytes_between_ranks = 0
+    mesh.all_to_all(bufs)
+    moved = mesh.bytes_between_ranks
+    return {"ms": median_ms(lambda: mesh.all_to_all(bufs), device),
+            "bytes_between_ranks": moved,
+            "bytes_copied": nranks * nbytes(bufs[0]),
+            "per_build": 5}
+
+
+def shard_work(name, args, kw, got):
+    """The bytes one K83-K88 call moves on this run's data (each value it
+    reads and writes once; a skipped pad or an unsent key not counted),
+    and the library yardstick (a function, or None)."""
+    import torch
+
+    from boxtree_torch.ops import shard
+
+    i8 = 8
+    if name == "bucket_pack":
+        local, vals, starts, cap = args[:4]
+        nv = 0 if vals is None else vals.shape[0]
+        lens = (starts[1:] - starts[:-1]).clamp(max=cap)
+        sent = int(lens.sum())
+        nb = starts.shape[0] - 1
+        return {"sent": sent, "slots": nb * cap, "payloads": nv,
+                "bytes": sent * i8 * (1 + nv) + nbytes(starts)
+                + nb * cap * i8 * (1 + nv)}, None
+    if name == "rebalance_place":
+        segs, per, nv = args[:3]
+        moved = sum(s[2] for s in segs)
+        return {"segments": len(segs), "moved": moved, "per": per,
+                "bytes": moved * i8 * (1 + nv) + per * i8 * (1 + nv)
+                + len(segs) * (4 + nv) * i8}, None
+    if name == "permute_serve":
+        got_o, got_s, data, base = args[:4]
+        valid = got_o != shard.PAD
+        nvalid = int(valid.sum())
+        row = data.shape[1] * data.element_size()
+        loc = (got_o[valid] - base).contiguous()
+        # every request's location and reply row; the slot, the data row
+        # and the inverse entry of the valid ones only
+        return {"requests": got_o.numel(), "valid": nvalid,
+                "bytes": nbytes(got_o) + nvalid * (i8 + row + i8)
+                + got_o.numel() * row}, lambda: data.index_select(0, loc)
+    if name == "permute_unpack":
+        reply, starts, j_sorted = args[:3]
+        per, k = j_sorted.shape[0], reply.shape[2]
+        row = k * reply.element_size()
+        rows_t = torch.empty((per, k), dtype=reply.dtype,
+                             device=reply.device)
+        out = torch.empty_like(rows_t)
+        return {"per": per, "k": k,
+                "bytes": per * (2 * row + i8) + nbytes(starts)}, \
+            lambda: out.index_copy_(0, j_sorted, rows_t)
+    if name == "shard_leaf_levels":
+        codes, cumw, summ = args[:3]
+        per = codes.shape[0]
+        return {"per": per, "bytes": per * (i8 + 4) + nbytes(summ)
+                + (nbytes(cumw) if cumw is not None else 0)
+                + nbytes(got[1])}, None
+    codes, leaf, thr, cs, ca, prev_cs, summ, prev_summ = args[:8]
+    level = kw["level"]
+    per = codes.shape[0]
+    active = leaf >= level
+    nactive = int(active.sum())
+    nstarts = int((active & (thr < level)).sum())
+    # leaf of every particle, thr of the active ones; at a box start its
+    # code, cs, two ca (and below the root prev_cs) read, and its row
+    # written: id, prefix, start, cumulative count (int64), level (int32),
+    # and below the root its parent and the child link in its parent's row
+    up = level > 0
+    reads = per * 4 + nactive * 4 + nstarts * (4 + up) * i8
+    writes = nstarts * (4 * i8 + 4 + 2 * up * i8)
+    return {"per": per, "level": level, "active": nactive,
+            "boxes": nstarts,
+            "bytes": reads + writes + nbytes(summ)
+            + (nbytes(prev_summ) if up else 0)}, None
+
+
+def run_sharded_build(device, card, pts_main):
+    """``boxtree_torch.parallel.shard_build.sharded_build_tree`` on the
+    card, ranks on the card: 1e6 uniform points (the main path's) at 4 and
+    8 ranks, 1e6 clustered points at 8 and 1e7 uniform at 8.  Each tree
+    equals ``build_tree``'s field for field (centres bit for bit); each
+    line gives ``sbuild_s`` beside ``build_s`` (medians of 3 warm builds),
+    the split of one more build, the capacity factors and radius, the host
+    reads (held to 3, and 1 more a capacity retry) and launches of one
+    build, the bytes between ranks,
+    the peak memory and ``nboxes``; the counting FMM on the 4-rank tree is
+    exact; K83-K88 against their twins at the 1e6 8-rank shapes
+    (``kernels_sharded_build``).  Returns the K83-K88 summary entries."""
+    import numpy as np
+    import torch
+
+    from boxtree_torch import build_tree
+    from boxtree_torch.fmm import drive_fmm
+    from boxtree_torch.models import ConstantOneExpansionWrangler
+    from boxtree_torch.ops import kernels
+    from boxtree_torch.parallel.mesh import Mesh
+    from boxtree_torch.parallel.shard_build import sharded_build_tree
+    from boxtree_torch.traversal import build_traversal
+
+    t_phase = time.perf_counter()
+    launches_8 = checked = None
+    for label, n, dist, nranks in SBUILD_RUNS:
+        if dist == "clustered":
+            pts = torch.as_tensor(cube_cluster_points(n, 19), device=device)
+        elif n == pts_main.shape[1]:
+            pts = pts_main
+        else:
+            pts = torch.as_tensor(np.random.default_rng(23).random(
+                (3, n), dtype=np.float32), device=device)
+        mesh = Mesh([device] * nranks)
+
+        def sbuild(**kw):
+            return sharded_build_tree(pts, mesh, max_particles_in_box=30,
+                                      **kw)
+
+        def build():
+            return build_tree(pts, max_particles_in_box=30)
+        ref = build()
+        torch.cuda.reset_peak_memory_stats(device)
+        mem0 = torch.cuda.memory_allocated(device)
+        kernels.reset_launch_counts()
+        mesh.bytes_between_ranks = 0
+        tree = sbuild()
+        sync(device)
+        launches = kernels.launch_counts()
+        bytes_between = mesh.bytes_between_ranks
+        peak_gb = (torch.cuda.max_memory_allocated(device) - mem0) / 2**30
+        bad = tree_diff(tree, ref)
+        reads = read_count(sbuild)
+        calls = op_count(sbuild)
+        build_s = median_ms(build, device, reps=3) / 1e3
+        sbuild_s = median_ms(sbuild, device, reps=3) / 1e3
+        info = {}
+        sbuild(timing_data=info)
+        expect_reads = (SBUILD_HOST_READS - 2
+                        + capacity_tries(info["capacity_factor"])
+                        + capacity_tries(info["permute_capacity_factor"]))
+        line = {"phase": "sharded_build", "card": card, "run": label,
+                "points": n, "distribution": dist, "ranks": nranks,
+                "placement": mesh.placement(), "nboxes": tree.nboxes,
+                "nlevels": tree.nlevels, "depth": info["depth"],
+                "build_s": build_s, "sbuild_s": sbuild_s,
+                "split_s": info["stage_s"],
+                "capacity_factor": info["capacity_factor"],
+                "radius": info["radius"],
+                "permute_capacity_factor": info["permute_capacity_factor"],
+                "host_reads_per_build": reads,
+                "host_reads_expected": expect_reads,
+                "aten_calls_per_build": calls,
+                "aten_calls_per_build_tree": op_count(build),
+                "bytes_between_ranks": bytes_between,
+                "peak_mem_gb_above_input": peak_gb,
+                "launches": {k: launches[k] for k in (
+                    "morton_encode", *SHARD_KERNELS, *TREE_KERNELS)},
+                "equal_to_build_tree": not bad}
+        if nranks == 4:
+            w1 = ConstantOneExpansionWrangler(None, build_traversal(tree))
+            pot = drive_fmm(w1, [torch.ones(n, dtype=torch.float64,
+                                            device=device)])
+            line["counting_fmm_exact"] = bool((pot == n).all())
+            del w1, pot
+        emit(line)
+        if bad:
+            raise AssertionError(f"sharded build {label}: fields differ "
+                                 f"from build_tree: {bad}")
+        if line.get("counting_fmm_exact") is False:
+            raise AssertionError(f"sharded build {label}: counting FMM "
+                                 "not exact")
+        if reads != expect_reads:
+            raise AssertionError(f"sharded build {label}: {reads} host "
+                                 f"reads, expected {expect_reads}")
+        missing = [k for k in ("morton_encode", *SHARD_KERNELS)
+                   if launches[k] <= 0]
+        if missing or launches["shard_box_skeleton"] != nranks * tree.nlevels \
+                or launches["shard_leaf_levels"] != nranks:
+            raise AssertionError(f"sharded build {label}: launches "
+                                 f"{line['launches']}")
+        if label == "uniform_8":
+            launches_8 = launches
+            checked = check_shard_kernels(
+                card, device, capture_shard_calls(sbuild), launches)
+        del tree, ref, pts
+    emit({"phase": "sharded_build_done", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    entries = []
+    for name in SHARD_KERNELS:
+        r = checked[name]
+        entry = summary_entry(name, launches_8[name], r, r["work"])
+        entry["library_ms"] = r["library_ms"]
         entries.append(entry)
     return entries
 
@@ -5677,6 +6062,26 @@ def read_count(fn):
 
     torch.cuda.synchronize()
     with Reads() as mode:
+        fn()
+    torch.cuda.synchronize()
+    return mode.n
+
+
+def op_count(fn):
+    """The aten calls during one call of *fn*, counted on the host by a
+    ``TorchDispatchMode`` (what a host-bound call pays for)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with Ops() as mode:
         fn()
     torch.cuda.synchronize()
     return mode.n

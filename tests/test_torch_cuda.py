@@ -89,7 +89,12 @@ class)) equal their twin exactly; K77-K79 (the rotation M2L) agree with their tw
 (1e-5 in float32) over the locals at orders 4 and 8, with operator groups
 longer and shorter than a tile, and the rotation FMM on the card launches
 them once and no K35 and matches the dense FMM to 1e-12 (float32 pairs
-1e-5 against complex128).
+1e-5 against complex128).  K83-K88 (the sharded build's bucket pack,
+rebalance placement, permutation serve and unpack, sharded phases A and
+B) move or count integers and must equal their twins exactly; the
+sharded build on the card (4 and 8 ranks) gives the CPU twins' skeleton
+and ``build_tree``'s tree field for field, launches K83-K88 as its design
+says and drives the counting FMM exactly.
 """
 
 import dataclasses
@@ -3445,5 +3450,163 @@ def test_distributed_fmm_on_card(distributed_case, dtype, nranks,
                                  communicate_mpoles=communicate_mpoles
                                  ).drive_dfmm(torch.ones(n, device=q.device))
     assert (count == n).all()
+
+# }}}
+
+
+# {{{ the sharded tree build: K83-K88
+
+def _shard_mesh(nranks, device):
+    from boxtree_torch.parallel.mesh import Mesh
+    return Mesh([device] * nranks)
+
+
+def _clustered_points(dims, n, seed, width=0.05):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.random((dims, n // 2)) * width,
+                           rng.random((dims, n // 2))], axis=1)
+
+
+def test_shard_pack_and_permute_kernels(device):
+    """K83-K86 equal their twins exactly: buckets empty, short and
+    overflowing, payload offsets, pads, float32 and float64 rows; each
+    wrapper launches its kernel once."""
+    from boxtree_torch.ops import shard
+    rng = np.random.default_rng(7)
+    per, nb, cap = 20000, 8, 3000
+    local = torch.as_tensor(np.sort(rng.integers(0, 1 << 40, per)),
+                            device=device)
+    vals = torch.as_tensor(rng.integers(0, 1 << 30, (2, per)), device=device)
+    cuts = np.sort(rng.integers(0, per, nb - 1))
+    cuts[2] = cuts[1]                                  # an empty bucket
+    cuts[5] = cuts[4] + cap + 7                        # an overflowing one
+    starts = torch.as_tensor(np.r_[0, np.sort(cuts), per], device=device)
+    kernels.reset_launch_counts()
+    got = shard.bucket_pack(local, vals, starts, cap, val_offset=12345)
+    want = shard.bucket_pack_plain(local, vals, starts, cap,
+                                   val_offset=12345)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[2][0]) == 1
+    # segments of two source buffers into one shard, a gap left as PAD
+    a = torch.as_tensor(rng.integers(0, 99, 5000), device=device)
+    b = torch.as_tensor(rng.integers(0, 99, 3000), device=device)
+    segs = [(100, 0, 4000, a, [a + 1]), (0, 4010, 2990, b, [b + 2])]
+    got = shard.rebalance_place(segs, 7000, 1)
+    want = shard.rebalance_place_plain(segs, 7000, 1)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for dtype in (torch.float32, torch.float64):
+        data = torch.as_tensor(rng.standard_normal((per, 3)), dtype=dtype,
+                               device=device)
+        slots = per // nb
+        perm = rng.permutation(per)
+        got_o = torch.as_tensor(perm.reshape(nb, slots) + 5 * per,
+                                device=device)
+        got_o[got_o % 7 == 0] = shard.PAD
+        got_s = torch.as_tensor(rng.integers(0, 1 << 20, (nb, slots)),
+                                device=device)
+        got = shard.permute_serve(got_o, got_s, data, 5 * per)
+        want = shard.permute_serve_plain(got_o, got_s, data, 5 * per)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        reply = torch.as_tensor(rng.standard_normal((nb, cap, 3)),
+                                dtype=dtype, device=device)
+        lens = np.full(nb, per // nb)
+        lens[1], lens[2] = lens[1] + lens[2], 0
+        ust = torch.as_tensor(np.r_[0, np.cumsum(lens)], device=device)
+        j_sorted = torch.as_tensor(rng.permutation(per), device=device)
+        assert torch.equal(shard.permute_unpack(reply, ust, j_sorted),
+                           shard.permute_unpack_plain(reply, ust, j_sorted))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["bucket_pack"], counts["rebalance_place"],
+            counts["permute_serve"], counts["permute_unpack"]) == (1, 1, 2, 2)
+
+
+@pytest.mark.parametrize("dims,weighted", [(3, False), (2, True)])
+def test_shard_leaf_levels_kernel(device, dims, weighted):
+    """K87 equals its twin on every rank of 8: clustered points, so boxes
+    span several shards, with and without refine weights; the ranks'
+    summed counts equal K43's on the whole."""
+    from boxtree_torch import config
+    from boxtree_torch.ops import shard
+    from boxtree_torch.parallel.shard_build import sharded_morton_codes
+    n = 1 << 16
+    mesh = _shard_mesh(8, device)
+    depth = config.max_morton_depth(dims)
+    codes, _, _ = sharded_morton_codes(
+        torch.as_tensor(_clustered_points(dims, n, 5), device=device), mesh,
+        depth=depth)
+    codes = torch.sort(torch.cat(codes)).values
+    w = (torch.as_tensor(np.random.default_rng(1).integers(1, 4, n),
+                         device=device) if weighted else None)
+    per = n // 8
+    cs = [codes[r * per:(r + 1) * per] for r in range(8)]
+    cw = [shard.cumulative_weights(w[r * per:(r + 1) * per])
+          if weighted else None for r in range(8)]
+    masks = shard.level_masks(dims, depth, device)
+    summ = torch.stack([shard.leaf_summary(c, x, masks)
+                        for c, x in zip(cs, cw)])
+    total = 0
+    for r in range(8):
+        got = shard.shard_leaf_levels(cs[r], cw[r], summ, r, 30,
+                                      dimensions=dims, depth=depth)
+        want = shard.shard_leaf_levels_plain(cs[r], cw[r], summ, r, 30,
+                                             dimensions=dims, depth=depth)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), r
+        total = total + got[1]
+    _, packed = tree_ops.leaf_levels(codes, w, None, 30, dimensions=dims,
+                                     depth=depth)
+    assert torch.equal(total, packed[:depth + 3])
+
+
+@pytest.mark.parametrize("nranks", [4, 8])
+def test_sharded_build_on_card(device, nranks):
+    """The sharded build on the card: its box skeleton (K88 a rank a
+    level) equals the CPU twins', its tree equals ``build_tree``'s on the
+    card field for field (centres bit for bit), K83-K88 are launched as
+    the design says, and the counting FMM on it is exact."""
+    import dataclasses
+
+    from boxtree_torch.parallel.shard_build import sharded_build_tree
+    from boxtree_torch.parallel.mesh import Mesh
+    pts = _clustered_points(3, 1 << 16, 9)
+    kernels.reset_launch_counts()
+    info = {}
+    tree, skel = sharded_build_tree(torch.as_tensor(pts, device=device),
+                                    _shard_mesh(nranks, device),
+                                    max_particles_in_box=30,
+                                    return_skeleton=True, timing_data=info)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    _, skel_cpu = sharded_build_tree(torch.as_tensor(pts),
+                                     Mesh.of_ranks(nranks, "cpu"),
+                                     max_particles_in_box=30,
+                                     return_skeleton=True)
+    for key in skel:
+        for a, b in zip(skel[key], skel_cpu[key]):
+            assert torch.equal(a.cpu(), b), key
+    ref = build_tree(torch.as_tensor(pts, device=device),
+                     max_particles_in_box=30)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(tree, f.name), getattr(ref, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    # one launch a rank a try of the sort and of the permutation; a
+    # clustered input retries at twice the capacity factor
+    tries = sum(int(np.log2(info[k] / 2.0)) + 1
+                for k in ("capacity_factor", "permute_capacity_factor"))
+    assert counts["bucket_pack"] == tries * nranks
+    assert counts["permute_serve"] == counts["permute_unpack"] == nranks * (
+        int(np.log2(info["permute_capacity_factor"] / 2.0)) + 1)
+    assert counts["rebalance_place"] == nranks * (
+        int(np.log2(info["radius"] / 2)) + 1)
+    assert counts["shard_leaf_levels"] == nranks
+    assert counts["shard_box_skeleton"] == nranks * tree.nlevels
+    assert counts["tree_leaf_levels"] == counts["tree_level_boxes"] == 0
+    n = tree.nsources
+    pot = drive_fmm(ConstantOneExpansionWrangler(None, build_traversal(tree)),
+                    [torch.ones(n, dtype=torch.float64, device=device)])
+    assert (pot == n).all()
 
 # }}}

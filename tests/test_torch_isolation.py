@@ -42,4 +42,7 @@ def test_no_jax_and_no_boxtree_tpu():
     assert "boxtree_torch.parallel.distributed" in out["modules"]
     assert "boxtree_torch.parallel.mesh" in out["modules"]
     assert "boxtree_torch.cost.model" in out["modules"]
+    assert "boxtree_torch.parallel.shard_sort" in out["modules"]
+    assert "boxtree_torch.parallel.shard_build" in out["modules"]
+    assert "boxtree_torch.ops.shard" in out["modules"]
     assert out["loaded"] == []
